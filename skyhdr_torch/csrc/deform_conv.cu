@@ -1,0 +1,322 @@
+// Distortion-aware (DA) equirectangular conv, k = 3, stride 1, for Hopper
+// (sm_90a). Two kernels with a plain C interface, bound from Python with
+// ctypes (skyhdr_torch/ops/kernels/deform_conv.py).
+//
+// What they replace (skyhdr/ops/pallas/deform_conv.py):
+//   K1 da_fwd_k3_kernel — `_kernel_k3` driven by `_forward_k3`: the forward
+//        out[b,i,j] = bias + sum_t sample_t[b,i,j] @ K_t, with
+//        rowY   = (1-wy) xpad[y0] + wy xpad[y1]         (xpad: 1 zero row
+//                                                        above and below)
+//        sample = (1-wx) rowY[(j+cx) mod W] + wx rowY[(j+cx+1) mod W].
+//   K2 da_dx_k3_kernel  — `_dx_k3_kernel` driven by `_pallas_dx` (k3
+//        branch): the input gradient over the scatter_tables_k3 slots,
+//        dx[y,j] = sum_slots sum_kx ((sw(1-wx)) g[si][(j-cx) mod W]
+//                                  + (sw wx) g[si][(j-cx-1) mod W]) @ K_t^T.
+//
+// What bounds them on this card: at the serving shapes (C, F <= 128, H x W
+// <= 64 x 256) each output costs 2*9*C*F flops against 9*C interpolated
+// samples, each a 4-tap bilinear read, and a call moves little DRAM traffic
+// (the 64x256 b32 trunk layer: 9.7 GFLOP against ~34 MB). Run on CUDA
+// cores in f32, the limit is the on-chip operand feed: one shared-memory
+// load per 4 FMAs and one 16-byte L1 load of weights per 16. Measured on
+// an H100 80GB HBM3 at 700 W: 0.50 ms for that layer, 19.5 TFLOP/s, 29% of
+// the f32 CUDA-core peak.
+//
+// What the design does about it: one block per (batch, output row, tile of
+// TW columns). For each tap the block builds the interpolated [TW, C]
+// sample tile once in shared memory (coalesced along C; padded row stride
+// against bank conflicts), then each thread accumulates a 4-column x
+// 4-channel register tile over C, reading the tap's weights as 16-byte
+// vectors that stay in L1/L2 (K is at most 590 KB). The tables (per row
+// and tap, or per row and slot) are device arrays that a block reads for
+// itself. Interpolation and accumulation are float32; with bf16 inputs the
+// matmul operands are rounded to bf16, as the TPU kernel feeds its MXU.
+// No tensor cores yet: this first port is right and simple; faster designs
+// come later.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <cstring>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kRowsPerThread = 4;  // output columns held per thread
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// Round a float32 matmul operand to the element type's precision.
+__device__ __forceinline__ float round_operand(float v, const float*) { return v; }
+__device__ __forceinline__ float round_operand(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  __nv_bfloat162 lo, hi;
+  memcpy(&lo, &u.x, sizeof(lo));
+  memcpy(&hi, &u.y, sizeof(hi));
+  const float2 a = __bfloat1622float2(lo);
+  const float2 b = __bfloat1622float2(hi);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// acc[r][q] += sum_k tile[(lane + lanes*r), k] * m[k, 4*quad + q]
+// tile: [TW, ld] float32 in shared memory; m: [depth, width] row-major.
+template <typename M>
+__device__ __forceinline__ void accumulate(float (&acc)[kRowsPerThread][4],
+                                           const float* tile, int ld,
+                                           const M* __restrict__ m, int depth,
+                                           int width, int quad, int lane,
+                                           int lanes) {
+  const M* col = m + 4 * quad;
+  for (int k = 0; k < depth; ++k) {
+    const float4 mv = load4(col + static_cast<size_t>(k) * width);
+#pragma unroll
+    for (int r = 0; r < kRowsPerThread; ++r) {
+      const float s = tile[(lane + lanes * r) * ld + k];
+      acc[r][0] = fmaf(s, mv.x, acc[r][0]);
+      acc[r][1] = fmaf(s, mv.y, acc[r][1]);
+      acc[r][2] = fmaf(s, mv.z, acc[r][2]);
+      acc[r][3] = fmaf(s, mv.w, acc[r][3]);
+    }
+  }
+}
+
+// K1. Grid (ceil(W/TW), H, B); block kThreads; dynamic smem TW*(C+1) floats.
+// Tables [H, 9]: y0/y1 padded-row indices, cx column shift in [0, W),
+// wy/wx fractions. out = bias + sum, cast to T.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+da_fwd_k3_kernel(const T* __restrict__ x, const T* __restrict__ kern,
+                 const float* __restrict__ bias, const int* __restrict__ y0t,
+                 const int* __restrict__ y1t, const int* __restrict__ cxt,
+                 const float* __restrict__ wyt, const float* __restrict__ wxt,
+                 T* __restrict__ out, int H, int W, int C, int F) {
+  extern __shared__ float tile[];
+  const int quads = F / 4;
+  const int lanes = kThreads / quads;
+  const int tw = lanes * kRowsPerThread;
+  const int ld = C + 1;
+  const int tid = threadIdx.x;
+  const int quad = tid % quads;
+  const int lane = tid / quads;
+  const int j0 = blockIdx.x * tw;
+  const int i = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t row_stride = static_cast<size_t>(W) * C;
+  const T* xb = x + static_cast<size_t>(b) * H * row_stride;
+
+  float acc[kRowsPerThread][4] = {};
+  for (int t = 0; t < 9; ++t) {
+    const int r0 = y0t[i * 9 + t] - 1;  // unpadded rows; outside [0, H) is zero
+    const int r1 = y1t[i * 9 + t] - 1;
+    const int cx = cxt[i * 9 + t];
+    const float wy = wyt[i * 9 + t];
+    const float wx = wxt[i * 9 + t];
+    const bool in0 = r0 >= 0 && r0 < H;
+    const bool in1 = r1 >= 0 && r1 < H;
+    const T* row0 = xb + static_cast<size_t>(in0 ? r0 : 0) * row_stride;
+    const T* row1 = xb + static_cast<size_t>(in1 ? r1 : 0) * row_stride;
+
+    __syncthreads();  // the previous tap's tile is no longer read
+    for (int e = tid; e < tw * C; e += kThreads) {
+      const int jj = e / C;
+      const int c = e - jj * C;
+      const int j = j0 + jj;
+      float s = 0.f;
+      if (j < W) {
+        int q0 = j + cx;
+        if (q0 >= W) q0 -= W;
+        int q1 = q0 + 1;
+        if (q1 >= W) q1 -= W;
+        const float a00 = in0 ? to_float(row0[q0 * C + c]) : 0.f;
+        const float a10 = in1 ? to_float(row1[q0 * C + c]) : 0.f;
+        const float a01 = in0 ? to_float(row0[q1 * C + c]) : 0.f;
+        const float a11 = in1 ? to_float(row1[q1 * C + c]) : 0.f;
+        const float g0 = (1.f - wy) * a00 + wy * a10;
+        const float g1 = (1.f - wy) * a01 + wy * a11;
+        s = (1.f - wx) * g0 + wx * g1;
+      }
+      tile[jj * ld + c] = round_operand(s, x);
+    }
+    __syncthreads();
+    accumulate(acc, tile, ld, kern + static_cast<size_t>(t) * C * F, C, F,
+               quad, lane, lanes);
+  }
+
+  const int f = 4 * quad;
+#pragma unroll
+  for (int r = 0; r < kRowsPerThread; ++r) {
+    const int j = j0 + lane + lanes * r;
+    if (j < W) {
+      T* o = out + ((static_cast<size_t>(b) * H + i) * W + j) * F + f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) store(o + q, acc[r][q] + bias[f + q]);
+    }
+  }
+}
+
+// K2. Grid (ceil(W/TW), H, B); dynamic smem TW*(F+1) floats.
+// g [B,H,W,F] f32, kt [9, F, C] f32 (K_t^T stacked per tap), dx [B,H,W,C] f32.
+// Slot tables [H, S] (si, sw, sky) and [H, 3S] (scx, swx); sw == 0 is padding.
+__global__ void __launch_bounds__(kThreads)
+da_dx_k3_kernel(const float* __restrict__ g, const float* __restrict__ kt,
+                const int* __restrict__ si, const float* __restrict__ sw,
+                const int* __restrict__ sky, const int* __restrict__ scx,
+                const float* __restrict__ swx, int nslots,
+                float* __restrict__ dx, int H, int W, int C, int F) {
+  extern __shared__ float tile[];
+  const int quads = C / 4;
+  const int lanes = kThreads / quads;
+  const int tw = lanes * kRowsPerThread;
+  const int ld = F + 1;
+  const int tid = threadIdx.x;
+  const int quad = tid % quads;
+  const int lane = tid / quads;
+  const int j0 = blockIdx.x * tw;
+  const int y = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t row_stride = static_cast<size_t>(W) * F;
+
+  float acc[kRowsPerThread][4] = {};
+  for (int s = 0; s < nslots; ++s) {
+    const float wgt = sw[y * nslots + s];
+    if (wgt == 0.f) continue;  // uniform across the block
+    const float* grow = g + (static_cast<size_t>(b) * H + si[y * nslots + s]) * row_stride;
+    const int ky = sky[y * nslots + s];
+    for (int kx = 0; kx < 3; ++kx) {
+      const int cx = scx[y * 3 * nslots + 3 * s + kx];
+      const float wx = swx[y * 3 * nslots + 3 * s + kx];
+      const float a0 = wgt * (1.f - wx);
+      const float a1 = wgt * wx;
+
+      __syncthreads();
+      for (int e = tid; e < tw * F; e += kThreads) {
+        const int jj = e / F;
+        const int f = e - jj * F;
+        const int j = j0 + jj;
+        float u = 0.f;
+        if (j < W) {
+          int q0 = j - cx;
+          if (q0 < 0) q0 += W;
+          int q1 = q0 - 1;
+          if (q1 < 0) q1 += W;
+          u = a0 * grow[q0 * F + f] + a1 * grow[q1 * F + f];
+        }
+        tile[jj * ld + f] = u;
+      }
+      __syncthreads();
+      accumulate(acc, tile, ld, kt + static_cast<size_t>(3 * ky + kx) * F * C,
+                 F, C, quad, lane, lanes);
+    }
+  }
+
+  const int c = 4 * quad;
+#pragma unroll
+  for (int r = 0; r < kRowsPerThread; ++r) {
+    const int j = j0 + lane + lanes * r;
+    if (j < W) {
+      float* o = dx + ((static_cast<size_t>(b) * H + y) * W + j) * C + c;
+      *reinterpret_cast<float4*>(o) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    }
+  }
+}
+
+// Column tile and shared memory of a launch whose register tile spans
+// `width` outputs per column and whose shared tile is `depth` deep.
+// Returns false when `width` does not fit the thread layout.
+bool plan(int width, int depth, int* tw, size_t* smem) {
+  if (width <= 0 || width % 4 != 0) return false;
+  const int quads = width / 4;
+  if (quads > kThreads || kThreads % quads != 0) return false;
+  *tw = (kThreads / quads) * kRowsPerThread;
+  *smem = static_cast<size_t>(*tw) * (depth + 1) * sizeof(float);
+  return true;
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <typename T>
+int launch_fwd(const void* x, const void* kern, const void* bias,
+               const void* y0, const void* y1, const void* cx, const void* wy,
+               const void* wx, void* out, int B, int H, int W, int C, int F,
+               cudaStream_t stream) {
+  int tw;
+  size_t smem;
+  if (!plan(F, C, &tw, &smem)) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(da_fwd_k3_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((W + tw - 1) / tw, H, B);
+  da_fwd_k3_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(kern),
+      static_cast<const float*>(bias), static_cast<const int*>(y0),
+      static_cast<const int*>(y1), static_cast<const int*>(cx),
+      static_cast<const float*>(wy), static_cast<const float*>(wx),
+      static_cast<T*>(out), H, W, C, F);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// K1: x [B,H,W,C] and kern [9C,F] of one dtype (bf16 when is_bf16, else
+// float32), bias [F] float32, out [B,H,W,F] in the dtype of x.
+// Returns the cudaError_t of the launch.
+int skyhdr_da_fwd_k3(const void* x, const void* kern, const void* bias,
+                     const void* y0, const void* y1, const void* cx,
+                     const void* wy, const void* wx, void* out, int B, int H,
+                     int W, int C, int F, int is_bf16, int device,
+                     void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_fwd<__nv_bfloat16>(x, kern, bias, y0, y1, cx, wy, wx, out,
+                                     B, H, W, C, F, s);
+  return launch_fwd<float>(x, kern, bias, y0, y1, cx, wy, wx, out, B, H, W,
+                           C, F, s);
+}
+
+// K2: g [B,H,W,F] f32, kt [9,F,C] f32, dx [B,H,W,C] f32.
+int skyhdr_da_dx_k3(const void* g, const void* kt, const void* si,
+                    const void* sw, const void* sky, const void* scx,
+                    const void* swx, int nslots, void* dx, int B, int H,
+                    int W, int C, int F, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  int tw;
+  size_t smem;
+  if (!plan(C, F, &tw, &smem)) return cudaErrorInvalidValue;
+  err = allow_smem(da_dx_k3_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((W + tw - 1) / tw, H, B);
+  da_dx_k3_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g), static_cast<const float*>(kt),
+      static_cast<const int*>(si), static_cast<const float*>(sw),
+      static_cast<const int*>(sky), static_cast<const int*>(scx),
+      static_cast<const float*>(swx), nslots, static_cast<float*>(dx), H, W,
+      C, F);
+  return cudaGetLastError();
+}
+
+const char* skyhdr_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

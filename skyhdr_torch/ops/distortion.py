@@ -1,0 +1,282 @@
+"""Distortion-aware (DA) equirectangular conv: sampling tables, the plain
+gather form, and the DAConv / DADeconv layers.
+
+The NumPy table builders are copies of `skyhdr.ops.distortion`
+(`distortion_offsets`, `gather_tables`, `scatter_tables_k3`); the tests hold
+them `np.array_equal` to the originals. Geometry: every panorama row projects
+the k x k kernel grid onto the sphere's tangent plane at that row's
+elevation, so the sampling offsets depend on the row and the tap, never on
+the column. Width wraps cyclically (a true 360 degrees); height is
+zero-padded by k // 2 and the sample row is clipped into the padded range.
+
+`deformable_conv2d` is the plain PyTorch form of the op, the oracle of the
+CUDA kernels in `skyhdr_torch.ops.kernels.deform_conv`. The layers call
+`da_conv` there, which launches the kernels on CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+PI = np.pi
+
+
+@functools.lru_cache(maxsize=None)
+def distortion_offsets(h: int, w: int, kernel_size: int = 3,
+                       dilation_rate: int = 1, skydome: bool = True) -> np.ndarray:
+    """[h, k^2, 2] per-row (dy, dx) sampling offsets relative to the window's
+    own tap position."""
+    k = kernel_size
+    assert k % 2 == 1, "kernel_size must be odd"
+    middle = (k // 2) * (k + 1)
+
+    unit_w = 2.0 * PI / w
+    unit_h = PI / (h * 2 if skydome else h)
+    rho = np.tan(unit_w) * dilation_rate
+
+    # Tap grid, y (slow) and x (fast) both from +r to -r.
+    r = k // 2
+    gy, gx = np.meshgrid(np.arange(r, -r - 1, -1), np.arange(r, -r - 1, -1),
+                         indexing="ij")
+    grid = np.stack([gx.ravel(), gy.ravel()], axis=-1).astype(np.float64)  # [k2,(x,y)]
+
+    x_c = int(w * 0.5)
+    y_rows = np.arange(h, dtype=np.float64)
+    theta = (x_c - 0.5 * w) * unit_w  # == 0 at the center column
+    phi = (h - y_rows) * unit_h if skydome else (h * 0.5 - y_rows) * unit_h
+
+    # Unit sphere point per row and its tangent basis (t_x = v x p, t_y = p x t_x).
+    p_u = np.stack([np.cos(phi) * np.cos(theta), np.sin(phi),
+                    np.cos(phi) * np.sin(theta)], axis=-1)  # [h, 3]
+    v = np.array([0.0, 1.0, 0.0])
+    t_x = np.cross(np.broadcast_to(v, p_u.shape), p_u)
+    t_y = np.cross(p_u, t_x)
+
+    # Tangent-plane displacement per (row, tap) and re-projection.
+    disp = rho * (grid[None, :, 0:1] * t_x[:, None, :] +
+                  grid[None, :, 1:2] * t_y[:, None, :])  # [h, k2, 3]
+    p_ur = p_u[:, None, :] + disp
+
+    ux, uy, uz = p_ur[..., 0], p_ur[..., 1], p_ur[..., 2]
+    theta_r = np.arctan2(uz, ux)
+    theta_r = np.where(ux < 0, np.where(uz >= 0, theta_r + PI, theta_r - PI), theta_r)
+    phi_r = np.arcsin(np.clip(uy, -1.0, 1.0))
+
+    x_r = (theta_r / PI + 1.0) * 0.5 * w
+    y_r = (1.0 - 2.0 * phi_r / PI) * h if skydome else (0.5 - phi_r / PI) * h
+
+    kpts = np.stack([y_r, x_r], axis=-1)  # [h, k2, (y, x)]
+    offset = kpts - kpts[:, middle:middle + 1, :]
+    return offset.astype(np.float32)
+
+
+class GatherTables(NamedTuple):
+    """Static per-(row, tap) sampling tables."""
+
+    y0: np.ndarray  # [h_out, k2] int32, padded-row index of the floor sample
+    y1: np.ndarray  # [h_out, k2] int32
+    cx0: np.ndarray  # [h_out, k2] int32, column shift of the floor sample
+    cx1: np.ndarray  # [h_out, k2] int32
+    wy: np.ndarray  # [h_out, k2] f32, fractional weight toward y1
+    wx: np.ndarray  # [h_out, k2] f32, fractional weight toward x1
+    pad: int
+    h_pad: int
+
+
+@functools.lru_cache(maxsize=None)
+def gather_tables(h: int, w: int, kernel_size: int = 3, stride: int = 1,
+                  dilation_rate: int = 1, skydome: bool = True) -> GatherTables:
+    """Integer gather indices and bilinear weights from the offset table."""
+    k = kernel_size
+    pad = (k - 1) // 2
+    h_out = (h + stride - 1) // stride
+    off = distortion_offsets(h_out, w, k, dilation_rate, skydome).astype(np.float64)
+    dy, dx = off[..., 0], off[..., 1]  # [h_out, k2]
+
+    ty = np.repeat(np.arange(k), k)[None, :].astype(np.float64)  # tap row 0..k-1
+    tx = np.tile(np.arange(k), k)[None, :].astype(np.float64)
+
+    i = np.arange(h_out, dtype=np.float64)[:, None]
+    # Absolute padded-row coordinate of the sample for output row i, tap t.
+    yf = i * stride + ty + dy
+    h_pad = h + 2 * pad
+    yf = np.clip(yf, 0.0, h_pad - 1)
+    y0 = np.floor(yf)
+    wy = yf - y0
+    y1 = np.minimum(y0 + 1, h_pad - 1)
+
+    # Column shift relative to j*stride (column-independent).
+    xf = tx - pad + dx
+    x0 = np.floor(xf)
+    wx = xf - x0
+    x1 = x0 + 1.0  # wrapped modulo w at apply time
+
+    return GatherTables(
+        y0=y0.astype(np.int32), y1=y1.astype(np.int32),
+        cx0=(x0 % w).astype(np.int32), cx1=(x1 % w).astype(np.int32),
+        wy=wy.astype(np.float32), wx=wx.astype(np.float32),
+        pad=pad, h_pad=h_pad,
+    )
+
+
+class ScatterTablesK3(NamedTuple):
+    """The k=3 gather inverted per input row: for input row y, the "slots"
+    (forward output row i, kernel row ky) that read it, with the row weight
+    and the three kx column shifts and fractions of the slot."""
+
+    si: np.ndarray   # [h, S] int32 — forward output row i (0 = pad)
+    sw: np.ndarray   # [h, S] f32 — row weight; 0 marks slot padding
+    sky: np.ndarray  # [h, S] int32 — kernel row ky of the slot
+    scx: np.ndarray  # [h, S*3] int32 — column shift, kx-major per slot
+    swx: np.ndarray  # [h, S*3] f32 — column fraction, kx-major per slot
+    nslots: int
+
+
+@functools.lru_cache(maxsize=None)
+def scatter_tables_k3(h: int, w: int, stride: int = 1,
+                      dilation_rate: int = 1,
+                      skydome: bool = True) -> ScatterTablesK3:
+    t = gather_tables(h, w, 3, stride, dilation_rate, skydome)
+    h_out = t.y0.shape[0]
+    slots = [[] for _ in range(h)]
+    for i in range(h_out):
+        for ky in range(3):
+            tap0 = 3 * ky
+            wy = float(t.wy[i, tap0])
+            for y_pad, wgt in ((int(t.y0[i, tap0]), 1.0 - wy),
+                               (int(t.y1[i, tap0]), wy)):
+                y = y_pad - t.pad
+                if 0 <= y < h and wgt != 0.0:
+                    slots[y].append((i, wgt, ky,
+                                     t.cx0[i, tap0:tap0 + 3],
+                                     t.wx[i, tap0:tap0 + 3]))
+    nslots = max(len(s) for s in slots)
+    si = np.zeros((h, nslots), np.int32)
+    sw = np.zeros((h, nslots), np.float32)
+    sky = np.zeros((h, nslots), np.int32)
+    scx = np.zeros((h, nslots, 3), np.int32)
+    swx = np.zeros((h, nslots, 3), np.float32)
+    for y, lst in enumerate(slots):
+        for s, (i, wgt, ky, cxs, wxs) in enumerate(lst):
+            si[y, s], sw[y, s], sky[y, s] = i, wgt, ky
+            scx[y, s], swx[y, s] = cxs, wxs
+    return ScatterTablesK3(si=si, sw=sw, sky=sky,
+                           scx=scx.reshape(h, nslots * 3),
+                           swx=swx.reshape(h, nslots * 3), nslots=nslots)
+
+
+def _on(device, arr) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def gather_tables_on(device: torch.device, h: int, w: int,
+                     kernel_size: int = 3, dilation_rate: int = 1,
+                     skydome: bool = True):
+    """`gather_tables` (stride 1) as device tensors (y0, y1, cx0, wy, wx),
+    built once per shape and device."""
+    t = gather_tables(h, w, kernel_size, 1, dilation_rate, skydome)
+    return tuple(_on(device, a) for a in (t.y0, t.y1, t.cx0, t.wy, t.wx))
+
+
+@functools.lru_cache(maxsize=None)
+def scatter_tables_k3_on(device: torch.device, h: int, w: int,
+                         dilation_rate: int = 1, skydome: bool = True):
+    """`scatter_tables_k3` (stride 1) as device tensors
+    (si, sw, sky, scx, swx) plus the slot count."""
+    st = scatter_tables_k3(h, w, 1, dilation_rate, skydome)
+    return (tuple(_on(device, a) for a in (st.si, st.sw, st.sky, st.scx, st.swx)),
+            st.nslots)
+
+
+def mm_dtype(x: torch.Tensor) -> torch.dtype:
+    """Matmul operand dtype of the DA conv: bf16 only when x is bf16
+    (`skyhdr/ops/pallas/deform_conv.py:_mm_dtype`). Interpolation and
+    accumulation stay float32 either way."""
+    return torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+
+
+def deformable_conv2d(x, kernel, bias, *, kernel_size: int = 3,
+                      dilation_rate: int = 1, skydome: bool = True):
+    """Plain DA conv (stride 1) of x [b, h, w, c] with kernel [k2*c, f],
+    tap-major, and bias [f]; returns [b, h, w, f] in x.dtype.
+
+    The gather form of `skyhdr.ops.distortion.deformable_conv2d`:
+        rowY   = (1-wy)*xpad[y0] + wy*xpad[y1]
+        sample = (1-wx)*rowY[(j+cx) mod w] + wx*rowY[(j+cx+1) mod w]
+        out    = bias + sum_t sample_t @ K_t
+    in float32, with the matmul operands rounded to bf16 when x is bf16
+    (the kernels' precision contract)."""
+    b, h, w, c = x.shape
+    k2 = kernel_size * kernel_size
+    pad = kernel_size // 2
+    dev = x.device
+    y0, y1, cx0, wys, wxs = gather_tables_on(dev, h, w, kernel_size,
+                                             dilation_rate, skydome)
+    mmdt = mm_dtype(x)
+    f = kernel.shape[-1]
+
+    xp = nn.functional.pad(x.float(), (0, 0, 0, 0, pad, pad))
+    kern = kernel.to(mmdt).float().reshape(k2, c, f)
+    jcols = torch.arange(w, device=dev)
+    out = torch.zeros((b, h, w, f), dtype=torch.float32, device=dev)
+    for tap in range(k2):
+        wy = wys[:, tap][None, :, None, None]
+        wx = wxs[:, tap][None, :, None, None]
+        row0 = xp[:, y0[:, tap].long()]
+        row1 = xp[:, y1[:, tap].long()]
+        row_y = (1 - wy) * row0 + wy * row1  # [b, h, w, c]
+        xmat0 = (jcols[None, :] + cx0[:, tap].long()[:, None]) % w  # [h, w]
+        g0 = torch.gather(row_y, 2, xmat0[None, :, :, None].expand(b, h, w, c))
+        g1 = torch.roll(g0, -1, dims=2)
+        sample = (1 - wx) * g0 + wx * g1
+        out = out + torch.einsum("bhwc,cf->bhwf",
+                                 sample.to(mmdt).float(), kern[tap])
+    return (out + bias.float()).to(x.dtype)
+
+
+class DAConv(nn.Module):
+    """Distortion-aware conv layer, stride 1, parameters `kernel` [k2*c, f]
+    and `bias` [f] as in `skyhdr.ops.distortion.DAConv`."""
+
+    def __init__(self, in_features: int, filters: int, kernel_size: int = 3,
+                 dilation_rate: int = 1, skydome: bool = True, device=None):
+        super().__init__()
+        k2 = kernel_size * kernel_size
+        self.kernel_size = kernel_size
+        self.dilation_rate = dilation_rate
+        self.skydome = skydome
+        self.kernel = nn.Parameter(torch.empty(k2 * in_features, filters, device=device))
+        self.bias = nn.Parameter(torch.empty(filters, device=device))
+
+    def flax_leaves(self):
+        return [("params", "kernel", self.kernel, "same", "glorot"),
+                ("params", "bias", self.bias, "same", "zeros")]
+
+    def forward(self, x):
+        from skyhdr_torch.ops.kernels.deform_conv import da_conv
+
+        return da_conv(x, self.kernel, self.bias, kernel_size=self.kernel_size,
+                       dilation_rate=self.dilation_rate, skydome=self.skydome)
+
+
+class DADeconv(DAConv):
+    """Bilinear resize to `out_hw`, then a DA conv
+    (`skyhdr.ops.distortion.DADeconv`)."""
+
+    def __init__(self, in_features: int, filters: int,
+                 out_hw: Tuple[int, int], kernel_size: int = 3,
+                 dilation_rate: int = 1, skydome: bool = True, device=None):
+        super().__init__(in_features, filters, kernel_size, dilation_rate,
+                         skydome, device=device)
+        self.out_hw = tuple(out_hw)
+
+    def forward(self, x):
+        from skyhdr_torch.ops.resize import resize_bilinear
+
+        return super().forward(resize_bilinear(x, self.out_hw))

@@ -1,0 +1,100 @@
+"""Build and load the port's CUDA kernels.
+
+Every `skyhdr_torch/csrc/*.cu` is compiled by `nvcc` for `sm_90a` into ONE
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds), at first use, under `skyhdr_torch/_build/`. The file name
+carries a hash of the sources and the flags, so an edited source rebuilds
+and an unchanged one loads the cached library. The sources in the checkout
+are the only input. Loading binds the entry points with `ctypes`, every
+pointer and the stream as `c_void_p`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> argtypes; every entry point returns a cudaError_t as int.
+_SIGNATURES = {
+    # x, kern, bias, y0, y1, cx, wy, wx, out, B, H, W, C, F, is_bf16, device, stream
+    "skyhdr_da_fwd_k3": [_P] * 9 + [_I] * 7 + [_P],
+    # g, kt, si, sw, sky, scx, swx, nslots, dx, B, H, W, C, F, device, stream
+    "skyhdr_da_dx_k3": [_P] * 7 + [_I, _P] + [_I] * 6 + [_P],
+}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def sources() -> list:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libskyhdr_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless the hashed library exists; returns its
+    path. The nvcc log (ptxas register and shared-memory usage) is kept
+    beside it as `.log`. Raises with nvcc's stderr when the build fails."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stderr}{proc.stdout}")
+    out.with_suffix(".log").write_text(proc.stderr + proc.stdout)
+    os.replace(tmp, out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The built kernel library with its entry points bound."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.skyhdr_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.skyhdr_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise when a launch returned a CUDA error."""
+    if code != 0:
+        msg = library().skyhdr_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
