@@ -113,16 +113,17 @@ class Generator(nn.Module):
         return F.relu(sun_rad + y)
 
     def sun_rad_estimation(self, ldr, sun_cam1, sun_cam2, sun_cam3,
-                           sunpose_pred):
+                           sunpose_pred, train: bool = False):
         """Dirac-delta sun radiance from LDR + CAM attention. The PDF is
         normalised by its maximum over the whole batch, as in the JAX
-        model, so batch members are coupled."""
+        model, so batch members are coupled. `train`: SunRadNet's BatchNorm
+        in training mode (its running buffers refreshed in place)."""
         h, w = self.cfg.im_height, self.cfg.im_width
         normed = sunpose_pred / torch.max(sunpose_pred)
         cam2 = resize_bilinear(sun_cam2, (h, w))
         cam3 = resize_bilinear(sun_cam3, (h, w))
         feats = torch.cat([ldr, sun_cam1, cam2, cam3], dim=-1)
-        sun_rad, gamma, beta = self.sun(normed, feats)
+        sun_rad, gamma, beta = self.sun(normed, feats, train)
         return sun_rad.repeat(1, 1, 1, self.cfg.channels), gamma, beta
 
     def blending(self, sky_pred, sun_pred):

@@ -55,10 +55,12 @@ class Conv2D(nn.Module):
             leaves.append(("params", "bias", self.bias, "same", "zeros"))
         return leaves
 
-    def forward(self, x):
+    def forward(self, x, padding: str = "SAME"):
         ct = self.dtype or torch.promote_types(x.dtype, self.kernel.dtype)
-        ph = same_pads(x.shape[1], self.k, self.s)
-        pw = same_pads(x.shape[2], self.k, self.s)
+        ph = pw = (0, 0)
+        if padding == "SAME":
+            ph = same_pads(x.shape[1], self.k, self.s)
+            pw = same_pads(x.shape[2], self.k, self.s)
         xn = F.pad(x.to(ct).permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]))
         y = F.conv2d(xn, self.kernel.to(ct), stride=self.s).permute(0, 2, 3, 1)
         return y if self.bias is None else y + self.bias.to(y.dtype)
@@ -93,8 +95,15 @@ class InstanceNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Flax `nn.BatchNorm` in running-average mode (eps 1e-3): float32 math,
-    output in `dtype` (None: promote x with the parameters)."""
+    """Flax `nn.BatchNorm(momentum=0.99, epsilon=1e-3)`: float32 math,
+    output in `dtype` (None: promote x with the parameters).
+
+    Eval normalises with the running statistics. Train normalises with the
+    batch mean and the biased batch variance E[x^2] - E[x]^2 (clipped at 0,
+    as Flax computes it) over (b, h, w), and updates the running buffers IN
+    PLACE, once per call: ra = 0.99 ra + 0.01 stat, with that same biased
+    variance (`F.batch_norm` would use momentum 0.01 and an unbiased running
+    variance)."""
 
     def __init__(self, features: int, epsilon: float = 1e-3, dtype=None,
                  device=None):
@@ -111,11 +120,19 @@ class BatchNorm(nn.Module):
                 ("batch_stats", "mean", self.mean, "same", "zeros"),
                 ("batch_stats", "var", self.var, "same", "ones")]
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         out = self.dtype or torch.promote_types(
             torch.promote_types(x.dtype, self.scale.dtype), self.bias.dtype)
-        mul = torch.rsqrt(self.var + self.epsilon) * self.scale
-        return ((x - self.mean) * mul + self.bias).to(out)
+        mean, var = self.mean, self.var
+        if train:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 1, 2))
+            var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.mean.copy_(0.99 * self.mean + 0.01 * mean)
+                self.var.copy_(0.99 * self.var + 0.01 * var)
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        return ((x - mean) * mul + self.bias).to(out)
 
 
 class Dense(nn.Module):
@@ -178,10 +195,10 @@ class Downsampling(nn.Module):
         self.bn = (BatchNorm(features, dtype=dtype, device=device)
                    if apply_norm else None)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         x = self.conv(x)
         if self.bn is not None:
-            x = self.bn(x)
+            x = self.bn(x, train)
         return F.leaky_relu(x, 0.3)
 
 

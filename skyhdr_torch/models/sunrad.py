@@ -28,10 +28,15 @@ class SunRadNet(nn.Module):
         self.gamma = Dense(flat, 1, device=device)
         self.beta = Dense(flat, 1, device=device)
 
-    def forward(self, x, actv_map):
+    def forward(self, x, actv_map, train: bool = False):
         """x: normalised sun-pose PDF [b, h, w, 1]; actv_map: LDR ++ CAMs
-        [b, h, w, 6]. Returns (radiance [b, h, w, 1], gamma, beta)."""
-        d = self.d4(self.d3(self.d2(self.d1(actv_map)))).float()
+        [b, h, w, 6]. Returns (radiance [b, h, w, 1], gamma, beta). With
+        `train` the BatchNorm layers use batch statistics and refresh their
+        running buffers in place."""
+        d = actv_map
+        for layer in (self.d1, self.d2, self.d3, self.d4):
+            d = layer(d, train)
+        d = d.float()
         flat = d.reshape(d.shape[0], -1)  # NHWC flatten, as the Dense rows are
         gamma_in = torch.sigmoid(self.gamma(flat)).reshape(-1, 1, 1, 1).float()
         beta_in = torch.sigmoid(self.beta(flat)).reshape(-1, 1, 1, 1).float()

@@ -28,12 +28,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# name -> argtypes; every entry point returns a cudaError_t as int.
+# name -> argtypes; every entry point returns an int (a cudaError_t, or
+# for skyhdr_da_dk_k3_splits a count).
 _SIGNATURES = {
     # x, kern, bias, y0, y1, cx, wy, wx, out, B, H, W, C, F, is_bf16, device, stream
     "skyhdr_da_fwd_k3": [_P] * 9 + [_I] * 7 + [_P],
     # g, kt, si, sw, sky, scx, swx, nslots, dx, B, H, W, C, F, device, stream
     "skyhdr_da_dx_k3": [_P] * 7 + [_I, _P] + [_I] * 6 + [_P],
+    # B, H, C, F, device -> number of row splits (or < 0)
+    "skyhdr_da_dk_k3_splits": [_I] * 5,
+    # x, g, y0, y1, cx, wy, wx, ws, out, nsplit, B, H, W, C, F, is_bf16, device, stream
+    "skyhdr_da_dk_k3": [_P] * 9 + [_I] * 8 + [_P],
 }
 
 

@@ -8,17 +8,21 @@ versions, and the autograd glue.
      Plain version: `da_conv_dx_ref`, the same slot formula vectorised in
      torch (not autograd of the forward, so the CPU tests hold the very
      algorithm K2 runs against `jax.vjp`).
+  K3 `da_conv_dk_k3` — CUDA weight gradient, replacing `_dk_k3_kernel`.
+     Plain version: `da_conv_dk_ref`, the same sample-times-cotangent sum
+     vectorised in torch (again not autograd of the forward).
   K4 `DAConvFunction` — the custom-VJP wiring (`_da_conv_core` / `_da_fwd`
-     / `_da_bwd`): K1 forward, K2 backward when the input needs a gradient.
-     The weight gradient (K3) is not ported: asking for dK or db on a CUDA
-     tensor raises.
+     / `_da_bwd`): K1 forward; K2 for dx when the input needs a gradient,
+     K3 for dK and a plain sum for db when the weights do.
 
 Dispatch is by device only: a CPU tensor takes the plain version, a CUDA
-tensor launches the kernel or raises. `K1_LAUNCHES` / `K2_LAUNCHES` count
-kernel launches, one per launch.
+tensor launches the kernel or raises. `K1_LAUNCHES` / `K2_LAUNCHES` /
+`K3_LAUNCHES` count kernel launches, one per wrapper call that launches.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -27,6 +31,8 @@ from skyhdr_torch.ops.distortion import (deformable_conv2d, gather_tables_on,
 
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
+K3_LAUNCHES = 0
+_WEIGHT_GRADS = True
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -104,6 +110,39 @@ def da_conv_dx_k2(g, kernel, *, x_shape, dilation_rate: int = 1,
     return dx
 
 
+def da_conv_dk_k3(x, g, *, dilation_rate: int = 1,
+                  skydome: bool = True) -> torch.Tensor:
+    """K3: the k=3 DA weight gradient on the card. x [b,h,w,c] float32 or
+    bfloat16 (read as float32), g [b,h,w,f] (taken as float32); returns
+    dK [9c,f] float32, summed in a fixed order (deterministic)."""
+    global K3_LAUNCHES
+    from skyhdr_torch.ops.kernels.build import check, library
+
+    _require(x.is_cuda and g.device == x.device,
+             "DA kernels take CUDA tensors on one device")
+    _require(x.dim() == 4 and g.dim() == 4 and g.shape[:3] == x.shape[:3],
+             f"x [b,h,w,c] and g [b,h,w,f] expected, got {tuple(x.shape)} "
+             f"and {tuple(g.shape)}")
+    _require(x.dtype in (torch.float32, torch.bfloat16),
+             f"K3 takes float32 or bfloat16 x, got {x.dtype}")
+    b, h, w, c = x.shape
+    f = g.shape[-1]
+    x = x.contiguous()
+    g32 = g.float().contiguous()
+    lib = library()
+    nsplit = lib.skyhdr_da_dk_k3_splits(b, h, c, f, x.device.index)
+    _require(nsplit > 0, f"K3 does not tile C={c}, F={f} (code {nsplit})")
+    y0, y1, cx, wy, wx = gather_tables_on(x.device, h, w, 3, dilation_rate, skydome)
+    ws = torch.empty((nsplit, 9 * c, f), dtype=torch.float32, device=x.device)
+    dk = torch.empty((9 * c, f), dtype=torch.float32, device=x.device)
+    code = lib.skyhdr_da_dk_k3(
+        *_ptrs(x, g32, y0, y1, cx, wy, wx, ws, dk), nsplit, b, h, w, c, f,
+        int(x.dtype == torch.bfloat16), x.device.index, _stream(x))
+    check(code, "K3 (DA weight gradient)")
+    K3_LAUNCHES += 1
+    return dk
+
+
 def da_conv_forward_ref(x, kernel, bias, *, dilation_rate: int = 1,
                         skydome: bool = True) -> torch.Tensor:
     """Plain version of K1: the gather form (`deformable_conv2d`, k=3)."""
@@ -142,15 +181,45 @@ def da_conv_dx_ref(g, kernel, *, x_shape, dilation_rate: int = 1,
     return dx
 
 
-def _dk_db_plain(x, kernel, bias, g, dilation_rate, skydome):
-    """dK and db of the plain form, by autograd (CPU only; K3 is not
-    ported)."""
-    with torch.enable_grad():
-        k = kernel.detach().requires_grad_()
-        y = da_conv_forward_ref(x.detach(), k, torch.zeros_like(bias),
-                                dilation_rate=dilation_rate, skydome=skydome)
-        (dk,) = torch.autograd.grad(y, k, g)
-    return dk, g.float().sum((0, 1, 2)).to(bias.dtype)
+def da_conv_dk_ref(x, g, *, dilation_rate: int = 1,
+                   skydome: bool = True) -> torch.Tensor:
+    """Plain version of K3: dK[t*c+ci, f] = sum_{b,i,j} sample_t[b,i,j,ci]
+    g[b,i,j,f] with the forward's rebuilt sample
+        rowY   = (1-wy)*xpad[y0] + wy*xpad[y1]
+        sample = (1-wx)*rowY[(j+cx) mod w] + wx*rowY[(j+cx+1) mod w],
+    all in float32 (x is read as float32 whatever its dtype)."""
+    b, h, w, c = x.shape
+    dev = x.device
+    y0, y1, cx0, wys, wxs = gather_tables_on(dev, h, w, 3, dilation_rate, skydome)
+    xp = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 1, 1))
+    g = g.float()
+    jcols = torch.arange(w, device=dev)
+    taps = []
+    for tap in range(9):
+        wy = wys[:, tap][None, :, None, None]
+        wx = wxs[:, tap][None, :, None, None]
+        row_y = (1 - wy) * xp[:, y0[:, tap].long()] + wy * xp[:, y1[:, tap].long()]
+        cols = (jcols[None, :] + cx0[:, tap].long()[:, None]) % w  # [h, w]
+        s0 = torch.gather(row_y, 2, cols[None, :, :, None].expand(b, h, w, c))
+        sample = (1 - wx) * s0 + wx * torch.roll(s0, -1, dims=2)
+        taps.append(torch.einsum("bhwc,bhwf->cf", sample, g))
+    return torch.cat(taps, dim=0)
+
+
+@contextlib.contextmanager
+def input_grads_only():
+    """Within this block the DA backward computes dx only and returns no
+    dK or db. For a gradient call that asks only for activations' gradients
+    (Grad-CAM's pull, `torch.autograd.grad(sm, eps)`), where the weights'
+    gradients would be thrown away: `ctx.needs_input_grad` is fixed at the
+    forward, so the backward cannot see that the call discards them (JAX's
+    dead-code elimination drops that work)."""
+    global _WEIGHT_GRADS
+    prev, _WEIGHT_GRADS = _WEIGHT_GRADS, False
+    try:
+        yield
+    finally:
+        _WEIGHT_GRADS = prev
 
 
 class DAConvFunction(torch.autograd.Function):
@@ -167,17 +236,15 @@ class DAConvFunction(torch.autograd.Function):
     def backward(ctx, g):
         x, kernel, bias = ctx.saved_tensors
         dx = dk = db = None
-        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            if g.is_cuda:
-                raise NotImplementedError(
-                    "DA-conv weight gradient (K3) is not ported yet")
-            dk, db = _dk_db_plain(x, kernel, bias, g, ctx.dilation_rate,
-                                  ctx.skydome)
+        geom = dict(dilation_rate=ctx.dilation_rate, skydome=ctx.skydome)
+        if ctx.needs_input_grad[1] and _WEIGHT_GRADS:
+            run = da_conv_dk_k3 if g.is_cuda else da_conv_dk_ref
+            dk = run(x, g, **geom).to(kernel.dtype)
+        if ctx.needs_input_grad[2] and _WEIGHT_GRADS:
+            db = g.float().sum((0, 1, 2)).to(bias.dtype)
         if ctx.needs_input_grad[0]:
             run = da_conv_dx_k2 if g.is_cuda else da_conv_dx_ref
-            dx = run(g, kernel, x_shape=tuple(x.shape),
-                     dilation_rate=ctx.dilation_rate,
-                     skydome=ctx.skydome).to(x.dtype)
+            dx = run(g, kernel, x_shape=tuple(x.shape), **geom).to(x.dtype)
         return dx, dk, db, None, None
 
 

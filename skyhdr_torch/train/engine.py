@@ -1,14 +1,45 @@
-"""Model construction and the serving forward (`skyhdr.train.engine`:
-`build_models`, `make_inference_fn`)."""
+"""Model construction, the serving forward and the two train steps
+(`skyhdr.train.engine`).
+
+  build_models, make_inference_fn          — serving.
+  create_gan_state, make_gan_train_step    — the GAN step: one RMSprop
+      update over generator + sun-pose parameters together from the total
+      generator loss (the adversarial term through a discriminator forward
+      with FROZEN BatchNorm statistics), then the discriminator's RMSprop
+      update on the detached prediction with batch statistics, its running
+      statistics chained through the real and then the generated forward.
+  create_sun_state, make_sun_train_step    — the sun-pose pretrain step
+      (KL + DoG, Adam).
+
+A step is `step(state, batch, generator) -> (state, metrics)`: it draws
+the degradation from the `torch.Generator`, then runs its core
+`step.train_on(state, hdr_t, ldr, sunpose_gt)`, which tests feed with the
+pair the JAX package degraded. The state is updated IN PLACE (parameters,
+optimizer moments, BatchNorm buffers) and returned; metrics are 0-d device
+tensors with the JAX package's names. Only float32 training is ported: the
+`opt_state_dtype` / `grad_dtype` / `param_dtype` knobs must be "float32".
+"""
 
 from __future__ import annotations
 
 import torch
 
+from skyhdr_torch.data.degradation import degrade_batch
+from skyhdr_torch.models.discriminator import Discriminator
 from skyhdr_torch.models.generator import Generator
 from skyhdr_torch.models.gradcam import sunpose_with_cams
 from skyhdr_torch.models.sunpose import SunPoseNet
+from skyhdr_torch.models.vgg16 import perceptual_l1, vgg_constants
+from skyhdr_torch.ops.dog import dog_l1_loss
+from skyhdr_torch.ops.geometry import sunpose_gt_from_elevation
 from skyhdr_torch.ops.hdr import hdr_log_compression, hdr_log_decompression
+from skyhdr_torch.train import losses
+from skyhdr_torch.train.optim import Adam, RMSprop
+
+
+def _act_dtype(cfg):
+    """The activations' dtype: the compute dtype, float32 by default."""
+    return torch.bfloat16 if cfg.model.compute_dtype == "bfloat16" else torch.float32
 
 
 def build_models(cfg, device="cpu"):
@@ -30,8 +61,7 @@ def make_inference_fn(cfg):
     vdr = cfg.model.valid_dr
     thr = cfg.model.alpha_threshold
     h, w = cfg.model.im_height, cfg.model.im_width
-    act_dtype = (torch.bfloat16 if cfg.model.compute_dtype == "bfloat16"
-                 else torch.float32)
+    act_dtype = _act_dtype(cfg)
 
     @torch.no_grad()
     def forward(gen: Generator, sun: SunPoseNet, ldr: torch.Tensor):
@@ -64,3 +94,193 @@ def make_inference_fn(cfg):
         }
 
     return forward
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+class GanState:
+    """Generator, sun-pose net and discriminator (parameters requiring
+    gradients), `opt_gen` (RMSprop over generator then sun parameters),
+    `opt_disc` (RMSprop over the discriminator's) and the step count."""
+
+    def __init__(self, gen, sun, disc, opt_gen, opt_disc):
+        self.gen, self.sun, self.disc = gen, sun, disc
+        self.opt_gen, self.opt_disc = opt_gen, opt_disc
+        self.step = 0
+
+
+class SunState:
+    """The sun-pose net, its Adam optimizer and the step count."""
+
+    def __init__(self, sun, opt):
+        self.sun, self.opt = sun, opt
+        self.step = 0
+
+
+def _require_f32_training(cfg):
+    for knob in ("opt_state_dtype", "grad_dtype", "param_dtype"):
+        if getattr(cfg.train, knob) not in (None, "float32"):
+            raise NotImplementedError(
+                f"TrainConfig.{knob}={getattr(cfg.train, knob)!r}: only float32 "
+                "training is ported")
+
+
+def create_gan_state(cfg, seed: int = 0, device="cuda") -> GanState:
+    """The GAN state with the weights of `utils.transplant.init_gan_vars(cfg,
+    seed)` on `device` and zero RMSprop moments."""
+    from skyhdr_torch.utils.transplant import init_gan_vars, load_model_vars
+
+    _require_f32_training(cfg)
+    gen, sun = build_models(cfg, device)
+    disc = Discriminator(cfg.model.channels, device=device)
+    for module, tree in zip((gen, sun, disc), init_gan_vars(cfg, seed)):
+        load_model_vars(module, tree).requires_grad_(True)
+    lr = cfg.train.learning_rate
+    return GanState(gen, sun, disc,
+                    RMSprop([*gen.parameters(), *sun.parameters()], lr),
+                    RMSprop(disc.parameters(), lr))
+
+
+def create_sun_state(cfg, seed: int = 0, device="cuda") -> SunState:
+    """The sun-pretrain state: the sun-pose weights of
+    `init_model_vars(cfg, seed)` on `device`, zero Adam moments."""
+    from skyhdr_torch.utils.transplant import init_model_vars, load_model_vars
+
+    _require_f32_training(cfg)
+    sun = SunPoseNet(cfg.model, device=device)
+    load_model_vars(sun, init_model_vars(cfg, seed)[1]).requires_grad_(True)
+    return SunState(sun, Adam(sun.parameters(), cfg.train.learning_rate))
+
+
+def _degrade(cfg, banks, generator, hdr):
+    d = cfg.data
+    return degrade_batch(generator, hdr, banks, jpeg_lo=d.jpeg_quality_lo,
+                         jpeg_hi=d.jpeg_quality_hi, sigma_s_scale=d.sigma_s_scale,
+                         sigma_c_scale=d.sigma_c_scale,
+                         chroma_subsample=d.jpeg_chroma_subsample)
+
+
+def _with_degradation(cfg, banks, train_on):
+    """`step(state, batch, generator)`: the vMF ground truth from the
+    batch's elevations, the degradation drawn from `generator`, then
+    `train_on` (kept as `step.train_on`)."""
+
+    def step(state, batch, generator: torch.Generator):
+        sunpose_gt = sunpose_gt_from_elevation(cfg.model, batch["elevation"])
+        hdr_t, ldr = _degrade(cfg, banks, generator, batch["hdr"])
+        return train_on(state, hdr_t, ldr, sunpose_gt)
+
+    step.train_on = train_on
+    return step
+
+
+def generator_forward(cfg, gen, sun, disc, ldr, hdr_t, sunpose_gt, vgg,
+                      train: bool):
+    """The generator-side graph and losses (`skyhdr.train.engine.
+    generator_forward`); `vgg` from `vgg_constants`. Returns (total, aux).
+    With `train` SunRadNet's BatchNorm uses batch statistics and refreshes
+    its buffers in place; the discriminator always runs with its frozen
+    statistics here."""
+    m = cfg.model
+    thr, vdr = m.alpha_threshold, m.valid_dr
+    hdr_t_gamma = hdr_log_compression(hdr_t, vdr)
+
+    res_out = gen.encode(ldr)
+    sky_pred_gamma = gen.sky_decode(res_out, ldr)
+    sky_pred_lin = hdr_log_decompression(sky_pred_gamma, vdr)
+
+    # One sun-pose forward serves the KL path and the CAMs; the CAMs carry
+    # no gradient, the outer loss reaches the net through `sm` only.
+    sm, (cam1, cam2, cam3) = sunpose_with_cams(sun, ldr, _act_dtype(cfg),
+                                               sunpose_gt, keep_graph=True)
+    sunpose_pred = sm.reshape(-1, m.im_height, m.im_width, 1)
+
+    alpha = torch.amax(sky_pred_lin, dim=3)
+    alpha = torch.clamp(torch.clamp(alpha - 1.0 + thr, min=0.0) / thr, max=1.0)
+    alpha_c3 = alpha[..., None].expand(sky_pred_lin.shape).detach()
+
+    sun_rad_lin, gamma, beta = gen.sun_rad_estimation(
+        ldr, cam1, cam2, cam3, sunpose_pred, train)
+    sun_pred_gamma = gen.sun_decode(res_out, hdr_log_compression(sun_rad_lin, vdr))
+
+    sky_pred_gamma = (1.0 - alpha_c3) * sky_pred_gamma
+    sun_pred_gamma = alpha_c3 * sun_pred_gamma
+    y_final_gamma = gen.blending(sky_pred_gamma, sun_pred_gamma)
+    y_final_lin = hdr_log_decompression(y_final_gamma, vdr)
+
+    disc_generated = disc(ldr, y_final_lin, train=False)
+
+    t = cfg.train
+    sun_loss = losses.kl_divergence(sunpose_gt, sm)
+    perceptual = perceptual_l1(vgg, y_final_gamma, hdr_t_gamma, dtype=_act_dtype(cfg))
+    dog = dog_l1_loss(y_final_lin, hdr_t)
+    l1 = losses.l1_loss(y_final_lin, hdr_t)
+    adv = losses.lsgan_gen_loss(disc_generated)
+    total = (t.w_sun * sun_loss + t.w_dog * dog + t.w_adv * adv + t.w_l1 * l1
+             + t.w_perceptual * perceptual)
+    aux = {
+        "y_final_gamma": y_final_gamma,
+        "y_final_lin": y_final_lin,
+        "sky_pred_lin": hdr_log_decompression(sky_pred_gamma, vdr),
+        "sun_pred_lin": hdr_log_decompression(sun_pred_gamma, vdr),
+        "alpha_c3": alpha_c3,
+        "sunpose_pred": sunpose_pred,
+        "sun_rad_lin": sun_rad_lin,
+        "gamma_max": torch.max(gamma),
+        "beta_max": torch.max(beta),
+        "losses": {"gen_total": total, "l1": l1, "kl": sun_loss, "dog": dog,
+                   "adv": adv, "perceptual": perceptual},
+    }
+    return total, aux
+
+
+def make_gan_train_step(cfg, banks, vgg_weights):
+    """The GAN train step for states from `create_gan_state`, on the device
+    of `banks` (from `data.degradation.make_banks`); `vgg_weights` is the
+    NumPy weight dict of `models.vgg16`."""
+    _require_f32_training(cfg)
+    vgg = vgg_constants(vgg_weights, banks.crfs.device)
+
+    def train_on(state: GanState, hdr_t, ldr, sunpose_gt):
+        total, aux = generator_forward(cfg, state.gen, state.sun, state.disc,
+                                       ldr, hdr_t, sunpose_gt, vgg, train=True)
+        grads = torch.autograd.grad(total, state.opt_gen.params)
+        state.opt_gen.step(grads)
+        del grads
+
+        y_final_lin = aux["y_final_lin"].detach()
+        real = state.disc(ldr, hdr_t, train=True)
+        generated = state.disc(ldr, y_final_lin, train=True)
+        disc_total, real_l, gen_l = losses.lsgan_disc_loss(real, generated)
+        state.opt_disc.step(torch.autograd.grad(disc_total, state.opt_disc.params))
+        state.step += 1
+
+        metrics = dict(aux["losses"], disc_total=disc_total, disc_real=real_l,
+                       disc_generated=gen_l, g_out=aux["gamma_max"],
+                       b_out=aux["beta_max"])
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return _with_degradation(cfg, banks, train_on)
+
+
+def make_sun_train_step(cfg, banks):
+    """The sun-pretrain step for states from `create_sun_state`: KL + DoG of
+    the sun-pose PDF against the vMF ground truth, one Adam update. Its
+    Grad-CAM maps feed nothing in this step, so they are not computed (the
+    JAX step drops them as dead code)."""
+    _require_f32_training(cfg)
+    h, w = cfg.model.im_height, cfg.model.im_width
+
+    def train_on(state: SunState, hdr_t, ldr, sunpose_gt):
+        sm, _ = state.sun(ldr)
+        kl = losses.kl_divergence(sunpose_gt, sm)
+        dog = dog_l1_loss(sm.reshape(-1, h, w, 1), sunpose_gt.reshape(-1, h, w, 1))
+        total = kl + dog
+        state.opt.step(torch.autograd.grad(total, state.opt.params))
+        state.step += 1
+        return state, {"sun_total": total.detach(), "kl": kl.detach(),
+                       "dog": dog.detach()}
+
+    return _with_degradation(cfg, banks, train_on)

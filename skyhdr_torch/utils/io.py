@@ -1,11 +1,46 @@
-"""Radiance .hdr (RGBE) codec in NumPy: a copy of `write_hdr` / `read_hdr`
-and their helpers from `skyhdr.utils.io`, so the port reads and writes
-.hdr without the JAX package. `tests/test_torch_slice.py` holds the two
-codecs byte-for-byte equal."""
+"""Host I/O in NumPy, copied from `skyhdr.utils.io` so the port runs
+without the JAX package: the exposure sweep and the DoRF camera-response
+curves (`get_exposure_lists`, `load_dorf_curves`, `make_synthetic_dorf`)
+and the Radiance .hdr (RGBE) codec (`write_hdr`, `read_hdr`).
+`tests/test_torch_slice.py` and `tests/test_torch_train_ops.py` hold the
+copies equal to the originals."""
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
+
+
+def get_exposure_lists(n_train: int = 600, n_test: int = 7) -> Tuple[np.ndarray, np.ndarray]:
+    """Exposure multipliers 2^linspace(-3, 3, n) for training and test."""
+    make = lambda n: (2.0 ** np.linspace(-3, 3, n)).astype(np.float32)
+    return make(n_train), make(n_test)
+
+
+def load_dorf_curves(path: str, n_train: int = 175) -> Tuple[np.ndarray, np.ndarray]:
+    """Parse dorfCurves.txt into (train_crfs, test_crfs), each [n, 1024]:
+    records of 6 lines, the 6th holding the 1024 response samples."""
+    with open(path, "r") as f:
+        lines = [line.strip() for line in f.readlines()]
+    rows = [lines[idx + 5] for idx in range(0, len(lines) - 5, 6)]
+    crf = np.asarray([np.array(r.split(), dtype=np.float64) for r in rows], np.float32)
+    return crf[:n_train], crf[n_train:]
+
+
+def make_synthetic_dorf(n_curves: int = 201, k: int = 1024, seed: int = 0) -> np.ndarray:
+    """Deterministic family of monotone CRFs (gamma + smoothstep mixtures)
+    for runs without dorfCurves.txt."""
+    rng = np.random.default_rng(seed)
+    x = np.linspace(0.0, 1.0, k, dtype=np.float64)
+    curves = []
+    for _ in range(n_curves):
+        g = rng.uniform(0.35, 2.8)
+        a = rng.uniform(0.0, 1.0)
+        s = x * x * (3 - 2 * x)
+        c = (1 - a) * np.power(x, g) + a * s
+        curves.append((c - c[0]) / (c[-1] - c[0]))
+    return np.asarray(curves, np.float32)
 
 
 def write_hdr(path: str, img: np.ndarray) -> None:

@@ -9,7 +9,14 @@ distributions (glorot_uniform, lecun_normal — a normal truncated at two
 standard deviations —, normal(0.02), zeros, ones; BN running mean 0 and var
 1). Draws are float32: at 64x256 the sun-pose FCs alone are 3.2 GB.
 
-`load_model_vars(module, tree)` copies such a tree into a port module.
+`init_gan_vars(cfg, seed)` draws the Discriminator's tree as well, from
+the same stream AFTER the generator and sun trees, so the gen/sun draws
+stay those of `init_model_vars`.
+
+`load_model_vars(module, tree)` copies such a tree into a port module;
+`export_model_vars(module)` is the way back, module -> Flax-layout NumPy
+tree (optionally of other tensors shaped like the parameters: gradients,
+optimizer moments).
 Every leaf module names its leaves in `flax_leaves()` as (collection, name,
 tensor, layout, initializer); the layouts are
   "same"  — as is (DA kernels [9c, f], biases, norm scales, BN stats),
@@ -97,6 +104,18 @@ def init_model_vars(cfg, seed: int = 0):
     return init_tree(gen, rng), init_tree(sun, rng)
 
 
+def init_gan_vars(cfg, seed: int = 0):
+    """(gen_vars, sun_vars, disc_vars): `init_model_vars`' two trees, then
+    the Discriminator's, all from `numpy.random.default_rng(seed)`."""
+    from skyhdr_torch.models.discriminator import Discriminator
+    from skyhdr_torch.train.engine import build_models
+
+    gen, sun = build_models(cfg, device="meta")
+    rng = np.random.default_rng(seed)
+    return (init_tree(gen, rng), init_tree(sun, rng),
+            init_tree(Discriminator(cfg.model.channels, device="meta"), rng))
+
+
 def tree_digest(tree) -> float:
     """Sum of |w| over every leaf in float64: a cheap fingerprint that the
     same seed drew the same weights on another machine."""
@@ -128,3 +147,23 @@ def load_model_vars(module: torch.nn.Module, tree: dict) -> torch.nn.Module:
                                  f"{tuple(src.shape)} != {tuple(tensor.shape)}")
             tensor.copy_(src)
     return module
+
+
+@torch.no_grad()
+def export_model_vars(module: torch.nn.Module, value_of=None,
+                      collections=("params", "batch_stats")) -> dict:
+    """`module`'s leaves as a Flax-layout tree of float32 NumPy arrays, the
+    inverse of `load_model_vars`. `value_of(tensor)` substitutes another
+    tensor of the same shape for each leaf (a gradient, an optimizer
+    moment); `collections` selects the Flax collections exported."""
+    tree = {}
+    for path, mod in _leaf_modules(module):
+        for coll, name, tensor, layout, _ in mod.flax_leaves():
+            if coll not in collections:
+                continue
+            t = tensor if value_of is None else value_of(tensor)
+            t = t.detach().float()
+            if layout in _PERM:
+                t = t.permute(*map(int, np.argsort(_PERM[layout])))
+            _node(tree, [coll, *path])[name] = t.cpu().numpy().copy()
+    return tree

@@ -14,6 +14,10 @@ from skyhdr.ops.pallas.deform_conv import deformable_conv2d_pallas
 from skyhdr_torch.ops import distortion as tdist
 from skyhdr_torch.ops.kernels import deform_conv as dc
 
+# The suite runs in several worker processes that share the CPU; torch's
+# default of one thread per core in each of them oversubscribes it.
+torch.set_num_threads(1)
+
 # (x shape, F): the two small shapes of tests/test_pallas.py, the slice's
 # SunPoseNet stage-2 and trunk widths at a narrow size, a non-power-of-two F.
 SHAPES = [((2, 8, 32, 16), 8), ((1, 16, 64, 32), 16), ((2, 8, 32, 32), 64),

@@ -58,12 +58,32 @@ def test_k2_matches_plain(cuda, shape, f):
     assert _rel(got, dc.da_conv_dx_ref(g, k, x_shape=shape)) <= 5e-4
 
 
-def test_weight_grad_on_cuda_raises(cuda):
-    x, k, b, g = _operands(cuda, (1, 8, 32, 16), 8)
+@pytest.mark.parametrize("shape,f", [((2, 8, 32, 128), 128), ((2, 32, 128, 64), 32),
+                                     ((2, 16, 64, 32), 64), ((1, 6, 24, 8), 12)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_matches_plain(cuda, shape, f, dtype):
+    x, _, _, g = _operands(cuda, shape, f, dtype)
+    n = dc.K3_LAUNCHES
+    got = dc.da_conv_dk_k3(x, g)
+    torch.cuda.synchronize()
+    assert dc.K3_LAUNCHES == n + 1 and got.shape == (9 * shape[-1], f)
+    assert _rel(got, dc.da_conv_dk_ref(x, g)) <= 1e-4
+    assert torch.equal(got, dc.da_conv_dk_k3(x, g))  # fixed summation order
+
+
+def test_autograd_function_on_cuda_takes_kernels(cuda):
+    x, k, b, g = _operands(cuda, (2, 8, 32, 16), 8)
+    x.requires_grad_()
     k.requires_grad_()
-    y = dc.da_conv(x, k, b)
-    with pytest.raises(NotImplementedError, match="K3"):
-        y.backward(g)
+    b.requires_grad_()
+    before = (dc.K1_LAUNCHES, dc.K2_LAUNCHES, dc.K3_LAUNCHES)
+    dc.da_conv(x, k, b).backward(g)
+    torch.cuda.synchronize()
+    assert (dc.K1_LAUNCHES, dc.K2_LAUNCHES, dc.K3_LAUNCHES) == tuple(
+        n + 1 for n in before)
+    assert _rel(k.grad, dc.da_conv_dk_ref(x.detach(), g)) <= 1e-4
+    assert _rel(b.grad, g.sum((0, 1, 2))) <= 1e-5
+    assert _rel(x.grad, dc.da_conv_dx_ref(g, k.detach(), x_shape=x.shape)) <= 5e-4
 
 
 def test_unsupported_width_raises(cuda):

@@ -27,6 +27,10 @@ from skyhdr_torch.utils.params import cast_model_vars
 from skyhdr_torch.utils.transplant import (init_model_vars, init_tree,
                                            load_model_vars)
 
+# The suite runs in several worker processes that share the CPU; torch's
+# default of one thread per core in each of them oversubscribes it.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 

@@ -22,6 +22,10 @@ from skyhdr_torch.utils.png import read_png, write_png
 from skyhdr_torch.utils.transplant import (init_model_vars, load_model_vars,
                                            tree_digest)
 
+# The suite runs in several worker processes that share the CPU; torch's
+# default of one thread per core in each of them oversubscribes it.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUTPUTS = ("y_final_lin", "sky_pred_lin", "sun_pred_lin", "alpha",
            "sunpose_pred")

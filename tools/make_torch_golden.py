@@ -1,14 +1,21 @@
-"""Golden outputs of `skyhdr`'s serving forward for the PyTorch port.
+"""Golden outputs of `skyhdr` for the PyTorch port, on the CPU at 16x64 with
+the distortion-aware conv (the XLA gather path), weights from
+`skyhdr_torch.utils.transplant` (`init_model_vars` / `init_gan_vars`) and
+seeded numpy inputs:
 
-Runs `skyhdr.train.engine.make_inference_fn` on the CPU at 16x64 with the
-distortion-aware conv (the XLA gather path), weights from
-`skyhdr_torch.utils.transplant.init_model_vars(cfg, seed)` and a seeded
-numpy input, and saves what the port is held to:
+  - the serving forward (`make_inference_fn`)
+      -> tests/fixtures/torch_golden_da_16x64.npz
+  - one GAN train step and one sun-pretrain step from the seeded weights:
+    the JAX-degraded (hdr_t, ldr) pair and the vMF ground truth they were
+    fed, their metrics, and per-leaf digests of the updated parameters
+    (sum and sum of |.| of the update) and BatchNorm statistics
+      -> tests/fixtures/torch_golden_train_16x64.npz
 
-    python tools/make_torch_golden.py   # -> tests/fixtures/torch_golden_da_16x64.npz
+    python tools/make_torch_golden.py
 
-`tests/test_torch_slice.py` regenerates it and checks it against the file;
-`chip_smoke.py` holds the port's CUDA run to it.
+`tests/test_torch_slice.py` and `tests/test_torch_train.py` regenerate them
+and check them against the files; `chip_smoke.py` holds the port's CUDA run
+to them.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_golden_da_16x64.npz")
+TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_golden_train_16x64.npz")
 H, W, BATCH = 16, 64, 2
 
 
@@ -62,11 +70,222 @@ def make_golden(seed: int = 0) -> dict:
     }
 
 
+def train_batch(seed: int):
+    """The batch of the train golden: hdr uniform [0, 2), elevations
+    linspace(4, 28)."""
+    hdr = np.random.default_rng(seed + 2).uniform(
+        0.0, 2.0, (BATCH, H, W, 3)).astype(np.float32)
+    return hdr, np.linspace(4, 28, BATCH).astype(np.float32)
+
+
+def flat_leaves(tree, prefix=""):
+    """[(path, array)] of a nested dict, paths joined by '/', sorted."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        path = f"{prefix}/{k}" if prefix else k
+        out += flat_leaves(v, path) if isinstance(v, dict) else [(path, np.asarray(v))]
+    return out
+
+
+def update_digests(new_tree, old_tree):
+    """(paths, [n, 3] float64): per leaf, sum, sum of |.| and max |.| of
+    new - old."""
+    old = dict(flat_leaves(old_tree))
+    paths, rows = [], []
+    for path, v in flat_leaves(new_tree):
+        d = np.asarray(v, np.float64) - np.asarray(old[path], np.float64)
+        paths.append(path)
+        rows.append((d.sum(), np.abs(d).sum(), np.abs(d).max()))
+    return np.array(paths), np.array(rows, np.float64)
+
+
+def leaf_max(tree, scale: float):
+    """[n] float64: per leaf (sorted paths), max of sqrt(scale * |v|); with
+    v a second moment nu = (1-b2) g^2 after one step and scale = 1/(1-b2),
+    the leaf's max |g|."""
+    return np.array([np.sqrt(scale * np.abs(np.asarray(v, np.float64)).max())
+                     for _, v in flat_leaves(tree)])
+
+
+def stat_digests(tree):
+    """(paths, [n] float64): per leaf, the sum."""
+    leaves = flat_leaves(tree)
+    return (np.array([p for p, _ in leaves]),
+            np.array([np.asarray(v, np.float64).sum() for _, v in leaves]))
+
+
+def make_train_golden(seed: int = 0, full: bool = False) -> dict:
+    """One GAN step and one sun step of `skyhdr` from the port's seeded
+    weights. With `full`, also the whole updated trees and optimizer states
+    under "trees" (not stored)."""
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_platforms", "cpu")
+    from skyhdr.config import Config, DataConfig, ModelConfig
+    from skyhdr.data.degradation import make_banks
+    from skyhdr.models.vgg16 import random_vgg16_weights
+    from skyhdr.train import engine
+    from skyhdr.utils.io import get_exposure_lists, make_synthetic_dorf
+    from skyhdr_torch.utils.transplant import init_gan_vars, tree_digest
+
+    tcfg = golden_config()
+    cfg = Config(model=ModelConfig(**vars(tcfg.model)),
+                 data=DataConfig(batch_size=BATCH))
+    lr = cfg.train.learning_rate
+    gv, sv, dv = init_gan_vars(tcfg, seed)
+    banks = make_banks(make_synthetic_dorf(175, 1024), get_exposure_lists()[0])
+    hdr, elevation = train_batch(seed)
+    batch = {"hdr": jnp.asarray(hdr), "elevation": jnp.asarray(elevation)}
+    key = jax.random.PRNGKey(seed + 1)
+    hdr_t, ldr = engine._degrade(cfg, banks, key, batch["hdr"])
+    sunpose_gt = engine._sunpose_gt_from_elevation(cfg, batch["elevation"])
+
+    state = engine.GanState(
+        gen_vars=gv, sun_vars=sv, disc_vars=dv,
+        opt_gen=engine._rmsprop(lr).init((gv["params"], sv["params"])),
+        opt_disc=engine._rmsprop(lr).init(dv["params"]),
+        step=jnp.zeros((), jnp.int32), epoch=jnp.zeros((), jnp.int32))
+    gan_step = engine.make_gan_train_step(cfg, banks, random_vgg16_weights(), jit=False)
+    new, metrics = jax.jit(gan_step)(state, batch, key)
+    sun_state = engine.SunState(sun_vars={"params": sv["params"]},
+                                opt=engine._adam(lr).init(sv["params"]),
+                                step=jnp.zeros((), jnp.int32),
+                                epoch=jnp.zeros((), jnp.int32))
+    sun_step = engine.make_sun_train_step(cfg, banks, jit=False)
+    new_sun, sun_metrics = jax.jit(sun_step)(sun_state, batch, key)
+
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)
+    params = {"gen": to_np(new.gen_vars["params"]), "sun": to_np(new.sun_vars["params"]),
+              "disc": to_np(new.disc_vars["params"])}
+    stats = {"gen": to_np(new.gen_vars["batch_stats"]),
+             "disc": to_np(new.disc_vars["batch_stats"])}
+    sun_params = to_np(new_sun.sun_vars["params"])
+    out = {
+        "seed": np.int64(seed),
+        "weights_digest": np.float64(tree_digest({"gen": gv, "sun": sv, "disc": dv})),
+        "elevation": elevation,
+        "hdr_t": np.asarray(hdr_t), "ldr": np.asarray(ldr),
+        "sunpose_gt": np.asarray(sunpose_gt),
+        "gan_metric_names": np.array(sorted(metrics)),
+        "gan_metrics": np.array([float(metrics[k]) for k in sorted(metrics)]),
+        "sun_metric_names": np.array(sorted(sun_metrics)),
+        "sun_metrics": np.array([float(sun_metrics[k]) for k in sorted(sun_metrics)]),
+    }
+    old = {"gen": gv["params"], "sun": sv["params"], "disc": dv["params"]}
+    out["gan_param_paths"], out["gan_param_digests"] = update_digests(params, old)
+    out["gan_stat_paths"], out["gan_stat_digests"] = stat_digests(stats)
+    out["sun_param_paths"], out["sun_param_digests"] = update_digests(sun_params,
+                                                                      sv["params"])
+    # max |g| per leaf, from the second moments (RMSprop: 0.1 g^2; Adam:
+    # (1 - 0.999) g^2 after one step).
+    nu_gan = {"gen": to_np(new.opt_gen[0].nu[0]), "sun": to_np(new.opt_gen[0].nu[1]),
+              "disc": to_np(new.opt_disc[0].nu)}
+    out["gan_param_gmax"] = leaf_max(nu_gan, 10.0)
+    out["sun_param_gmax"] = leaf_max(to_np(new_sun.opt[0].nu), 1000.0)
+    if full:
+        out["trees"] = {
+            "params": params, "stats": stats, "sun_params": sun_params,
+            "nu_gen": to_np(new.opt_gen[0].nu),
+            "nu_disc": to_np(new.opt_disc[0].nu),
+            "sun_mu": to_np(new_sun.opt[0].mu), "sun_nu": to_np(new_sun.opt[0].nu),
+        }
+    return out
+
+
+def port_train_golden(stored, device) -> dict:
+    """The port's GAN step and sun step from the same seeded weights on the
+    stored JAX-degraded inputs, reduced to the fixture's metrics and
+    digests (keys as in `make_train_golden`, with the port's values)."""
+    import torch
+
+    from skyhdr_torch.data.degradation import make_banks
+    from skyhdr_torch.models.vgg16 import random_vgg16_weights
+    from skyhdr_torch.train.engine import (create_gan_state, create_sun_state,
+                                           make_gan_train_step, make_sun_train_step)
+    from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
+    from skyhdr_torch.utils.transplant import export_model_vars
+
+    cfg = golden_config()
+    seed = int(stored["seed"])
+    banks = make_banks(make_synthetic_dorf(175, 1024), get_exposure_lists()[0],
+                       device=device)
+    inputs = [torch.from_numpy(np.array(stored[k])).to(device)
+              for k in ("hdr_t", "ldr", "sunpose_gt")]
+
+    def params(*modules):
+        return {n: export_model_vars(m, collections=("params",))["params"]
+                for n, m in zip(("gen", "sun", "disc"), modules)}
+
+    state = create_gan_state(cfg, seed, device)
+    old = params(state.gen, state.sun, state.disc)
+    state, metrics = make_gan_train_step(cfg, banks, random_vgg16_weights()).train_on(
+        state, *inputs)
+    sun_state = create_sun_state(cfg, seed, device)
+    sun_old = params(sun_state.sun)["gen"]
+    sun_state, sun_metrics = make_sun_train_step(cfg, banks).train_on(sun_state, *inputs)
+    out = {
+        "gan_metrics": np.array([float(metrics[k]) for k in stored["gan_metric_names"]]),
+        "sun_metrics": np.array([float(sun_metrics[k]) for k in stored["sun_metric_names"]]),
+    }
+    _, out["gan_param_digests"] = update_digests(
+        params(state.gen, state.sun, state.disc), old)
+    _, out["gan_stat_digests"] = stat_digests(
+        {n: export_model_vars(m, collections=("batch_stats",))["batch_stats"]
+         for n, m in (("gen", state.gen), ("disc", state.disc))})
+    _, out["sun_param_digests"] = update_digests(params(sun_state.sun)["gen"], sun_old)
+    return out
+
+
+def compare_train_golden(stored, port, metric_rtol: float, update_rtol: float):
+    """Failures (a list of strings) of the port's `port_train_golden`
+    against the stored JAX values, and the largest relative errors.
+
+    Metrics: within `metric_rtol` (atol 1e-6). Updates: per leaf, the sum
+    and the sum of |.| of the update within `update_rtol` of the JAX sum of
+    |.|. A leaf whose gradient is zero in exact arithmetic (a conv bias
+    feeding an InstanceNorm) comes out as float noise in both packages, and
+    the optimizers map noise to updates of either sign; such a leaf (max |g|
+    <= 1e-5 of the step's largest) is held only to the optimizer's bound on
+    |update| (3.17 lr per element for RMSprop, 1.01 lr for Adam's first
+    step). BatchNorm statistics: the sums within 1e-4 relative."""
+    fails, worst = [], {}
+    for kind in ("gan", "sun"):
+        got, want = port[f"{kind}_metrics"], stored[f"{kind}_metrics"]
+        for name, a, b in zip(stored[f"{kind}_metric_names"], got, want):
+            if not abs(a - b) <= metric_rtol * abs(b) + 1e-6:
+                fails.append(f"{kind} metric {name}: {a} vs {b}")
+        worst[f"{kind}_metrics"] = float(np.max(np.abs(got - want) / (np.abs(want) + 1e-6)))
+        lr_bound = 3.17e-4 if kind == "gan" else 1.01e-4
+        gmax = stored[f"{kind}_param_gmax"]
+        noise = gmax <= 1e-5 * gmax.max()
+        err = 0.0
+        for path, g, w, is_noise in zip(stored[f"{kind}_param_paths"],
+                                        port[f"{kind}_param_digests"],
+                                        stored[f"{kind}_param_digests"], noise):
+            if is_noise:
+                if not g[2] <= lr_bound:
+                    fails.append(f"{kind} update {path}: max |update| {g[2]}")
+                continue
+            e = float(np.max(np.abs(g[:2] - w[:2])) / max(w[1], 1e-30))
+            err = max(err, e)
+            if not e <= update_rtol:
+                fails.append(f"{kind} update {path}: digests {g} vs {w}")
+        worst[f"{kind}_updates"] = err
+    got, want = port["gan_stat_digests"], stored["gan_stat_digests"]
+    e = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+    worst["gan_stats"] = float(e.max())
+    fails += [f"batch_stats {p}: {a} vs {b}" for p, a, b, x in
+              zip(stored["gan_stat_paths"], got, want, e) if not x <= 1e-4]
+    return fails, worst
+
+
 def main():
     sys.path.insert(0, ROOT)
-    golden = make_golden(0)
-    np.savez_compressed(FIXTURE, **golden)
-    print(f"wrote {FIXTURE} ({os.path.getsize(FIXTURE)} bytes)")
+    for path, golden in ((FIXTURE, make_golden(0)), (TRAIN_FIXTURE, make_train_golden(0))):
+        np.savez_compressed(path, **golden)
+        print(f"wrote {path} ({os.path.getsize(path)} bytes)")
 
 
 if __name__ == "__main__":
