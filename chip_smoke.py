@@ -14,30 +14,48 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     b32; 32x128 and 64x256; f32 and bf16), K1/K2/K3 at the
                     training batches (64x256 b64 f32 and bf16, 32x128 b32
                     f32); K3 twice on the same inputs gives the same bits.
+                    K8 (InstanceNorm + activation forward) and K9 (its
+                    backward) at every InstanceNorm shape with each slope
+                    its layers use, at 64x256 b64 f32, 64x256 b32 f32 and
+                    bf16, and 32x128 b1; K9 twice gives the same bits.
   4. golden       — the serving forward on the card against the JAX
-                    package's outputs in tests/fixtures/torch_golden_da_16x64.npz.
+                    package's outputs in tests/fixtures/torch_golden_da_16x64.npz,
+                    unfused and with fused_instance_norm (the same function).
   5. train_golden — one GAN step and one sun step at 16x64 DA b2 on the
                     card from the seeded weights, fed the JAX-degraded inputs
                     of tests/fixtures/torch_golden_train_16x64.npz, against
-                    JAX's metrics and per-leaf update / BatchNorm digests.
+                    JAX's metrics and per-leaf update / BatchNorm digests;
+                    unfused, then fused.
   6. serving      — the inference CLI at 64x256 b32 (40 PNGs, 2 dispatches,
                     the second padded) and at 32x128 b1 (4 PNGs); every .hdr
                     read back finite; 20 K1 + 4 K2 launches per DA dispatch;
                     the plain-conv config launches none.
-  7. training     — the main path: `create_gan_state` + `make_gan_train_step`
-                    at DA 64x256 b64 f32 for 3 steps, then the sun-pretrain
-                    step at 64x256 b32 for 2; every metric finite, gen_total
-                    moving, launch counts per step asserted (GAN: 20 K1,
-                    24 K2, 20 K3; sun: 4 each). Then step times (CUDA events,
-                    1 warm-up, median of 5 further steps of the same state)
+  7. training     — the main paths: `make_gan_train_step` at DA 64x256 b64
+                    f32 for 3 steps, unfused and then with fused InstanceNorm
+                    (both states filled from one draw of the seeded weights),
+                    then the sun-pretrain step at 64x256 b32 for 2; every
+                    metric finite, gen_total moving, launch counts per step
+                    asserted (GAN: 20 K1, 24 K2, 20 K3, and fused 25 K8, 29
+                    K9; sun: 4 each). Then step times (CUDA events, 1
+                    warm-up, median of 5 further steps of the same state)
                     and peak device memory.
   8. timing       — CUDA events, warm-up, median of 20: serving forward
-                    ms/dispatch, and each kernel against its plain version at
+                    ms/dispatch (unfused and fused IN, in turns, the same
+                    weights), and each kernel against its plain version at
                     the 64x256 shapes (b32 serving, b64 training), with the
-                    per-dispatch and per-GAN-step totals and their bounds.
+                    per-dispatch and per-GAN-step totals and their bounds;
+                    K8/K9 also against the library's `F.instance_norm`
+                    (forward, and its autograd backward).
+  9. train_cli    — the training CLI (`skyhdr_torch.cli.train`) at DA
+                    32x128 b32 on a TFRecord dataset this phase writes (128
+                    train, 32 test synthetic skies): 2 epochs with a
+                    checkpoint each and TensorBoard scalars read back, a
+                    rerun to 3 epochs that resumes at epoch 2 and runs one,
+                    and in a fresh work directory a SUN checkpoint from
+                    `TrainLoop("SUN", ...)` handed to a fresh SKY run.
 The line before the last is the nvidia-smi line, the one before it the
 kernels' JSON summary; the last line is the run's JSON result. Details go to
-chiprun_out/chip_smoke.json. The train golden's comparison lives in
+chiprun_out/chip_smoke.json, the phases' lines to chiprun_out/chip_smoke.log. The train golden's comparison lives in
 tools/make_torch_golden.py (loaded by path; it imports JAX only inside the
 functions that compute the JAX side, which this script does not call).
 """
@@ -48,6 +66,7 @@ import json
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -59,7 +78,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ITERS, WARMUP = 20, 3
 STEP_ITERS = 5
-PHASES = ("kernels", "golden", "train_golden", "serving", "training", "timing")
+PHASES = ("kernels", "golden", "train_golden", "serving", "training", "timing",
+          "train_cli")
 # (name, x shape at 32x128 [h, w, c], F, layers of that shape, in the
 # sun-pose net: Grad-CAM's pull differentiates through it)
 DA_LAYERS = [
@@ -78,13 +98,45 @@ N_SUN = sum(n for *_, n, sun in DA_LAYERS if sun)      # 4
 # once per layer, K2 and K3 once per layer in the outer backward, and K2
 # again in the pull (which asks only for activations' gradients, so it runs
 # no K3). Sun step: the sun-pose layers once each; its CAMs feed nothing.
-SERVING_LAUNCHES = {"K1": N_DA, "K2": N_SUN}
-GAN_LAUNCHES = {"K1": N_DA, "K2": N_DA + N_SUN, "K3": N_DA}
-SUN_LAUNCHES = {"K1": N_SUN, "K2": N_SUN, "K3": N_SUN}
+SERVING_LAUNCHES = {"K1": N_DA, "K2": N_SUN, "K3": 0, "K8": 0, "K9": 0}
+GAN_LAUNCHES = {"K1": N_DA, "K2": N_DA + N_SUN, "K3": N_DA, "K8": 0, "K9": 0}
+SUN_LAUNCHES = {"K1": N_SUN, "K2": N_SUN, "K3": N_SUN, "K8": 0, "K9": 0}
+# InstanceNorm layers: (name, x shape at 32x128 [h, w, c], slope, layers,
+# where in the sun-pose net: "sun" or "pull" when Grad-CAM's pull
+# differentiates through them, None in the generator).
+IN_LAYERS = [
+    ("norm1_d/norm2_f/norm2_u", (32, 128, 32), 0.1, 3, None),
+    ("sunlayer1.norm1/norm2", (32, 128, 32), 0.0, 2, "sun"),
+    ("norm2_d/norm3_f/norm3_u", (16, 64, 64), 0.1, 3, None),
+    ("sunlayer2.norm1/norm2", (16, 64, 64), 0.0, 2, "pull"),
+    ("norm3_d/res0-5.norm1", (8, 32, 128), 0.1, 7, None),
+    ("res0-5.norm2", (8, 32, 128), 1.0, 6, None),
+    ("sunlayer3.norm1/norm2", (8, 32, 128), 0.0, 2, "pull"),
+]
+N_IN = sum(n for *_, n, _ in IN_LAYERS)                       # 25
+N_IN_SUN = sum(n for *_, n, where in IN_LAYERS if where)      # 6
+N_IN_PULL = sum(n for *_, n, where in IN_LAYERS if where == "pull")  # 4
+# With fused_instance_norm: K8 once per layer; K9 once per layer in the
+# outer backward and again in the pull (sunlayer2/3, 4 layers).
+FUSED_IN = {"serving": {"K8": N_IN, "K9": N_IN_PULL},
+            "gan": {"K8": N_IN, "K9": N_IN + N_IN_PULL},
+            "sun": {"K8": N_IN_SUN, "K9": N_IN_SUN}}
+
+
+def fused(launches, path):
+    return dict(launches, **FUSED_IN[path])
+
 TOL = {("K1", torch.float32): 1e-4, ("K2", torch.float32): 5e-4,
        ("K3", torch.float32): 1e-4,
        ("K1", torch.bfloat16): 2e-2, ("K2", torch.bfloat16): 2e-2,
-       ("K3", torch.bfloat16): 1e-4}  # K3 reads bf16 x as f32, as its plain version
+       ("K3", torch.bfloat16): 1e-4,  # K3 reads bf16 x as f32, as its plain version
+       # K8/K9: the same formula summed in another order (f32); bf16 output
+       # rounding (one bf16 ulp is 2^-8 of the value).
+       ("K8", torch.float32): 1e-5, ("K9", torch.float32): 1e-5,
+       ("K8", torch.bfloat16): 2e-2, ("K9", torch.bfloat16): 2e-2}
+# (res scale, batch, dtype) of the K8/K9 checks
+IN_KERNEL_CASES = [(2, 64, torch.float32), (2, 32, torch.float32),
+                   (2, 32, torch.bfloat16), (1, 1, torch.float32)]
 # (res scale, batch, dtype, kernels checked)
 KERNEL_CASES = [(1, 1, torch.float32, "K1 K2"), (1, 1, torch.bfloat16, "K1 K2"),
                 (1, 32, torch.float32, "K1 K2 K3"), (1, 32, torch.bfloat16, "K1 K2"),
@@ -107,8 +159,13 @@ def check(cond, msg):
         raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
+LOG = []  # every line `say` prints, written to chiprun_out/chip_smoke.log
+
+
 def say(phase, msg):
-    print(f"[{phase}] {msg}", flush=True)
+    line = f"[{phase}] {msg}"
+    LOG.append(line)
+    print(line, flush=True)
 
 
 def nvidia_smi_line():
@@ -179,12 +236,61 @@ def bound(kernel, b, hwc, f, x_bytes=4):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def in_bound(kernel, b, hwc, x_bytes=4):
+    """(ms, "bytes" or "operations") of one K8 / K9 call on the published
+    peaks. Bytes: K8 reads x and writes y (x's type), plus gamma, beta
+    (f32 [c]) and writes mean, rstd (f32 [b, c]); K9 reads x, dy, gamma,
+    beta, mean, rstd and writes dx, dgamma, dbeta. Operations: 10 per
+    element for K8 (moments 5, normalise 4, slope 1), 16 for K9."""
+    h, w, c = hwc
+    n = b * h * w * c
+    if kernel == "K8":
+        nbytes, ops = 2 * n * x_bytes + 2 * c * 4 + 2 * b * c * 4, 10.0 * n
+    else:
+        nbytes, ops = 3 * n * x_bytes + 4 * c * 4 + 2 * b * c * 4, 16.0 * n
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def in_shapes():
+    """[(x shape at 32x128, [slopes its layers use])], in IN_LAYERS order."""
+    out = {}
+    for _, shape, alpha, _, _ in IN_LAYERS:
+        if alpha not in out.setdefault(shape, []):
+            out[shape].append(alpha)
+    return list(out.items())
+
+
+def in_calls(shape, alpha, path):
+    """K8 and K9 calls at one (shape, slope) per serving dispatch or per
+    GAN step."""
+    n = sum(k for _, sh, a, k, _ in IN_LAYERS if (sh, a) == (shape, alpha))
+    pull = sum(k for _, sh, a, k, where in IN_LAYERS
+               if (sh, a) == (shape, alpha) and where == "pull")
+    return n, pull + (n if path == "gan" else 0)
+
+
+def in_operands(hwc, b, dtype, gen):
+    h, w, c = hwc
+    x = (torch.randn(b, h, w, c, device="cuda", generator=gen) * 2 + 0.3).to(dtype)
+    gamma = torch.rand(c, device="cuda", generator=gen) + 0.5
+    beta = torch.randn(c, device="cuda", generator=gen) * 0.1
+    dy = torch.randn(b, h, w, c, device="cuda", generator=gen).to(dtype)
+    return x, gamma, beta, dy
+
+
 def counts(dc):
-    return {"K1": dc.K1_LAUNCHES, "K2": dc.K2_LAUNCHES, "K3": dc.K3_LAUNCHES}
+    from skyhdr_torch.ops.kernels import instnorm as tin
+
+    return {"K1": dc.K1_LAUNCHES, "K2": dc.K2_LAUNCHES, "K3": dc.K3_LAUNCHES,
+            "K8": tin.K8_LAUNCHES, "K9": tin.K9_LAUNCHES}
 
 
 def reset_counts(dc):
+    from skyhdr_torch.ops.kernels import instnorm as tin
+
     dc.K1_LAUNCHES = dc.K2_LAUNCHES = dc.K3_LAUNCHES = 0
+    tin.K8_LAUNCHES = tin.K9_LAUNCHES = 0
 
 
 def free_cuda():
@@ -193,6 +299,8 @@ def free_cuda():
 
 
 def phase_kernels(dc, report):
+    from skyhdr_torch.ops.kernels import instnorm as tin
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {}
     for s, b, dtype, which in KERNEL_CASES:
@@ -229,6 +337,40 @@ def phase_kernels(dc, report):
                 worst[key] = max(worst.get(key, 0.0), ab)
             del x, k, bias, g, got, dx
         free_cuda()
+    for s, b, dtype in IN_KERNEL_CASES:
+        res = "32x128" if s == 1 else "64x256"
+        tag = f"{res} b{b} {str(dtype)[6:]}"
+        for shape, alphas in in_shapes():
+            hwc = scaled(shape, s)
+            x, gamma, beta, dy = in_operands(hwc, b, dtype, gen)
+            for alpha in alphas:
+                y, mean, rstd = tin.instance_norm_act_k8(x, gamma, beta, alpha=alpha)
+                grads = tin.instance_norm_act_bwd_k9(x, dy, gamma, beta, mean, rstd,
+                                                     alpha=alpha)
+                again = tin.instance_norm_act_bwd_k9(x, dy, gamma, beta, mean, rstd,
+                                                     alpha=alpha)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+                y_ref, mean_ref, rstd_ref = tin.instance_norm_act_ref(x, gamma, beta,
+                                                                      alpha=alpha)
+                want = tin.instance_norm_act_bwd_ref(x, dy, gamma, beta, mean, rstd,
+                                                     alpha=alpha)
+                e8 = [rel_err(a, b_) for a, b_ in ((y, y_ref), (mean, mean_ref),
+                                                   (rstd, rstd_ref))]
+                e9 = [rel_err(a, b_) for a, b_ in zip(grads, want)]
+                for kern, what, ok, errs in (
+                        ("K8", "y, mean, rstd", y.dtype == dtype, e8),
+                        ("K9", f"dx, dgamma, dbeta (bitwise repeatable: {same})", same, e9)):
+                    rel, ab = max(e[0] for e in errs), errs[0][1]
+                    tol = TOL[kern, dtype]
+                    say("kernels", f"{kern} {tag} x{[b, *hwc]} alpha={alpha} {what}: max rel "
+                        f"err {rel:.3e} (max abs {ab:.3e}, tol {tol})")
+                    check(ok and rel <= tol, f"{kern} {hwc} alpha={alpha} {tag}")
+                    key = (kern, res, b, str(dtype))
+                    worst[key] = max(worst.get(key, 0.0), ab)
+                del y, mean, rstd, grads, again, y_ref, mean_ref, rstd_ref, want
+            del x, gamma, beta, dy
+            free_cuda()
     report["max_abs_err"] = {"/".join(map(str, k)): v for k, v in worst.items()}
     return worst
 
@@ -244,7 +386,7 @@ def build_port(cfg, seed, device="cuda"):
     return gen, sun, (gv, sv)
 
 
-def phase_golden(report):
+def phase_golden(dc, report):
     from skyhdr_torch.config import Config, DataConfig, ModelConfig
     from skyhdr_torch.train.engine import make_inference_fn
     from skyhdr_torch.utils.transplant import tree_digest
@@ -252,28 +394,34 @@ def phase_golden(report):
     stored = np.load(os.path.join(ROOT, "tests", "fixtures",
                                   "torch_golden_da_16x64.npz"))
     x = stored["input"]
-    cfg = Config(model=ModelConfig(im_height=x.shape[1], im_width=x.shape[2],
-                                   use_da_conv=True),
-                 data=DataConfig(batch_size=x.shape[0]))
-    gen, sun, (gv, sv) = build_port(cfg, int(stored["seed"]))
-    digest = tree_digest({"gen": gv, "sun": sv})
-    # Summation order may differ across numpy builds: compare to 1e-9.
-    check(abs(digest - float(stored["weights_digest"])) <= 1e-9 * digest,
-          f"seeded weights differ from the fixture's ({digest} vs "
-          f"{float(stored['weights_digest'])}): the numpy stream changed")
-    out = make_inference_fn(cfg)(gen, sun, torch.from_numpy(x).cuda())
-    got = out["y_final_lin"].cpu().numpy()
-    want = stored["y_final_lin"]
-    ok = np.allclose(got, want, rtol=1e-3, atol=1e-3)
-    bins_got = out["sunpose_pred"].cpu().numpy().reshape(len(x), -1).argmax(-1)
-    bins_want = stored["sunpose_pred"].reshape(len(x), -1).argmax(-1)
-    err = float(np.abs(got - want).max())
-    say("golden", f"16x64 DA b{len(x)} vs JAX: y_final_lin max abs err {err:.3e} "
-        f"(rtol 1e-3, atol 1e-3: {'ok' if ok else 'FAIL'}); argmax bins "
-        f"{bins_got.tolist()} vs {bins_want.tolist()}")
-    check(ok, "golden y_final_lin")
-    check(np.array_equal(bins_got, bins_want), "golden argmax bins")
-    report["golden_max_abs_err"] = err
+    for fuse in (False, True):
+        cfg = Config(model=ModelConfig(im_height=x.shape[1], im_width=x.shape[2],
+                                       use_da_conv=True, fused_instance_norm=fuse),
+                     data=DataConfig(batch_size=x.shape[0]))
+        gen, sun, (gv, sv) = build_port(cfg, int(stored["seed"]))
+        digest = tree_digest({"gen": gv, "sun": sv})
+        # Summation order may differ across numpy builds: compare to 1e-9.
+        check(abs(digest - float(stored["weights_digest"])) <= 1e-9 * digest,
+              f"seeded weights differ from the fixture's ({digest} vs "
+              f"{float(stored['weights_digest'])}): the numpy stream changed")
+        reset_counts(dc)
+        out = make_inference_fn(cfg)(gen, sun, torch.from_numpy(x).cuda())
+        launched = counts(dc)
+        want_launches = fused(SERVING_LAUNCHES, "serving") if fuse else SERVING_LAUNCHES
+        got = out["y_final_lin"].cpu().numpy()
+        want = stored["y_final_lin"]
+        ok = np.allclose(got, want, rtol=1e-3, atol=1e-3)
+        bins_got = out["sunpose_pred"].cpu().numpy().reshape(len(x), -1).argmax(-1)
+        bins_want = stored["sunpose_pred"].reshape(len(x), -1).argmax(-1)
+        err = float(np.abs(got - want).max())
+        name = "fused IN" if fuse else "unfused IN"
+        say("golden", f"16x64 DA b{len(x)} {name} vs JAX: y_final_lin max abs err {err:.3e} "
+            f"(rtol 1e-3, atol 1e-3: {'ok' if ok else 'FAIL'}); argmax bins "
+            f"{bins_got.tolist()} vs {bins_want.tolist()}; launches {launched}")
+        check(ok, f"golden y_final_lin ({name})")
+        check(np.array_equal(bins_got, bins_want), f"golden argmax bins ({name})")
+        check(launched == want_launches, f"golden launches {launched}, want {want_launches}")
+        report["golden_fused_max_abs_err" if fuse else "golden_max_abs_err"] = err
 
 
 def golden_tool():
@@ -294,24 +442,29 @@ def phase_train_golden(dc, report):
     check(abs(digest - float(stored["weights_digest"])) <= 1e-9 * digest,
           f"seeded GAN weights differ from the fixture's ({digest} vs "
           f"{float(stored['weights_digest'])})")
-    before = counts(dc)
-    port = mod.port_train_golden(stored, "cuda")
-    launched = {k: v - before[k] for k, v in counts(dc).items()}
-    fails, worst = mod.compare_train_golden(stored, port, GOLDEN_METRIC_RTOL,
-                                            GOLDEN_UPDATE_RTOL)
-    for kind in ("gan", "sun"):
-        for name, a, b in zip(stored[f"{kind}_metric_names"], port[f"{kind}_metrics"],
-                              stored[f"{kind}_metrics"]):
-            say("train_golden", f"{kind} {name}: card {a:.7g}, JAX {b:.7g}")
-    say("train_golden", f"16x64 DA b2 GAN step + sun step vs JAX: worst relative "
-        f"{json.dumps(worst)} (metrics rtol {GOLDEN_METRIC_RTOL}, updates "
-        f"{GOLDEN_UPDATE_RTOL} of sum |update|, BN sums 1e-4); launches {launched}")
-    for line in fails:
-        say("train_golden", f"FAIL {line}")
-    check(not fails, f"train golden: {len(fails)} mismatches")
-    check(all(launched[k] == GAN_LAUNCHES[k] + SUN_LAUNCHES[k] for k in launched),
-          f"train golden launches {launched}")
-    report["train_golden_worst"] = worst
+    for fuse in (False, True):
+        name = "fused IN" if fuse else "unfused IN"
+        reset_counts(dc)
+        port = mod.port_train_golden(stored, "cuda", fused_instance_norm=fuse)
+        launched = counts(dc)
+        gan, sun = GAN_LAUNCHES, SUN_LAUNCHES
+        if fuse:
+            gan, sun = fused(gan, "gan"), fused(sun, "sun")
+        want = {k: gan[k] + sun[k] for k in gan}
+        fails, worst = mod.compare_train_golden(stored, port, GOLDEN_METRIC_RTOL,
+                                                GOLDEN_UPDATE_RTOL)
+        for kind in ("gan", "sun"):
+            for metric, a, b in zip(stored[f"{kind}_metric_names"], port[f"{kind}_metrics"],
+                                    stored[f"{kind}_metrics"]):
+                say("train_golden", f"{name} {kind} {metric}: card {a:.7g}, JAX {b:.7g}")
+        say("train_golden", f"16x64 DA b2 GAN step + sun step, {name}, vs JAX: worst "
+            f"relative {json.dumps(worst)} (metrics rtol {GOLDEN_METRIC_RTOL}, updates "
+            f"{GOLDEN_UPDATE_RTOL} of sum |update|, BN sums 1e-4); launches {launched}")
+        for line in fails:
+            say("train_golden", f"FAIL {line}")
+        check(not fails, f"train golden ({name}): {len(fails)} mismatches")
+        check(launched == want, f"train golden ({name}) launches {launched}, want {want}")
+        report["train_golden_fused_worst" if fuse else "train_golden_worst"] = worst
 
 
 def write_pngs(folder, n, h, w, seed):
@@ -417,29 +570,44 @@ def phase_training(dc, smi, report):
     from skyhdr_torch.config import Config, DataConfig, ModelConfig
     from skyhdr_torch.data.degradation import make_banks
     from skyhdr_torch.models.vgg16 import random_vgg16_weights
-    from skyhdr_torch.train.engine import (create_gan_state, create_sun_state,
+    from skyhdr_torch.train.engine import (create_sun_state, empty_gan_state,
                                            make_gan_train_step, make_sun_train_step)
     from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
+    from skyhdr_torch.utils.transplant import init_gan_vars, load_model_vars
 
     h, w = 64, 256
     banks = make_banks(make_synthetic_dorf(175, 1024), get_exposure_lists()[0], device="cuda")
+
+    def cfg_of(b, fuse=False):
+        return Config(model=ModelConfig(im_height=h, im_width=w, use_da_conv=True,
+                                        fused_instance_norm=fuse),
+                      data=DataConfig(batch_size=b))
+
+    t0 = time.perf_counter()
+    trees = init_gan_vars(cfg_of(64), 0)
+    say("training", f"GAN DA {h}x{w}: seeded weights drawn on the host in "
+        f"{time.perf_counter() - t0:.3f} s (one draw for the unfused and the fused state)")
     out = {}
-    for kind, b, nsteps in (("gan", 64, 3), ("sun", 32, 2)):
-        cfg = Config(model=ModelConfig(im_height=h, im_width=w, use_da_conv=True),
-                     data=DataConfig(batch_size=b))
-        tag = f"{kind} DA {h}x{w} b{b}"
+    for kind, b, nsteps in (("gan", 64, 3), ("gan_fused", 64, 3), ("sun", 32, 2)):
+        tag = {"gan": f"GAN DA {h}x{w} b{b}", "gan_fused": f"GAN DA {h}x{w} b{b} fused IN",
+               "sun": f"sun DA {h}x{w} b{b}"}[kind]
         t0 = time.perf_counter()
-        if kind == "gan":
-            state = create_gan_state(cfg, 0, "cuda")
+        if kind.startswith("gan"):
+            cfg = cfg_of(b, fuse=kind == "gan_fused")
+            state = empty_gan_state(cfg, "cuda")
+            for module, tree in zip((state.gen, state.sun, state.disc), trees):
+                load_model_vars(module, tree)
             step = make_gan_train_step(cfg, banks, random_vgg16_weights())
-            want, moving = GAN_LAUNCHES, "gen_total"
+            want = fused(GAN_LAUNCHES, "gan") if kind == "gan_fused" else GAN_LAUNCHES
+            moving = "gen_total"
         else:
+            del trees
+            cfg = cfg_of(b)
             state = create_sun_state(cfg, 0, "cuda")
             step = make_sun_train_step(cfg, banks)
             want, moving = SUN_LAUNCHES, "sun_total"
         torch.cuda.synchronize()
-        say("training", f"{tag}: state created in {time.perf_counter() - t0:.3f} s "
-            "(seeded weights drawn on the host and copied)")
+        say("training", f"{tag}: state built in {time.perf_counter() - t0:.3f} s")
         batches = train_batches(nsteps, b, h, w, seed=2000)
         state, history, launched = run_steps(dc, step, state, batches, want, tag, moving)
         torch.cuda.reset_peak_memory_stats()
@@ -454,26 +622,44 @@ def phase_training(dc, smi, report):
                      "step_ms": ms, "step_ms_all": times, "peak_bytes": peak}
         del state, step, batches
         free_cuda()
+    u, f = out["gan"], out["gan_fused"]
+    say("training", f"GAN DA {h}x{w} b64 fused vs unfused IN: step {f['step_ms']:.4f} vs "
+        f"{u['step_ms']:.4f} ms ({f['step_ms'] - u['step_ms']:+.4f} ms), peak "
+        f"{f['peak_bytes'] / 2**30:.3f} vs {u['peak_bytes'] / 2**30:.3f} GiB; on {smi}")
     report["training"] = out
-    return out["gan"]["launches"]
+    return out["gan"]["launches"], out["gan_fused"]["launches"]
 
 
 def phase_timing(dc, smi, report):
+    import dataclasses
+
     from skyhdr_torch.config import Config, ModelConfig
-    from skyhdr_torch.train.engine import make_inference_fn
+    from skyhdr_torch.train.engine import build_models, make_inference_fn
 
     fwd = {}
     for (h, w), batches in (((32, 128), (1, 32)), ((64, 256), (32,))):
         cfg = Config(model=ModelConfig(im_height=h, im_width=w, use_da_conv=True))
         gen, sun, _ = build_port(cfg, 0)
-        infer = make_inference_fn(cfg)
+        # The fused-IN models take the same weights (no second draw).
+        fcfg = cfg.replace(model=dataclasses.replace(cfg.model, fused_instance_norm=True))
+        fgen, fsun = build_models(fcfg, "cuda")
+        fgen.load_state_dict(gen.state_dict())
+        fsun.load_state_dict(sun.state_dict())
+        infer, finfer = make_inference_fn(cfg), make_inference_fn(fcfg)
         for b in batches:
             x = torch.rand(b, h, w, 3, device="cuda")
-            ms = statistics.median(time_ms(lambda: infer(gen, sun, x)))
+            # In turns: unfused, fused, fused, unfused.
+            u = time_ms(lambda: infer(gen, sun, x), ITERS // 2)
+            f = time_ms(lambda: finfer(fgen, fsun, x), ITERS // 2)
+            f += time_ms(lambda: finfer(fgen, fsun, x), ITERS // 2)
+            u += time_ms(lambda: infer(gen, sun, x), ITERS // 2)
+            ms, fms = statistics.median(u), statistics.median(f)
             fwd[f"{h}x{w}_b{b}"] = ms
-            say("timing", f"forward {h}x{w} DA b{b}: {ms:.4f} ms/dispatch "
-                f"(median of {ITERS}, CUDA events) on {smi}")
-        del gen, sun
+            fwd[f"{h}x{w}_b{b}_fused_in"] = fms
+            say("timing", f"forward {h}x{w} DA b{b}: {ms:.4f} ms/dispatch, fused IN "
+                f"{fms:.4f} ms/dispatch (median of {ITERS} each, CUDA events, in turns) "
+                f"on {smi}")
+        del gen, sun, fgen, fsun
         free_cuda()
     report["forward_ms"] = fwd
 
@@ -518,7 +704,249 @@ def phase_timing(dc, smi, report):
             say("timing", f"{kern} per {'64x256 b32 dispatch' if path == 'serving' else '64x256 b64 GAN step'}: "
                 f"kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, bound {t[2]:.4f} ms")
     report["kernel_totals"] = {f"{p}/{k}": t[:3] for (p, k), t in totals.items() if t[0]}
+
+    # K8/K9 per serving dispatch (64x256 b32) and per GAN step (64x256 b64):
+    # [kernel ms, plain ms, bound ms, flop-bound ms, byte-bound ms, library ms].
+    # The library yardstick: F.instance_norm on the NCHW view (the slope-1
+    # case; it has no activation), and its autograd backward.
+    import torch.nn.functional as F
+    from skyhdr_torch.ops.kernels import instnorm as tin
+
+    for p in ("serving", "gan"):
+        for k in ("K8", "K9"):
+            totals[p, k] = [0.0] * 6
+    in_rows = []
+    for path, b in (("serving", 32), ("gan", 64)):
+        for shape, alphas in in_shapes():
+            hwc = scaled(shape, 2)
+            x, gamma, beta, dy = in_operands(hwc, b, torch.float32, gen_)
+            xv, dyv = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+            lib8 = statistics.median(time_ms(
+                lambda: F.instance_norm(xv, weight=gamma, bias=beta, eps=1e-3)))
+            xr = xv.detach().requires_grad_()
+            gr, br = gamma.clone().requires_grad_(), beta.clone().requires_grad_()
+            yl = F.instance_norm(xr, weight=gr, bias=br, eps=1e-3)
+            lib9 = statistics.median(time_ms(
+                lambda: torch.autograd.grad(yl, (xr, gr, br), dyv, retain_graph=True)))
+            del xr, gr, br, yl
+            for alpha in alphas:
+                _, mean, rstd = tin.instance_norm_act_k8(x, gamma, beta, alpha=alpha)
+                n8, n9 = in_calls(shape, alpha, path)
+                runs = [("K8", n8, lib8,
+                         lambda: tin.instance_norm_act_k8(x, gamma, beta, alpha=alpha),
+                         lambda: tin.instance_norm_act_ref(x, gamma, beta, alpha=alpha))]
+                if n9:
+                    runs.append(("K9", n9, lib9,
+                                 lambda: tin.instance_norm_act_bwd_k9(
+                                     x, dy, gamma, beta, mean, rstd, alpha=alpha),
+                                 lambda: tin.instance_norm_act_bwd_ref(
+                                     x, dy, gamma, beta, mean, rstd, alpha=alpha)))
+                for kern, calls, lib, kfn, pfn in runs:
+                    ms, plain = paired_ms(kfn, pfn)
+                    bms, by = in_bound(kern, b, hwc)
+                    say("timing", f"{kern} 64x256 b{b} x{[b, *hwc]} alpha={alpha}: kernel "
+                        f"{ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, bound "
+                        f"{bms:.4f} ms ({by}; {100 * bms / ms:.1f}% of it), x{calls} per "
+                        f"{'dispatch' if path == 'serving' else 'GAN step'}; on {smi}")
+                    in_rows.append({"kernel": kern, "path": path, "batch": b,
+                                    "shape": [b, *hwc], "alpha": alpha, "ms": ms,
+                                    "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
+                                    "bound_by": by, "calls": calls})
+                    t = totals[path, kern]
+                    t[0] += calls * ms
+                    t[1] += calls * plain
+                    t[2] += calls * bms
+                    t[3 if by == "operations" else 4] += calls * bms
+                    t[5] += calls * lib
+                del mean, rstd
+            del x, gamma, beta, dy, xv, dyv
+            free_cuda()
+    report["in_kernel_ms"] = in_rows
+    for (path, kern), t in totals.items():
+        if kern in ("K8", "K9") and t[0]:
+            say("timing", f"{kern} per {'64x256 b32 dispatch' if path == 'serving' else '64x256 b64 GAN step'}: "
+                f"kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, bound {t[2]:.4f} ms, "
+                f"library {t[5]:.4f} ms")
+            report["kernel_totals"][f"{path}/{kern}"] = [t[0], t[1], t[2], t[5]]
     return totals
+
+
+def synth_panorama(rng, h, w):
+    """One HDR sky dome and its sun row, drawn as
+    `tools/make_synth_dataset.synth_panorama` draws them (that tool imports
+    the JAX package, so this script keeps its own copy)."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    zenith = rng.uniform(0.2, 0.7, size=3).astype(np.float32)
+    horizon = zenith * rng.uniform(1.2, 2.5, size=3).astype(np.float32)
+    g = (yy / (h - 1))[..., None]
+    sky = (1 - g) * zenith + g * horizon
+    cloud = np.zeros((h, w), np.float32)
+    for _ in range(rng.integers(2, 5)):
+        kx = rng.integers(1, 4)
+        ky = rng.uniform(0.5, 2.0)
+        phase = rng.uniform(0, 2 * np.pi)
+        amp = rng.uniform(0.05, 0.25)
+        cloud += amp * np.sin(2 * np.pi * kx * xx / w + phase) * np.cos(np.pi * ky * yy / h)
+    sky = sky * (1.0 + cloud[..., None]).clip(0.3, 2.0)
+    sun_y = float(rng.uniform(2.0, h - 3.0))
+    sun_x = w * 0.5 - 1.0
+    width = rng.uniform(1.0, 2.5)
+    intensity = rng.uniform(80.0, 600.0)
+    dx = np.minimum(np.abs(xx - sun_x), w - np.abs(xx - sun_x))
+    d2 = (yy - sun_y) ** 2 + dx ** 2
+    warm = np.array([1.0, 0.9, 0.75], np.float32)
+    sun = intensity * np.exp(-d2 / (2 * width ** 2))[..., None] * warm
+    glow = 0.15 * intensity * np.exp(-d2 / (2 * (4 * width) ** 2))[..., None]
+    img = sky + sun + glow
+    img += rng.normal(0, 0.01, size=img.shape).astype(np.float32)
+    return np.maximum(img, 1e-4).astype(np.float32), sun_y
+
+
+def write_dataset(root, h, w, counts, per_file=32, seed=0):
+    """<root>/<split>/NNNN.tfrecord with the port's writer, records in the
+    reference's format (BGR float32 image, azimuth, elevation)."""
+    from skyhdr_torch.data.records import write_tfrecord
+
+    rng = np.random.default_rng(seed)
+    for split, n in counts.items():
+        os.makedirs(os.path.join(root, split))
+        examples = []
+        for _ in range(n):
+            img, sun_y = synth_panorama(rng, h, w)
+            examples.append({"image": img[:, :, ::-1].tobytes(),
+                             "azimuth": float(w * 0.5 - 1.0), "elevation": sun_y})
+        for i in range(0, n, per_file):
+            write_tfrecord(os.path.join(root, split, f"{i // per_file:04d}.tfrecord"),
+                           examples[i:i + per_file])
+
+
+def read_scalars(logdir):
+    """{(tag, step): value} of the TensorBoard event file in `logdir`, read
+    with the port's record reader (CRCs checked)."""
+    from skyhdr_torch.data.records import _read_varint, iter_tfrecord
+
+    (name,) = os.listdir(logdir)
+    out = {}
+    for rec in iter_tfrecord(os.path.join(logdir, name), compression="", verify_crc=True):
+        pos, step, summary = 0, 0, None
+        while pos < len(rec):
+            key, pos = _read_varint(rec, pos)
+            field, wire = key >> 3, key & 7
+            if wire == 1:
+                pos += 8
+            elif wire == 0:
+                val, pos = _read_varint(rec, pos)
+                step = val if field == 2 else step
+            else:
+                ln, pos = _read_varint(rec, pos)
+                summary = rec[pos:pos + ln] if field == 5 else summary
+                pos += ln
+        if summary is not None:
+            p = _read_varint(summary, _read_varint(summary, 0)[1])[1]  # Summary.value
+            n, p = _read_varint(summary, _read_varint(summary, p)[1])  # Value.tag
+            tag = summary[p:p + n].decode()
+            out[tag, step] = struct.unpack("<f", summary[p + n + 1:p + n + 5])[0]
+    return out
+
+
+def phase_train_cli(dc, smi, report):
+    import contextlib
+    import io
+    import re
+
+    from skyhdr_torch.cli import train
+    from skyhdr_torch.config import Config, DataConfig, ModelConfig, TrainConfig
+    from skyhdr_torch.data.degradation import make_banks
+    from skyhdr_torch.data.pipeline import PanoramaDataset
+    from skyhdr_torch.train.checkpoints import CheckpointManager
+    from skyhdr_torch.train.engine import (create_sun_state, make_sun_eval_step,
+                                           make_sun_train_step)
+    from skyhdr_torch.train.loop import TrainLoop
+    from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
+
+    from skyhdr_torch.native import has_native
+
+    check(has_native(), "the C CRC32C helper did not build: the records would take the "
+          "pure-Python CRC")
+    h, w, b = 32, 128, 32
+    work = tempfile.mkdtemp(prefix="skyhdr_cli_")
+    ds = os.path.join(work, "dataset")
+    t0 = time.perf_counter()
+    write_dataset(ds, h, w, {"train": 4 * b, "test": b})
+    say("train_cli", f"wrote {4 * b} train + {b} test records at {h}x{w} in "
+        f"{time.perf_counter() - t0:.3f} s")
+    base = ["--dir", ds, "--imheight", str(h), "--imwidth", str(w), "--da-conv", "true",
+            "--batchsize", str(b), "--ckpt-every", "1", "--device", "cuda",
+            "--dorf", "", "--vgg", ""]
+    epoch_s = {}
+
+    def run(workdir, *extra):
+        buf = io.StringIO()
+        reset_counts(dc)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            train.main(base + ["--workdir", workdir, *extra])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        text = buf.getvalue()
+        for line in text.splitlines():
+            say("train_cli", f"| {line}")
+        epochs = [int(e) for e, _ in re.findall(r"^Epoch (\d+): .* elapsed=([\d.]+)s$",
+                                                 text, re.M)]
+        for e, secs_e in re.findall(r"^Epoch (\d+): .* elapsed=([\d.]+)s$", text, re.M):
+            epoch_s.setdefault(workdir, {})[int(e)] = float(secs_e)
+        launched = counts(dc)
+        say("train_cli", f"main({' '.join(extra)}): {secs:.3f} s wall (state, dataset "
+            f"and banks set-up included); epochs run {epochs}; launches {launched}")
+        check(launched["K1"] > 0 and launched["K3"] > 0, "the CLI ran no DA kernel")
+        return text, epochs
+
+    sky = os.path.join(work, "run")
+    _, epochs = run(sky, "--epochs", "2")
+    ckpt = CheckpointManager(os.path.join(sky, "checkpoints", "SKY"))
+    check(epochs == [1, 2] and ckpt.steps() == [1, 2],
+          f"2 epochs, 2 checkpoints: ran {epochs}, saved {ckpt.steps()}")
+    (tb_root,) = os.listdir(os.path.join(sky, "tensorboard", "SKY"))
+    for split in ("train", "val"):
+        got = read_scalars(os.path.join(sky, "tensorboard", "SKY", tb_root, split))
+        for tag in ("gen_total", "l1", "kl", "dog", "adv", "perceptual", "disc_total"):
+            vals = [got.get((tag, e)) for e in (1, 2)]
+            check(all(v is not None and math.isfinite(v) for v in vals),
+                  f"TensorBoard {split}/{tag} at epochs 1, 2: {vals}")
+        say("train_cli", f"TensorBoard {split}: {len(got)} scalars read back, gen_total "
+            f"{got['gen_total', 1]:.6g} -> {got['gen_total', 2]:.6g}")
+    text, epochs = run(sky, "--epochs", "3")
+    check("Latest SKY checkpoint restored (epoch 2)" in text and epochs == [3]
+          and ckpt.steps() == [1, 2, 3], f"resume: ran {epochs}, saved {ckpt.steps()}")
+
+    # The SUN -> SKY hand-off: a SUN pretrain epoch from other weights, then
+    # a fresh SKY run at lr 0, so that its checkpoint shows the weights it
+    # started from.
+    handoff = os.path.join(work, "handoff")
+    cfg = Config(model=ModelConfig(im_height=h, im_width=w, use_da_conv=True),
+                 data=DataConfig(batch_size=b), train=TrainConfig(ckpt_every_epochs=1))
+    crf = make_synthetic_dorf(201, 1024)
+    exposures = get_exposure_lists()
+    kw = dict(imshape=(h, w, 3), batch_size=b)
+    TrainLoop(cfg, "SUN", lambda: create_sun_state(cfg, 7, "cuda"),
+              make_sun_train_step(cfg, make_banks(crf[:175], exposures[0], device="cuda")),
+              make_sun_eval_step(cfg, make_banks(crf[175:], exposures[1], device="cuda")),
+              PanoramaDataset(os.path.join(ds, "train"), **kw),
+              PanoramaDataset(os.path.join(ds, "test"), shuffle=False, **kw),
+              workdir=handoff, log=lambda line: say("train_cli", f"| {line}"),
+              device="cuda").run(epochs=1)
+    text, _ = run(handoff, "--epochs", "1", "--lr", "0")
+    sun_ckpt = CheckpointManager(os.path.join(handoff, "checkpoints", "SUN")).read_latest()
+    sky_ckpt = CheckpointManager(os.path.join(handoff, "checkpoints", "SKY")).read_latest()
+    want, got = sun_ckpt["modules"]["sun"], sky_ckpt["modules"]["sun"]
+    same = sorted(want) == sorted(got) and all(torch.equal(got[k], v) for k, v in want.items())
+    say("train_cli", f"SUN hand-off: {len(want)} sun-pose tensors of the SKY checkpoint "
+        f"equal to the SUN checkpoint's: {same}")
+    check("Pretrained SUN checkpoint restored for fine-tuning" in text and same,
+          "SUN hand-off")
+    report["train_cli"] = {"epoch_s": epoch_s[sky], "device": smi}
+    say("train_cli", f"epoch seconds at DA {h}x{w} b{b} (4 train steps + 1 eval batch, "
+        f"checkpoint save included): {epoch_s[sky]}; on {smi}")
 
 
 def main(argv=None):
@@ -564,41 +992,53 @@ def main(argv=None):
         return r
 
     worst = timed("kernels", phase_kernels, dc, report)
-    timed("golden", phase_golden, report)
+    timed("golden", phase_golden, dc, report)
     timed("train_golden", phase_train_golden, dc, report)
     timed("serving", phase_serving, dc, report)
     launches = timed("training", phase_training, dc, smi, report)
     totals = timed("timing", phase_timing, dc, smi, report)
+    timed("train_cli", phase_train_cli, dc, smi, report)
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     report["device"] = smi
     report["wall_s"] = time.perf_counter() - t_start
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.log"), "w") as f:
+        f.write("\n".join(LOG) + "\n")
     say("done", f"{report['wall_s']:.1f} s wall")
     if phases != set(PHASES):
         return 0  # a subset proves nothing of the whole: no result line
 
-    src = "skyhdr_torch/csrc/deform_conv.cu"
+    unfused_launches, fused_launches = launches
+    src = {"K1": "skyhdr_torch/csrc/deform_conv.cu", "K2": "skyhdr_torch/csrc/deform_conv.cu",
+           "K3": "skyhdr_torch/csrc/deform_conv.cu", "K8": "skyhdr_torch/csrc/instnorm.cu",
+           "K9": "skyhdr_torch/csrc/instnorm.cu"}
     replaces = {"K1": "skyhdr/ops/pallas/deform_conv.py:179",
                 "K2": "skyhdr/ops/pallas/deform_conv.py:469",
-                "K3": "skyhdr/ops/pallas/deform_conv.py:429"}
+                "K3": "skyhdr/ops/pallas/deform_conv.py:429",
+                "K8": "skyhdr/ops/pallas/instnorm.py:104",
+                "K9": "skyhdr/ops/pallas/instnorm.py:123"}
     names = {"K1": "K1 da_fwd_k3 (DA conv forward, k=3)",
              "K2": "K2 da_dx_k3 (DA conv input gradient, k=3)",
-             "K3": "K3 da_dk_k3 (DA conv weight gradient, k=3)"}
+             "K3": "K3 da_dk_k3 (DA conv weight gradient, k=3)",
+             "K8": "K8 in_fwd (InstanceNorm + activation forward)",
+             "K9": "K9 in_bwd (InstanceNorm + activation backward)"}
     kernels = []
-    for kern in ("K1", "K2", "K3"):
-        ms, plain, bms, t_ops, t_bytes = totals["gan", kern]
+    for kern in ("K1", "K2", "K3", "K8", "K9"):
+        ms, plain, bms, t_ops, t_bytes = totals["gan", kern][:5]
+        in_norm = kern in ("K8", "K9")
         kernels.append({
-            "name": names[kern], "route": "cuda", "source": src, "replaces": replaces[kern],
-            "launches": launches[kern],
+            "name": names[kern], "route": "cuda", "source": src[kern],
+            "replaces": replaces[kern],
+            "launches": (fused_launches if in_norm else unfused_launches)[kern],
             "max_abs_err": max(v for (k, res, _, dt), v in worst.items()
                                if k == kern and res == "64x256" and dt == "torch.float32"),
             "ms": ms, "plain_ms": plain, "bound_ms": bms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None,
+            "library_ms": totals["gan", kern][5] if in_norm else None,
             "per": "one GAN train step at DA 64x256 b64 f32 (launches: the 3 steps "
-                   "of the training phase)",
+                   "of the training phase" + (" with fused_instance_norm)" if in_norm else ")"),
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

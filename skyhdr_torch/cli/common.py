@@ -1,10 +1,13 @@
-"""Shared CLI plumbing (`skyhdr.cli.common`): the serving flags -> Config."""
+"""Shared CLI plumbing (`skyhdr.cli.common`): flags -> Config, datasets,
+degradation banks, VGG weights, str2bool."""
 
 from __future__ import annotations
 
 import argparse
+import glob
+import os
 
-from skyhdr_torch.config import Config, ModelConfig
+from skyhdr_torch.config import Config, DataConfig, ModelConfig, TrainConfig
 
 
 def str2bool(v) -> bool:
@@ -36,8 +39,121 @@ def add_model_flags(parser: argparse.ArgumentParser):
     return parser
 
 
+def add_common_flags(parser: argparse.ArgumentParser):
+    """The training CLIs' flags (`skyhdr.cli.common.add_common_flags`,
+    without the XLA runtime's `--compilation-cache` and
+    `--steps-per-dispatch` and the three storage-dtype knobs, which the
+    port does not have), plus `--device`."""
+    cwd = os.getcwd()
+    parser.add_argument("--dir", type=str, default=None,
+                        help="tfrecord dataset root (with train/ and test/)")
+    parser.add_argument("--lr", type=float, default=1e-4)
+    parser.add_argument("--batchsize", type=int, default=32)
+    parser.add_argument("--epochs", type=int, default=1000)
+    parser.add_argument("--imheight", type=int, default=32)
+    parser.add_argument("--imwidth", type=int, default=128)
+    parser.add_argument("--dorf", type=str,
+                        default=os.path.join(cwd, "dorfCurves.txt"))
+    parser.add_argument("--vgg", type=str,
+                        default=os.path.join(cwd, "vgg16.npy"))
+    parser.add_argument("--da-conv", type=str2bool, default=False,
+                        help="use the distortion-aware equirect conv")
+    parser.add_argument("--compute-dtype", type=str, default="float32",
+                        choices=("float32", "bfloat16"),
+                        help="conv-stack compute dtype (radiance head, "
+                             "softmax and norms stay f32)")
+    parser.add_argument("--streaming", type=str2bool, default=None,
+                        help="stream TFRecords with a windowed shuffle "
+                             "buffer instead of caching the split in RAM "
+                             "(default: auto — stream when the decoded "
+                             "split would exceed ~2 GB)")
+    parser.add_argument("--shuffle-buffer", type=int, default=10000,
+                        help="streaming shuffle window (reference "
+                             "train.py:129)")
+    parser.add_argument("--workdir", type=str, default=cwd)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--ckpt-every", type=int, default=10,
+                        help="checkpoint save cadence in epochs "
+                             "(reference train.py:516)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device to run on")
+    return parser
+
+
 def config_from_args(args) -> Config:
-    return Config(model=ModelConfig(im_height=args.imheight,
-                                    im_width=args.imwidth,
-                                    use_da_conv=args.da_conv,
-                                    compute_dtype=args.compute_dtype))
+    """The Config of the serving flags (`add_model_flags`) or of the
+    training flags (`add_common_flags`)."""
+    model = ModelConfig(im_height=args.imheight, im_width=args.imwidth,
+                        use_da_conv=args.da_conv, compute_dtype=args.compute_dtype)
+    if not hasattr(args, "batchsize"):
+        return Config(model=model)
+    return Config(
+        model=model,
+        data=DataConfig(batch_size=args.batchsize,
+                        dataset_dir=args.dir or os.path.join(
+                            args.workdir,
+                            f"dataset_{args.imwidth}_{args.imheight}/tfrecord")),
+        train=TrainConfig(learning_rate=args.lr, epochs=args.epochs,
+                          vgg_path=args.vgg, ckpt_every_epochs=args.ckpt_every,
+                          seed=args.seed),
+    )
+
+
+_STREAM_THRESHOLD_BYTES = 2 << 30  # cache below ~2 GB decoded, stream above
+
+
+def make_dataset(args, cfg: Config, split_dir: str, *, shuffle: bool,
+                 seed: int = 0, log=print):
+    """The input dataset of one split: the in-RAM cached PanoramaDataset
+    for small splits, the constant-memory StreamingPanoramaDataset
+    (windowed shuffle buffer) when the decoded split would not fit
+    comfortably or when --streaming true is passed."""
+    from skyhdr_torch.data.pipeline import PanoramaDataset, StreamingPanoramaDataset
+
+    streaming = args.streaming
+    if streaming is None:
+        # Sized from the bytes on disk (~ decoded bytes / 2, gzip).
+        disk = sum(os.path.getsize(p) for p in
+                   glob.glob(os.path.join(split_dir, "*.tfrecord")))
+        streaming = disk * 2 > _STREAM_THRESHOLD_BYTES
+    if streaming:
+        log(f"[skyhdr_torch] streaming {split_dir} (shuffle buffer {args.shuffle_buffer})")
+        return StreamingPanoramaDataset(
+            split_dir, imshape=cfg.model.imshape,
+            batch_size=cfg.data.batch_size, shuffle=shuffle,
+            shuffle_buffer=args.shuffle_buffer, seed=seed)
+    return PanoramaDataset(split_dir, imshape=cfg.model.imshape,
+                           batch_size=cfg.data.batch_size, shuffle=shuffle,
+                           seed=seed)
+
+
+def load_banks(cfg: Config, dorf_path: str, train: bool = True, device="cuda",
+               log=print):
+    """DoRF curves + exposure sweep on `device`; the synthetic CRF family
+    when dorfCurves.txt is absent (it is gitignored in the reference too)."""
+    from skyhdr_torch.data.degradation import make_banks
+    from skyhdr_torch.utils.io import (get_exposure_lists, load_dorf_curves,
+                                       make_synthetic_dorf)
+
+    train_t, test_t = get_exposure_lists(cfg.data.n_train_exposures,
+                                         cfg.data.n_test_exposures)
+    if dorf_path and os.path.exists(dorf_path):
+        train_crf, test_crf = load_dorf_curves(dorf_path)
+    else:
+        log(f"[skyhdr_torch] {dorf_path!r} not found; using the synthetic CRF "
+            f"family (see skyhdr_torch.utils.io.make_synthetic_dorf)")
+        crf = make_synthetic_dorf(201, 1024)
+        train_crf, test_crf = crf[:175], crf[175:]
+    return make_banks(train_crf if train else test_crf,
+                      train_t if train else test_t, device=device)
+
+
+def load_vgg(path: str, log=print):
+    """The VGG16 weights of `path`, else the deterministic random stand-in."""
+    from skyhdr_torch.models.vgg16 import load_vgg16_npy, random_vgg16_weights
+
+    if path and os.path.exists(path):
+        return load_vgg16_npy(path)
+    log(f"[skyhdr_torch] {path!r} not found; using deterministic random frozen "
+        f"VGG features (perceptual loss still well-defined)")
+    return random_vgg16_weights()

@@ -5,9 +5,10 @@ defaults; `tests/test_torch_tables.py` holds the two equal). It is a copy and
 not an import because the port must run where the JAX package is absent:
 importing `skyhdr.config` pulls in the `skyhdr` package. The rationale of
 each knob is documented in `skyhdr/config.py`. Knobs that only steer the
-TPU build (`da_backend`, `fold_tiny_convs`, `fused_instance_norm`,
-`steps_per_dispatch`) are carried so one tree serves both packages; the
-port's inference path does not read them.
+TPU build (`da_backend`, `fold_tiny_convs`, `steps_per_dispatch`) are
+carried so one tree serves both packages; the port does not read them
+(`TrainLoop` accepts only `steps_per_dispatch=1`). `fused_instance_norm`
+is read: it routes every InstanceNorm through the fused K8/K9 op.
 """
 
 from __future__ import annotations

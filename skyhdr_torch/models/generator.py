@@ -39,9 +39,10 @@ class ResBlock(nn.Module):
     def __init__(self, cfg, features: int, kernel: int = 3, device=None):
         super().__init__()
         self.conv1 = _conv(cfg, features, features, kernel, device)
-        self.norm1 = InstanceNorm(features, device=device)
+        fuse = cfg.fused_instance_norm
+        self.norm1 = InstanceNorm(features, fuse=fuse, device=device)
         self.conv2 = _conv(cfg, features, features, kernel, device)
-        self.norm2 = InstanceNorm(features, device=device)
+        self.norm2 = InstanceNorm(features, fuse=fuse, device=device)
 
     def forward(self, x):
         y = self.norm1(self.conv1(x), act="lrelu01")
@@ -59,30 +60,31 @@ class Generator(nn.Module):
         d1, d2 = cfg.dec_filters
         c = cfg.channels
         dev = dict(device=device)
+        fuse = cfg.fused_instance_norm
 
         # Encoder. Its convs take no compute dtype, as in the JAX model.
         self.conv1_d = Conv2D(c, f1, 7, 1, **dev)
-        self.norm1_d = InstanceNorm(f1, **dev)
+        self.norm1_d = InstanceNorm(f1, fuse=fuse, **dev)
         self.conv2_d = Conv2D(f1, f2, 3, 2, **dev)
-        self.norm2_d = InstanceNorm(f2, **dev)
+        self.norm2_d = InstanceNorm(f2, fuse=fuse, **dev)
         self.conv3_d = Conv2D(f2, f3, 3, 2, **dev)
-        self.norm3_d = InstanceNorm(f3, **dev)
+        self.norm3_d = InstanceNorm(f3, fuse=fuse, **dev)
         self.num_res_blocks = cfg.num_res_blocks
         for i in range(cfg.num_res_blocks):
             self.add_module(f"res{i}", ResBlock(cfg, f3, cfg.da_kernel_size, **dev))
 
         # Sky decoder.
         self.conv3_f = _deconv(cfg, f3, d1, (h // 2, w // 2), **dev)
-        self.norm3_f = InstanceNorm(d1, **dev)
+        self.norm3_f = InstanceNorm(d1, fuse=fuse, **dev)
         self.conv2_f = _deconv(cfg, d1, d2, (h, w), **dev)
-        self.norm2_f = InstanceNorm(d2, **dev)
+        self.norm2_f = InstanceNorm(d2, fuse=fuse, **dev)
         self.conv1_f = Conv2D(d2, c, 7, 1, **dev)
 
         # Sun decoder.
         self.conv3_u = _deconv(cfg, f3, d1, (h // 2, w // 2), **dev)
-        self.norm3_u = InstanceNorm(d1, **dev)
+        self.norm3_u = InstanceNorm(d1, fuse=fuse, **dev)
         self.conv2_u = _deconv(cfg, d1, d2, (h, w), **dev)
-        self.norm2_u = InstanceNorm(d2, **dev)
+        self.norm2_u = InstanceNorm(d2, fuse=fuse, **dev)
         self.conv1_u = Conv2D(d2, c, 7, 1, **dev)
 
         # Sun-radiance head: LDR (c) + three CAMs.

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from skyhdr_torch.ops.kernels.instnorm import instance_norm_act
 from skyhdr_torch.ops.resize import resize_bilinear
 
 
@@ -66,14 +67,21 @@ class Conv2D(nn.Module):
         return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
+_ACT_ALPHA = {"none": 1.0, "relu": 0.0, "lrelu01": 0.1}
+
+
 class InstanceNorm(nn.Module):
     """Per-sample, per-channel normalisation over (H, W), biased variance,
     eps 1e-3, statistics in float32; output in x.dtype. `act` applies the
-    follower activation: 'relu', 'lrelu01' or 'none'."""
+    follower activation: 'relu', 'lrelu01' or 'none'. With `fuse`
+    (ModelConfig.fused_instance_norm) the normalisation and the activation
+    run as one op, `ops.kernels.instnorm.instance_norm_act` (K8 forward, K9
+    backward on the card); otherwise as the composition below."""
 
-    def __init__(self, features: int, epsilon: float = 1e-3, device=None):
+    def __init__(self, features: int, epsilon: float = 1e-3, fuse: bool = False,
+                 device=None):
         super().__init__()
-        self.epsilon = epsilon
+        self.epsilon, self.fuse = epsilon, fuse
         self.scale = _param(features, device=device)
         self.bias = _param(features, device=device)
 
@@ -82,6 +90,9 @@ class InstanceNorm(nn.Module):
                 ("params", "bias", self.bias, "same", "zeros")]
 
     def forward(self, x, act: str = "none"):
+        if self.fuse:
+            return instance_norm_act(x, self.scale, self.bias, eps=self.epsilon,
+                                     alpha=_ACT_ALPHA[act])
         xf = x.float()
         mean = xf.mean(dim=(1, 2), keepdim=True)
         var = xf.var(dim=(1, 2), keepdim=True, unbiased=False)

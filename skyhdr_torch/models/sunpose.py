@@ -31,9 +31,10 @@ class SunPoseLayer(nn.Module):
                           device=device)
 
         self.conv1 = conv(in_features)
-        self.norm1 = InstanceNorm(features, device=device)
+        fuse = cfg.fused_instance_norm
+        self.norm1 = InstanceNorm(features, fuse=fuse, device=device)
         self.conv2 = conv(features)
-        self.norm2 = InstanceNorm(features, device=device)
+        self.norm2 = InstanceNorm(features, fuse=fuse, device=device)
 
     def forward(self, x):
         x = self.norm1(self.conv1(x), act="relu")

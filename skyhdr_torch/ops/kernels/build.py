@@ -28,9 +28,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # name -> argtypes; every entry point returns an int (a cudaError_t, or
 # for skyhdr_da_dk_k3_splits a count).
 _SIGNATURES = {
+    # x, gamma, beta, ws, y, mean, rstd, B, HW, C, S, eps, alpha, is_bf16, device, stream
+    "skyhdr_in_fwd_k8": [_P] * 7 + [_I] * 4 + [_F, _F] + [_I] * 2 + [_P],
+    # x, dy, gamma, beta, mean, rstd, ws, part, m12, dgamma, dbeta, dx,
+    # B, HW, C, S, alpha, is_bf16, device, stream
+    "skyhdr_in_bwd_k9": [_P] * 12 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
     # x, kern, bias, y0, y1, cx, wy, wx, out, B, H, W, C, F, is_bf16, device, stream
     "skyhdr_da_fwd_k3": [_P] * 9 + [_I] * 7 + [_P],
     # g, kt, si, sw, sky, scx, swx, nslots, dx, B, H, W, C, F, device, stream

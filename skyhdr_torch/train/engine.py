@@ -10,14 +10,20 @@
       statistics chained through the real and then the generated forward.
   create_sun_state, make_sun_train_step    — the sun-pose pretrain step
       (KL + DoG, Adam).
+  make_gan_eval_step, make_sun_eval_step   — the test passes: the same
+      losses, no update, frozen BatchNorm statistics.
+  state_dict, load_state, replace_sun_params — checkpoints and the SUN ->
+      GAN hand-off of the sun-pose weights.
 
-A step is `step(state, batch, generator) -> (state, metrics)`: it draws
-the degradation from the `torch.Generator`, then runs its core
+A train step is `step(state, batch, generator) -> (state, metrics)`: it
+draws the degradation from the `torch.Generator`, then runs its core
 `step.train_on(state, hdr_t, ldr, sunpose_gt)`, which tests feed with the
 pair the JAX package degraded. The state is updated IN PLACE (parameters,
 optimizer moments, BatchNorm buffers) and returned; metrics are 0-d device
-tensors with the JAX package's names. Only float32 training is ported: the
-`opt_state_dtype` / `grad_dtype` / `param_dtype` knobs must be "float32".
+tensors with the JAX package's names. An eval step is `step(state, batch,
+generator) -> (metrics, outputs)` around its core `step.eval_on`. Only
+float32 training is ported: the `opt_state_dtype` / `grad_dtype` /
+`param_dtype` knobs must be "float32".
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ def _act_dtype(cfg):
     return torch.bfloat16 if cfg.model.compute_dtype == "bfloat16" else torch.float32
 
 
-def build_models(cfg, device="cpu"):
+def build_models(cfg, device="cuda"):
     """(Generator, SunPoseNet) for `cfg` (a Config) with empty weights on
     `device`, in eval mode and requiring no gradients (serving); fill them
     with `skyhdr_torch.utils.transplant.load_model_vars`."""
@@ -103,20 +109,39 @@ def make_inference_fn(cfg):
 class GanState:
     """Generator, sun-pose net and discriminator (parameters requiring
     gradients), `opt_gen` (RMSprop over generator then sun parameters),
-    `opt_disc` (RMSprop over the discriminator's) and the step count."""
+    `opt_disc` (RMSprop over the discriminator's), the step count and the
+    epoch count (set by `train.loop.TrainLoop`)."""
+
+    kind = "gan"
 
     def __init__(self, gen, sun, disc, opt_gen, opt_disc):
         self.gen, self.sun, self.disc = gen, sun, disc
         self.opt_gen, self.opt_disc = opt_gen, opt_disc
         self.step = 0
+        self.epoch = 0
+
+    def modules(self) -> dict:
+        return {"gen": self.gen, "sun": self.sun, "disc": self.disc}
+
+    def optimizers(self) -> dict:
+        return {"opt_gen": self.opt_gen, "opt_disc": self.opt_disc}
 
 
 class SunState:
-    """The sun-pose net, its Adam optimizer and the step count."""
+    """The sun-pose net, its Adam optimizer, the step and epoch counts."""
+
+    kind = "sun"
 
     def __init__(self, sun, opt):
         self.sun, self.opt = sun, opt
         self.step = 0
+        self.epoch = 0
+
+    def modules(self) -> dict:
+        return {"sun": self.sun}
+
+    def optimizers(self) -> dict:
+        return {"opt": self.opt}
 
 
 def _require_f32_training(cfg):
@@ -127,20 +152,36 @@ def _require_f32_training(cfg):
                 "training is ported")
 
 
+def empty_gan_state(cfg, device="cuda") -> GanState:
+    """A GAN state with its tensors allocated on `device` but not filled
+    (zero moments): for `create_gan_state` and a checkpoint restore."""
+    _require_f32_training(cfg)
+    gen, sun = build_models(cfg, device)
+    disc = Discriminator(cfg.model.channels, device=device)
+    for m in (gen, sun, disc):
+        m.requires_grad_(True)
+    lr = cfg.train.learning_rate
+    return GanState(gen, sun, disc,
+                    RMSprop([*gen.parameters(), *sun.parameters()], lr),
+                    RMSprop(disc.parameters(), lr))
+
+
+def empty_sun_state(cfg, device="cuda") -> SunState:
+    """A sun-pretrain state allocated on `device`, not filled."""
+    _require_f32_training(cfg)
+    sun = SunPoseNet(cfg.model, device=device).requires_grad_(True)
+    return SunState(sun, Adam(sun.parameters(), cfg.train.learning_rate))
+
+
 def create_gan_state(cfg, seed: int = 0, device="cuda") -> GanState:
     """The GAN state with the weights of `utils.transplant.init_gan_vars(cfg,
     seed)` on `device` and zero RMSprop moments."""
     from skyhdr_torch.utils.transplant import init_gan_vars, load_model_vars
 
-    _require_f32_training(cfg)
-    gen, sun = build_models(cfg, device)
-    disc = Discriminator(cfg.model.channels, device=device)
-    for module, tree in zip((gen, sun, disc), init_gan_vars(cfg, seed)):
-        load_model_vars(module, tree).requires_grad_(True)
-    lr = cfg.train.learning_rate
-    return GanState(gen, sun, disc,
-                    RMSprop([*gen.parameters(), *sun.parameters()], lr),
-                    RMSprop(disc.parameters(), lr))
+    state = empty_gan_state(cfg, device)
+    for module, tree in zip((state.gen, state.sun, state.disc), init_gan_vars(cfg, seed)):
+        load_model_vars(module, tree)
+    return state
 
 
 def create_sun_state(cfg, seed: int = 0, device="cuda") -> SunState:
@@ -148,10 +189,44 @@ def create_sun_state(cfg, seed: int = 0, device="cuda") -> SunState:
     `init_model_vars(cfg, seed)` on `device`, zero Adam moments."""
     from skyhdr_torch.utils.transplant import init_model_vars, load_model_vars
 
+    state = empty_sun_state(cfg, device)
+    load_model_vars(state.sun, init_model_vars(cfg, seed)[1])
+    return state
+
+
+def state_dict(state) -> dict:
+    """Everything a resume needs, as tensors on the state's device: the
+    modules' parameters and buffers, the optimizers' moments (and Adam's
+    count), the step and the epoch."""
+    return {"kind": state.kind, "step": state.step, "epoch": state.epoch,
+            "modules": {n: m.state_dict() for n, m in state.modules().items()},
+            "optimizers": {n: o.state() for n, o in state.optimizers().items()}}
+
+
+def load_state(blob: dict, cfg, device="cuda"):
+    """The state of a `state_dict` (read anywhere, e.g. to the host),
+    rebuilt on `device` without drawing seeded weights."""
+    make = {"gan": empty_gan_state, "sun": empty_sun_state}[blob["kind"]]
+    state = make(cfg, device)
+    with torch.no_grad():
+        for name, module in state.modules().items():
+            module.load_state_dict(blob["modules"][name])
+    for name, opt in state.optimizers().items():
+        opt.load_moments(blob["optimizers"][name])
+    state.step, state.epoch = int(blob["step"]), int(blob["epoch"])
+    return state
+
+
+@torch.no_grad()
+def replace_sun_params(cfg, state: GanState, sun_params: dict) -> GanState:
+    """SUN -> GAN weight hand-off (reference train.py:223-230): the
+    sun-pose net's parameters (a `SunPoseNet.state_dict()`, as a SUN
+    checkpoint holds it under modules/sun) copied into the GAN state. Its
+    RMSprop moments stay as they are. Only float32 parameters are ported,
+    so there is no master copy to refresh."""
     _require_f32_training(cfg)
-    sun = SunPoseNet(cfg.model, device=device)
-    load_model_vars(sun, init_model_vars(cfg, seed)[1]).requires_grad_(True)
-    return SunState(sun, Adam(sun.parameters(), cfg.train.learning_rate))
+    state.sun.load_state_dict(sun_params)
+    return state
 
 
 def _degrade(cfg, banks, generator, hdr):
@@ -162,17 +237,17 @@ def _degrade(cfg, banks, generator, hdr):
                          chroma_subsample=d.jpeg_chroma_subsample)
 
 
-def _with_degradation(cfg, banks, train_on):
+def _with_degradation(cfg, banks, core, name: str = "train_on"):
     """`step(state, batch, generator)`: the vMF ground truth from the
     batch's elevations, the degradation drawn from `generator`, then
-    `train_on` (kept as `step.train_on`)."""
+    `core` (kept as `step.train_on`, or as `step.<name>`)."""
 
     def step(state, batch, generator: torch.Generator):
         sunpose_gt = sunpose_gt_from_elevation(cfg.model, batch["elevation"])
         hdr_t, ldr = _degrade(cfg, banks, generator, batch["hdr"])
-        return train_on(state, hdr_t, ldr, sunpose_gt)
+        return core(state, hdr_t, ldr, sunpose_gt)
 
-    step.train_on = train_on
+    setattr(step, name, core)
     return step
 
 
@@ -192,9 +267,10 @@ def generator_forward(cfg, gen, sun, disc, ldr, hdr_t, sunpose_gt, vgg,
     sky_pred_lin = hdr_log_decompression(sky_pred_gamma, vdr)
 
     # One sun-pose forward serves the KL path and the CAMs; the CAMs carry
-    # no gradient, the outer loss reaches the net through `sm` only.
-    sm, (cam1, cam2, cam3) = sunpose_with_cams(sun, ldr, _act_dtype(cfg),
-                                               sunpose_gt, keep_graph=True)
+    # no gradient, the outer loss reaches the net through `sm` only (an eval
+    # step, under no_grad, keeps no graph).
+    sm, (cam1, cam2, cam3) = sunpose_with_cams(sun, ldr, _act_dtype(cfg), sunpose_gt,
+                                               keep_graph=torch.is_grad_enabled())
     sunpose_pred = sm.reshape(-1, m.im_height, m.im_width, 1)
 
     alpha = torch.amax(sky_pred_lin, dim=3)
@@ -265,6 +341,33 @@ def make_gan_train_step(cfg, banks, vgg_weights):
     return _with_degradation(cfg, banks, train_on)
 
 
+_GAN_OUTPUTS = ("y_final_lin", "sky_pred_lin", "sun_pred_lin", "alpha_c3",
+                "sunpose_pred", "sun_rad_lin")
+
+
+def make_gan_eval_step(cfg, banks, vgg_weights):
+    """The GAN test step (`skyhdr.train.engine.make_gan_eval_step`): the
+    generator losses and the discriminator's on the real and generated
+    pairs, every BatchNorm with its frozen statistics, no update. Returns
+    (metrics, outputs), the outputs named as in JAX."""
+    _require_f32_training(cfg)
+    vgg = vgg_constants(vgg_weights, banks.crfs.device)
+
+    @torch.no_grad()
+    def eval_on(state: GanState, hdr_t, ldr, sunpose_gt):
+        _, aux = generator_forward(cfg, state.gen, state.sun, state.disc, ldr, hdr_t,
+                                   sunpose_gt, vgg, train=False)
+        real = state.disc(ldr, hdr_t, train=False)
+        generated = state.disc(ldr, aux["y_final_lin"], train=False)
+        disc_total, real_l, gen_l = losses.lsgan_disc_loss(real, generated)
+        metrics = dict(aux["losses"], disc_total=disc_total, disc_real=real_l,
+                       disc_generated=gen_l, g_out=aux["gamma_max"],
+                       b_out=aux["beta_max"])
+        return metrics, {k: aux[k] for k in _GAN_OUTPUTS}
+
+    return _with_degradation(cfg, banks, eval_on, "eval_on")
+
+
 def make_sun_train_step(cfg, banks):
     """The sun-pretrain step for states from `create_sun_state`: KL + DoG of
     the sun-pose PDF against the vMF ground truth, one Adam update. Its
@@ -284,3 +387,22 @@ def make_sun_train_step(cfg, banks):
                        "dog": dog.detach()}
 
     return _with_degradation(cfg, banks, train_on)
+
+
+def make_sun_eval_step(cfg, banks):
+    """The sun-pretrain test step (`skyhdr.train.engine.make_sun_eval_step`):
+    KL + DoG, no update, and the Grad-CAM maps seeded at the ground truth's
+    bin. Returns ({"sun_total", "kl", "dog"}, {"pred", "gt", "cams"})."""
+    _require_f32_training(cfg)
+    h, w = cfg.model.im_height, cfg.model.im_width
+
+    @torch.no_grad()
+    def eval_on(state: SunState, hdr_t, ldr, sunpose_gt):
+        sm, cams = sunpose_with_cams(state.sun, ldr, _act_dtype(cfg), sunpose_gt)
+        pred_img, gt_img = sm.reshape(-1, h, w, 1), sunpose_gt.reshape(-1, h, w, 1)
+        kl = losses.kl_divergence(sunpose_gt, sm)
+        dog = dog_l1_loss(pred_img, gt_img)
+        return ({"sun_total": kl + dog, "kl": kl, "dog": dog},
+                {"pred": pred_img, "gt": gt_img, "cams": cams})
+
+    return _with_degradation(cfg, banks, eval_on, "eval_on")

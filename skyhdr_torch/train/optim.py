@@ -9,6 +9,8 @@
 
 Moments are float32 tensors beside each parameter; `step(grads)` updates
 the parameters in place under `no_grad`, in the order of `params`.
+`state()` lists the moments (and Adam's count) for a checkpoint, and
+`load_moments(state)` copies such a list back in.
 """
 
 from __future__ import annotations
@@ -37,6 +39,12 @@ class RMSprop:
         """{"nu": {param: moment}}, for export."""
         return {"nu": dict(zip(self.params, self.nu))}
 
+    def state(self) -> dict:
+        return {"nu": list(self.nu)}
+
+    def load_moments(self, state: dict) -> None:
+        _copy_into(self.nu, state["nu"], "nu")
+
 
 class Adam:
 
@@ -62,3 +70,21 @@ class Adam:
     def moments(self) -> dict:
         return {"mu": dict(zip(self.params, self.mu)),
                 "nu": dict(zip(self.params, self.nu))}
+
+    def state(self) -> dict:
+        return {"count": self.count, "mu": list(self.mu), "nu": list(self.nu)}
+
+    def load_moments(self, state: dict) -> None:
+        _copy_into(self.mu, state["mu"], "mu")
+        _copy_into(self.nu, state["nu"], "nu")
+        self.count = int(state["count"])
+
+
+@torch.no_grad()
+def _copy_into(dst: Sequence[torch.Tensor], src: Sequence[torch.Tensor], name: str):
+    if len(dst) != len(src):
+        raise ValueError(f"{name}: {len(src)} moments for {len(dst)} parameters")
+    for i, (d, s) in enumerate(zip(dst, src)):
+        if d.shape != s.shape:
+            raise ValueError(f"{name}[{i}]: shape {tuple(s.shape)} != {tuple(d.shape)}")
+        d.copy_(s)

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from skyhdr_torch.ops.kernels import deform_conv as dc
+from skyhdr_torch.ops.kernels import instnorm as tin
 
 pytestmark = pytest.mark.gpu
 
@@ -90,3 +91,60 @@ def test_unsupported_width_raises(cuda):
     x, k, b, _ = _operands(cuda, (1, 8, 32, 16), 6)
     with pytest.raises(RuntimeError, match="K1"):
         dc.da_conv_forward_k1(x, k, b)
+
+
+def _in_operands(cuda, shape, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    c = shape[-1]
+    x = (torch.randn(shape, device=cuda, generator=gen) * 2 + 0.3).to(dtype)
+    gamma = torch.rand(c, device=cuda, generator=gen) + 0.5
+    beta = torch.randn(c, device=cuda, generator=gen) * 0.1
+    dy = torch.sin(3 * torch.randn(shape, device=cuda, generator=gen)).to(dtype)
+    return x, gamma, beta, dy
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 64, 32), (3, 8, 32, 64), (2, 4, 16, 128),
+                                   (1, 3, 5, 7)])
+@pytest.mark.parametrize("alpha", [1.0, 0.0, 0.1])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_k8_k9_match_plain(cuda, shape, alpha, dtype, tol):
+    x, gamma, beta, dy = _in_operands(cuda, shape, dtype)
+    n8, n9 = tin.K8_LAUNCHES, tin.K9_LAUNCHES
+    y, mean, rstd = tin.instance_norm_act_k8(x, gamma, beta, alpha=alpha)
+    got = tin.instance_norm_act_bwd_k9(x, dy, gamma, beta, mean, rstd, alpha=alpha)
+    again = tin.instance_norm_act_bwd_k9(x, dy, gamma, beta, mean, rstd, alpha=alpha)
+    torch.cuda.synchronize()
+    assert (tin.K8_LAUNCHES, tin.K9_LAUNCHES) == (n8 + 1, n9 + 2)
+    y_ref, mean_ref, rstd_ref = tin.instance_norm_act_ref(x, gamma, beta, alpha=alpha)
+    assert y.dtype == dtype and _rel(y, y_ref) <= tol
+    assert _rel(mean, mean_ref) <= 1e-5 and _rel(rstd, rstd_ref) <= 1e-5
+    want = tin.instance_norm_act_bwd_ref(x, dy, gamma, beta, mean, rstd, alpha=alpha)
+    for name, a, b in zip(("dx", "dgamma", "dbeta"), got, want):
+        assert _rel(a, b) <= tol, name
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # fixed summation order
+
+
+def test_k8_variance_of_a_large_mean_channel(cuda):
+    """Chan's merge keeps the variance of a channel whose mean dwarfs its
+    spread, where E[x^2] - E[x]^2 in float32 would cancel."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = 1000.0 + torch.randn(2, 32, 128, 32, device=cuda, generator=gen) * 0.01
+    ones, zeros = torch.ones(32, device=cuda), torch.zeros(32, device=cuda)
+    _, _, rstd = tin.instance_norm_act_k8(x, ones, zeros)
+    _, _, rstd_ref = tin.instance_norm_act_ref(x, ones, zeros)  # two-pass
+    assert _rel(rstd, rstd_ref) <= 1e-3
+
+
+def test_in_function_on_cuda_takes_kernels(cuda):
+    x, gamma, beta, dy = _in_operands(cuda, (2, 8, 32, 64), torch.float32)
+    for t in (x, gamma, beta):
+        t.requires_grad_()
+    before = (tin.K8_LAUNCHES, tin.K9_LAUNCHES)
+    tin.instance_norm_act(x, gamma, beta, alpha=0.1).backward(dy)
+    torch.cuda.synchronize()
+    assert (tin.K8_LAUNCHES, tin.K9_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    _, mean, rstd = tin.instance_norm_act_ref(x.detach(), gamma.detach(), beta.detach())
+    want = tin.instance_norm_act_bwd_ref(x.detach(), dy, gamma.detach(), beta.detach(),
+                                         mean, rstd, alpha=0.1)
+    for a, b in zip((x.grad, gamma.grad, beta.grad), want):
+        assert _rel(a, b) <= 1e-5

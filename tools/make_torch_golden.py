@@ -194,10 +194,14 @@ def make_train_golden(seed: int = 0, full: bool = False) -> dict:
     return out
 
 
-def port_train_golden(stored, device) -> dict:
+def port_train_golden(stored, device, fused_instance_norm: bool = False) -> dict:
     """The port's GAN step and sun step from the same seeded weights on the
     stored JAX-degraded inputs, reduced to the fixture's metrics and
-    digests (keys as in `make_train_golden`, with the port's values)."""
+    digests (keys as in `make_train_golden`, with the port's values). With
+    `fused_instance_norm` the port runs that configuration (the same
+    function, so the same fixture holds)."""
+    import dataclasses
+
     import torch
 
     from skyhdr_torch.data.degradation import make_banks
@@ -208,6 +212,8 @@ def port_train_golden(stored, device) -> dict:
     from skyhdr_torch.utils.transplant import export_model_vars
 
     cfg = golden_config()
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, fused_instance_norm=fused_instance_norm))
     seed = int(stored["seed"])
     banks = make_banks(make_synthetic_dorf(175, 1024), get_exposure_lists()[0],
                        device=device)

@@ -2,11 +2,13 @@
 
     python tools/profile_torch_train.py --imheight 64 --imwidth 256 --batch 64 --step gan
     python tools/profile_torch_train.py --batch 32 --step sun
+    python tools/profile_torch_train.py --step gan --fused-in   # fused_instance_norm
 
 Builds the state from the seeded weights (`create_gan_state` /
 `create_sun_state`), warms up with two steps, then runs `--iters` steps
 under `torch.profiler` (CPU + CUDA activity) and prints the kernels by
-device time, grouped into the DA kernels (K1, K2, K3), cuDNN convolutions
+device time, grouped into the DA kernels (K1, K2, K3), the fused
+InstanceNorm kernels (K8, K9, with `--fused-in`), cuDNN convolutions
 (forward, data gradient, weight gradient, and cuDNN's FFT kernels, whose
 names do not say the direction), GEMMs, reductions and the rest,
 with the device busy share of the window (summed kernel time over the
@@ -32,7 +34,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def group_of(name: str) -> str:
     n = name.lower()
     for key, group in (("da_fwd_k3", "K1 DA forward"), ("da_dx_k3", "K2 DA input grad"),
-                       ("da_dk_", "K3 DA weight grad")):
+                       ("da_dk_", "K3 DA weight grad"), ("in_moments", "K8 IN forward"),
+                       ("in_stats", "K8 IN forward"), ("in_apply", "K8 IN forward"),
+                       ("in_bwd", "K9 IN backward")):
         if key in n:
             return group
     if "fft" in n or "pointwise_mult_and_sum_complex" in n:
@@ -68,6 +72,8 @@ def main(argv=None):
     p.add_argument("--batch", type=int, default=64)
     p.add_argument("--step", choices=("gan", "sun"), default="gan")
     p.add_argument("--iters", type=int, default=3)
+    p.add_argument("--fused-in", action="store_true",
+                   help="ModelConfig.fused_instance_norm (K8/K9 on every InstanceNorm)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: needs a CUDA card")
@@ -75,7 +81,8 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
 
     h, w, b = args.imheight, args.imwidth, args.batch
-    cfg = Config(model=ModelConfig(im_height=h, im_width=w, use_da_conv=True),
+    cfg = Config(model=ModelConfig(im_height=h, im_width=w, use_da_conv=True,
+                                   fused_instance_norm=args.fused_in),
                  data=DataConfig(batch_size=b))
     banks = make_banks(make_synthetic_dorf(175, 1024), get_exposure_lists()[0], device="cuda")
     if args.step == "gan":
@@ -134,7 +141,7 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    tag = f"{args.step}_{h}x{w}_b{b}"
+    tag = f"{args.step}_{h}x{w}_b{b}" + ("_fused_in" if args.fused_in else "")
     print(f"[profile] train {tag} on {smi}: step {step_ms:.4f} ms (CUDA events, "
           f"{args.iters} steps under the profiler), kernel time {busy:.4f} ms, device "
           f"busy {100 * busy / step_ms:.1f}%, idle {100 * (1 - busy / step_ms):.1f}%")
