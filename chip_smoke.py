@@ -14,36 +14,51 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     b32; 32x128 and 64x256; f32 and bf16), K1/K2/K3 at the
                     training batches (64x256 b64 f32 and bf16, 32x128 b32
                     f32); K3 twice on the same inputs gives the same bits.
+                    K1/K2/K3 also at an odd height (32x9x32x128). K5 (odd-k
+                    DA forward), K7 (its input gradient) and K6 (its weight
+                    gradient) at the k=5 trunk (K5/K7 at 64x256 b32 f32 and
+                    bf16 and 32x128 b1, all three at 64x256 b64 f32 and
+                    bf16) and at every k=7 layer shape (trunk, sunlayer1
+                    conv1 with C=3 and conv2) at 64x256 b32 f32; K6 twice
+                    gives the same bits.
                     K8 (InstanceNorm + activation forward) and K9 (its
                     backward) at every InstanceNorm shape with each slope
                     its layers use, at 64x256 b64 f32, 64x256 b32 f32 and
                     bf16, and 32x128 b1; K9 twice gives the same bits.
   4. golden       — the serving forward on the card against the JAX
                     package's outputs in tests/fixtures/torch_golden_da_16x64.npz,
-                    unfused and with fused_instance_norm (the same function).
+                    unfused and with fused_instance_norm (the same function),
+                    and at da_kernel_size=5 against torch_golden_da5_16x64.npz.
   5. train_golden — one GAN step and one sun step at 16x64 DA b2 on the
                     card from the seeded weights, fed the JAX-degraded inputs
                     of tests/fixtures/torch_golden_train_16x64.npz, against
                     JAX's metrics and per-leaf update / BatchNorm digests;
-                    unfused, then fused.
+                    unfused, then fused; then at da_kernel_size=5 against
+                    torch_golden_train_da5_16x64.npz.
   6. serving      — the inference CLI at 64x256 b32 (40 PNGs, 2 dispatches,
                     the second padded) and at 32x128 b1 (4 PNGs); every .hdr
                     read back finite; 20 K1 + 4 K2 launches per DA dispatch;
-                    the plain-conv config launches none.
+                    the plain-conv config launches none; `make_inference_fn`
+                    at da_kernel_size=5, 64x256 b32, two dispatches, 12 K5
+                    launches each and no other DA kernel, outputs finite.
   7. training     — the main paths: `make_gan_train_step` at DA 64x256 b64
                     f32 for 3 steps, unfused and then with fused InstanceNorm
                     (both states filled from one draw of the seeded weights),
-                    then the sun-pretrain step at 64x256 b32 for 2; every
-                    metric finite, gen_total moving, launch counts per step
-                    asserted (GAN: 20 K1, 24 K2, 20 K3, and fused 25 K8, 29
-                    K9; sun: 4 each). Then step times (CUDA events, 1
-                    warm-up, median of 5 further steps of the same state)
-                    and peak device memory.
+                    then at da_kernel_size=5 (its weights drawn once for
+                    serving, training and timing), then the sun-pretrain step
+                    at 64x256 b32 for 2; every metric finite, gen_total
+                    moving, launch counts per step asserted (GAN: 20 K1, 24
+                    K2, 20 K3, and fused 25 K8, 29 K9; k=5: 12 K5, 12 K6, 12
+                    K7 and no K1-K3; sun: 4 each). Then step times (CUDA
+                    events, 1 warm-up, median of 5 further steps of the same
+                    state) and peak device memory.
   8. timing       — CUDA events, warm-up, median of 20: serving forward
                     ms/dispatch (unfused and fused IN, in turns, the same
-                    weights), and each kernel against its plain version at
-                    the 64x256 shapes (b32 serving, b64 training), with the
-                    per-dispatch and per-GAN-step totals and their bounds;
+                    weights; and at da_kernel_size=5), and each kernel
+                    against its plain version at the 64x256 shapes (b32
+                    serving, b64 training; K5-K7 at the k=5 trunk, and per
+                    call at the k=7 shapes at b32), with the per-dispatch
+                    and per-GAN-step totals and their bounds;
                     K8/K9 also against the library's `F.instance_norm`
                     (forward, and its autograd backward).
   9. train_cli    — the training CLI (`skyhdr_torch.cli.train`) at DA
@@ -61,6 +76,7 @@ functions that compute the JAX side, which this script does not call).
 """
 
 import argparse
+import functools
 import importlib.util
 import json
 import math
@@ -93,14 +109,35 @@ DA_LAYERS = [
 ]
 N_DA = sum(n for *_, n, _ in DA_LAYERS)                # 20
 N_SUN = sum(n for *_, n, sun in DA_LAYERS if sun)      # 4
+# With da_kernel_size=5 only the residual trunk's 12 convs are DA convs
+# (5x5); the resize-deconvs (k=3) and the sun-pose net (7/3/3) stay plain.
+DA5_LAYERS = [("res0-5.conv1/conv2 k=5", (8, 32, 128), 128, 12, False)]
+N_DA5 = 12
+# The DA layer shapes of da_kernel_size=7 (checked against the plain
+# versions, not driven): the trunk and the sun-pose net's first stage, whose
+# first conv takes the 3-channel input. (name, x shape at 32x128, F)
+DA7_LAYERS = [("res0-5.conv1/conv2 k=7", (8, 32, 128), 128),
+              ("sunlayer1.conv1 k=7", (32, 128, 3), 32),
+              ("sunlayer1.conv2 k=7", (32, 128, 32), 32)]
+KERNELS = ("K1", "K2", "K3", "K5", "K6", "K7", "K8", "K9")
+
+
+def launches(**n):
+    return {k: n.get(k, 0) for k in KERNELS}
+
+
 # Launches per serving dispatch and per train step. Serving: K1 on every DA
 # layer, K2 in Grad-CAM's pull through the sun-pose DA layers. GAN step: K1
 # once per layer, K2 and K3 once per layer in the outer backward, and K2
 # again in the pull (which asks only for activations' gradients, so it runs
 # no K3). Sun step: the sun-pose layers once each; its CAMs feed nothing.
-SERVING_LAUNCHES = {"K1": N_DA, "K2": N_SUN, "K3": 0, "K8": 0, "K9": 0}
-GAN_LAUNCHES = {"K1": N_DA, "K2": N_DA + N_SUN, "K3": N_DA, "K8": 0, "K9": 0}
-SUN_LAUNCHES = {"K1": N_SUN, "K2": N_SUN, "K3": N_SUN, "K8": 0, "K9": 0}
+# At da_kernel_size=5: K5 per trunk conv, and K7 and K6 once each in the
+# outer backward; the pull crosses no DA layer, and the sun step has none.
+SERVING_LAUNCHES = launches(K1=N_DA, K2=N_SUN)
+GAN_LAUNCHES = launches(K1=N_DA, K2=N_DA + N_SUN, K3=N_DA)
+SUN_LAUNCHES = launches(K1=N_SUN, K2=N_SUN, K3=N_SUN)
+DA5_SERVING_LAUNCHES = launches(K5=N_DA5)
+DA5_GAN_LAUNCHES = launches(K5=N_DA5, K6=N_DA5, K7=N_DA5)
 # InstanceNorm layers: (name, x shape at 32x128 [h, w, c], slope, layers,
 # where in the sun-pose net: "sun" or "pull" when Grad-CAM's pull
 # differentiates through them, None in the generator).
@@ -130,6 +167,10 @@ TOL = {("K1", torch.float32): 1e-4, ("K2", torch.float32): 5e-4,
        ("K3", torch.float32): 1e-4,
        ("K1", torch.bfloat16): 2e-2, ("K2", torch.bfloat16): 2e-2,
        ("K3", torch.bfloat16): 1e-4,  # K3 reads bf16 x as f32, as its plain version
+       ("K5", torch.float32): 1e-4, ("K7", torch.float32): 5e-4,
+       ("K6", torch.float32): 1e-4,
+       ("K5", torch.bfloat16): 2e-2, ("K7", torch.bfloat16): 2e-2,
+       ("K6", torch.bfloat16): 1e-4,  # as K3
        # K8/K9: the same formula summed in another order (f32); bf16 output
        # rounding (one bf16 ulp is 2^-8 of the value).
        ("K8", torch.float32): 1e-5, ("K9", torch.float32): 1e-5,
@@ -137,12 +178,29 @@ TOL = {("K1", torch.float32): 1e-4, ("K2", torch.float32): 5e-4,
 # (res scale, batch, dtype) of the K8/K9 checks
 IN_KERNEL_CASES = [(2, 64, torch.float32), (2, 32, torch.float32),
                    (2, 32, torch.bfloat16), (1, 1, torch.float32)]
-# (res scale, batch, dtype, kernels checked)
-KERNEL_CASES = [(1, 1, torch.float32, "K1 K2"), (1, 1, torch.bfloat16, "K1 K2"),
-                (1, 32, torch.float32, "K1 K2 K3"), (1, 32, torch.bfloat16, "K1 K2"),
-                (2, 1, torch.float32, "K1 K2"), (2, 32, torch.float32, "K1 K2"),
-                (2, 32, torch.bfloat16, "K1 K2"),
-                (2, 64, torch.float32, "K1 K2 K3"), (2, 64, torch.bfloat16, "K1 K2 K3")]
+# (kernel size, layers [(name, x shape at 32x128, F)], res scale, batch,
+# dtype, kernels checked). K1/K2 at every k=3 layer at the serving batches,
+# K3 at the training batches; K5/K7 at the k=5 trunk at the serving batches,
+# K6 at the training batch; K5/K6/K7 at every k=7 layer shape; and K1-K3 at
+# an odd height (9 rows), which they serve with the same tables.
+K3_SHAPES = [(name, shape, f) for name, shape, f, _, _ in DA_LAYERS]
+K5_SHAPES = [(name, shape, f) for name, shape, f, _, _ in DA5_LAYERS]
+KERNEL_CASES = [(3, K3_SHAPES, 1, 1, torch.float32, "K1 K2"),
+                (3, K3_SHAPES, 1, 1, torch.bfloat16, "K1 K2"),
+                (3, K3_SHAPES, 1, 32, torch.float32, "K1 K2 K3"),
+                (3, K3_SHAPES, 1, 32, torch.bfloat16, "K1 K2"),
+                (3, K3_SHAPES, 2, 1, torch.float32, "K1 K2"),
+                (3, K3_SHAPES, 2, 32, torch.float32, "K1 K2"),
+                (3, K3_SHAPES, 2, 32, torch.bfloat16, "K1 K2"),
+                (3, K3_SHAPES, 2, 64, torch.float32, "K1 K2 K3"),
+                (3, K3_SHAPES, 2, 64, torch.bfloat16, "K1 K2 K3"),
+                (3, [("odd height", (9, 32, 128), 128)], 1, 32, torch.float32, "K1 K2 K3"),
+                (5, K5_SHAPES, 1, 1, torch.float32, "K5 K7"),
+                (5, K5_SHAPES, 2, 32, torch.float32, "K5 K7"),
+                (5, K5_SHAPES, 2, 32, torch.bfloat16, "K5 K7"),
+                (5, K5_SHAPES, 2, 64, torch.float32, "K5 K6 K7"),
+                (5, K5_SHAPES, 2, 64, torch.bfloat16, "K5 K6 K7"),
+                (7, DA7_LAYERS, 2, 32, torch.float32, "K5 K6 K7")]
 # Published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
 # cores, and HBM3 bandwidth. A bound is the larger of the two times.
 PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
@@ -209,29 +267,31 @@ def rel_err(got, want):
     return d / max(want.float().abs().max().item(), 1e-30), d
 
 
-def operands(shape_hwc, b, f, dtype, gen):
+def operands(shape_hwc, b, f, dtype, gen, ksize=3):
     h, w, c = shape_hwc
     dev = "cuda"
     x = torch.randn(b, h, w, c, device=dev, generator=gen).to(dtype)
-    lim = (6.0 / (9 * c + f)) ** 0.5
-    k = (torch.rand(9 * c, f, device=dev, generator=gen) * 2 - 1) * lim
+    lim = (6.0 / (ksize * ksize * c + f)) ** 0.5
+    k = (torch.rand(ksize * ksize * c, f, device=dev, generator=gen) * 2 - 1) * lim
     bias = torch.randn(f, device=dev, generator=gen) * 0.1
     g = torch.randn(b, h, w, f, device=dev, generator=gen).to(dtype)
     return x, k, bias, g
 
 
-def bound(kernel, b, hwc, f, x_bytes=4):
+def bound(kernel, b, hwc, f, x_bytes=4, ksize=3):
     """(ms, "bytes" or "operations"): the least time of one call on the
-    published peaks. Operations 2*b*h*w*9*c*f (the nine taps' products);
-    bytes each input read once and each output written once: K1 x, K, bias
-    and out (in x's type); K2 g (f32), K and dx (f32); K3 x, g (f32) and
-    dK (f32)."""
+    published peaks. Operations 2*b*h*w*k*k*c*f (the k*k taps' products;
+    the input gradients K2/K7 counted at the forward's); bytes each input
+    read once and each output written once: K1/K5 x, K, bias and out (in
+    x's type); K2/K7 g (f32), K and dx (f32); K3/K6 x, g (f32) and dK
+    (f32)."""
     h, w, c = hwc
     n = b * h * w
-    flops = 2.0 * n * 9 * c * f
-    nbytes = {"K1": n * c * x_bytes + 9 * c * f * x_bytes + 4 * f + n * f * x_bytes,
-              "K2": n * f * 4 + 9 * c * f * 4 + n * c * 4,
-              "K3": n * c * x_bytes + n * f * 4 + 9 * c * f * 4}[kernel]
+    taps = ksize * ksize
+    flops = 2.0 * n * taps * c * f
+    nbytes = {"fwd": n * c * x_bytes + taps * c * f * x_bytes + 4 * f + n * f * x_bytes,
+              "dx": n * f * 4 + taps * c * f * 4 + n * c * 4,
+              "dk": n * c * x_bytes + n * f * 4 + taps * c * f * 4}[ROLE[kernel]]
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -282,15 +342,40 @@ def in_operands(hwc, b, dtype, gen):
 def counts(dc):
     from skyhdr_torch.ops.kernels import instnorm as tin
 
-    return {"K1": dc.K1_LAUNCHES, "K2": dc.K2_LAUNCHES, "K3": dc.K3_LAUNCHES,
-            "K8": tin.K8_LAUNCHES, "K9": tin.K9_LAUNCHES}
+    return {k: getattr(tin if k in ("K8", "K9") else dc, f"{k}_LAUNCHES") for k in KERNELS}
 
 
 def reset_counts(dc):
     from skyhdr_torch.ops.kernels import instnorm as tin
 
-    dc.K1_LAUNCHES = dc.K2_LAUNCHES = dc.K3_LAUNCHES = 0
-    tin.K8_LAUNCHES = tin.K9_LAUNCHES = 0
+    for k in KERNELS:
+        setattr(tin if k in ("K8", "K9") else dc, f"{k}_LAUNCHES", 0)
+
+
+# What each DA kernel computes: the forward, the input gradient or the
+# weight gradient.
+ROLE = {"K1": "fwd", "K2": "dx", "K3": "dk", "K5": "fwd", "K7": "dx", "K6": "dk"}
+
+
+def da_calls(dc, ksize, x, kern, bias, g):
+    """{role: (kernel name, kernel call, plain call)} of the DA kernels at
+    kernel size k on these operands: K1/K2/K3 at k=3, K5/K7/K6 otherwise.
+    The input gradient returns float32, as its kernel does."""
+    shape = tuple(x.shape)
+    if ksize == 3:
+        return {"fwd": ("K1", lambda: dc.da_conv_forward_k1(x, kern, bias),
+                        lambda: dc.da_conv_forward_ref(x, kern, bias)),
+                "dx": ("K2", lambda: dc.da_conv_dx_k2(g, kern, x_shape=shape),
+                       lambda: dc.da_conv_dx_ref(g, kern, x_shape=shape)),
+                "dk": ("K3", lambda: dc.da_conv_dk_k3(x, g),
+                       lambda: dc.da_conv_dk_ref(x, g))}
+    kw = dict(kernel_size=ksize)
+    return {"fwd": ("K5", lambda: dc.da_conv_forward_k5(x, kern, bias, **kw),
+                    lambda: dc.da_conv_forward_ref(x, kern, bias, **kw)),
+            "dx": ("K7", lambda: dc.da_conv_dx_k7(g, kern, x_shape=shape, **kw),
+                   lambda: dc.da_conv_dx_ref_generic(g, kern, x_shape=shape, **kw)),
+            "dk": ("K6", lambda: dc.da_conv_dk_k6(x, g, **kw),
+                   lambda: dc.da_conv_dk_ref(x, g, **kw))}
 
 
 def free_cuda():
@@ -303,30 +388,35 @@ def phase_kernels(dc, report):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {}
-    for s, b, dtype, which in KERNEL_CASES:
+    for ksize, layers, s, b, dtype, which in KERNEL_CASES:
         res = "32x128" if s == 1 else "64x256"
-        tag = f"{res} b{b} {str(dtype)[6:]}"
-        for name, shape, f, _, _ in DA_LAYERS:
+        tag = f"{res} b{b} {str(dtype)[6:]} k={ksize}"
+        for name, shape, f in layers:
             hwc = scaled(shape, s)
-            x, k, bias, g = operands(hwc, b, f, dtype, gen)
+            x, k, bias, g = operands(hwc, b, f, dtype, gen, ksize)
+            calls = da_calls(dc, ksize, x, k, bias, g)
             results = []
-            got = dc.da_conv_forward_k1(x, k, bias)
+            kern, run, plain = calls["fwd"]
+            got = run()
             torch.cuda.synchronize()
-            results.append(("K1", f"x{[b, *hwc]} F={f}", got.dtype == dtype,
-                            *rel_err(got, dc.da_conv_forward_ref(x, k, bias))))
+            results.append((kern, f"x{[b, *hwc]} F={f}", got.dtype == dtype,
+                            *rel_err(got, plain())))
+            del got
             # As autograd hands it: g in the output dtype; dx cast to x.dtype.
-            dx = dc.da_conv_dx_k2(g, k, x_shape=x.shape).to(dtype)
+            kern, run, plain = calls["dx"]
+            dx = run().to(dtype)
             torch.cuda.synchronize()
-            results.append(("K2", f"g{[b, *hwc[:2], f]} -> dx{[b, *hwc]}", True,
-                            *rel_err(dx, dc.da_conv_dx_ref(g, k, x_shape=x.shape).to(dtype))))
-            if "K3" in which:
-                dk = dc.da_conv_dk_k3(x, g)
-                again = dc.da_conv_dk_k3(x, g)
+            results.append((kern, f"g{[b, *hwc[:2], f]} -> dx{[b, *hwc]}", True,
+                            *rel_err(dx, plain().to(dtype))))
+            del dx
+            kern, run, plain = calls["dk"]
+            if kern in which:
+                dk, again = run(), run()
                 torch.cuda.synchronize()
                 same = bool(torch.equal(dk, again))
-                results.append(("K3", f"x{[b, *hwc]} g[..,{f}] -> dK[{9 * hwc[2]},{f}] "
-                                f"(bitwise repeatable: {same})", same,
-                                *rel_err(dk, dc.da_conv_dk_ref(x, g))))
+                results.append((kern, f"x{[b, *hwc]} g[..,{f}] -> dK[{ksize * ksize * hwc[2]},"
+                                f"{f}] (bitwise repeatable: {same})", same,
+                                *rel_err(dk, plain())))
                 del dk, again
             for kern, what, ok, rel, ab in results:
                 tol = TOL[kern, dtype]
@@ -335,7 +425,7 @@ def phase_kernels(dc, report):
                 check(ok and rel <= tol, f"{kern} {name} {tag}")
                 key = (kern, res, b, str(dtype))
                 worst[key] = max(worst.get(key, 0.0), ab)
-            del x, k, bias, g, got, dx
+            del x, k, bias, g, calls
         free_cuda()
     for s, b, dtype in IN_KERNEL_CASES:
         res = "32x128" if s == 1 else "64x256"
@@ -391,12 +481,18 @@ def phase_golden(dc, report):
     from skyhdr_torch.train.engine import make_inference_fn
     from skyhdr_torch.utils.transplant import tree_digest
 
-    stored = np.load(os.path.join(ROOT, "tests", "fixtures",
-                                  "torch_golden_da_16x64.npz"))
-    x = stored["input"]
-    for fuse in (False, True):
+    mod = golden_tool()
+    # (fixture, fused IN, DA kernel size, launches, report key)
+    for path, fuse, ksize, want_launches, key in (
+            (mod.FIXTURE, False, 3, SERVING_LAUNCHES, "golden_max_abs_err"),
+            (mod.FIXTURE, True, 3, fused(SERVING_LAUNCHES, "serving"),
+             "golden_fused_max_abs_err"),
+            (mod.DA5_FIXTURE, False, 5, DA5_SERVING_LAUNCHES, "golden_da5_max_abs_err")):
+        stored = np.load(path)
+        x = stored["input"]
         cfg = Config(model=ModelConfig(im_height=x.shape[1], im_width=x.shape[2],
-                                       use_da_conv=True, fused_instance_norm=fuse),
+                                       use_da_conv=True, da_kernel_size=ksize,
+                                       fused_instance_norm=fuse),
                      data=DataConfig(batch_size=x.shape[0]))
         gen, sun, (gv, sv) = build_port(cfg, int(stored["seed"]))
         digest = tree_digest({"gen": gv, "sun": sv})
@@ -407,21 +503,20 @@ def phase_golden(dc, report):
         reset_counts(dc)
         out = make_inference_fn(cfg)(gen, sun, torch.from_numpy(x).cuda())
         launched = counts(dc)
-        want_launches = fused(SERVING_LAUNCHES, "serving") if fuse else SERVING_LAUNCHES
         got = out["y_final_lin"].cpu().numpy()
         want = stored["y_final_lin"]
         ok = np.allclose(got, want, rtol=1e-3, atol=1e-3)
         bins_got = out["sunpose_pred"].cpu().numpy().reshape(len(x), -1).argmax(-1)
         bins_want = stored["sunpose_pred"].reshape(len(x), -1).argmax(-1)
         err = float(np.abs(got - want).max())
-        name = "fused IN" if fuse else "unfused IN"
+        name = f"k={ksize} " + ("fused IN" if fuse else "unfused IN")
         say("golden", f"16x64 DA b{len(x)} {name} vs JAX: y_final_lin max abs err {err:.3e} "
             f"(rtol 1e-3, atol 1e-3: {'ok' if ok else 'FAIL'}); argmax bins "
             f"{bins_got.tolist()} vs {bins_want.tolist()}; launches {launched}")
         check(ok, f"golden y_final_lin ({name})")
         check(np.array_equal(bins_got, bins_want), f"golden argmax bins ({name})")
         check(launched == want_launches, f"golden launches {launched}, want {want_launches}")
-        report["golden_fused_max_abs_err" if fuse else "golden_max_abs_err"] = err
+        report[key] = err
 
 
 def golden_tool():
@@ -436,21 +531,26 @@ def phase_train_golden(dc, report):
     from skyhdr_torch.utils.transplant import init_gan_vars, tree_digest
 
     mod = golden_tool()
-    stored = np.load(mod.TRAIN_FIXTURE)
-    gv, sv, dv = init_gan_vars(mod.golden_config(), int(stored["seed"]))
-    digest = tree_digest({"gen": gv, "sun": sv, "disc": dv})
-    check(abs(digest - float(stored["weights_digest"])) <= 1e-9 * digest,
-          f"seeded GAN weights differ from the fixture's ({digest} vs "
-          f"{float(stored['weights_digest'])})")
-    for fuse in (False, True):
-        name = "fused IN" if fuse else "unfused IN"
+    # (fixture, fused IN, DA kernel size, launches of the GAN step plus the
+    # sun step, report key)
+    for path, fuse, ksize, want, key in (
+            (mod.TRAIN_FIXTURE, False, 3,
+             {k: GAN_LAUNCHES[k] + SUN_LAUNCHES[k] for k in KERNELS}, "train_golden_worst"),
+            (mod.TRAIN_FIXTURE, True, 3,
+             {k: fused(GAN_LAUNCHES, "gan")[k] + fused(SUN_LAUNCHES, "sun")[k]
+              for k in KERNELS}, "train_golden_fused_worst"),
+            (mod.DA5_TRAIN_FIXTURE, False, 5, DA5_GAN_LAUNCHES, "train_golden_da5_worst")):
+        stored = np.load(path)
+        gv, sv, dv = init_gan_vars(mod.golden_config(ksize), int(stored["seed"]))
+        digest = tree_digest({"gen": gv, "sun": sv, "disc": dv})
+        check(abs(digest - float(stored["weights_digest"])) <= 1e-9 * digest,
+              f"seeded GAN weights differ from the fixture's ({digest} vs "
+              f"{float(stored['weights_digest'])})")
+        name = f"k={ksize} " + ("fused IN" if fuse else "unfused IN")
         reset_counts(dc)
-        port = mod.port_train_golden(stored, "cuda", fused_instance_norm=fuse)
+        port = mod.port_train_golden(stored, "cuda", fused_instance_norm=fuse,
+                                     da_kernel_size=ksize)
         launched = counts(dc)
-        gan, sun = GAN_LAUNCHES, SUN_LAUNCHES
-        if fuse:
-            gan, sun = fused(gan, "gan"), fused(sun, "sun")
-        want = {k: gan[k] + sun[k] for k in gan}
         fails, worst = mod.compare_train_golden(stored, port, GOLDEN_METRIC_RTOL,
                                                 GOLDEN_UPDATE_RTOL)
         for kind in ("gan", "sun"):
@@ -464,7 +564,7 @@ def phase_train_golden(dc, report):
             say("train_golden", f"FAIL {line}")
         check(not fails, f"train golden ({name}): {len(fails)} mismatches")
         check(launched == want, f"train golden ({name}) launches {launched}, want {want}")
-        report["train_golden_fused_worst" if fuse else "train_golden_worst"] = worst
+        report[key] = worst
 
 
 def write_pngs(folder, n, h, w, seed):
@@ -511,6 +611,39 @@ def serve(dc, work, tag, h, w, n, batch):
     return got
 
 
+def da5_config(batch):
+    from skyhdr_torch.config import Config, DataConfig, ModelConfig
+
+    return Config(model=ModelConfig(im_height=64, im_width=256, use_da_conv=True,
+                                    da_kernel_size=5),
+                  data=DataConfig(batch_size=batch))
+
+
+@functools.lru_cache(maxsize=1)
+def da5_trees():
+    """The seeded (gen, sun, disc) trees of the da_kernel_size=5 model at
+    64x256, drawn once on the host for the serving, training and timing
+    phases (released after the timing phase)."""
+    from skyhdr_torch.utils.transplant import init_gan_vars
+
+    t0 = time.perf_counter()
+    trees = init_gan_vars(da5_config(64), 0)
+    say("da5", f"k=5 DA 64x256: seeded weights drawn on the host in "
+        f"{time.perf_counter() - t0:.3f} s (one draw for serving, training and timing)")
+    return trees
+
+
+def da5_models():
+    from skyhdr_torch.train.engine import build_models
+    from skyhdr_torch.utils.transplant import load_model_vars
+
+    gen, sun = build_models(da5_config(32), "cuda")
+    gv, sv, _ = da5_trees()
+    load_model_vars(gen, gv)
+    load_model_vars(sun, sv)
+    return gen, sun
+
+
 def phase_serving(dc, report):
     from skyhdr_torch.config import Config, ModelConfig
     from skyhdr_torch.train.engine import make_inference_fn
@@ -528,6 +661,26 @@ def phase_serving(dc, report):
     check(bool(torch.isfinite(y).all()), "plain config output not finite")
     check(counts(dc) == before, "plain config launched a DA kernel")
     say("serving", "plain-conv 32x128 b1 forward: finite, 0 DA kernel launches")
+    del gen, sun
+    # da_kernel_size=5: `make_inference_fn` at 64x256 b32, two dispatches.
+    gen, sun = da5_models()
+    infer = make_inference_fn(da5_config(32))
+    rng = torch.Generator(device="cuda").manual_seed(3)
+    for i in range(2):
+        x = torch.rand(32, 64, 256, 3, device="cuda", generator=rng)
+        reset_counts(dc)
+        out = infer(gen, sun, x)
+        torch.cuda.synchronize()
+        launched = counts(dc)
+        say("serving", f"k=5 DA 64x256 b32 dispatch {i}: launches {launched} (want "
+            f"{DA5_SERVING_LAUNCHES}); " + ", ".join(
+                f"{k} {tuple(v.shape)}" for k, v in sorted(out.items())))
+        check(launched == DA5_SERVING_LAUNCHES, f"k=5 serving launches {launched}")
+        check(out["y_final_lin"].shape == (32, 64, 256, 3)
+              and all(bool(torch.isfinite(v).all()) for v in out.values()),
+              f"k=5 serving dispatch {i}: outputs not finite or misshapen")
+    report["serving_da5_launches"] = launched
+    del gen, sun, out
     free_cuda()
 
 
@@ -588,17 +741,20 @@ def phase_training(dc, smi, report):
     say("training", f"GAN DA {h}x{w}: seeded weights drawn on the host in "
         f"{time.perf_counter() - t0:.3f} s (one draw for the unfused and the fused state)")
     out = {}
-    for kind, b, nsteps in (("gan", 64, 3), ("gan_fused", 64, 3), ("sun", 32, 2)):
+    for kind, b, nsteps in (("gan", 64, 3), ("gan_fused", 64, 3), ("gan_da5", 64, 3),
+                            ("sun", 32, 2)):
         tag = {"gan": f"GAN DA {h}x{w} b{b}", "gan_fused": f"GAN DA {h}x{w} b{b} fused IN",
-               "sun": f"sun DA {h}x{w} b{b}"}[kind]
+               "gan_da5": f"GAN DA k=5 {h}x{w} b{b}", "sun": f"sun DA {h}x{w} b{b}"}[kind]
         t0 = time.perf_counter()
         if kind.startswith("gan"):
-            cfg = cfg_of(b, fuse=kind == "gan_fused")
+            cfg = da5_config(b) if kind == "gan_da5" else cfg_of(b, fuse=kind == "gan_fused")
             state = empty_gan_state(cfg, "cuda")
-            for module, tree in zip((state.gen, state.sun, state.disc), trees):
+            for module, tree in zip((state.gen, state.sun, state.disc),
+                                    da5_trees() if kind == "gan_da5" else trees):
                 load_model_vars(module, tree)
             step = make_gan_train_step(cfg, banks, random_vgg16_weights())
-            want = fused(GAN_LAUNCHES, "gan") if kind == "gan_fused" else GAN_LAUNCHES
+            want = {"gan": GAN_LAUNCHES, "gan_fused": fused(GAN_LAUNCHES, "gan"),
+                    "gan_da5": DA5_GAN_LAUNCHES}[kind]
             moving = "gen_total"
         else:
             del trees
@@ -627,7 +783,7 @@ def phase_training(dc, smi, report):
         f"{u['step_ms']:.4f} ms ({f['step_ms'] - u['step_ms']:+.4f} ms), peak "
         f"{f['peak_bytes'] / 2**30:.3f} vs {u['peak_bytes'] / 2**30:.3f} GiB; on {smi}")
     report["training"] = out
-    return out["gan"]["launches"], out["gan_fused"]["launches"]
+    return {kind: o["launches"] for kind, o in out.items()}
 
 
 def phase_timing(dc, smi, report):
@@ -661,49 +817,66 @@ def phase_timing(dc, smi, report):
                 f"on {smi}")
         del gen, sun, fgen, fsun
         free_cuda()
+    gen, sun = da5_models()
+    infer = make_inference_fn(da5_config(32))
+    x = torch.rand(32, 64, 256, 3, device="cuda")
+    fwd["64x256_b32_da5"] = ms = statistics.median(time_ms(lambda: infer(gen, sun, x)))
+    say("timing", f"forward 64x256 DA k=5 b32: {ms:.4f} ms/dispatch (median of {ITERS}, "
+        f"CUDA events) on {smi}")
+    del gen, sun, x
+    free_cuda()
     report["forward_ms"] = fwd
 
     gen_ = torch.Generator(device="cuda").manual_seed(1)
-    # Per serving dispatch (64x256 b32) and per GAN step (64x256 b64):
+    # Per serving dispatch (64x256 b32) and per GAN step (64x256 b64), at
+    # k=3 (K1-K3) and at da_kernel_size=5 (K5-K7):
     # [kernel ms, plain ms, bound ms, flop-bound ms, byte-bound ms].
-    totals = {(p, k): [0.0] * 5 for p in ("serving", "gan") for k in ("K1", "K2", "K3")}
+    totals = {}
     rows = []
+
+    def timed_row(kern, path, b, name, hwc, f, ksize, calls, kfn, pfn):
+        ms, plain = paired_ms(kfn, pfn)
+        bms, by = bound(kern, b, hwc, f, ksize=ksize)
+        per = {"serving": "per dispatch", "gan": "per GAN step"}.get(path, "not on a driven path")
+        say("timing", f"{kern} 64x256 b{b} {name} x{[b, *hwc]} F={f}: kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by}; "
+            f"{100 * bms / ms:.1f}% of it), x{calls} {per}; on {smi}")
+        rows.append({"kernel": kern, "path": path, "batch": b, "layer": name, "k": ksize,
+                     "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                     "calls": calls})
+        if calls:
+            t = totals.setdefault((path, kern), [0.0] * 5)
+            t[0] += calls * ms
+            t[1] += calls * plain
+            t[2] += calls * bms
+            t[3 if by == "operations" else 4] += calls * bms
+
     for path, b in (("serving", 32), ("gan", 64)):
-        for name, shape, f, n, in_sun in DA_LAYERS:
-            hwc = scaled(shape, 2)
-            x, k, bias, g = operands(hwc, b, f, torch.float32, gen_)
-            runs = [("K1", n, lambda: dc.da_conv_forward_k1(x, k, bias),
-                     lambda: dc.da_conv_forward_ref(x, k, bias))]
-            k2_calls = (n if path == "gan" else 0) + (n if in_sun else 0)
-            if k2_calls:
-                runs.append(("K2", k2_calls, lambda: dc.da_conv_dx_k2(g, k, x_shape=x.shape),
-                             lambda: dc.da_conv_dx_ref(g, k, x_shape=x.shape)))
-            if path == "gan":
-                runs.append(("K3", n, lambda: dc.da_conv_dk_k3(x, g),
-                             lambda: dc.da_conv_dk_ref(x, g)))
-            for kern, calls, kfn, pfn in runs:
-                ms, plain = paired_ms(kfn, pfn)
-                bms, by = bound(kern, b, hwc, f)
-                say("timing", f"{kern} 64x256 b{b} {name} x{[b, *hwc]} F={f}: kernel "
-                    f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by}; "
-                    f"{100 * bms / ms:.1f}% of it), x{calls} per "
-                    f"{'dispatch' if path == 'serving' else 'GAN step'}; on {smi}")
-                rows.append({"kernel": kern, "path": path, "batch": b, "layer": name,
-                             "ms": ms, "plain_ms": plain, "bound_ms": bms,
-                             "bound_by": by, "calls": calls})
-                t = totals[path, kern]
-                t[0] += calls * ms
-                t[1] += calls * plain
-                t[2] += calls * bms
-                t[3 if by == "operations" else 4] += calls * bms
-            del x, k, bias, g
-            free_cuda()
+        for ksize, layers in ((3, DA_LAYERS), (5, DA5_LAYERS)):
+            for name, shape, f, n, in_sun in layers:
+                hwc = scaled(shape, 2)
+                x, k, bias, g = operands(hwc, b, f, torch.float32, gen_, ksize)
+                per_role = {"fwd": n, "dx": (n if path == "gan" else 0) + (n if in_sun else 0),
+                            "dk": n if path == "gan" else 0}
+                for role, (kern, kfn, pfn) in da_calls(dc, ksize, x, k, bias, g).items():
+                    if per_role[role]:
+                        timed_row(kern, path, b, name, hwc, f, ksize, per_role[role], kfn, pfn)
+                del x, k, bias, g
+                free_cuda()
+    # The k=7 layer shapes, per call at 64x256 b32.
+    for name, shape, f in DA7_LAYERS:
+        hwc = scaled(shape, 2)
+        x, k, bias, g = operands(hwc, 32, f, torch.float32, gen_, 7)
+        for kern, kfn, pfn in da_calls(dc, 7, x, k, bias, g).values():
+            timed_row(kern, "k7", 32, name, hwc, f, 7, 0, kfn, pfn)
+        del x, k, bias, g
+        free_cuda()
     report["kernel_ms"] = rows
     for (path, kern), t in totals.items():
-        if t[0]:
-            say("timing", f"{kern} per {'64x256 b32 dispatch' if path == 'serving' else '64x256 b64 GAN step'}: "
-                f"kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, bound {t[2]:.4f} ms")
-    report["kernel_totals"] = {f"{p}/{k}": t[:3] for (p, k), t in totals.items() if t[0]}
+        at = "64x256 b32 dispatch" if path == "serving" else "64x256 b64 GAN step"
+        say("timing", f"{kern} per {at}{' (k=5)' if kern in ('K5', 'K6', 'K7') else ''}: "
+            f"kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, bound {t[2]:.4f} ms")
+    report["kernel_totals"] = {f"{p}/{k}": t[:3] for (p, k), t in totals.items()}
 
     # K8/K9 per serving dispatch (64x256 b32) and per GAN step (64x256 b64):
     # [kernel ms, plain ms, bound ms, flop-bound ms, byte-bound ms, library ms].
@@ -997,6 +1170,7 @@ def main(argv=None):
     timed("serving", phase_serving, dc, report)
     launches = timed("training", phase_training, dc, smi, report)
     totals = timed("timing", phase_timing, dc, smi, report)
+    da5_trees.cache_clear()
     timed("train_cli", phase_train_cli, dc, smi, report)
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -1010,35 +1184,42 @@ def main(argv=None):
     if phases != set(PHASES):
         return 0  # a subset proves nothing of the whole: no result line
 
-    unfused_launches, fused_launches = launches
-    src = {"K1": "skyhdr_torch/csrc/deform_conv.cu", "K2": "skyhdr_torch/csrc/deform_conv.cu",
-           "K3": "skyhdr_torch/csrc/deform_conv.cu", "K8": "skyhdr_torch/csrc/instnorm.cu",
-           "K9": "skyhdr_torch/csrc/instnorm.cu"}
-    replaces = {"K1": "skyhdr/ops/pallas/deform_conv.py:179",
-                "K2": "skyhdr/ops/pallas/deform_conv.py:469",
-                "K3": "skyhdr/ops/pallas/deform_conv.py:429",
-                "K8": "skyhdr/ops/pallas/instnorm.py:104",
-                "K9": "skyhdr/ops/pallas/instnorm.py:123"}
-    names = {"K1": "K1 da_fwd_k3 (DA conv forward, k=3)",
-             "K2": "K2 da_dx_k3 (DA conv input gradient, k=3)",
-             "K3": "K3 da_dk_k3 (DA conv weight gradient, k=3)",
-             "K8": "K8 in_fwd (InstanceNorm + activation forward)",
-             "K9": "K9 in_bwd (InstanceNorm + activation backward)"}
+    dc_src, in_src = "skyhdr_torch/csrc/deform_conv.cu", "skyhdr_torch/csrc/instnorm.cu"
+    pallas = "skyhdr/ops/pallas/"
+    # name, TPU kernel it replaces, the training run whose launches it reports
+    about = {"K1": ("K1 da_fwd_kernel<T, 3> (DA conv forward, k=3)",
+                    pallas + "deform_conv.py:179", "gan"),
+             "K2": ("K2 da_dx_k3_kernel (DA conv input gradient, k=3)",
+                    pallas + "deform_conv.py:469", "gan"),
+             "K3": ("K3 da_dk_kernel<T, 3> (DA conv weight gradient, k=3)",
+                    pallas + "deform_conv.py:429", "gan"),
+             "K5": ("K5 da_fwd_kernel<T, 0> (DA conv forward, odd k)",
+                    pallas + "deform_conv.py:146", "gan_da5"),
+             "K6": ("K6 da_dk_kernel<T, 0> (DA conv weight gradient, odd k)",
+                    pallas + "deform_conv.py:364", "gan_da5"),
+             "K7": ("K7 da_dx_kernel (DA conv input gradient, odd k)",
+                    pallas + "deform_conv.py:400", "gan_da5"),
+             "K8": ("K8 in_fwd (InstanceNorm + activation forward)",
+                    pallas + "instnorm.py:104", "gan_fused"),
+             "K9": ("K9 in_bwd (InstanceNorm + activation backward)",
+                    pallas + "instnorm.py:123", "gan_fused")}
+    per = {"gan": "", "gan_fused": " with fused_instance_norm",
+           "gan_da5": " with da_kernel_size=5"}
     kernels = []
-    for kern in ("K1", "K2", "K3", "K8", "K9"):
+    for kern in KERNELS:
+        name, replaces, run = about[kern]
         ms, plain, bms, t_ops, t_bytes = totals["gan", kern][:5]
         in_norm = kern in ("K8", "K9")
         kernels.append({
-            "name": names[kern], "route": "cuda", "source": src[kern],
-            "replaces": replaces[kern],
-            "launches": (fused_launches if in_norm else unfused_launches)[kern],
+            "name": name, "route": "cuda", "source": in_src if in_norm else dc_src,
+            "replaces": replaces, "launches": launches[run][kern],
             "max_abs_err": max(v for (k, res, _, dt), v in worst.items()
                                if k == kern and res == "64x256" and dt == "torch.float32"),
             "ms": ms, "plain_ms": plain, "bound_ms": bms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": totals["gan", kern][5] if in_norm else None,
-            "per": "one GAN train step at DA 64x256 b64 f32 (launches: the 3 steps "
-                   "of the training phase" + (" with fused_instance_norm)" if in_norm else ")"),
+            "per": f"one GAN train step at DA 64x256 b64 f32{per[run]} (launches: the 3 "
+                   f"steps of the training phase{per[run]})",
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,9 +1,10 @@
-// Distortion-aware (DA) equirectangular conv, k = 3, stride 1, for Hopper
-// (sm_90a). Three kernels with a plain C interface, bound from Python with
-// ctypes (skyhdr_torch/ops/kernels/deform_conv.py).
+// Distortion-aware (DA) equirectangular conv, stride 1, for Hopper
+// (sm_90a): the k = 3 kernels K1-K3 and the odd-k kernels K5-K7, with a
+// plain C interface, bound from Python with ctypes
+// (skyhdr_torch/ops/kernels/deform_conv.py).
 //
 // What they replace (skyhdr/ops/pallas/deform_conv.py):
-//   K1 da_fwd_k3_kernel — `_kernel_k3` driven by `_forward_k3`: the forward
+//   K1 da_fwd_kernel<T, 3> — `_kernel_k3` driven by `_forward_k3`: the forward
 //        out[b,i,j] = bias + sum_t sample_t[b,i,j] @ K_t, with
 //        rowY   = (1-wy) xpad[y0] + wy xpad[y1]         (xpad: 1 zero row
 //                                                        above and below)
@@ -12,7 +13,7 @@
 //        branch): the input gradient over the scatter_tables_k3 slots,
 //        dx[y,j] = sum_slots sum_kx ((sw(1-wx)) g[si][(j-cx) mod W]
 //                                  + (sw wx) g[si][(j-cx-1) mod W]) @ K_t^T.
-//   K3 da_dk_k3_kernel  — `_dk_k3_kernel` driven by `_pallas_dk`: the weight
+//   K3 da_dk_kernel<T, 3> — `_dk_k3_kernel` driven by `_pallas_dk`: the weight
 //        gradient dK[t*C+c, f] = sum_{b,i,j} sample_t[b,i,j,c] g[b,i,j,f],
 //        the sample rebuilt from x as in K1 (never stored), followed by
 //        da_dk_reduce_kernel, which sums the per-split partials.
@@ -57,6 +58,36 @@
 // Measured on an H100 80GB HBM3 at 700 W: 1.23 ms for the b64 trunk layer,
 // 23% of its bound, the inner loop again fed one shared-memory float4 pair
 // per 16 FMAs.
+//
+// The odd-k kernels (any odd k; the model runs k = 5 and k = 7) replace the
+// generic branches of the same file:
+//   K5 da_fwd_kernel<T, 0>  — `_kernel_body` driven by `_pallas_forward`:
+//        K1's formula over k^2 taps, with k // 2 zero rows above and below.
+//        It IS K1's kernel, templated on the kernel size (3 at compile time
+//        for K1, 0 for a size given at run time): one block per (batch,
+//        output row, column tile), a y interpolation per (row, tap) as the
+//        TPU kernel does (no row dedup), the [TW, C] sample tile built once
+//        per tap in shared memory, a 4x4 register tile over C. The weights
+//        [k^2 C, F] (819 KB f32 at the k = 5 trunk) stay in L2. Bound by
+//        operations, as K1: 2*B*H*W*k^2*C*F.
+//   K6 da_dk_kernel<T, 0>   — `_dk_kernel` driven by `_pallas_dk`: K3's
+//        kernel at a run-time size. The grid is (C x F tile, tap in k^2,
+//        row split); the split count is chosen for ~8 blocks per SM over all
+//        k^2 taps, so the grid does not grow with k^2; the partials are
+//        summed in split order by da_dk_reduce_kernel (bitwise repeatable).
+//        C must be a multiple of 4, as for K3; the wrapper pads the k = 7
+//        sun-pose input (C = 3) with a zero channel.
+//   K7 da_dx_kernel         — `_dx_kernel` driven by `_pallas_dx`: the input
+//        gradient over the `scatter_tables` references (<= 2 k^2 per input
+//        row: 50 at a 16-row k = 5 map),
+//        dx[y,j] = sum_refs rw ((1-rwx) g[ri][(j-rcx) mod W]
+//                               + rwx g[ri][(j-rcx-1) mod W]) @ K_rt^T.
+//        K2's design with one reference per step instead of a slot's three
+//        taps: per reference the weighted, shifted cotangent row becomes a
+//        [TW, F] shared tile, accumulated against K_t^T into a [TW, C]
+//        register tile; padding references (rw == 0) are skipped. It does
+//        about twice the forward's products (each input row is read by two
+//        interpolation rows per tap); its bound counts the forward's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -116,17 +147,21 @@ __device__ __forceinline__ void accumulate(float (&acc)[kRowsPerThread][4],
   }
 }
 
-// K1. Grid (ceil(W/TW), H, B); block kThreads; dynamic smem TW*(C+1) floats.
-// Tables [H, 9]: y0/y1 padded-row indices, cx column shift in [0, W),
-// wy/wx fractions. out = bias + sum, cast to T.
-template <typename T>
+// K1 (KC = 3) and K5 (KC = 0: kernel size k at run time). Grid
+// (ceil(W/TW), H, B); block kThreads; dynamic smem TW*(C+1) floats. Tables
+// [H, k^2]: y0/y1 padded-row indices (k // 2 pad rows), cx column shift in
+// [0, W), wy/wx fractions. out = bias + sum, cast to T.
+template <typename T, int KC>
 __global__ void __launch_bounds__(kThreads)
-da_fwd_k3_kernel(const T* __restrict__ x, const T* __restrict__ kern,
-                 const float* __restrict__ bias, const int* __restrict__ y0t,
-                 const int* __restrict__ y1t, const int* __restrict__ cxt,
-                 const float* __restrict__ wyt, const float* __restrict__ wxt,
-                 T* __restrict__ out, int H, int W, int C, int F) {
+da_fwd_kernel(const T* __restrict__ x, const T* __restrict__ kern,
+              const float* __restrict__ bias, const int* __restrict__ y0t,
+              const int* __restrict__ y1t, const int* __restrict__ cxt,
+              const float* __restrict__ wyt, const float* __restrict__ wxt,
+              T* __restrict__ out, int H, int W, int C, int F, int k) {
   extern __shared__ float tile[];
+  const int ks = KC ? KC : k;
+  const int taps = ks * ks;
+  const int pad = ks / 2;
   const int quads = F / 4;
   const int lanes = kThreads / quads;
   const int tw = lanes * kRowsPerThread;
@@ -141,12 +176,13 @@ da_fwd_k3_kernel(const T* __restrict__ x, const T* __restrict__ kern,
   const T* xb = x + static_cast<size_t>(b) * H * row_stride;
 
   float acc[kRowsPerThread][4] = {};
-  for (int t = 0; t < 9; ++t) {
-    const int r0 = y0t[i * 9 + t] - 1;  // unpadded rows; outside [0, H) is zero
-    const int r1 = y1t[i * 9 + t] - 1;
-    const int cx = cxt[i * 9 + t];
-    const float wy = wyt[i * 9 + t];
-    const float wx = wxt[i * 9 + t];
+  for (int t = 0; t < taps; ++t) {
+    const int e = i * taps + t;
+    const int r0 = y0t[e] - pad;  // unpadded rows; outside [0, H) is zero
+    const int r1 = y1t[e] - pad;
+    const int cx = cxt[e];
+    const float wy = wyt[e];
+    const float wx = wxt[e];
     const bool in0 = r0 >= 0 && r0 < H;
     const bool in1 = r1 >= 0 && r1 < H;
     const T* row0 = xb + static_cast<size_t>(in0 ? r0 : 0) * row_stride;
@@ -256,12 +292,83 @@ da_dx_k3_kernel(const float* __restrict__ g, const float* __restrict__ kt,
   }
 }
 
-constexpr int kChunk = 64;  // K3: columns staged in shared memory at a time
+// K7. Grid (ceil(W/TW), H, B); dynamic smem TW*(F+1) floats.
+// g [B,H,W,F] f32, kt [k^2, F, Cp] f32 (K_t^T per tap, C zero-padded to Cp,
+// a multiple of 4), dx [B,H,W,C] f32. Reference tables [H, R] (ri, rt, rw,
+// rcx, rwx); rw == 0 is padding.
+__global__ void __launch_bounds__(kThreads)
+da_dx_kernel(const float* __restrict__ g, const float* __restrict__ kt,
+             const int* __restrict__ ri, const int* __restrict__ rt,
+             const float* __restrict__ rw, const int* __restrict__ rcx,
+             const float* __restrict__ rwx, int nrefs,
+             float* __restrict__ dx, int H, int W, int C, int Cp, int F) {
+  extern __shared__ float tile[];
+  const int quads = Cp / 4;
+  const int lanes = kThreads / quads;
+  const int tw = lanes * kRowsPerThread;
+  const int ld = F + 1;
+  const int tid = threadIdx.x;
+  const int quad = tid % quads;
+  const int lane = tid / quads;
+  const int j0 = blockIdx.x * tw;
+  const int y = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t row_stride = static_cast<size_t>(W) * F;
 
-// K3 tiling: a block covers Ct input channels x Ft output channels with one
-// thread per 4x4 quad, at most kThreads threads.
+  float acc[kRowsPerThread][4] = {};
+  for (int r = 0; r < nrefs; ++r) {
+    const int e = y * nrefs + r;
+    const float wgt = rw[e];
+    if (wgt == 0.f) continue;  // uniform across the block
+    const float* grow = g + (static_cast<size_t>(b) * H + ri[e]) * row_stride;
+    const int cx = rcx[e];
+    const float wx = rwx[e];
+    const float a0 = wgt * (1.f - wx);
+    const float a1 = wgt * wx;
+
+    __syncthreads();  // the previous reference's tile is no longer read
+    for (int n = tid; n < tw * F; n += kThreads) {
+      const int jj = n / F;
+      const int f = n - jj * F;
+      const int j = j0 + jj;
+      float u = 0.f;
+      if (j < W) {
+        int q0 = j - cx;
+        if (q0 < 0) q0 += W;
+        int q1 = q0 - 1;
+        if (q1 < 0) q1 += W;
+        u = a0 * grow[q0 * F + f] + a1 * grow[q1 * F + f];
+      }
+      tile[jj * ld + f] = u;
+    }
+    __syncthreads();
+    accumulate(acc, tile, ld, kt + static_cast<size_t>(rt[e]) * F * Cp, F, Cp,
+               quad, lane, lanes);
+  }
+
+  const int c = 4 * quad;
+#pragma unroll
+  for (int r = 0; r < kRowsPerThread; ++r) {
+    const int j = j0 + lane + lanes * r;
+    if (j < W) {
+      float* o = dx + ((static_cast<size_t>(b) * H + y) * W + j) * C + c;
+      if (C % 4 == 0) {
+        *reinterpret_cast<float4*>(o) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (c + q < C) o[q] = acc[r][q];
+      }
+    }
+  }
+}
+
+constexpr int kChunk = 64;  // K3/K6: columns staged in shared memory at a time
+
+// K3/K6 tiling: a block covers Ct input channels x Ft output channels with
+// one thread per 4x4 quad, at most kThreads threads.
 struct DkPlan {
-  int ct, ft, threads;
+  int ct, ft, tiles, threads;
   size_t smem;
 };
 
@@ -272,23 +379,28 @@ bool plan_dk(int C, int F, DkPlan* p) {
   const int max_ft = 4 * (kThreads / quads_c);
   p->ft = F <= max_ft ? F : max_ft;
   if (C % p->ct != 0 || F % p->ft != 0) return false;
+  p->tiles = (C / p->ct) * (F / p->ft);
   p->threads = quads_c * (p->ft / 4);
   p->smem = static_cast<size_t>(kChunk) * (p->ct + 4 + p->ft + 4) * sizeof(float);
   return true;
 }
 
-// K3 partials. Grid ((C/Ct)*(F/Ft), 9, nsplit); block plan.threads; dynamic
-// smem kChunk*(Ct+4) + kChunk*(Ft+4) floats. x [B,H,W,C] (T, read as f32),
-// g [B,H,W,F] f32, tables [H,9] as in K1; ws [nsplit, 9C, F] f32 receives
-// each split's sum over its rows r = b*H + i in [r_begin, r_end).
-template <typename T>
+// K3 (KC = 3) and K6 (KC = 0: kernel size k at run time) partials. Grid
+// (tiles, k^2, nsplit); block plan.threads; dynamic smem kChunk*(Ct+4) +
+// kChunk*(Ft+4) floats. x [B,H,W,C] (T, read as f32), g [B,H,W,F] f32,
+// tables [H,k^2] as in K1; ws [nsplit, k^2 C, F] f32 receives each split's
+// sum over its rows r = b*H + i in [r_begin, r_end).
+template <typename T, int KC>
 __global__ void __launch_bounds__(kThreads)
-da_dk_k3_kernel(const T* __restrict__ x, const float* __restrict__ g,
-                const int* __restrict__ y0t, const int* __restrict__ y1t,
-                const int* __restrict__ cxt, const float* __restrict__ wyt,
-                const float* __restrict__ wxt, float* __restrict__ ws, int B,
-                int H, int W, int C, int F, int ct, int ft) {
+da_dk_kernel(const T* __restrict__ x, const float* __restrict__ g,
+             const int* __restrict__ y0t, const int* __restrict__ y1t,
+             const int* __restrict__ cxt, const float* __restrict__ wyt,
+             const float* __restrict__ wxt, float* __restrict__ ws, int B,
+             int H, int W, int C, int F, int ct, int ft, int k) {
   extern __shared__ __align__(16) float dk_smem[];
+  const int ks = KC ? KC : k;
+  const int taps = ks * ks;
+  const int pad = ks / 2;
   const int lds = ct + 4;
   const int ldg = ft + 4;
   float* stile = dk_smem;                // [kChunk, lds] rebuilt samples
@@ -311,11 +423,12 @@ da_dk_k3_kernel(const T* __restrict__ x, const float* __restrict__ g,
   for (int r = r_begin; r < r_end; ++r) {
     const int b = r / H;
     const int i = r - b * H;
-    const int r0 = y0t[i * 9 + t] - 1;  // unpadded rows; outside [0, H) is zero
-    const int r1 = y1t[i * 9 + t] - 1;
-    const int cx = cxt[i * 9 + t];
-    const float wy = wyt[i * 9 + t];
-    const float wx = wxt[i * 9 + t];
+    const int e = i * taps + t;
+    const int r0 = y0t[e] - pad;  // unpadded rows; outside [0, H) is zero
+    const int r1 = y1t[e] - pad;
+    const int cx = cxt[e];
+    const float wy = wyt[e];
+    const float wx = wxt[e];
     const bool in0 = r0 >= 0 && r0 < H;
     const bool in1 = r1 >= 0 && r1 < H;
     const T* xb = x + static_cast<size_t>(b) * H * row_stride + c0;
@@ -370,7 +483,7 @@ da_dk_k3_kernel(const T* __restrict__ x, const float* __restrict__ g,
     }
   }
 
-  float* out = ws + static_cast<size_t>(blockIdx.z) * 9 * C * F;
+  float* out = ws + static_cast<size_t>(blockIdx.z) * taps * C * F;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const size_t row = static_cast<size_t>(t) * C + c0 + 4 * cq + a;
@@ -379,7 +492,7 @@ da_dk_k3_kernel(const T* __restrict__ x, const float* __restrict__ g,
   }
 }
 
-// K3 second pass: out[e] = sum_s ws[s, e] in split order (deterministic).
+// K3/K6 second pass: out[e] = sum_s ws[s, e] in split order (deterministic).
 __global__ void da_dk_reduce_kernel(const float* __restrict__ ws, int nsplit,
                                     size_t n, float* __restrict__ out) {
   const size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -408,45 +521,47 @@ cudaError_t allow_smem(K kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <typename T>
+bool odd_size(int k) { return k >= 1 && k % 2 == 1; }
+
+template <typename T, int KC>
 int launch_fwd(const void* x, const void* kern, const void* bias,
                const void* y0, const void* y1, const void* cx, const void* wy,
                const void* wx, void* out, int B, int H, int W, int C, int F,
-               cudaStream_t stream) {
+               int k, cudaStream_t stream) {
   int tw;
   size_t smem;
-  if (!plan(F, C, &tw, &smem)) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(da_fwd_k3_kernel<T>, smem);
+  if (!odd_size(k) || !plan(F, C, &tw, &smem)) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(da_fwd_kernel<T, KC>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((W + tw - 1) / tw, H, B);
-  da_fwd_k3_kernel<T><<<grid, kThreads, smem, stream>>>(
+  da_fwd_kernel<T, KC><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(kern),
       static_cast<const float*>(bias), static_cast<const int*>(y0),
       static_cast<const int*>(y1), static_cast<const int*>(cx),
       static_cast<const float*>(wy), static_cast<const float*>(wx),
-      static_cast<T*>(out), H, W, C, F);
+      static_cast<T*>(out), H, W, C, F, k);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int KC>
 int launch_dk(const void* x, const void* g, const void* y0, const void* y1,
               const void* cx, const void* wy, const void* wx, void* ws,
-              void* out, int nsplit, int B, int H, int W, int C, int F,
+              void* out, int nsplit, int B, int H, int W, int C, int F, int k,
               cudaStream_t stream) {
   DkPlan p;
-  if (!plan_dk(C, F, &p) || nsplit < 1) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(da_dk_k3_kernel<T>, p.smem);
+  if (!odd_size(k) || !plan_dk(C, F, &p) || nsplit < 1) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(da_dk_kernel<T, KC>, p.smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((C / p.ct) * (F / p.ft), 9, nsplit);
-  da_dk_k3_kernel<T><<<grid, p.threads, p.smem, stream>>>(
+  const dim3 grid(p.tiles, k * k, nsplit);
+  da_dk_kernel<T, KC><<<grid, p.threads, p.smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(g),
       static_cast<const int*>(y0), static_cast<const int*>(y1),
       static_cast<const int*>(cx), static_cast<const float*>(wy),
       static_cast<const float*>(wx), static_cast<float*>(ws), B, H, W, C, F,
-      p.ct, p.ft);
+      p.ct, p.ft, k);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t n = static_cast<size_t>(9) * C * F;
+  const size_t n = static_cast<size_t>(k) * k * C * F;
   const int threads = 256;
   da_dk_reduce_kernel<<<static_cast<unsigned>((n + threads - 1) / threads), threads, 0,
                         stream>>>(static_cast<const float*>(ws), nsplit, n,
@@ -470,10 +585,26 @@ int skyhdr_da_fwd_k3(const void* x, const void* kern, const void* bias,
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_fwd<__nv_bfloat16>(x, kern, bias, y0, y1, cx, wy, wx, out,
-                                     B, H, W, C, F, s);
-  return launch_fwd<float>(x, kern, bias, y0, y1, cx, wy, wx, out, B, H, W,
-                           C, F, s);
+    return launch_fwd<__nv_bfloat16, 3>(x, kern, bias, y0, y1, cx, wy, wx, out,
+                                        B, H, W, C, F, 3, s);
+  return launch_fwd<float, 3>(x, kern, bias, y0, y1, cx, wy, wx, out, B, H, W,
+                              C, F, 3, s);
+}
+
+// K5: K1 at any odd kernel size k: kern [k^2 C, F], tables [H, k^2].
+int skyhdr_da_fwd(const void* x, const void* kern, const void* bias,
+                  const void* y0, const void* y1, const void* cx,
+                  const void* wy, const void* wx, void* out, int B, int H,
+                  int W, int C, int F, int k, int is_bf16, int device,
+                  void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_fwd<__nv_bfloat16, 0>(x, kern, bias, y0, y1, cx, wy, wx, out,
+                                        B, H, W, C, F, k, s);
+  return launch_fwd<float, 0>(x, kern, bias, y0, y1, cx, wy, wx, out, B, H, W,
+                              C, F, k, s);
 }
 
 // K2: g [B,H,W,F] f32, kt [9,F,C] f32, dx [B,H,W,C] f32.
@@ -498,16 +629,40 @@ int skyhdr_da_dx_k3(const void* g, const void* kt, const void* si,
   return cudaGetLastError();
 }
 
-// K3 row splits for a launch: enough blocks for ~8 per SM (two waves at
-// four resident blocks), at most one split per (b, i) row. Returns -1 when
-// C or F does not fit the tiling, or a negative cudaError_t.
-int skyhdr_da_dk_k3_splits(int B, int H, int C, int F, int device) {
+// K7: g [B,H,W,F] f32, kt [k^2, F, Cp] f32 (Cp = C rounded up to a
+// multiple of 4, zero-padded), dx [B,H,W,C] f32; nrefs references per row.
+int skyhdr_da_dx(const void* g, const void* kt, const void* ri,
+                 const void* rt, const void* rw, const void* rcx,
+                 const void* rwx, int nrefs, void* dx, int B, int H, int W,
+                 int C, int Cp, int F, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  int tw;
+  size_t smem;
+  if (Cp < C || Cp % 4 != 0 || !plan(Cp, F, &tw, &smem)) return cudaErrorInvalidValue;
+  err = allow_smem(da_dx_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((W + tw - 1) / tw, H, B);
+  da_dx_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g), static_cast<const float*>(kt),
+      static_cast<const int*>(ri), static_cast<const int*>(rt),
+      static_cast<const float*>(rw), static_cast<const int*>(rcx),
+      static_cast<const float*>(rwx), nrefs, static_cast<float*>(dx), H, W,
+      C, Cp, F);
+  return cudaGetLastError();
+}
+
+// K3/K6 row splits for a launch at kernel size k: enough blocks for ~8 per
+// SM (two waves at four resident blocks) over all k^2 taps, at most one
+// split per (b, i) row. Returns -1 when k is not odd or C or F does not fit
+// the tiling, or a negative cudaError_t.
+int skyhdr_da_dk_splits(int B, int H, int C, int F, int k, int device) {
   DkPlan p;
-  if (!plan_dk(C, F, &p)) return -1;
+  if (!odd_size(k) || !plan_dk(C, F, &p)) return -1;
   int sms = 0;
   const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return -static_cast<int>(err);
-  const int per_split = 9 * (C / p.ct) * (F / p.ft);
+  const int per_split = k * k * p.tiles;
   const int n = (8 * sms + per_split - 1) / per_split;
   const int rows = B * H;
   return n < 1 ? 1 : (n > rows ? rows : n);
@@ -525,10 +680,26 @@ int skyhdr_da_dk_k3(const void* x, const void* g, const void* y0,
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_dk<__nv_bfloat16>(x, g, y0, y1, cx, wy, wx, ws, out, nsplit,
-                                    B, H, W, C, F, s);
-  return launch_dk<float>(x, g, y0, y1, cx, wy, wx, ws, out, nsplit, B, H, W,
-                          C, F, s);
+    return launch_dk<__nv_bfloat16, 3>(x, g, y0, y1, cx, wy, wx, ws, out, nsplit,
+                                       B, H, W, C, F, 3, s);
+  return launch_dk<float, 3>(x, g, y0, y1, cx, wy, wx, ws, out, nsplit, B, H, W,
+                             C, F, 3, s);
+}
+
+// K6: K3 at any odd kernel size k: tables [H, k^2], ws [nsplit, k^2 C, F],
+// out [k^2 C, F].
+int skyhdr_da_dk(const void* x, const void* g, const void* y0, const void* y1,
+                 const void* cx, const void* wy, const void* wx, void* ws,
+                 void* out, int nsplit, int B, int H, int W, int C, int F,
+                 int k, int is_bf16, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_dk<__nv_bfloat16, 0>(x, g, y0, y1, cx, wy, wx, ws, out, nsplit,
+                                       B, H, W, C, F, k, s);
+  return launch_dk<float, 0>(x, g, y0, y1, cx, wy, wx, ws, out, nsplit, B, H, W,
+                             C, F, k, s);
 }
 
 const char* skyhdr_cuda_error_string(int code) {

@@ -2,8 +2,8 @@
 gather form, and the DAConv / DADeconv layers.
 
 The NumPy table builders are copies of `skyhdr.ops.distortion`
-(`distortion_offsets`, `gather_tables`, `scatter_tables_k3`); the tests hold
-them `np.array_equal` to the originals. Geometry: every panorama row projects
+(`distortion_offsets`, `gather_tables`, `scatter_tables`,
+`scatter_tables_k3`); the tests hold them `np.array_equal` to the originals. Geometry: every panorama row projects
 the k x k kernel grid onto the sphere's tangent plane at that row's
 elevation, so the sampling offsets depend on the row and the tap, never on
 the column. Width wraps cyclically (a true 360 degrees); height is
@@ -124,6 +124,48 @@ def gather_tables(h: int, w: int, kernel_size: int = 3, stride: int = 1,
     )
 
 
+class ScatterTables(NamedTuple):
+    """The gather inverted per input row, any odd k: for input row y, the
+    padded list of forward references (output row i, tap) that read it,
+    with the row weight and the tap's column shift and fraction."""
+
+    ri: np.ndarray   # [h, R] int32 — forward output row i
+    rt: np.ndarray   # [h, R] int32 — tap index
+    rw: np.ndarray   # [h, R] f32 — row weight: (1-wy) if y==y0 else wy; 0=pad
+    rcx: np.ndarray  # [h, R] int32 — column shift cx0(i, tap)
+    rwx: np.ndarray  # [h, R] f32 — column fraction wx(i, tap)
+    nrefs: int
+
+
+@functools.lru_cache(maxsize=None)
+def scatter_tables(h: int, w: int, kernel_size: int = 3, stride: int = 1,
+                   dilation_rate: int = 1, skydome: bool = True) -> ScatterTables:
+    t = gather_tables(h, w, kernel_size, stride, dilation_rate, skydome)
+    h_out = t.y0.shape[0]
+    k2 = kernel_size * kernel_size
+    refs = [[] for _ in range(h)]  # unpadded row index
+    for i in range(h_out):
+        for tap in range(k2):
+            wy = float(t.wy[i, tap])
+            for y_pad, wgt in ((int(t.y0[i, tap]), 1.0 - wy),
+                               (int(t.y1[i, tap]), wy)):
+                y = y_pad - t.pad
+                if 0 <= y < h and wgt != 0.0:
+                    refs[y].append((i, tap, wgt,
+                                    int(t.cx0[i, tap]), float(t.wx[i, tap])))
+    nrefs = max(len(r) for r in refs)
+    ri = np.zeros((h, nrefs), np.int32)
+    rt = np.zeros((h, nrefs), np.int32)
+    rw = np.zeros((h, nrefs), np.float32)
+    rcx = np.zeros((h, nrefs), np.int32)
+    rwx = np.zeros((h, nrefs), np.float32)
+    for y, lst in enumerate(refs):
+        for r, (i, tap, wgt, cx, wx) in enumerate(lst):
+            ri[y, r], rt[y, r], rw[y, r], rcx[y, r], rwx[y, r] = (
+                i, tap, wgt, cx, wx)
+    return ScatterTables(ri=ri, rt=rt, rw=rw, rcx=rcx, rwx=rwx, nrefs=nrefs)
+
+
 class ScatterTablesK3(NamedTuple):
     """The k=3 gather inverted per input row: for input row y, the "slots"
     (forward output row i, kernel row ky) that read it, with the row weight
@@ -192,6 +234,16 @@ def scatter_tables_k3_on(device: torch.device, h: int, w: int,
     st = scatter_tables_k3(h, w, 1, dilation_rate, skydome)
     return (tuple(_on(device, a) for a in (st.si, st.sw, st.sky, st.scx, st.swx)),
             st.nslots)
+
+
+@functools.lru_cache(maxsize=None)
+def scatter_tables_on(device: torch.device, h: int, w: int, kernel_size: int,
+                      dilation_rate: int = 1, skydome: bool = True):
+    """`scatter_tables` (stride 1) as device tensors (ri, rt, rw, rcx, rwx)
+    plus the reference count."""
+    st = scatter_tables(h, w, kernel_size, 1, dilation_rate, skydome)
+    return (tuple(_on(device, a) for a in (st.ri, st.rt, st.rw, st.rcx, st.rwx)),
+            st.nrefs)
 
 
 def mm_dtype(x: torch.Tensor) -> torch.dtype:

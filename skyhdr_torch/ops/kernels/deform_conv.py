@@ -1,9 +1,9 @@
-"""The k=3 DA conv on Hopper: kernel wrappers, their plain PyTorch
-versions, and the autograd glue.
+"""The DA conv on Hopper: kernel wrappers, their plain PyTorch versions, and
+the autograd glue.
 
+k = 3 (skyhdr/ops/pallas/deform_conv.py's fast path):
   K1 `da_conv_forward_k1` — CUDA forward (csrc/deform_conv.cu), replacing
-     `_kernel_k3` of skyhdr/ops/pallas/deform_conv.py. Plain version:
-     `da_conv_forward_ref`.
+     `_kernel_k3`. Plain version: `da_conv_forward_ref`.
   K2 `da_conv_dx_k2` — CUDA input gradient, replacing `_dx_k3_kernel`.
      Plain version: `da_conv_dx_ref`, the same slot formula vectorised in
      torch (not autograd of the forward, so the CPU tests hold the very
@@ -11,27 +11,41 @@ versions, and the autograd glue.
   K3 `da_conv_dk_k3` — CUDA weight gradient, replacing `_dk_k3_kernel`.
      Plain version: `da_conv_dk_ref`, the same sample-times-cotangent sum
      vectorised in torch (again not autograd of the forward).
-  K4 `DAConvFunction` — the custom-VJP wiring (`_da_conv_core` / `_da_fwd`
-     / `_da_bwd`): K1 forward; K2 for dx when the input needs a gradient,
-     K3 for dK and a plain sum for db when the weights do.
+Any other odd k (the generic kernels of the same file):
+  K5 `da_conv_forward_k5` — CUDA forward, replacing `_kernel_body`. Plain
+     version: `da_conv_forward_ref` at that k.
+  K6 `da_conv_dk_k6` — CUDA weight gradient, replacing `_dk_kernel`. Plain
+     version: `da_conv_dk_ref` at that k.
+  K7 `da_conv_dx_k7` — CUDA input gradient over the `scatter_tables`
+     references, replacing `_dx_kernel`. Plain version:
+     `da_conv_dx_ref_generic`, the same reference formula in torch.
+K4 `DAConvFunction` — the custom-VJP wiring (`_da_conv_core` / `_da_fwd` /
+  `_da_bwd`): the forward kernel of the kernel size; the input gradient
+  when the input needs one, the weight gradient and a plain sum for db
+  when the weights do.
 
 Dispatch is by device only: a CPU tensor takes the plain version, a CUDA
-tensor launches the kernel or raises. `K1_LAUNCHES` / `K2_LAUNCHES` /
-`K3_LAUNCHES` count kernel launches, one per wrapper call that launches.
+tensor launches the kernel or raises. `K1_LAUNCHES` ... `K7_LAUNCHES` count
+kernel launches, one per wrapper call that launches.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
 from skyhdr_torch.ops.distortion import (deformable_conv2d, gather_tables_on,
-                                         mm_dtype, scatter_tables_k3_on)
+                                         mm_dtype, scatter_tables_k3_on,
+                                         scatter_tables_on)
 
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
 K3_LAUNCHES = 0
+K5_LAUNCHES = 0
+K6_LAUNCHES = 0
+K7_LAUNCHES = 0
 _WEIGHT_GRADS = True
 
 
@@ -51,34 +65,62 @@ def _ptrs(*tensors):
     return [t.data_ptr() for t in tensors]
 
 
+def _odd_other_than_3(k: int, name: str) -> None:
+    _require(k % 2 == 1 and k != 3,
+             f"{name} takes an odd kernel size other than 3, got {k}")
+
+
+def _forward(x, kernel, bias, k: int, dilation_rate: int, skydome: bool,
+             name: str) -> torch.Tensor:
+    """Checks, then launches K1 (k = 3) or K5 (any other odd k)."""
+    from skyhdr_torch.ops.kernels.build import check, library
+
+    f = kernel.shape[-1]
+    _require(x.is_cuda and kernel.device == x.device,
+             "DA kernels take CUDA tensors on one device")
+    _require(x.dim() == 4 and tuple(kernel.shape) == (k * k * x.shape[-1], f),
+             f"x [b,h,w,c] and kernel [{k * k}c,f] expected, got "
+             f"{tuple(x.shape)} and {tuple(kernel.shape)}")
+    _require(x.dtype in (torch.float32, torch.bfloat16),
+             f"{name} takes float32 or bfloat16 x, got {x.dtype}")
+    _require(bias.shape == (f,), f"bias must be [{f}]")
+    b, h, w, c = x.shape
+    x = x.contiguous()
+    kk = kernel.to(mm_dtype(x)).contiguous()
+    bias32 = bias.to(device=x.device, dtype=torch.float32).contiguous()
+    y0, y1, cx, wy, wx = gather_tables_on(x.device, h, w, k, dilation_rate, skydome)
+    out = torch.empty((b, h, w, f), dtype=x.dtype, device=x.device)
+    ptrs = _ptrs(x, kk, bias32, y0, y1, cx, wy, wx, out)
+    bf16 = int(x.dtype == torch.bfloat16)
+    if k == 3:
+        code = library().skyhdr_da_fwd_k3(*ptrs, b, h, w, c, f, bf16,
+                                          x.device.index, _stream(x))
+    else:
+        code = library().skyhdr_da_fwd(*ptrs, b, h, w, c, f, k, bf16,
+                                       x.device.index, _stream(x))
+    check(code, f"{name} (DA forward, k={k})")
+    return out
+
+
 def da_conv_forward_k1(x, kernel, bias, *, dilation_rate: int = 1,
                        skydome: bool = True) -> torch.Tensor:
     """K1: the k=3 DA forward on the card. x [b,h,w,c] f32 or bf16,
     kernel [9c,f] (cast to bf16 only when x is bf16), bias [f]; returns
     bias + conv in x.dtype."""
     global K1_LAUNCHES
-    from skyhdr_torch.ops.kernels.build import check, library
-
-    f = kernel.shape[-1]
-    _require(x.is_cuda and kernel.device == x.device,
-             "DA kernels take CUDA tensors on one device")
-    _require(x.dim() == 4 and tuple(kernel.shape) == (9 * x.shape[-1], f),
-             f"x [b,h,w,c] and kernel [9c,f] expected, got "
-             f"{tuple(x.shape)} and {tuple(kernel.shape)}")
-    _require(x.dtype in (torch.float32, torch.bfloat16),
-             f"K1 takes float32 or bfloat16 x, got {x.dtype}")
-    _require(bias.shape == (f,), f"bias must be [{f}]")
-    b, h, w, c = x.shape
-    x = x.contiguous()
-    k = kernel.to(mm_dtype(x)).contiguous()
-    bias32 = bias.to(device=x.device, dtype=torch.float32).contiguous()
-    y0, y1, cx, wy, wx = gather_tables_on(x.device, h, w, 3, dilation_rate, skydome)
-    out = torch.empty((b, h, w, f), dtype=x.dtype, device=x.device)
-    code = library().skyhdr_da_fwd_k3(
-        *_ptrs(x, k, bias32, y0, y1, cx, wy, wx, out), b, h, w, c, f,
-        int(x.dtype == torch.bfloat16), x.device.index, _stream(x))
-    check(code, "K1 (DA forward)")
+    out = _forward(x, kernel, bias, 3, dilation_rate, skydome, "K1")
     K1_LAUNCHES += 1
+    return out
+
+
+def da_conv_forward_k5(x, kernel, bias, *, kernel_size: int,
+                       dilation_rate: int = 1, skydome: bool = True) -> torch.Tensor:
+    """K5: the DA forward at an odd kernel size k other than 3 on the card;
+    as K1, with kernel [k*k*c, f]."""
+    global K5_LAUNCHES
+    _odd_other_than_3(kernel_size, "K5")
+    out = _forward(x, kernel, bias, kernel_size, dilation_rate, skydome, "K5")
+    K5_LAUNCHES += 1
     return out
 
 
@@ -110,12 +152,42 @@ def da_conv_dx_k2(g, kernel, *, x_shape, dilation_rate: int = 1,
     return dx
 
 
-def da_conv_dk_k3(x, g, *, dilation_rate: int = 1,
-                  skydome: bool = True) -> torch.Tensor:
-    """K3: the k=3 DA weight gradient on the card. x [b,h,w,c] float32 or
-    bfloat16 (read as float32), g [b,h,w,f] (taken as float32); returns
-    dK [9c,f] float32, summed in a fixed order (deterministic)."""
-    global K3_LAUNCHES
+def da_conv_dx_k7(g, kernel, *, x_shape, kernel_size: int,
+                  dilation_rate: int = 1, skydome: bool = True) -> torch.Tensor:
+    """K7: the DA input gradient at an odd kernel size k other than 3 on the
+    card, over the `scatter_tables` references. g [b,h,w,f] (taken as
+    float32), kernel [k*k*c, f]; returns dx [b,h,w,c] float32."""
+    global K7_LAUNCHES
+    from skyhdr_torch.ops.kernels.build import check, library
+
+    k = kernel_size
+    _odd_other_than_3(k, "K7")
+    b, h, w, c = x_shape
+    f = kernel.shape[-1]
+    _require(g.is_cuda and kernel.device == g.device,
+             "DA kernels take CUDA tensors on one device")
+    _require(tuple(kernel.shape) == (k * k * c, f),
+             f"kernel must be [{k * k * c}, {f}], got {tuple(kernel.shape)}")
+    _require(tuple(g.shape) == (b, h, w, f),
+             f"g must be [{b},{h},{w},{f}], got {tuple(g.shape)}")
+    g32 = g.float().contiguous()
+    cp = -(-c // 4) * 4  # the kernel's register tile spans 4 channels
+    kt = kernel.float().reshape(k * k, c, f).transpose(1, 2)  # [k2, f, c]
+    kt = torch.nn.functional.pad(kt, (0, cp - c)).contiguous()
+    (ri, rt, rw, rcx, rwx), nrefs = scatter_tables_on(
+        g.device, h, w, k, dilation_rate, skydome)
+    dx = torch.empty((b, h, w, c), dtype=torch.float32, device=g.device)
+    code = library().skyhdr_da_dx(
+        *_ptrs(g32, kt, ri, rt, rw, rcx, rwx), nrefs, *_ptrs(dx),
+        b, h, w, c, cp, f, g.device.index, _stream(g))
+    check(code, f"K7 (DA input gradient, k={k})")
+    K7_LAUNCHES += 1
+    return dx
+
+
+def _dk(x, g, k: int, dilation_rate: int, skydome: bool, name: str) -> torch.Tensor:
+    """Checks, then launches K3 (k = 3) or K6 (any other odd k) and its
+    fixed-order reduction."""
     from skyhdr_torch.ops.kernels.build import check, library
 
     _require(x.is_cuda and g.device == x.device,
@@ -124,29 +196,61 @@ def da_conv_dk_k3(x, g, *, dilation_rate: int = 1,
              f"x [b,h,w,c] and g [b,h,w,f] expected, got {tuple(x.shape)} "
              f"and {tuple(g.shape)}")
     _require(x.dtype in (torch.float32, torch.bfloat16),
-             f"K3 takes float32 or bfloat16 x, got {x.dtype}")
-    b, h, w, c = x.shape
+             f"{name} takes float32 or bfloat16 x, got {x.dtype}")
+    b, h, w, c0 = x.shape
     f = g.shape[-1]
+    # The kernel tiles C by 4: a zero channel pads the 3-channel input, and
+    # its rows of dK are dropped.
+    c = -(-c0 // 4) * 4
+    if c != c0:
+        x = torch.nn.functional.pad(x, (0, c - c0))
     x = x.contiguous()
     g32 = g.float().contiguous()
     lib = library()
-    nsplit = lib.skyhdr_da_dk_k3_splits(b, h, c, f, x.device.index)
-    _require(nsplit > 0, f"K3 does not tile C={c}, F={f} (code {nsplit})")
-    y0, y1, cx, wy, wx = gather_tables_on(x.device, h, w, 3, dilation_rate, skydome)
-    ws = torch.empty((nsplit, 9 * c, f), dtype=torch.float32, device=x.device)
-    dk = torch.empty((9 * c, f), dtype=torch.float32, device=x.device)
-    code = lib.skyhdr_da_dk_k3(
-        *_ptrs(x, g32, y0, y1, cx, wy, wx, ws, dk), nsplit, b, h, w, c, f,
-        int(x.dtype == torch.bfloat16), x.device.index, _stream(x))
-    check(code, "K3 (DA weight gradient)")
+    nsplit = lib.skyhdr_da_dk_splits(b, h, c, f, k, x.device.index)
+    _require(nsplit > 0, f"{name} does not tile C={c}, F={f} (code {nsplit})")
+    y0, y1, cx, wy, wx = gather_tables_on(x.device, h, w, k, dilation_rate, skydome)
+    ws = torch.empty((nsplit, k * k * c, f), dtype=torch.float32, device=x.device)
+    dk = torch.empty((k * k * c, f), dtype=torch.float32, device=x.device)
+    ptrs = _ptrs(x, g32, y0, y1, cx, wy, wx, ws, dk)
+    bf16 = int(x.dtype == torch.bfloat16)
+    if k == 3:
+        code = lib.skyhdr_da_dk_k3(*ptrs, nsplit, b, h, w, c, f, bf16,
+                                   x.device.index, _stream(x))
+    else:
+        code = lib.skyhdr_da_dk(*ptrs, nsplit, b, h, w, c, f, k, bf16,
+                                x.device.index, _stream(x))
+    check(code, f"{name} (DA weight gradient, k={k})")
+    return dk if c == c0 else dk.view(k * k, c, f)[:, :c0].reshape(k * k * c0, f)
+
+
+def da_conv_dk_k3(x, g, *, dilation_rate: int = 1,
+                  skydome: bool = True) -> torch.Tensor:
+    """K3: the k=3 DA weight gradient on the card. x [b,h,w,c] float32 or
+    bfloat16 (read as float32), g [b,h,w,f] (taken as float32); returns
+    dK [9c,f] float32, summed in a fixed order (deterministic)."""
+    global K3_LAUNCHES
+    dk = _dk(x, g, 3, dilation_rate, skydome, "K3")
     K3_LAUNCHES += 1
     return dk
 
 
-def da_conv_forward_ref(x, kernel, bias, *, dilation_rate: int = 1,
-                        skydome: bool = True) -> torch.Tensor:
-    """Plain version of K1: the gather form (`deformable_conv2d`, k=3)."""
-    return deformable_conv2d(x, kernel, bias, kernel_size=3,
+def da_conv_dk_k6(x, g, *, kernel_size: int, dilation_rate: int = 1,
+                  skydome: bool = True) -> torch.Tensor:
+    """K6: the DA weight gradient at an odd kernel size k other than 3 on
+    the card; as K3, returning dK [k*k*c, f] float32."""
+    global K6_LAUNCHES
+    _odd_other_than_3(kernel_size, "K6")
+    dk = _dk(x, g, kernel_size, dilation_rate, skydome, "K6")
+    K6_LAUNCHES += 1
+    return dk
+
+
+def da_conv_forward_ref(x, kernel, bias, *, kernel_size: int = 3,
+                        dilation_rate: int = 1, skydome: bool = True) -> torch.Tensor:
+    """Plain version of K1 (k = 3) and K5: the gather form
+    (`deformable_conv2d`)."""
+    return deformable_conv2d(x, kernel, bias, kernel_size=kernel_size,
                              dilation_rate=dilation_rate, skydome=skydome)
 
 
@@ -181,21 +285,52 @@ def da_conv_dx_ref(g, kernel, *, x_shape, dilation_rate: int = 1,
     return dx
 
 
-def da_conv_dk_ref(x, g, *, dilation_rate: int = 1,
+def da_conv_dx_ref_generic(g, kernel, *, x_shape, kernel_size: int,
+                           dilation_rate: int = 1, skydome: bool = True) -> torch.Tensor:
+    """Plain version of K7: over the `scatter_tables` references,
+    dx[y,j] = sum_r rw ((1-rwx) g[ri][(j-rcx) mod w]
+                        + rwx g[ri][(j-rcx-1) mod w]) @ K_rt^T,
+    in float32. Padding references carry rw = 0."""
+    b, h, w, c = x_shape
+    k2 = kernel_size * kernel_size
+    f = kernel.shape[-1]
+    dev = g.device
+    (ri, rt, rw, rcx, rwx), nrefs = scatter_tables_on(
+        dev, h, w, kernel_size, dilation_rate, skydome)
+    g = g.float()
+    kt = kernel.float().reshape(k2, c, f).transpose(1, 2)  # [k2, f, c]
+    jcols = torch.arange(w, device=dev)[None, :]
+    dx = torch.zeros((b, h, w, c), dtype=torch.float32, device=dev)
+    for r in range(nrefs):
+        rows = g[:, ri[:, r].long()]  # [b, h, w, f]: cotangent row per input row
+        cx = rcx[:, r].long()[:, None]
+        i0 = ((jcols - cx) % w)[None, :, :, None].expand(b, h, w, f)
+        i1 = ((jcols - cx - 1) % w)[None, :, :, None].expand(b, h, w, f)
+        wx = rwx[:, r][None, :, None, None]
+        u = rw[:, r][None, :, None, None] * (
+            (1 - wx) * torch.gather(rows, 2, i0) + wx * torch.gather(rows, 2, i1))
+        dx = dx + torch.einsum("bhwf,hfc->bhwc", u, kt[rt[:, r].long()])
+    return dx
+
+
+def da_conv_dk_ref(x, g, *, kernel_size: int = 3, dilation_rate: int = 1,
                    skydome: bool = True) -> torch.Tensor:
-    """Plain version of K3: dK[t*c+ci, f] = sum_{b,i,j} sample_t[b,i,j,ci]
-    g[b,i,j,f] with the forward's rebuilt sample
-        rowY   = (1-wy)*xpad[y0] + wy*xpad[y1]
+    """Plain version of K3 (k = 3) and K6: dK[t*c+ci, f] =
+    sum_{b,i,j} sample_t[b,i,j,ci] g[b,i,j,f] with the forward's rebuilt
+    sample
+        rowY   = (1-wy)*xpad[y0] + wy*xpad[y1]      (k // 2 pad rows)
         sample = (1-wx)*rowY[(j+cx) mod w] + wx*rowY[(j+cx+1) mod w],
     all in float32 (x is read as float32 whatever its dtype)."""
     b, h, w, c = x.shape
     dev = x.device
-    y0, y1, cx0, wys, wxs = gather_tables_on(dev, h, w, 3, dilation_rate, skydome)
-    xp = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 1, 1))
+    pad = kernel_size // 2
+    y0, y1, cx0, wys, wxs = gather_tables_on(dev, h, w, kernel_size,
+                                             dilation_rate, skydome)
+    xp = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, pad, pad))
     g = g.float()
     jcols = torch.arange(w, device=dev)
     taps = []
-    for tap in range(9):
+    for tap in range(kernel_size * kernel_size):
         wy = wys[:, tap][None, :, None, None]
         wx = wxs[:, tap][None, :, None, None]
         row_y = (1 - wy) * xp[:, y0[:, tap].long()] + wy * xp[:, y1[:, tap].long()]
@@ -204,6 +339,27 @@ def da_conv_dk_ref(x, g, *, dilation_rate: int = 1,
         sample = (1 - wx) * s0 + wx * torch.roll(s0, -1, dims=2)
         taps.append(torch.einsum("bhwc,bhwf->cf", sample, g))
     return torch.cat(taps, dim=0)
+
+
+def _forward_of(x, k: int):
+    """The forward for x's device at kernel size k, k bound."""
+    if not x.is_cuda:
+        return functools.partial(da_conv_forward_ref, kernel_size=k)
+    return da_conv_forward_k1 if k == 3 else functools.partial(da_conv_forward_k5,
+                                                               kernel_size=k)
+
+
+def _dk_of(g, k: int):
+    if not g.is_cuda:
+        return functools.partial(da_conv_dk_ref, kernel_size=k)
+    return da_conv_dk_k3 if k == 3 else functools.partial(da_conv_dk_k6, kernel_size=k)
+
+
+def _dx_of(g, k: int):
+    if k == 3:
+        return da_conv_dx_k2 if g.is_cuda else da_conv_dx_ref
+    return functools.partial(da_conv_dx_k7 if g.is_cuda else da_conv_dx_ref_generic,
+                             kernel_size=k)
 
 
 @contextlib.contextmanager
@@ -223,39 +379,36 @@ def input_grads_only():
 
 
 class DAConvFunction(torch.autograd.Function):
-    """k=3 DA conv with the kernels in both directions."""
+    """DA conv at an odd kernel size with the kernels in both directions:
+    K1/K2/K3 at k = 3, K5/K7/K6 at any other odd k."""
 
     @staticmethod
-    def forward(ctx, x, kernel, bias, dilation_rate: int, skydome: bool):
+    def forward(ctx, x, kernel, bias, kernel_size: int, dilation_rate: int,
+                skydome: bool):
         ctx.save_for_backward(x, kernel, bias)
+        ctx.kernel_size = kernel_size
         ctx.dilation_rate, ctx.skydome = dilation_rate, skydome
-        run = da_conv_forward_k1 if x.is_cuda else da_conv_forward_ref
-        return run(x, kernel, bias, dilation_rate=dilation_rate, skydome=skydome)
+        return _forward_of(x, kernel_size)(x, kernel, bias, dilation_rate=dilation_rate,
+                                           skydome=skydome)
 
     @staticmethod
     def backward(ctx, g):
         x, kernel, bias = ctx.saved_tensors
+        k = ctx.kernel_size
         dx = dk = db = None
         geom = dict(dilation_rate=ctx.dilation_rate, skydome=ctx.skydome)
         if ctx.needs_input_grad[1] and _WEIGHT_GRADS:
-            run = da_conv_dk_k3 if g.is_cuda else da_conv_dk_ref
-            dk = run(x, g, **geom).to(kernel.dtype)
+            dk = _dk_of(g, k)(x, g, **geom).to(kernel.dtype)
         if ctx.needs_input_grad[2] and _WEIGHT_GRADS:
             db = g.float().sum((0, 1, 2)).to(bias.dtype)
         if ctx.needs_input_grad[0]:
-            run = da_conv_dx_k2 if g.is_cuda else da_conv_dx_ref
-            dx = run(g, kernel, x_shape=tuple(x.shape), **geom).to(x.dtype)
-        return dx, dk, db, None, None
+            dx = _dx_of(g, k)(g, kernel, x_shape=tuple(x.shape), **geom).to(x.dtype)
+        return dx, dk, db, None, None, None
 
 
 def da_conv(x, kernel, bias, *, kernel_size: int = 3, dilation_rate: int = 1,
             skydome: bool = True) -> torch.Tensor:
     """The DA conv as the layers call it (stride 1, x [b,h,w,c],
-    kernel [k2*c, f], bias [f])."""
-    if kernel_size != 3:
-        if x.is_cuda:
-            raise NotImplementedError(
-                "odd-k DA conv kernels (K5-K7) are not ported yet")
-        return deformable_conv2d(x, kernel, bias, kernel_size=kernel_size,
-                                 dilation_rate=dilation_rate, skydome=skydome)
-    return DAConvFunction.apply(x, kernel, bias, dilation_rate, skydome)
+    kernel [k2*c, f], bias [f], k odd)."""
+    _require(kernel_size % 2 == 1, f"the DA conv takes an odd kernel size, got {kernel_size}")
+    return DAConvFunction.apply(x, kernel, bias, kernel_size, dilation_rate, skydome)

@@ -19,7 +19,7 @@ tree (optionally of other tensors shaped like the parameters: gradients,
 optimizer moments).
 Every leaf module names its leaves in `flax_leaves()` as (collection, name,
 tensor, layout, initializer); the layouts are
-  "same"  — as is (DA kernels [9c, f], biases, norm scales, BN stats),
+  "same"  — as is (DA kernels [k*k*c, f], biases, norm scales, BN stats),
   "hwio"  — conv kernel HWIO -> OIHW,
   "dense" — Dense kernel [in, out] -> Linear weight [out, in].
 Flattening Dense layers (SpatialDense fc1, SunRadNet gamma/beta) read NHWC

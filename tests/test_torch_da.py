@@ -138,14 +138,22 @@ def test_bf16_backward_dtype(rng):
 
 
 def test_odd_kernel_plain_path(rng):
-    """k=5 has no kernel yet (K5-K7); on the CPU it takes the gather form."""
+    """k=5 on the CPU takes the plain versions of K5 (the gather form) and,
+    backward, of K6 and K7."""
     shape, f = (1, 8, 32, 8), 6
     x = rng.normal(size=shape).astype(np.float32)
     k = (rng.normal(size=(25 * 8, f)) * 0.1).astype(np.float32)
     b = rng.normal(size=(f,)).astype(np.float32)
-    got = dc.da_conv(*_t(x, k, b), kernel_size=5).numpy()
+    g = rng.normal(size=shape[:3] + (f,)).astype(np.float32)
+    xt, kt, bt = (a.requires_grad_() for a in _t(x, k, b))
+    got = dc.da_conv(xt, kt, bt, kernel_size=5)
     want = np.asarray(jdist.deformable_conv2d(x, k, b, kernel_size=5))
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-4, atol=1e-4)
+    got.backward(torch.from_numpy(g))
+    _, vjp = jax.vjp(lambda *a: jdist.deformable_conv2d(*a, kernel_size=5), x, k, b)
+    for name, grad, w in zip(("dx", "dk", "db"), (xt.grad, kt.grad, bt.grad), vjp(g)):
+        np.testing.assert_allclose(grad.numpy(), np.asarray(w), rtol=5e-3, atol=3e-4,
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("deconv", [False, True])

@@ -23,11 +23,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _operands(cuda, shape, f, dtype=torch.float32):
+def _operands(cuda, shape, f, dtype=torch.float32, ksize=3):
     gen = torch.Generator(device=cuda).manual_seed(0)
     c = shape[-1]
     x = torch.randn(shape, device=cuda, generator=gen).to(dtype)
-    k = torch.randn(9 * c, f, device=cuda, generator=gen) * 0.05
+    k = torch.randn(ksize * ksize * c, f, device=cuda, generator=gen) * 0.05
     b = torch.randn(f, device=cuda, generator=gen)
     g = torch.randn(shape[:3] + (f,), device=cuda, generator=gen)
     return x, k, b, g
@@ -85,6 +85,88 @@ def test_autograd_function_on_cuda_takes_kernels(cuda):
     assert _rel(k.grad, dc.da_conv_dk_ref(x.detach(), g)) <= 1e-4
     assert _rel(b.grad, g.sum((0, 1, 2))) <= 1e-5
     assert _rel(x.grad, dc.da_conv_dx_ref(g, k.detach(), x_shape=x.shape)) <= 5e-4
+
+
+def test_k3_kernels_at_odd_height(cuda):
+    """K1-K3 take per-(row, tap) tables, so an odd row count needs no other
+    kernel (the TPU package sends odd heights to its generic kernel)."""
+    x, k, b, g = _operands(cuda, (2, 9, 32, 16), 8)
+    assert _rel(dc.da_conv_forward_k1(x, k, b), dc.da_conv_forward_ref(x, k, b)) <= 1e-4
+    assert _rel(dc.da_conv_dx_k2(g, k, x_shape=x.shape),
+                dc.da_conv_dx_ref(g, k, x_shape=x.shape)) <= 5e-4
+    assert _rel(dc.da_conv_dk_k3(x, g), dc.da_conv_dk_ref(x, g)) <= 1e-4
+
+
+# (x shape, F) at k = 5 and 7: the trunk, the k = 7 sun-pose stage 1 (C = 3
+# and C = 32) at a narrow size, and an odd height.
+ODD_K_SHAPES = [((2, 8, 32, 128), 128), ((2, 16, 64, 3), 32), ((2, 16, 64, 32), 32),
+                ((1, 9, 24, 8), 16)]
+
+
+@pytest.mark.parametrize("ksize", [5, 7])
+@pytest.mark.parametrize("shape,f", ODD_K_SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_k5_matches_plain(cuda, ksize, shape, f, dtype, tol):
+    x, k, b, _ = _operands(cuda, shape, f, dtype, ksize)
+    n = dc.K5_LAUNCHES
+    got = dc.da_conv_forward_k5(x, k, b, kernel_size=ksize)
+    torch.cuda.synchronize()
+    assert dc.K5_LAUNCHES == n + 1 and got.dtype == dtype
+    assert _rel(got, dc.da_conv_forward_ref(x, k, b, kernel_size=ksize)) <= tol
+
+
+@pytest.mark.parametrize("ksize", [5, 7])
+@pytest.mark.parametrize("shape,f", ODD_K_SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-4), (torch.bfloat16, 2e-2)])
+def test_k7_matches_plain(cuda, ksize, shape, f, dtype, tol):
+    """g in the working dtype, as autograd hands it; dx cast back to it."""
+    _, k, _, g = _operands(cuda, shape, f, ksize=ksize)
+    g = g.to(dtype)
+    n = dc.K7_LAUNCHES
+    got = dc.da_conv_dx_k7(g, k, x_shape=shape, kernel_size=ksize).to(dtype)
+    torch.cuda.synchronize()
+    assert dc.K7_LAUNCHES == n + 1 and got.shape == shape
+    want = dc.da_conv_dx_ref_generic(g, k, x_shape=shape, kernel_size=ksize).to(dtype)
+    assert _rel(got, want) <= tol
+
+
+@pytest.mark.parametrize("ksize", [5, 7])
+@pytest.mark.parametrize("shape,f", ODD_K_SHAPES + [((1, 6, 24, 8), 12)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_matches_plain(cuda, ksize, shape, f, dtype):
+    x, _, _, g = _operands(cuda, shape, f, dtype, ksize)
+    n = dc.K6_LAUNCHES
+    got = dc.da_conv_dk_k6(x, g, kernel_size=ksize)
+    torch.cuda.synchronize()
+    assert dc.K6_LAUNCHES == n + 1 and got.shape == (ksize * ksize * shape[-1], f)
+    assert _rel(got, dc.da_conv_dk_ref(x, g, kernel_size=ksize)) <= 1e-4
+    assert torch.equal(got, dc.da_conv_dk_k6(x, g, kernel_size=ksize))  # fixed order
+
+
+def test_autograd_function_odd_k_on_cuda_takes_kernels(cuda):
+    x, k, b, g = _operands(cuda, (2, 8, 32, 16), 8, ksize=5)
+    for t in (x, k, b):
+        t.requires_grad_()
+    names = ("K1", "K2", "K3", "K5", "K6", "K7")
+    before = [getattr(dc, f"{n}_LAUNCHES") for n in names]
+    dc.da_conv(x, k, b, kernel_size=5).backward(g)
+    torch.cuda.synchronize()
+    after = [getattr(dc, f"{n}_LAUNCHES") for n in names]
+    assert [a - c for a, c in zip(after, before)] == [0, 0, 0, 1, 1, 1]
+    assert _rel(k.grad, dc.da_conv_dk_ref(x.detach(), g, kernel_size=5)) <= 1e-4
+    assert _rel(b.grad, g.sum((0, 1, 2))) <= 1e-5
+    want = dc.da_conv_dx_ref_generic(g, k.detach(), x_shape=x.shape, kernel_size=5)
+    assert _rel(x.grad, want) <= 5e-4
+
+
+def test_odd_k_wrappers_refuse_k3(cuda):
+    x, k, b, g = _operands(cuda, (1, 8, 32, 16), 8)
+    with pytest.raises(ValueError, match="K5"):
+        dc.da_conv_forward_k5(x, k, b, kernel_size=3)
+    with pytest.raises(ValueError, match="K6"):
+        dc.da_conv_dk_k6(x, g, kernel_size=3)
+    with pytest.raises(ValueError, match="K7"):
+        dc.da_conv_dx_k7(g, k, x_shape=x.shape, kernel_size=3)
 
 
 def test_unsupported_width_raises(cuda):

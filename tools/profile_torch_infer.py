@@ -1,10 +1,12 @@
 """Where the port's serving forward spends its device time, on a CUDA card.
 
     python tools/profile_torch_infer.py --imheight 64 --imwidth 256 --batch 32 --da-conv true
+    python tools/profile_torch_infer.py --batch 32 --da-kernel-size 5
 
 Builds the models with seeded weights, warms up, then runs `--iters`
 forwards under `torch.profiler` (CPU + CUDA activity) and prints the
-kernels by device time, grouped into the DA kernels (K1, K2), cuDNN
+kernels by device time, grouped into the DA kernels (K1, K2; K5 at
+`--da-kernel-size 5`), cuDNN
 convolutions, GEMMs and the rest, with the device busy share of the window
 (summed kernel time over the window's CUDA-event time; one stream, so
 kernels do not overlap). The table also goes to
@@ -22,12 +24,13 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def group_of(name: str) -> str:
+def group_of(name: str, ksize: int = 3) -> str:
+    from profile_torch_train import da_group
+
+    da = da_group(name, ksize)
+    if da:
+        return da
     n = name.lower()
-    if "da_fwd_k3" in n:
-        return "K1 DA forward"
-    if "da_dx_k3" in n:
-        return "K2 DA input grad"
     if "conv" in n or "cudnn" in n or "implicit" in n or "winograd" in n:
         return "cuDNN conv"
     if "gemm" in n or "gemv" in n or "cutlass" in n or "sm90_xmma" in n:
@@ -52,6 +55,7 @@ def main(argv=None):
     p.add_argument("--imwidth", type=int, default=256)
     p.add_argument("--batch", type=int, default=32)
     p.add_argument("--da-conv", type=str2bool, default=True)
+    p.add_argument("--da-kernel-size", type=int, default=3)
     p.add_argument("--iters", type=int, default=5)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -60,7 +64,8 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
 
     cfg = Config(model=ModelConfig(im_height=args.imheight, im_width=args.imwidth,
-                                   use_da_conv=args.da_conv))
+                                   use_da_conv=args.da_conv,
+                                   da_kernel_size=args.da_kernel_size))
     gen, sun = build_models(cfg, "cuda")
     gv, sv = init_model_vars(cfg, 0)
     load_model_vars(gen, gv)
@@ -87,7 +92,7 @@ def main(argv=None):
         if t is None:
             t = getattr(evt, "self_cuda_time_total", 0.0)
         if t > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append({"kernel": evt.key, "group": group_of(evt.key),
+            rows.append({"kernel": evt.key, "group": group_of(evt.key, args.da_kernel_size),
                          "ms_per_forward": t / 1000.0 / args.iters,
                          "calls_per_forward": evt.count / args.iters})
     rows.sort(key=lambda r: -r["ms_per_forward"])
@@ -101,7 +106,8 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     tag = (f"{args.imheight}x{args.imwidth}_b{args.batch}_"
-           f"{'da' if args.da_conv else 'plain'}")
+           f"{'da' if args.da_conv else 'plain'}"
+           f"{args.da_kernel_size if args.da_conv and args.da_kernel_size != 3 else ''}")
     print(f"[profile] {tag} on {smi}: forward {fwd_ms:.4f} ms (CUDA events, "
           f"{args.iters} forwards under the profiler), kernel time "
           f"{busy:.4f} ms, device busy {100 * busy / fwd_ms:.1f}%, idle "

@@ -3,11 +3,13 @@
     python tools/profile_torch_train.py --imheight 64 --imwidth 256 --batch 64 --step gan
     python tools/profile_torch_train.py --batch 32 --step sun
     python tools/profile_torch_train.py --step gan --fused-in   # fused_instance_norm
+    python tools/profile_torch_train.py --step gan --da-kernel-size 5
 
 Builds the state from the seeded weights (`create_gan_state` /
 `create_sun_state`), warms up with two steps, then runs `--iters` steps
 under `torch.profiler` (CPU + CUDA activity) and prints the kernels by
-device time, grouped into the DA kernels (K1, K2, K3), the fused
+device time, grouped into the DA kernels (K1, K2, K3; K5, K6, K7 at
+`--da-kernel-size` other than 3), the fused
 InstanceNorm kernels (K8, K9, with `--fused-in`), cuDNN convolutions
 (forward, data gradient, weight gradient, and cuDNN's FFT kernels, whose
 names do not say the direction), GEMMs, reductions and the rest,
@@ -24,6 +26,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -31,10 +34,33 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def group_of(name: str) -> str:
+# The DA kernels by name (csrc/deform_conv.cu): K1/K3 and K5/K6 are one
+# template each, told apart by its kernel-size argument (3, or 0 for a size
+# given at run time).
+DA_GROUPS = ((r"da_fwd_kernel<[^>]*, 3>", "K1 DA forward"),
+             (r"da_fwd_kernel<[^>]*, 0>", "K5 DA forward"),
+             (r"da_dx_k3_kernel", "K2 DA input grad"), (r"da_dx_kernel", "K7 DA input grad"),
+             (r"da_dk_kernel<[^>]*, 3>", "K3 DA weight grad"),
+             (r"da_dk_kernel<[^>]*, 0>", "K6 DA weight grad"))
+
+
+def da_group(name: str, ksize: int):
+    """The DA kernel group of a device kernel's name, or None. The
+    weight gradient's reduction pass is K3's at k=3 and K6's otherwise."""
+    for pattern, group in DA_GROUPS:
+        if re.search(pattern, name):
+            return group
+    if "da_dk_reduce" in name:
+        return "K3 DA weight grad" if ksize == 3 else "K6 DA weight grad"
+    return None
+
+
+def group_of(name: str, ksize: int = 3) -> str:
+    da = da_group(name, ksize)
+    if da:
+        return da
     n = name.lower()
-    for key, group in (("da_fwd_k3", "K1 DA forward"), ("da_dx_k3", "K2 DA input grad"),
-                       ("da_dk_", "K3 DA weight grad"), ("in_moments", "K8 IN forward"),
+    for key, group in (("in_moments", "K8 IN forward"),
                        ("in_stats", "K8 IN forward"), ("in_apply", "K8 IN forward"),
                        ("in_bwd", "K9 IN backward")):
         if key in n:
@@ -74,6 +100,9 @@ def main(argv=None):
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--fused-in", action="store_true",
                    help="ModelConfig.fused_instance_norm (K8/K9 on every InstanceNorm)")
+    p.add_argument("--da-kernel-size", type=int, default=3,
+                   help="ModelConfig.da_kernel_size (5: the trunk's 12 convs are 5x5 DA "
+                        "convs, on K5/K6/K7)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: needs a CUDA card")
@@ -82,6 +111,7 @@ def main(argv=None):
 
     h, w, b = args.imheight, args.imwidth, args.batch
     cfg = Config(model=ModelConfig(im_height=h, im_width=w, use_da_conv=True,
+                                   da_kernel_size=args.da_kernel_size,
                                    fused_instance_norm=args.fused_in),
                  data=DataConfig(batch_size=b))
     banks = make_banks(make_synthetic_dorf(175, 1024), get_exposure_lists()[0], device="cuda")
@@ -115,7 +145,7 @@ def main(argv=None):
         if t is None:
             t = getattr(evt, "self_cuda_time_total", 0.0)
         if t > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append({"kernel": evt.key, "group": group_of(evt.key),
+            rows.append({"kernel": evt.key, "group": group_of(evt.key, args.da_kernel_size),
                          "ms_per_step": t / 1000.0 / args.iters,
                          "calls_per_step": evt.count / args.iters})
     rows.sort(key=lambda r: -r["ms_per_step"])
@@ -141,7 +171,8 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    tag = f"{args.step}_{h}x{w}_b{b}" + ("_fused_in" if args.fused_in else "")
+    tag = (f"{args.step}_{h}x{w}_b{b}" + ("_fused_in" if args.fused_in else "")
+           + (f"_da{args.da_kernel_size}" if args.da_kernel_size != 3 else ""))
     print(f"[profile] train {tag} on {smi}: step {step_ms:.4f} ms (CUDA events, "
           f"{args.iters} steps under the profiler), kernel time {busy:.4f} ms, device "
           f"busy {100 * busy / step_ms:.1f}%, idle {100 * (1 - busy / step_ms):.1f}%")
