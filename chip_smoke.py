@@ -7,7 +7,9 @@
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. device       — the card's name and power limit (nvidia-smi); TF32 off
                     for every phase (cuDNN and matmul).
-  2. build        — nvcc builds skyhdr_torch/csrc/*.cu; build seconds.
+  2. build        — nvcc builds skyhdr_torch/csrc/*.cu, one process per
+                    source, all started together; build seconds, and each
+                    source's own compile seconds.
   3. kernels      — K1 (DA forward), K2 (DA input gradient) and K3 (DA
                     weight gradient) against their plain PyTorch versions at
                     every DA layer shape: K1/K2 at the serving batches (b1,
@@ -68,6 +70,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     rerun to 3 epochs that resumes at epoch 2 and runs one,
                     and in a fresh work directory a SUN checkpoint from
                     `TrainLoop("SUN", ...)` handed to a fresh SKY run.
+  10. probes     — the DA-conv probe tools (skyhdr_torch/tools/) and their
+                    kernels, at the tools' default shape x (32,64,256,64) ->
+                    F 64 and at the serving trunk layer (32,16,64,128) ->
+                    128: every K10 instantiation against its plain version
+                    (f32 FMA and bf16 storage 1e-4, tensor cores 2e-3 of
+                    the max) and, the whole forward, against the f32 DA
+                    conv (1e-4 f32, 2e-2 with bf16); K11 bitwise; K12 at
+                    every exp_mmshape configuration in f32 and bf16 (1e-5);
+                    then the main path: exp_daconv (every instantiation
+                    through its variant names), exp_pack and exp_mmshape
+                    through their entry points, launches read after; then
+                    times (CUDA events, median of 20, in turns with the
+                    plain version; K10 beside K1, K11 and K12 beside their
+                    library yardsticks).
 The line before the last is the nvidia-smi line, the one before it the
 kernels' JSON summary; the last line is the run's JSON result. Details go to
 chiprun_out/chip_smoke.json, the phases' lines to chiprun_out/chip_smoke.log. The train golden's comparison lives in
@@ -95,7 +111,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 ITERS, WARMUP = 20, 3
 STEP_ITERS = 5
 PHASES = ("kernels", "golden", "train_golden", "serving", "training", "timing",
-          "train_cli")
+          "train_cli", "probes")
 # (name, x shape at 32x128 [h, w, c], F, layers of that shape, in the
 # sun-pose net: Grad-CAM's pull differentiates through it)
 DA_LAYERS = [
@@ -1122,6 +1138,283 @@ def phase_train_cli(dc, smi, report):
         f"checkpoint save included): {epoch_s[sky]}; on {smi}")
 
 
+# The probes (K10-K12): the two shapes (x [b, h, w, c], F), the tools'
+# default (the model's 64x256 DA-layer scale) and the serving trunk layer.
+PROBE_SHAPES = [("default 64x256", (32, 64, 256, 64), 64),
+                ("trunk 16x64", (32, 16, 64, 128), 128)]
+# The exp_daconv variants the drive runs: every K10 instantiation (the pack
+# and p=2 dedup variants only where p*c <= 128) and the tool's defaults.
+PROBE_VARIANTS = ("prod,xla,a2,a4,a8,a2h,a2p,c2,c2h,c2p,cs2,cs2h,b2,b4,prodbf16,pairc,"
+                  "pairs,noroll,nomm,mmonly,mmbf16,fullbf16,loadonly,load1only,mmhoist,"
+                  "dd1,dd1m2")
+PACK_VARIANTS = (",dd2,dd2m2,dd2k,pack2,pack2r,pack2k,pack2:mmonlyf,pack2:mmhoistf,"
+                 "pack2:loadonlyf,pack2:load1onlyf,pack2:nommf,pack2:norollf,"
+                 "pack2:fullbf16f,pack2:nomm,pack2:fullbf16")
+MM_DEFAULTS = ("a18", "b9", "c3", "d2", "t18", "a18h", "b9h", "d2h")  # exp_mmshape's
+MM_MORE = ("tb9", "c3h", "t18h", "tb9h")
+PEAK_BF16_FLOPS = 989e12
+# K10 against its plain version: the same sums in another order (f32 FMA,
+# bf16 storage), or the tensor cores' accumulation order and bf16 ties of
+# the samples; against the f32 DA conv: f32 storage and FMA, else bf16.
+PROBE_TOL = {"fma": 1e-4, "mma": 2e-3, "conv_f32": 1e-4, "conv_bf16": 2e-2}
+# exp_daconv variants on f32 storage and f32 dots (checked at 1e-4 of the
+# max in the drive; the others at 2e-2)
+F32_VARIANTS = ("prod", "xla", "a2", "a4", "a8", "a2p", "c2", "c2p", "cs2")
+
+
+def probe_bound(n, c, f, x_bytes, mma, summing, k_bytes=4):
+    """(ms, "bytes" or "operations") of one DA probe call over n = b*h*w
+    output pixels: operations 2*n*9*c*f (the products; the sum modes n*9*c
+    adds) at the f32 CUDA-core or the bf16 tensor-core peak; bytes x, K
+    and the f32 output, each once."""
+    ops = n * 9 * c if summing else 2.0 * n * 9 * c * f
+    t_ops = ops / (PEAK_BF16_FLOPS if mma else PEAK_F32_FLOPS)
+    t_bytes = (n * c * x_bytes + 9 * c * f * k_bytes + n * f * 4) / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def probe_operands(shape, f):
+    """x and K drawn as the probe tools draw them (numpy seed 0, K x 0.05)."""
+    rng = np.random.default_rng(0)
+    k = torch.from_numpy((rng.normal(size=(9 * shape[-1], f)) * 0.05).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    return x.cuda(), k.cuda()
+
+
+def drive_tool(main, argv, tag):
+    """Runs a probe tool's entry point; returns its lines (none FAILED)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        say("probes", f"{tag} | {line}")
+    check(lines and lines[0].startswith("# device: ") and "cpu" not in lines[0],
+          f"{tag}: did not run on the card")
+    check(not any("FAILED" in line for line in lines), f"{tag}: a variant failed")
+    return lines[1:]
+
+
+def parse_variant_lines(lines):
+    """{name: (ms, rel err or None)} of exp_daconv's lines."""
+    import re
+
+    out = {}
+    for line in lines:
+        m = re.match(r"\s*(\S+): +([\d.]+) ms(?:.*\(rel ([\d.e+-]+)\))?", line)
+        if m:
+            out[m.group(1)] = (float(m.group(2)), float(m.group(3)) if m.group(3) else None)
+    return out
+
+
+def check_probes(tp, report):
+    """Every K10 instantiation against its plain version and (the whole
+    forward) the f32 DA conv at both shapes, K11 bitwise, K12 at every
+    configuration of exp_mmshape in f32 and bf16. Returns the worst
+    absolute errors."""
+    from skyhdr_torch.ops.distortion import deformable_conv2d
+    from skyhdr_torch.tools import exp_mmshape
+
+    worst = {"K10": 0.0, "K11": 0.0, "K12": 0.0}
+    rows = []
+    for tag, shape, f in PROBE_SHAPES:
+        x, k = probe_operands(shape, f)
+        conv = deformable_conv2d(x, k, torch.zeros(f, device="cuda"))
+        for name, p in tp.PROBES.items():
+            got = tp.da_probe_k10(x, k, name)
+            torch.cuda.synchronize()
+            rel, ab = rel_err(got, tp.da_probe_ref(x, k, name))
+            tol = PROBE_TOL["mma" if p.mma else "fma"]
+            line = (f"K10 {name} {tag} x{list(shape)} F={f}: vs plain max rel err {rel:.3e} "
+                    f"(max abs {ab:.3e}, tol {tol})")
+            ok = rel <= tol and got.shape == conv.shape
+            worst["K10"] = max(worst["K10"], ab)
+            row = {"probe": name, "shape": list(shape), "f": f, "rel": rel, "abs": ab}
+            if not p.diag:
+                ctol = PROBE_TOL["conv_f32" if p.store == torch.float32 and not p.mma
+                                 else "conv_bf16"]
+                row["conv_rel"], _ = rel_err(got, conv)
+                line += f"; vs the f32 DA conv {row['conv_rel']:.3e} (tol {ctol})"
+                ok = ok and row["conv_rel"] <= ctol
+            say("probes", line)
+            check(ok, f"K10 {name} at {tag}")
+            rows.append(row)
+            del got
+        got = tp.da_probe_k10(x, k, "dedup_bf16", rblk=4, mblk=4)
+        rel, _ = rel_err(got, tp.da_probe_ref(x, k, "dedup_bf16"))
+        say("probes", f"K10 dedup_bf16 rblk=mblk=4 {tag}: vs plain max rel err {rel:.3e}")
+        check(rel <= PROBE_TOL["fma"], f"K10 dedup mblk=4 at {tag}")
+        del x, k, conv, got
+        free_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for shape, p, dtype in (((32, 64, 256, 64), 2, torch.float32),
+                            ((32, 64, 256, 64), 2, torch.bfloat16),
+                            ((32, 16, 64, 128), 4, torch.float32)):
+        x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+        same = torch.equal(tp.pack_samples_k11(x, p), tp.pack_samples_ref(x, p))
+        say("probes", f"K11 x{list(shape)} {str(dtype)[6:]} p={p}: bitwise equal to the "
+            f"plain version: {same}")
+        check(same, f"K11 {shape} p={p}")
+    x600 = mm_input()
+    for cfg, (m, kk, f, ndots, steps) in exp_mmshape.CFGS.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            lhs, rhs = x600[:m, :kk].to(dtype).contiguous(), x600[:kk, :f].to(dtype).contiguous()
+            got = tp.mm_shape_k12(lhs, rhs, ndots=ndots, steps=steps)
+            rel, ab = rel_err(got, tp.mm_shape_ref(lhs, rhs, ndots=ndots, steps=1))
+            worst["K12"] = max(worst["K12"], ab)
+            say("probes", f"K12 {cfg} {str(dtype)[6:]} ({m}x{kk}@{kk}x{f} x{ndots} x{steps}): "
+                f"max rel err {rel:.3e} (max abs {ab:.3e}, tol 1e-5)")
+            check(rel <= 1e-5, f"K12 {cfg} {dtype}")
+    report["checks"] = rows
+    return worst
+
+
+def mm_input():
+    """exp_mmshape's first input (numpy seed 0, 600x600)."""
+    return torch.from_numpy(np.random.default_rng(0).normal(size=(600, 600))
+                            .astype(np.float32)).cuda()
+
+
+def drive_probes(tp, report):
+    """The main path: the three tools through their entry points, the
+    counts set to 0 just before and read just after. Returns the launches."""
+    from skyhdr_torch.tools import exp_daconv, exp_mmshape, exp_pack
+
+    for name in ("K10", "K11", "K12"):
+        setattr(tp, f"{name}_LAUNCHES", 0)
+    tp.K10_BY_PROBE.clear()
+    tool = {}
+    for tag, shape, f in PROBE_SHAPES:
+        b, h, w, c = shape
+        variants = PROBE_VARIANTS + (PACK_VARIANTS if 2 * c <= 128 else "")
+        got = parse_variant_lines(drive_tool(exp_daconv.main, [
+            "--b", str(b), "--h", str(h), "--w", str(w), "--c", str(c), "--f", str(f),
+            "--iters", "8", "--variants", variants], f"exp_daconv {tag}"))
+        want = set(variants.split(","))
+        check(want == set(got), f"exp_daconv {tag}: lines missing or extra: "
+              f"{sorted(want ^ set(got))}")
+        for name, (_, rel) in got.items():
+            tol = 1e-4 if name in F32_VARIANTS else 2e-2
+            check(rel is None or rel <= tol, f"exp_daconv {tag} {name}: rel err {rel} > {tol}")
+        tool[tag] = {"shape": list(shape), "f": f, "lines": got}
+    drive_tool(exp_pack.main, ["--iters", "8"], "exp_pack")
+    drive_tool(exp_mmshape.main, ["--iters", "8", "--variants",
+                                  ",".join(MM_DEFAULTS + MM_MORE)], "exp_mmshape")
+    launched = {"K10": tp.K10_LAUNCHES, "K11": tp.K11_LAUNCHES, "K12": tp.K12_LAUNCHES}
+    by_probe = dict(tp.K10_BY_PROBE)
+    say("probes", f"drive launches {launched}; K10 by instantiation {by_probe}")
+    missing = sorted(set(tp.PROBES) - set(by_probe))
+    check(not missing, f"the tools launched no K10 {missing}")
+    check(launched["K11"] > 0 and launched["K12"] > 0, f"the tools launched {launched}")
+    report.update(tool=tool, launches=launched, launches_by_probe=by_probe)
+    free_cuda()
+    return launched
+
+
+def time_probes(dc, tp, smi, report):
+    """Each K10 instantiation on x in its storage type and K1 on the f32 x
+    at both shapes, each against its plain version in turns; K11 against
+    its plain version and the library's copy; K12 at each configuration
+    against its plain version and one batched matmul. Returns the JSON
+    line's K10-K12 numbers (the tools' default runs)."""
+    from skyhdr_torch.tools import exp_mmshape
+
+    rows = {}
+    for tag, shape, f in PROBE_SHAPES:
+        b, h, w, c = shape
+        n = b * h * w
+        x, k = probe_operands(shape, f)
+        bias = torch.zeros(f, device="cuda")
+        k1, k1_plain = paired_ms(lambda: dc.da_conv_forward_k1(x, k, bias),
+                                 lambda: dc.da_conv_forward_ref(x, k, bias))
+        k1_bound, _ = probe_bound(n, c, f, 4, False, False)
+        say("probes", f"K1 {tag} x{list(shape)} F={f}: {k1:.4f} ms, plain {k1_plain:.4f} ms, "
+            f"bound {k1_bound:.4f} ms; on {smi}")
+        runs = [(name, 2) for name in tp.PROBES]
+        if tag == PROBE_SHAPES[0][0]:
+            runs += [("a", 4), ("a", 8), ("cs_bf16", 4)]
+        for name, rblk in runs:
+            p = tp.PROBES[name]
+            xs = x.to(p.store)
+            ms, plain = paired_ms(lambda: tp.da_probe_k10(xs, k, name, rblk=rblk),
+                                  lambda: tp.da_probe_ref(xs, k, name))
+            summing = p.diag in tp.SUM_MODES
+            bms, by = probe_bound(n, c, f, xs.element_size(), p.mma, summing,
+                                  2 if p.mma else 4)
+            tfs = (n * 9 * c if summing else 2.0 * n * 9 * c * f) / ms / 1e9
+            say("probes", f"K10 {name} rblk={rblk} {tag}: {ms:.4f} ms ({tfs:.2f} TF/s), plain "
+                f"{plain:.4f} ms, bound {bms:.4f} ms ({by}; {100 * bms / ms:.1f}% of it), "
+                f"{ms / k1:.3f}x K1's {k1:.4f} ms; on {smi}")
+            rows[tag, name, rblk] = {"probe": name, "rblk": rblk, "shape": list(shape), "f": f,
+                                     "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                                     "bound_by": by, "tflops": tfs, "k1_ms": k1,
+                                     "k1_plain_ms": k1_plain}
+            del xs
+        del x, k
+        free_cuda()
+    report["k10"] = list(rows.values())
+    # exp_daconv's default run: a2, a4, a8 (direct reads, f32) and b4 (nine
+    # taps staged, bf16 storage), one call each at the default shape.
+    tag = PROBE_SHAPES[0][0]
+    picks = [rows[tag, "a", 2], rows[tag, "a", 4], rows[tag, "a", 8], rows[tag, "cs_bf16", 4]]
+    out = {"K10": {"ms": sum(r["ms"] for r in picks),
+                   "plain_ms": sum(r["plain_ms"] for r in picks),
+                   "bound_ms": sum(r["bound_ms"] for r in picks), "library_ms": None}}
+
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(32, 64, 256, 64))
+                         .astype(np.float32)).cuda()
+    ms, plain = paired_ms(lambda: tp.pack_samples_k11(x, 2), lambda: tp.pack_samples_ref(x, 2))
+    lib = statistics.median(time_ms(lambda: tp.pack_samples_library(x, 2)))
+    bms = 1e3 * 2 * x.numel() * 4 / PEAK_BYTES_S
+    say("probes", f"K11 x[32, 64, 256, 64] f32 p=2: {ms:.4f} ms, plain {plain:.4f} ms, library "
+        f"{lib:.4f} ms, bound {bms:.4f} ms (bytes; {100 * bms / ms:.1f}% of it); on {smi}")
+    out["K11"] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bms}
+    del x
+    free_cuda()
+    x600 = mm_input()
+    k12 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    mm_rows = []
+    for name in MM_DEFAULTS + MM_MORE:
+        dtype = torch.bfloat16 if name.endswith("h") else torch.float32
+        m, kk, f, ndots, steps = exp_mmshape.CFGS[name.rstrip("h")]
+        lhs, rhs = x600[:m, :kk].to(dtype).contiguous(), x600[:kk, :f].to(dtype).contiguous()
+        ms, plain = paired_ms(
+            lambda: tp.mm_shape_k12(lhs, rhs, ndots=ndots, steps=steps),
+            lambda: tp.mm_shape_ref(lhs, rhs, ndots=ndots, steps=steps))
+        lib = statistics.median(time_ms(lambda: tp.mm_shape_library(lhs, rhs, ndots=ndots,
+                                                                    steps=steps)))
+        free_cuda()
+        flops = 2.0 * m * kk * f * ndots * steps
+        bms = 1e3 * flops / (PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
+        say("probes", f"K12 {name} ({m}x{kk}@{kk}x{f} x{ndots} x{steps}): {ms:.4f} ms "
+            f"({flops / ms / 1e9:.2f} TF/s), plain {plain:.4f} ms, library {lib:.4f} ms, bound "
+            f"{bms:.4f} ms ({100 * bms / ms:.1f}% of it); on {smi}")
+        mm_rows.append({"name": name, "ms": ms, "plain_ms": plain, "library_ms": lib,
+                        "bound_ms": bms})
+        if name in MM_DEFAULTS:
+            for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                           ("bound_ms", bms)):
+                k12[key] += v
+    report["k12"] = mm_rows
+    out["K12"] = k12
+    return out
+
+
+def phase_probes(dc, smi, report):
+    from skyhdr_torch.ops.kernels import probes as tp
+
+    out = report["probes"] = {}
+    worst = check_probes(tp, out)
+    launched = drive_probes(tp, out)
+    numbers = time_probes(dc, tp, smi, out)
+    for kern, row in numbers.items():
+        row.update(launches=launched[kern], max_abs_err=worst[kern])
+    return numbers
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--only", default=",".join(PHASES),
@@ -1151,10 +1444,18 @@ def main(argv=None):
     build_s = time.perf_counter() - t0
     say("build", f"nvcc {' '.join(kbuild.NVCC_FLAGS)}: {build_s:.3f} s -> "
         f"{os.path.relpath(lib, ROOT)}")
+    compile_s = {}
     for line in lib.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             say("build", line.strip())
+        elif ": compiled in " in line:
+            src, secs = line.split(": compiled in ")
+            compile_s[os.path.basename(src)] = float(secs.split()[0])
+    say("build", f"each source's own nvcc seconds, run side by side: {compile_s}; their sum "
+        f"(the sources one after another) {sum(compile_s.values()):.3f} s, the parallel "
+        f"build {build_s:.3f} s wall")
     report["build_s"] = build_s
+    report["compile_s"] = compile_s
 
     def timed(name, fn, *a):
         if name not in phases:
@@ -1172,6 +1473,7 @@ def main(argv=None):
     totals = timed("timing", phase_timing, dc, smi, report)
     da5_trees.cache_clear()
     timed("train_cli", phase_train_cli, dc, smi, report)
+    probes = timed("probes", phase_probes, dc, smi, report)
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     report["device"] = smi
@@ -1221,6 +1523,29 @@ def main(argv=None):
             "per": f"one GAN train step at DA 64x256 b64 f32{per[run]} (launches: the 3 "
                    f"steps of the training phase{per[run]})",
         })
+    probe_src = "skyhdr_torch/csrc/probes.cu"
+    for kern, name, replaces, bound_by, per in (
+            ("K10", "K10 probe_direct_kernel / probe_staged_kernel (DA forward probe "
+             "variants)", "tools/exp_daconv.py:102", "operations",
+             "one run of the probe at its default shape: one call each of exp_daconv's "
+             "default variants a2, a4, a8 (direct reads, f32) and b4 (nine taps staged, "
+             "bf16 storage) at x (32,64,256,64) -> F 64 (the forward_a call site; the "
+             "other variants' call sites :172/:272/:411/:440/:521/:604/:695 run the same "
+             "kernels); launches: the probes phase's drive of the three tools"),
+            ("K11", "K11 pack_samples_kernel (sample packing)", "tools/exp_pack.py:60",
+             "bytes", "one run of the probe at its default shape: one pack of x "
+             "(32,64,256,64) f32 with p=2; launches: the probes phase's drive"),
+            ("K12", "K12 mm_shape_f32_kernel / mm_shape_bf16_kernel (dot-shape microbench)",
+             "tools/exp_mmshape.py:44", "operations",
+             "one run of the probe at its default shape: one call each of exp_mmshape's "
+             "default configurations a18, b9, c3, d2, t18, a18h, b9h, d2h (1024 blocks "
+             "each); launches: the probes phase's drive")):
+        row = probes[kern]
+        kernels.append({
+            "name": name, "route": "cuda", "source": probe_src, "replaces": replaces,
+            "launches": row["launches"], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": bound_by,
+            "library_ms": row["library_ms"], "per": per})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

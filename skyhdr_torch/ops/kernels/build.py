@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Every `skyhdr_torch/csrc/*.cu` is compiled by `nvcc` for `sm_90a` into ONE
-shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds), at first use, under `skyhdr_torch/_build/`. The file name
-carries a hash of the sources and the flags, so an edited source rebuilds
-and an unchanged one loads the cached library. The sources in the checkout
-are the only input. Loading binds the entry points with `ctypes`, every
-pointer and the stream as `c_void_p`.
+Every `skyhdr_torch/csrc/*.cu` is compiled by its own `nvcc` process for
+`sm_90a` (all started together), and the objects are linked into ONE shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds), at first use, under `skyhdr_torch/_build/`. The file name carries
+a hash of the sources and the flags, so an edited source rebuilds and an
+unchanged one loads the cached library.
+The sources in the checkout are the only input. Loading binds the entry
+points with `ctypes`, every pointer and the stream as `c_void_p`.
 """
 
 from __future__ import annotations
@@ -18,13 +19,16 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
+# Compile flags of each source; the objects are linked with `-shared`.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,6 +55,13 @@ _SIGNATURES = {
     "skyhdr_da_dk_k3": [_P] * 9 + [_I] * 8 + [_P],
     # x, g, y0, y1, cx, wy, wx, ws, out, nsplit, B, H, W, C, F, k, is_bf16, device, stream
     "skyhdr_da_dk": [_P] * 9 + [_I] * 9 + [_P],
+    # x, kern, y0, y1, cx, wy, wx, out, is_bf16, gather, taps, dedup, mma,
+    # diag, B, H, W, C, F, rblk, mblk, span, device, stream
+    "skyhdr_probe_fwd": [_P] * 8 + [_I] * 15 + [_P],
+    # x, out, B, H, W, C, P, elem_bytes, device, stream
+    "skyhdr_pack_samples": [_P] * 2 + [_I] * 7 + [_P],
+    # lhs, rhs, out, m, k, f, ndots, steps, is_bf16, device, stream
+    "skyhdr_mm_shape": [_P] * 3 + [_I] * 7 + [_P],
 }
 
 
@@ -76,24 +87,46 @@ def library_path() -> Path:
     return BUILD_DIR / f"libskyhdr_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _compile(cmd: list):
+    """Runs one nvcc; returns (its CompletedProcess, its seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    return proc, time.perf_counter() - t0
+
+
 def build() -> Path:
     """Compile the sources unless the hashed library exists; returns its
-    path. The nvcc log (ptxas register and shared-memory usage) is kept
-    beside it as `.log`. Raises with nvcc's stderr when the build fails."""
+    path. One nvcc per source, run in parallel, then one link. The nvcc
+    logs (ptxas register and shared-memory usage) and each compile's own
+    seconds are kept beside it as `.log`. Raises with nvcc's stderr when a
+    compile or the link fails."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stderr}{proc.stdout}")
-    out.with_suffix(".log").write_text(proc.stderr + proc.stdout)
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, src.stem + ".o") for src in sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                for obj, src in zip(objs, sources())]
+        with ThreadPoolExecutor(len(cmds)) as pool:
+            done = list(pool.map(_compile, cmds))
+        logs, failed = [], []
+        for cmd, (proc, seconds) in zip(cmds, done):
+            logs.append(f"{cmd[-1]}: compiled in {seconds:.3f} s\n{proc.stderr}{proc.stdout}")
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                              f"{proc.stderr}{proc.stdout}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib = os.path.join(tmpdir, "lib.so")
+        cmd = [nvcc, "-shared", NVCC_FLAGS[0], NVCC_FLAGS[1], "-o", lib, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{proc.stderr}{proc.stdout}")
+        out.with_suffix(".log").write_text("".join(logs))
+        os.replace(lib, out)
     return out
 
 

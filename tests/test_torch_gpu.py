@@ -10,6 +10,7 @@ import torch
 
 from skyhdr_torch.ops.kernels import deform_conv as dc
 from skyhdr_torch.ops.kernels import instnorm as tin
+from skyhdr_torch.ops.kernels import probes as tp
 
 pytestmark = pytest.mark.gpu
 
@@ -230,3 +231,68 @@ def test_in_function_on_cuda_takes_kernels(cuda):
                                          mean, rstd, alpha=0.1)
     for a, b in zip((x.grad, gamma.grad, beta.grad), want):
         assert _rel(a, b) <= 1e-5
+
+
+# K10 shapes: (x shape, F, rblk, mblk); the sum modes need C >= F.
+PROBE_SHAPES = [((2, 8, 32, 64), 64, 2, 1), ((2, 4, 16, 128), 128, 4, 1),
+                ((1, 8, 40, 32), 32, 8, 1)]
+
+
+@pytest.mark.parametrize("name", sorted(tp.PROBES))
+@pytest.mark.parametrize("shape,f,rblk,mblk", PROBE_SHAPES)
+def test_k10_matches_plain(cuda, name, shape, f, rblk, mblk):
+    p = tp.PROBES[name]
+    x, k, _, _ = _operands(cuda, shape, f)
+    if p.dedup:
+        mblk = rblk
+    n = tp.K10_LAUNCHES
+    got = tp.da_probe_k10(x, k, name, rblk=rblk, mblk=mblk)
+    torch.cuda.synchronize()
+    assert tp.K10_LAUNCHES == n + 1 and got.dtype == torch.float32
+    # f32 FMA and bf16 storage: the same sums in another order; tensor
+    # cores: another accumulation order, and bf16 ties of the samples.
+    assert _rel(got, tp.da_probe_ref(x, k, name)) <= (2e-3 if p.mma else 1e-4)
+
+
+def test_k10_refuses_what_it_does_not_tile(cuda):
+    x, k, _, _ = _operands(cuda, (2, 8, 32, 16), 32)
+    with pytest.raises(ValueError):
+        tp.da_probe_k10(x, k, "c", rblk=3)
+    with pytest.raises(RuntimeError):
+        tp.da_probe_k10(x, k, "nomm")  # the sum modes need C >= F
+
+
+@pytest.mark.parametrize("shape,p", [((4, 8, 32, 16), 2), ((8, 4, 16, 32), 4),
+                                     ((2, 16, 64, 64), 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k11_matches_plain_bitwise(cuda, shape, p, dtype):
+    x = torch.randn(shape, device=cuda).to(dtype)
+    n = tp.K11_LAUNCHES
+    got = tp.pack_samples_k11(x, p)
+    torch.cuda.synchronize()
+    assert tp.K11_LAUNCHES == n + 1
+    assert torch.equal(got, tp.pack_samples_ref(x, p))
+
+
+@pytest.mark.parametrize("cfg", ["a18", "b9", "c3", "d2", "t18", "tb9"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k12_matches_plain(cuda, cfg, dtype):
+    from skyhdr_torch.tools.exp_mmshape import CFGS
+
+    m, k, f, ndots, _ = CFGS[cfg]
+    x = torch.randn(600, 600, device=cuda)
+    lhs, rhs = x[:m, :k].to(dtype).contiguous(), x[:k, :f].to(dtype).contiguous()
+    n = tp.K12_LAUNCHES
+    got = tp.mm_shape_k12(lhs, rhs, ndots=ndots, steps=4)
+    torch.cuda.synchronize()
+    assert tp.K12_LAUNCHES == n + 1
+    assert _rel(got, tp.mm_shape_ref(lhs, rhs, ndots=ndots, steps=1)) <= 1e-5
+
+
+def test_k12_pads_an_odd_shape(cuda):
+    x = torch.randn(40, 40, device=cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        lhs, rhs = x[:13, :7].to(dtype), x[:7, :5].to(dtype)
+        got = tp.mm_shape_k12(lhs, rhs, ndots=3, steps=2)
+        torch.cuda.synchronize()
+        assert _rel(got, tp.mm_shape_ref(lhs, rhs, ndots=3, steps=1)) <= 1e-5

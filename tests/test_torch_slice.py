@@ -228,6 +228,7 @@ def test_port_imports_no_jax():
         "('jax', 'jaxlib', 'flax', 'optax', 'skyhdr'))\n"
         "assert not bad, bad\n"
         "assert len(names) >= 15, names\n"
+        "assert 'skyhdr_torch.tools.exp_daconv' in names, names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
