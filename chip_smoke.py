@@ -15,14 +15,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     every DA layer shape: K1/K2 at the serving batches (b1,
                     b32; 32x128 and 64x256; f32 and bf16), K1/K2/K3 at the
                     training batches (64x256 b64 f32 and bf16, 32x128 b32
-                    f32); K3 twice on the same inputs gives the same bits.
-                    K1/K2/K3 also at an odd height (32x9x32x128). K5 (odd-k
-                    DA forward), K7 (its input gradient) and K6 (its weight
-                    gradient) at the k=5 trunk (K5/K7 at 64x256 b32 f32 and
-                    bf16 and 32x128 b1, all three at 64x256 b64 f32 and
-                    bf16) and at every k=7 layer shape (trunk, sunlayer1
-                    conv1 with C=3 and conv2) at 64x256 b32 f32; K6 twice
-                    gives the same bits.
+                    f32); K3 and K2 twice on the same inputs give the same
+                    bits. K1/K2/K3 also at an odd height (32x9x32x128). K5
+                    (odd-k DA forward), K7 (its input gradient) and K6 (its
+                    weight gradient) at the k=5 trunk (K5/K7 at 64x256 b32
+                    f32 and bf16 and 32x128 b1, all three at 64x256 b64 f32
+                    and bf16), K5/K7 at the odd height, and all three at
+                    every k=7 layer shape (trunk, sunlayer1 conv1 with C=3
+                    and conv2) at 64x256 b32 f32; K6 and K7 twice give the
+                    same bits.
                     K8 (InstanceNorm + activation forward) and K9 (its
                     backward) at every InstanceNorm shape with each slope
                     its layers use, at 64x256 b64 f32, 64x256 b32 f32 and
@@ -60,7 +61,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     against its plain version at the 64x256 shapes (b32
                     serving, b64 training; K5-K7 at the k=5 trunk, and per
                     call at the k=7 shapes at b32), with the per-dispatch
-                    and per-GAN-step totals and their bounds;
+                    and per-GAN-step totals and their bounds; K2/K7 also at
+                    each strip height they can pick (R = 8, 4, 2), beside
+                    the one picked and its products over the forward's;
                     K8/K9 also against the library's `F.instance_norm`
                     (forward, and its autograd backward).
   9. train_cli    — the training CLI (`skyhdr_torch.cli.train`) at DA
@@ -197,8 +200,9 @@ IN_KERNEL_CASES = [(2, 64, torch.float32), (2, 32, torch.float32),
 # (kernel size, layers [(name, x shape at 32x128, F)], res scale, batch,
 # dtype, kernels checked). K1/K2 at every k=3 layer at the serving batches,
 # K3 at the training batches; K5/K7 at the k=5 trunk at the serving batches,
-# K6 at the training batch; K5/K6/K7 at every k=7 layer shape; and K1-K3 at
-# an odd height (9 rows), which they serve with the same tables.
+# K6 at the training batch; K5/K6/K7 at every k=7 layer shape; and K1-K3 and
+# K5/K7 at an odd height (9 rows), which they serve with the same tables.
+# The input gradient (K2/K7) runs in every case, twice (bitwise repeatable).
 K3_SHAPES = [(name, shape, f) for name, shape, f, _, _ in DA_LAYERS]
 K5_SHAPES = [(name, shape, f) for name, shape, f, _, _ in DA5_LAYERS]
 KERNEL_CASES = [(3, K3_SHAPES, 1, 1, torch.float32, "K1 K2"),
@@ -211,6 +215,7 @@ KERNEL_CASES = [(3, K3_SHAPES, 1, 1, torch.float32, "K1 K2"),
                 (3, K3_SHAPES, 2, 64, torch.float32, "K1 K2 K3"),
                 (3, K3_SHAPES, 2, 64, torch.bfloat16, "K1 K2 K3"),
                 (3, [("odd height", (9, 32, 128), 128)], 1, 32, torch.float32, "K1 K2 K3"),
+                (5, [("odd height", (9, 32, 128), 128)], 1, 32, torch.float32, "K5 K7"),
                 (5, K5_SHAPES, 1, 1, torch.float32, "K5 K7"),
                 (5, K5_SHAPES, 2, 32, torch.float32, "K5 K7"),
                 (5, K5_SHAPES, 2, 32, torch.bfloat16, "K5 K7"),
@@ -394,6 +399,15 @@ def da_calls(dc, ksize, x, kern, bias, g):
                    lambda: dc.da_conv_dk_ref(x, g, **kw))}
 
 
+def dx_rows(dc, b, hwc, f):
+    """The strip height K2/K7 pick for x [b, *hwc] and F = f."""
+    from skyhdr_torch.ops.kernels.build import library
+
+    h, w, c = hwc
+    tiles = library().skyhdr_da_dx_tiles(w, -(-c // 4) * 4, -(-f // 4) * 4)
+    return dc.dx_strip_rows(b, h, tiles, torch.cuda.get_device_properties(0).multi_processor_count)
+
+
 def free_cuda():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -420,11 +434,13 @@ def phase_kernels(dc, report):
             del got
             # As autograd hands it: g in the output dtype; dx cast to x.dtype.
             kern, run, plain = calls["dx"]
-            dx = run().to(dtype)
+            dx, again = run(), run()
             torch.cuda.synchronize()
-            results.append((kern, f"g{[b, *hwc[:2], f]} -> dx{[b, *hwc]}", True,
-                            *rel_err(dx, plain().to(dtype))))
-            del dx
+            same = bool(torch.equal(dx, again))
+            results.append((kern, f"g{[b, *hwc[:2], f]} -> dx{[b, *hwc]} (bitwise "
+                            f"repeatable: {same})", same,
+                            *rel_err(dx.to(dtype), plain().to(dtype))))
+            del dx, again
             kern, run, plain = calls["dk"]
             if kern in which:
                 dk, again = run(), run()
@@ -851,15 +867,35 @@ def phase_timing(dc, smi, report):
     rows = []
 
     def timed_row(kern, path, b, name, hwc, f, ksize, calls, kfn, pfn):
+        from skyhdr_torch.ops.distortion import strip_tables
+
         ms, plain = paired_ms(kfn, pfn)
         bms, by = bound(kern, b, hwc, f, ksize=ksize)
         per = {"serving": "per dispatch", "gan": "per GAN step"}.get(path, "not on a driven path")
+        row = {"kernel": kern, "path": path, "batch": b, "layer": name, "k": ksize,
+               "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "calls": calls}
+        note = ""
+        if ROLE[kern] == "dx":
+            # The strip height picked, the products done / the forward's (the
+            # bound's count), and the kernel's time at each strip height.
+            rows_ = dx_rows(dc, b, hwc, f)
+            pairs = len(strip_tables(hwc[0], hwc[1], ksize, rows_).pint)
+            row["rows"] = rows_
+            row["products_vs_forward"] = pairs / (hwc[0] * ksize * ksize)
+            pick, row["ms_by_rows"] = dc.dx_strip_rows, {}
+            try:
+                for r in dc.DX_STRIP_ROWS:
+                    dc.dx_strip_rows = lambda *_, r=r: r
+                    row["ms_by_rows"][r] = statistics.median(time_ms(kfn))
+            finally:
+                dc.dx_strip_rows = pick
+            note = (f"; R={rows_} picked, {row['products_vs_forward']:.4f}x the forward's "
+                    f"products; at R=" + "/".join(map(str, row["ms_by_rows"])) + ": "
+                    + "/".join(f"{v:.4f}" for v in row["ms_by_rows"].values()) + " ms")
         say("timing", f"{kern} 64x256 b{b} {name} x{[b, *hwc]} F={f}: kernel "
             f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by}; "
-            f"{100 * bms / ms:.1f}% of it), x{calls} {per}; on {smi}")
-        rows.append({"kernel": kern, "path": path, "batch": b, "layer": name, "k": ksize,
-                     "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-                     "calls": calls})
+            f"{100 * bms / ms:.1f}% of it), x{calls} {per}{note}; on {smi}")
+        rows.append(row)
         if calls:
             t = totals.setdefault((path, kern), [0.0] * 5)
             t[0] += calls * ms
@@ -1491,7 +1527,7 @@ def main(argv=None):
     # name, TPU kernel it replaces, the training run whose launches it reports
     about = {"K1": ("K1 da_fwd_kernel<T, 3> (DA conv forward, k=3)",
                     pallas + "deform_conv.py:179", "gan"),
-             "K2": ("K2 da_dx_k3_kernel (DA conv input gradient, k=3)",
+             "K2": ("K2 da_dx_kernel<3> (DA conv input gradient, k=3)",
                     pallas + "deform_conv.py:469", "gan"),
              "K3": ("K3 da_dk_kernel<T, 3> (DA conv weight gradient, k=3)",
                     pallas + "deform_conv.py:429", "gan"),
@@ -1499,7 +1535,7 @@ def main(argv=None):
                     pallas + "deform_conv.py:146", "gan_da5"),
              "K6": ("K6 da_dk_kernel<T, 0> (DA conv weight gradient, odd k)",
                     pallas + "deform_conv.py:364", "gan_da5"),
-             "K7": ("K7 da_dx_kernel (DA conv input gradient, odd k)",
+             "K7": ("K7 da_dx_kernel<0> (DA conv input gradient, odd k)",
                     pallas + "deform_conv.py:400", "gan_da5"),
              "K8": ("K8 in_fwd (InstanceNorm + activation forward)",
                     pallas + "instnorm.py:104", "gan_fused"),

@@ -32,8 +32,8 @@ def add_model_flags(parser: argparse.ArgumentParser):
                              "sun-pose softmax and the radiance head stay "
                              "float32)")
     parser.add_argument("--seed", type=int, default=0,
-                        help="seed of the weights (utils.transplant."
-                             "init_model_vars)")
+                        help="seed of the weights when no SKY checkpoint "
+                             "exists (utils.transplant.init_model_vars)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on")
     return parser
@@ -146,6 +146,49 @@ def load_banks(cfg: Config, dorf_path: str, train: bool = True, device="cuda",
         train_crf, test_crf = crf[:175], crf[175:]
     return make_banks(train_crf if train else test_crf,
                       train_t if train else test_t, device=device)
+
+
+def restore_model_vars(cfg: Config, workdir: str, *, sky: str = None,
+                       sun: str = None, seed: int = 0, device="cuda", log=print):
+    """(Generator, SunPoseNet) for serving (`skyhdr.cli.common.
+    restore_model_vars`), built by `build_models` on `device`: the newest
+    SKY checkpoint under `<workdir>/<checkpoint_dir>/SKY` (or `sky`), its
+    sun-pose net then replaced by the newest SUN checkpoint's (`sun`).
+    The seeded weights of `init_model_vars(cfg, seed)` are drawn only when
+    no SKY checkpoint exists. A checkpoint is read to the host and only the
+    serving modules' parameters and buffers reach the device; the optimizer
+    moments (2 x 3.2 GB of sun-pose FC at 64x256) never do."""
+    from skyhdr_torch.train.checkpoints import CheckpointManager
+    from skyhdr_torch.train.engine import build_models
+    from skyhdr_torch.utils.transplant import init_model_vars, load_model_vars
+
+    gen, sun_net = build_models(cfg, device)
+
+    def latest(ckpt_dir):
+        if not os.path.isdir(ckpt_dir):
+            return None
+        blob = CheckpointManager(ckpt_dir, cfg.train.ckpt_max_to_keep).read_latest()
+        return None if blob is None else blob["modules"]
+
+    root = os.path.join(workdir, cfg.train.checkpoint_dir)
+    modules = latest(sky or os.path.join(root, "SKY"))
+    if modules is not None:
+        gen.load_state_dict(modules["gen"])
+        sun_net.load_state_dict(modules["sun"])
+        log("Latest SKY checkpoint restored")
+    else:
+        gen_vars, sun_vars = init_model_vars(cfg, seed)
+        load_model_vars(gen, gen_vars)
+        load_model_vars(sun_net, sun_vars)
+    del modules
+    # The SUN -> SKY hand-off's key handling (`engine.replace_sun_params`):
+    # a SUN checkpoint holds the sun-pose net's state_dict under
+    # modules/sun.
+    modules = latest(sun or os.path.join(root, "SUN"))
+    if modules is not None:
+        sun_net.load_state_dict(modules["sun"])
+        log("Latest SUN checkpoint restored")
+    return gen, sun_net
 
 
 def load_vgg(path: str, log=print):

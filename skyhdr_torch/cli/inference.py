@@ -3,13 +3,15 @@ reconstructed .hdr radiance maps, on a CUDA card by default.
 
 Models are built and filled once, then every group of `--batch` images is
 one forward; the last group is padded by repeating its last image, and the
-padded outputs are dropped. The weights are drawn from `--seed` (Orbax
-checkpoint restore is not ported yet), as the JAX CLI does when no SKY
-checkpoint exists.
+padded outputs are dropped. The weights are those of the newest SKY
+checkpoint under `<workdir>/checkpoints/SKY` (or `--sky`), with the
+sun-pose net of the newest SUN checkpoint (`--sun`) over them, as the
+training CLI writes them (torch format, not Orbax); only when no SKY
+checkpoint exists are they drawn from `--seed`, as the JAX CLI does.
 
 Example:
   python -m skyhdr_torch.cli.inference --indir ldr_images/ --outdir out/ \
-      --da-conv true --imheight 64 --imwidth 256 --batch 32
+      --da-conv true --imheight 64 --imwidth 256 --batch 32 --workdir run/
 """
 
 from __future__ import annotations
@@ -21,10 +23,10 @@ import os
 import numpy as np
 import torch
 
-from skyhdr_torch.cli.common import add_model_flags, config_from_args
-from skyhdr_torch.train.engine import build_models, make_inference_fn
+from skyhdr_torch.cli.common import (add_model_flags, config_from_args,
+                                     restore_model_vars)
+from skyhdr_torch.train.engine import make_inference_fn
 from skyhdr_torch.utils.io import write_hdr
-from skyhdr_torch.utils.transplant import init_model_vars, load_model_vars
 
 
 def _imread01(path: str) -> np.ndarray:
@@ -60,6 +62,15 @@ def main(argv=None):
     add_model_flags(parser)
     parser.add_argument("--indir", type=str, required=True)
     parser.add_argument("--outdir", type=str, default="inference_out")
+    parser.add_argument("--workdir", type=str, default=os.getcwd(),
+                        help="where the training CLI wrote checkpoints/")
+    parser.add_argument("--sky", type=str, default=None,
+                        help="SKY checkpoint dir (default: "
+                             "<workdir>/checkpoints/SKY)")
+    parser.add_argument("--sun", type=str, default=None,
+                        help="SUN checkpoint dir whose sun-pose net "
+                             "replaces the SKY one's (default: "
+                             "<workdir>/checkpoints/SUN)")
     parser.add_argument("--weights-dtype", type=str, default="float32",
                         choices=("float32", "bfloat16"),
                         help="cast the weights for serving")
@@ -78,11 +89,8 @@ def main(argv=None):
             f"error: no .jpg/.jpeg/.png images found under {args.indir!r}")
     os.makedirs(args.outdir, exist_ok=True)
 
-    gen, sun = build_models(cfg, device)
-    gen_vars, sun_vars = init_model_vars(cfg, args.seed)
-    load_model_vars(gen, gen_vars)
-    load_model_vars(sun, sun_vars)
-    del gen_vars, sun_vars
+    gen, sun = restore_model_vars(cfg, args.workdir, sky=args.sky, sun=args.sun,
+                                  seed=args.seed, device=device)
     if args.weights_dtype != "float32":
         from skyhdr_torch.utils.params import cast_model_vars
 

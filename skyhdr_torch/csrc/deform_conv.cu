@@ -9,10 +9,14 @@
 //        rowY   = (1-wy) xpad[y0] + wy xpad[y1]         (xpad: 1 zero row
 //                                                        above and below)
 //        sample = (1-wx) rowY[(j+cx) mod W] + wx rowY[(j+cx+1) mod W].
-//   K2 da_dx_k3_kernel  — `_dx_k3_kernel` driven by `_pallas_dx` (k3
-//        branch): the input gradient over the scatter_tables_k3 slots,
-//        dx[y,j] = sum_slots sum_kx ((sw(1-wx)) g[si][(j-cx) mod W]
-//                                  + (sw wx) g[si][(j-cx-1) mod W]) @ K_t^T.
+//   K2 da_dx_kernel<3>  — `_dx_k3_kernel` driven by `_pallas_dx` (k3
+//        branch): the input gradient, over the forward's (row, tap) pairs,
+//        dx[y] = sum_{(i,t): y0 = y} (1-wy) P_it + sum_{(i,t): y1 = y} wy P_it,
+//        P_it = U_it @ K_t^T,
+//        U_it[j] = (1-wx) g[i][(j-cx) mod W] + wx g[i][(j-cx-1) mod W]
+//        (the TPU kernel sums the same terms per input row over the
+//        scatter_tables_k3 slots). Described with K7 below: it is K7's
+//        kernel at k = 3.
 //   K3 da_dk_kernel<T, 3> — `_dk_k3_kernel` driven by `_pallas_dk`: the weight
 //        gradient dK[t*C+c, f] = sum_{b,i,j} sample_t[b,i,j,c] g[b,i,j,f],
 //        the sample rebuilt from x as in K1 (never stored), followed by
@@ -33,9 +37,9 @@
 // against bank conflicts), then each thread accumulates a 4-column x
 // 4-channel register tile over C, reading the tap's weights as 16-byte
 // vectors that stay in L1/L2 (K is at most 590 KB). The tables (per row
-// and tap, or per row and slot) are device arrays that a block reads for
-// itself. Interpolation and accumulation are float32; with bf16 inputs the
-// matmul operands are rounded to bf16, as the TPU kernel feeds its MXU.
+// and tap) are device arrays that a block reads for itself. Interpolation
+// and accumulation are float32; with bf16 inputs the matmul operands are
+// rounded to bf16, as the TPU kernel feeds its MXU.
 // No tensor cores yet: this first port is right and simple; faster designs
 // come later.
 //
@@ -77,17 +81,40 @@
 //        summed in split order by da_dk_reduce_kernel (bitwise repeatable).
 //        C must be a multiple of 4, as for K3; the wrapper pads the k = 7
 //        sun-pose input (C = 3) with a zero channel.
-//   K7 da_dx_kernel         — `_dx_kernel` driven by `_pallas_dx`: the input
-//        gradient over the `scatter_tables` references (<= 2 k^2 per input
-//        row: 50 at a 16-row k = 5 map),
-//        dx[y,j] = sum_refs rw ((1-rwx) g[ri][(j-rcx) mod W]
-//                               + rwx g[ri][(j-rcx-1) mod W]) @ K_rt^T.
-//        K2's design with one reference per step instead of a slot's three
-//        taps: per reference the weighted, shifted cotangent row becomes a
-//        [TW, F] shared tile, accumulated against K_t^T into a [TW, C]
-//        register tile; padding references (rw == 0) are skipped. It does
-//        about twice the forward's products (each input row is read by two
-//        interpolation rows per tap); its bound counts the forward's.
+//   K7 da_dx_kernel<0>      — `_dx_kernel` driven by `_pallas_dx`: K2's
+//        input gradient at a run-time odd k (the TPU kernel walks the
+//        `scatter_tables` references of each input row). One kernel,
+//        templated on the kernel size as da_fwd_kernel is; k enters only
+//        through the tables, and K2's C is never padded.
+//        Bound by operations, counted at the forward's products,
+//        2*B*H*W*k^2*C*F (19.3 GFLOP, 0.29 ms for the 64x256 b64 trunk
+//        layer), against ~67 MB of g and dx.
+//        What held the first version (one block per input row, per
+//        reference a [TW, F] tile of the shifted, weighted cotangent row
+//        rebuilt from global memory, then its product with K_t^T behind a
+//        barrier) to 40-48 ms per GAN step: (1) every (i, t) product was
+//        formed twice, once for row y0 and once for y1, though only the
+//        scalar row weight differs; (2) tile build and product ran one
+//        after the other; (3) one shared-memory float per 4 FMAs and one
+//        L1 float4 of K per 16 fed the product.
+//        What this design does (da_dx_kernel below): a block owns a strip
+//        of R consecutive input rows (`rows`: R = 8, 4 or 2, the largest
+//        that still gives the grid 1.5 blocks per SM, dx_strip_rows in
+//        ops/kernels/deform_conv.py) and forms each (i, t) product whose y0
+//        or y1 lies in the strip once, adding (1-wy) P to row y0 and wy P
+//        to row y0 + 1: about k^2 (R + 1) pairs per strip against 2 k^2 R
+//        references, so at most (R + 1) / R times the forward's products
+//        (pad rows excluded; tests/test_torch_tables.py checks the bound;
+//        0.96-1.06 at R = 8 at the model's 64x256 b64 shapes). The pair lists are
+//        built on the host from the forward's gather tables, sorted by y0,
+//        so two row accumulators per thread suffice. The raw cotangent
+//        window and K_t^T's chunk are staged with cp.async, double
+//        buffered under the current stage's work; the x-interpolation reads
+//        shared memory; an 8 x 4 register tile is fed by float4 shared
+//        loads of both operands. The column tile is sized from C and W.
+//        float32 operands on CUDA cores (TF32 stays off), f32 sums, no
+//        atomics: each block owns its dx rows and walks its pairs in a
+//        fixed order, so dx is bitwise repeatable.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,6 +126,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRowsPerThread = 4;  // output columns held per thread
+constexpr int kDxThreads = 128;    // K2/K7: threads per block, at most
+constexpr int kDxCols = 8;         // K2/K7: dx columns per thread (x 4 channels)
+constexpr int kDxChunk = 32;       // K2/K7: output channels staged per stage (or twice)
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -123,6 +153,35 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 a = __bfloat1622float2(lo);
   const float2 b = __bfloat1622float2(hi);
   return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// e = first, first + step, ... walked as (q, r) = (e / width, e % width):
+// one division at the start instead of one per step.
+struct DivWalk {
+  int q, r;
+  const int dq, dr, width;
+  __device__ DivWalk(int first, int step, int w)
+      : q(first / w), r(first % w), dq(step / w), dr(step % w), width(w) {}
+  __device__ void next() {
+    q += dq;
+    r += dr;
+    if (r >= width) {
+      r -= width;
+      ++q;
+    }
+  }
+};
+
+// 16-byte asynchronous copy global -> shared (L2 only), and its groups.
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // acc[r][q] += sum_k tile[(lane + lanes*r), k] * m[k, 4*quad + q]
@@ -226,141 +285,178 @@ da_fwd_kernel(const T* __restrict__ x, const T* __restrict__ kern,
   }
 }
 
-// K2. Grid (ceil(W/TW), H, B); dynamic smem TW*(F+1) floats.
-// g [B,H,W,F] f32, kt [9, F, C] f32 (K_t^T stacked per tap), dx [B,H,W,C] f32.
-// Slot tables [H, S] (si, sw, sky) and [H, 3S] (scx, swx); sw == 0 is padding.
-__global__ void __launch_bounds__(kThreads)
-da_dx_k3_kernel(const float* __restrict__ g, const float* __restrict__ kt,
-                const int* __restrict__ si, const float* __restrict__ sw,
-                const int* __restrict__ sky, const int* __restrict__ scx,
-                const float* __restrict__ swx, int nslots,
-                float* __restrict__ dx, int H, int W, int C, int F) {
-  extern __shared__ float tile[];
-  const int quads = C / 4;
-  const int lanes = kThreads / quads;
-  const int tw = lanes * kRowsPerThread;
-  const int ld = F + 1;
-  const int tid = threadIdx.x;
-  const int quad = tid % quads;
-  const int lane = tid / quads;
-  const int j0 = blockIdx.x * tw;
-  const int y = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t row_stride = static_cast<size_t>(W) * F;
-
-  float acc[kRowsPerThread][4] = {};
-  for (int s = 0; s < nslots; ++s) {
-    const float wgt = sw[y * nslots + s];
-    if (wgt == 0.f) continue;  // uniform across the block
-    const float* grow = g + (static_cast<size_t>(b) * H + si[y * nslots + s]) * row_stride;
-    const int ky = sky[y * nslots + s];
-    for (int kx = 0; kx < 3; ++kx) {
-      const int cx = scx[y * 3 * nslots + 3 * s + kx];
-      const float wx = swx[y * 3 * nslots + 3 * s + kx];
-      const float a0 = wgt * (1.f - wx);
-      const float a1 = wgt * wx;
-
-      __syncthreads();
-      for (int e = tid; e < tw * F; e += kThreads) {
-        const int jj = e / F;
-        const int f = e - jj * F;
-        const int j = j0 + jj;
-        float u = 0.f;
-        if (j < W) {
-          int q0 = j - cx;
-          if (q0 < 0) q0 += W;
-          int q1 = q0 - 1;
-          if (q1 < 0) q1 += W;
-          u = a0 * grow[q0 * F + f] + a1 * grow[q1 * F + f];
-        }
-        tile[jj * ld + f] = u;
-      }
-      __syncthreads();
-      accumulate(acc, tile, ld, kt + static_cast<size_t>(3 * ky + kx) * F * C,
-                 F, C, quad, lane, lanes);
-    }
-  }
-
-  const int c = 4 * quad;
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-    const int j = j0 + lane + lanes * r;
-    if (j < W) {
-      float* o = dx + ((static_cast<size_t>(b) * H + y) * W + j) * C + c;
-      *reinterpret_cast<float4*>(o) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-    }
-  }
-}
-
-// K7. Grid (ceil(W/TW), H, B); dynamic smem TW*(F+1) floats.
-// g [B,H,W,F] f32, kt [k^2, F, Cp] f32 (K_t^T per tap, C zero-padded to Cp,
-// a multiple of 4), dx [B,H,W,C] f32. Reference tables [H, R] (ri, rt, rw,
-// rcx, rwx); rw == 0 is padding.
-__global__ void __launch_bounds__(kThreads)
+// K2 (KC = 3) and K7 (KC = 0: kernel size k at run time): the DA input
+// gradient over the strip tables (ops/distortion.py:strip_tables). Each
+// block owns `rows` consecutive input rows (a strip) x tw columns x ct
+// channels of dx for one batch image, and walks the strip's (output row i,
+// tap t) pairs in their order (sorted by y0): for each it forms
+// P = U_{i,t} @ K_t^T once, with U_{i,t}'s x-interpolation read from the
+// staged cotangent window, and adds w0 * P to row y0 and w1 * P to row
+// y0 + 1. The pairs come sorted by y0, so a thread holds just two row
+// accumulators: `acc` (row r) and `nxt` (row r + 1); when the walk passes
+// a row, that row is complete and is stored.
+//
+// Stages: (pair, chunk of fc = 64 or 32 output channels). Stage s + 1's
+// raw window (tw + 1 columns of g's row i, from column j0 - cx - 1,
+// wrapped) and K_t^T chunk [fc, ct] are copied into the other half of a double buffer with
+// cp.async while stage s builds U^T [fc, tw] from its window (one pass,
+// (1-wx) win[jj+1] + wx win[jj], stored transposed so that a thread reads
+// its 8 columns as two float4) and runs the product: each thread an
+// 8-column x 4-channel register tile, fed one float4 of K^T and two of U^T
+// per 32 FMAs, all from shared memory. Grid (column tiles x channel tiles,
+// strips, B); plan_dx sizes the tiles. dx rows outside [0, H) are never
+// written; every row of the strip inside it is written exactly once.
+template <int KC>
+__global__ void __launch_bounds__(kDxThreads, 3)
 da_dx_kernel(const float* __restrict__ g, const float* __restrict__ kt,
-             const int* __restrict__ ri, const int* __restrict__ rt,
-             const float* __restrict__ rw, const int* __restrict__ rcx,
-             const float* __restrict__ rwx, int nrefs,
-             float* __restrict__ dx, int H, int W, int C, int Cp, int F) {
-  extern __shared__ float tile[];
-  const int quads = Cp / 4;
-  const int lanes = kThreads / quads;
-  const int tw = lanes * kRowsPerThread;
-  const int ld = F + 1;
+             const int4* __restrict__ pint, const float4* __restrict__ pflt,
+             const int* __restrict__ start, int rows, float* __restrict__ dx,
+             int H, int W, int C, int Cp, int F, int ct, int tw, int fc) {
+  extern __shared__ __align__(16) float dx_smem[];
+  const int ldw = fc + 4;  // window row stride (16-byte rows)
+  const int ldu = tw + 4;  // U^T row stride: tw % 32 == 0, so ldu % 32 == 4
+  float* win = dx_smem;                    // [2][tw + 1][ldw] raw cotangents
+  float* kbuf = win + 2 * (tw + 1) * ldw;  // [2][fc][ct] K_t^T chunk
+  float* ubuf = kbuf + 2 * fc * ct;        // [fc][ldu] U^T chunk
+  const int ncg = ct / 4;
   const int tid = threadIdx.x;
-  const int quad = tid % quads;
-  const int lane = tid / quads;
-  const int j0 = blockIdx.x * tw;
-  const int y = blockIdx.y;
+  const int nthr = blockDim.x;
+  const int cg = tid % ncg;
+  const int rg = tid / ncg;
+  const int ctiles = Cp / ct;
+  const int j0 = (blockIdx.x / ctiles) * tw;
+  const int c0 = (blockIdx.x % ctiles) * ct;
+  const int y_lo = blockIdx.y * rows;
   const int b = blockIdx.z;
-  const size_t row_stride = static_cast<size_t>(W) * F;
+  const int p0 = start[blockIdx.y];
+  const int chunks = (F + fc - 1) / fc;
+  const int stages = (start[blockIdx.y + 1] - p0) * chunks;
+  const float* gb = g + static_cast<size_t>(b) * H * W * F;
+  // K2's channels come unpadded (C % 4 == 0); K7's may be padded to Cp.
+  const bool vec = KC == 3 || C % 4 == 0;
 
-  float acc[kRowsPerThread][4] = {};
-  for (int r = 0; r < nrefs; ++r) {
-    const int e = y * nrefs + r;
-    const float wgt = rw[e];
-    if (wgt == 0.f) continue;  // uniform across the block
-    const float* grow = g + (static_cast<size_t>(b) * H + ri[e]) * row_stride;
-    const int cx = rcx[e];
-    const float wx = rwx[e];
-    const float a0 = wgt * (1.f - wx);
-    const float a1 = wgt * wx;
-
-    __syncthreads();  // the previous reference's tile is no longer read
-    for (int n = tid; n < tw * F; n += kThreads) {
-      const int jj = n / F;
-      const int f = n - jj * F;
-      const int j = j0 + jj;
-      float u = 0.f;
-      if (j < W) {
-        int q0 = j - cx;
-        if (q0 < 0) q0 += W;
-        int q1 = q0 - 1;
-        if (q1 < 0) q1 += W;
-        u = a0 * grow[q0 * F + f] + a1 * grow[q1 * F + f];
-      }
-      tile[jj * ld + f] = u;
+  auto load = [&](int st, int buf) {
+    const int4 e = pint[p0 + st / chunks];  // (i, t, cx, r)
+    const int f0 = (st % chunks) * fc;
+    const int kc = min(fc, F - f0);
+    const float* grow = gb + static_cast<size_t>(e.x) * W * F + f0;
+    float* wb = win + buf * (tw + 1) * ldw;
+    int col0 = (j0 - e.z - 1) % W;
+    if (col0 < 0) col0 += W;
+    const int vpr = kc / 4;
+    for (DivWalk v(tid, nthr, vpr); v.q <= tw; v.next()) {
+      int col = col0 + v.q;
+      while (col >= W) col -= W;
+      cp_async16(wb + v.q * ldw + 4 * v.r, grow + static_cast<size_t>(col) * F + 4 * v.r);
     }
-    __syncthreads();
-    accumulate(acc, tile, ld, kt + static_cast<size_t>(rt[e]) * F * Cp, F, Cp,
-               quad, lane, lanes);
-  }
+    const float* ksrc = kt + (static_cast<size_t>(e.y) * F + f0) * Cp + c0;
+    float* kb = kbuf + buf * fc * ct;
+    for (DivWalk v(tid, nthr, ncg); v.q < kc; v.next())
+      cp_async16(kb + v.q * ct + 4 * v.r, ksrc + static_cast<size_t>(v.q) * Cp + 4 * v.r);
+    cp_async_commit();
+  };
 
-  const int c = 4 * quad;
+  float acc[kDxCols][4] = {};
+  float nxt[kDxCols][4] = {};
+  float prod[kDxCols][4];
+  int r_cur = -1;  // the strip row `acc` holds; `nxt` holds r_cur + 1
+  auto advance = [&]() {  // row r_cur is complete: store it, move down one
+    const int y = y_lo + r_cur;
+    if (r_cur >= 0 && y < H) {
+      const int c = c0 + 4 * cg;
+      float* o = dx + (static_cast<size_t>(b) * H + y) * W * C + c;
 #pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-    const int j = j0 + lane + lanes * r;
-    if (j < W) {
-      float* o = dx + ((static_cast<size_t>(b) * H + y) * W + j) * C + c;
-      if (C % 4 == 0) {
-        *reinterpret_cast<float4*>(o) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-      } else {
+      for (int m = 0; m < kDxCols; ++m) {
+        const int j = j0 + kDxCols * rg + m;
+        if (j >= W) continue;
+        float* oj = o + static_cast<size_t>(j) * C;
+        if (vec) {
+          *reinterpret_cast<float4*>(oj) = make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+        } else {
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (c + q < C) o[q] = acc[r][q];
+          for (int q = 0; q < 4; ++q)
+            if (c + q < C) oj[q] = acc[m][q];
+        }
       }
     }
+#pragma unroll
+    for (int m = 0; m < kDxCols; ++m)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        acc[m][q] = nxt[m][q];
+        nxt[m][q] = 0.f;
+      }
+    ++r_cur;
+  };
+
+  if (stages > 0) load(0, 0);
+  int n = p0;      // the stage's pair
+  int chunk = 0;   // and its channel chunk
+  for (int st = 0; st < stages; ++st) {
+    const int buf = st & 1;
+    cp_async_wait_all();
+    __syncthreads();  // stage st has landed; stage st - 1 is no longer read
+    if (st + 1 < stages) load(st + 1, buf ^ 1);
+    const int kc = min(fc, F - chunk * fc);
+    const float wx = pflt[n].x;
+    const float a0 = 1.f - wx;
+    const float* wb = win + buf * (tw + 1) * ldw;
+    // U^T[f][jj] = (1-wx) win[jj + 1][f] + wx win[jj][f], 4 columns a step.
+    for (DivWalk e(tid, nthr, kc); e.q < tw / 4; e.next()) {
+      const float* s = wb + 4 * e.q * ldw + e.r;
+      const float v0 = s[0], v1 = s[ldw], v2 = s[2 * ldw], v3 = s[3 * ldw], v4 = s[4 * ldw];
+      *reinterpret_cast<float4*>(ubuf + e.r * ldu + 4 * e.q) =
+          make_float4(fmaf(wx, v0, a0 * v1), fmaf(wx, v1, a0 * v2), fmaf(wx, v2, a0 * v3),
+                      fmaf(wx, v3, a0 * v4));
+    }
+    __syncthreads();  // U^T is built
+    if (chunk == 0) {
+#pragma unroll
+      for (int m = 0; m < kDxCols; ++m)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) prod[m][q] = 0.f;
+    }
+    const float* kb = kbuf + buf * fc * ct + 4 * cg;
+    const float* ub = ubuf + kDxCols * rg;
+    auto depth_step = [&](int f) {
+      const float4 u0 = *reinterpret_cast<const float4*>(ub + f * ldu);
+      const float4 u1 = *reinterpret_cast<const float4*>(ub + f * ldu + 4);
+      const float4 kv = *reinterpret_cast<const float4*>(kb + f * ct);
+      const float uv[kDxCols] = {u0.x, u0.y, u0.z, u0.w, u1.x, u1.y, u1.z, u1.w};
+#pragma unroll
+      for (int m = 0; m < kDxCols; ++m) {
+        prod[m][0] = fmaf(uv[m], kv.x, prod[m][0]);
+        prod[m][1] = fmaf(uv[m], kv.y, prod[m][1]);
+        prod[m][2] = fmaf(uv[m], kv.z, prod[m][2]);
+        prod[m][3] = fmaf(uv[m], kv.w, prod[m][3]);
+      }
+    };
+    if (kc == 2 * kDxChunk) {  // the full chunks, unrolled whole
+#pragma unroll
+      for (int f = 0; f < 2 * kDxChunk; ++f) depth_step(f);
+    } else if (kc == kDxChunk) {
+#pragma unroll
+      for (int f = 0; f < kDxChunk; ++f) depth_step(f);
+    } else {
+#pragma unroll 4
+      for (int f = 0; f < kc; ++f) depth_step(f);
+    }
+    if (++chunk == chunks) {  // P of pair n is complete
+      const int r = pint[n].w;
+      while (r_cur < r) advance();
+      const float4 wt = pflt[n];  // (wx, w0, w1, 0)
+#pragma unroll
+      for (int m = 0; m < kDxCols; ++m)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[m][q] = fmaf(wt.y, prod[m][q], acc[m][q]);
+          nxt[m][q] = fmaf(wt.z, prod[m][q], nxt[m][q]);
+        }
+      chunk = 0;
+      ++n;
+    }
   }
+  while (r_cur < rows) advance();
 }
 
 constexpr int kChunk = 64;  // K3/K6: columns staged in shared memory at a time
@@ -543,6 +639,58 @@ int launch_fwd(const void* x, const void* kern, const void* bias,
   return cudaGetLastError();
 }
 
+// K2/K7 tiling: ct channels (the largest of 64, 32, 16, 8, 4 dividing
+// Cp) by tw columns (kDxThreads threads of 8 columns x 4 channels, at most
+// 256 columns, and no wider than W rounded up to 32, so that a narrow map
+// or a 3-channel layer does not leave most of a block idle), fc output
+// channels staged per chunk (64, 32 or 16, or F when it is smaller).
+struct DxPlan {
+  int ct, tw, fc, threads;
+  size_t smem;
+};
+
+bool plan_dx(int W, int Cp, int F, DxPlan* p) {
+  if (W <= 0 || Cp <= 0 || Cp % 4 != 0 || F <= 0 || F % 4 != 0) return false;
+  int ct = 64;
+  while (Cp % ct != 0) ct /= 2;
+  const int ncg = ct / 4;
+  int tw = kDxCols * (kDxThreads / ncg);
+  const int wcap = (W + 31) / 32 * 32;
+  tw = tw < wcap ? tw : wcap;
+  tw = tw < 256 ? tw : 256;
+  const int fc_max = tw >= 256 ? kDxChunk / 2 : kDxChunk;
+  p->ct = ct;
+  p->tw = tw;
+  p->fc = F < fc_max ? F : fc_max;
+  // Where F allows and the tile is at most 64 columns (85.5 KB of shared
+  // memory, still 2 blocks an SM), a 64-deep stage halves the barriers,
+  // U^T builds and cp.async calls per product.
+  if (F >= 2 * kDxChunk && tw <= 64) p->fc = 2 * kDxChunk;
+  p->threads = (tw / kDxCols) * ncg;
+  p->smem = sizeof(float) * (static_cast<size_t>(2) * (tw + 1) * (p->fc + 4) +
+                             2 * p->fc * ct + p->fc * (tw + 4));
+  return true;
+}
+
+template <int KC>
+int launch_dx(const void* g, const void* kt, const void* pint, const void* pflt,
+              const void* start, int strips, int rows, void* dx, int B, int H,
+              int W, int C, int Cp, int F, cudaStream_t stream) {
+  DxPlan p;
+  if (Cp < C || (KC == 3 && Cp != C) || rows < 1 || strips != (H + rows - 1) / rows ||
+      !plan_dx(W, Cp, F, &p))
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(da_dx_kernel<KC>, p.smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(((W + p.tw - 1) / p.tw) * (Cp / p.ct), strips, B);
+  da_dx_kernel<KC><<<grid, p.threads, p.smem, stream>>>(
+      static_cast<const float*>(g), static_cast<const float*>(kt),
+      static_cast<const int4*>(pint), static_cast<const float4*>(pflt),
+      static_cast<const int*>(start), rows, static_cast<float*>(dx), H, W, C,
+      Cp, F, p.ct, p.tw, p.fc);
+  return cudaGetLastError();
+}
+
 template <typename T, int KC>
 int launch_dk(const void* x, const void* g, const void* y0, const void* y1,
               const void* cx, const void* wy, const void* wx, void* ws,
@@ -607,49 +755,31 @@ int skyhdr_da_fwd(const void* x, const void* kern, const void* bias,
                               C, F, k, s);
 }
 
-// K2: g [B,H,W,F] f32, kt [9,F,C] f32, dx [B,H,W,C] f32.
-int skyhdr_da_dx_k3(const void* g, const void* kt, const void* si,
-                    const void* sw, const void* sky, const void* scx,
-                    const void* swx, int nslots, void* dx, int B, int H,
-                    int W, int C, int F, int device, void* stream) {
+// K2 (k = 3) and K7 (any other odd k): g [B,H,W,F] f32, kt [k^2,F,Cp] f32
+// (K_t^T per tap; Cp = C rounded up to a multiple of 4, zero-padded; K2
+// takes C % 4 == 0), dx [B,H,W,C] f32; the strip tables pint [n,4] i32,
+// pflt [n,4] f32 and start [strips+1] i32 of `rows`-row strips
+// (ops/distortion.py:strip_tables). F must be a multiple of 4.
+int skyhdr_da_dx(const void* g, const void* kt, const void* pint,
+                 const void* pflt, const void* start, int strips, int rows,
+                 void* dx, int B, int H, int W, int C, int Cp, int F, int k,
+                 int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  int tw;
-  size_t smem;
-  if (!plan(C, F, &tw, &smem)) return cudaErrorInvalidValue;
-  err = allow_smem(da_dx_k3_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((W + tw - 1) / tw, H, B);
-  da_dx_k3_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), static_cast<const float*>(kt),
-      static_cast<const int*>(si), static_cast<const float*>(sw),
-      static_cast<const int*>(sky), static_cast<const int*>(scx),
-      static_cast<const float*>(swx), nslots, static_cast<float*>(dx), H, W,
-      C, F);
-  return cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k == 3)
+    return launch_dx<3>(g, kt, pint, pflt, start, strips, rows, dx, B, H, W, C, Cp, F, s);
+  if (!odd_size(k)) return cudaErrorInvalidValue;
+  return launch_dx<0>(g, kt, pint, pflt, start, strips, rows, dx, B, H, W, C, Cp, F, s);
 }
 
-// K7: g [B,H,W,F] f32, kt [k^2, F, Cp] f32 (Cp = C rounded up to a
-// multiple of 4, zero-padded), dx [B,H,W,C] f32; nrefs references per row.
-int skyhdr_da_dx(const void* g, const void* kt, const void* ri,
-                 const void* rt, const void* rw, const void* rcx,
-                 const void* rwx, int nrefs, void* dx, int B, int H, int W,
-                 int C, int Cp, int F, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  int tw;
-  size_t smem;
-  if (Cp < C || Cp % 4 != 0 || !plan(Cp, F, &tw, &smem)) return cudaErrorInvalidValue;
-  err = allow_smem(da_dx_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((W + tw - 1) / tw, H, B);
-  da_dx_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), static_cast<const float*>(kt),
-      static_cast<const int*>(ri), static_cast<const int*>(rt),
-      static_cast<const float*>(rw), static_cast<const int*>(rcx),
-      static_cast<const float*>(rwx), nrefs, static_cast<float*>(dx), H, W,
-      C, Cp, F);
-  return cudaGetLastError();
+// K2/K7: blocks per (image, strip) of a launch (column tiles x channel
+// tiles), or -1 when the shape does not tile; the wrapper picks the strip
+// height from it.
+int skyhdr_da_dx_tiles(int W, int Cp, int F) {
+  DxPlan p;
+  if (!plan_dx(W, Cp, F, &p)) return -1;
+  return ((W + p.tw - 1) / p.tw) * (Cp / p.ct);
 }
 
 // K3/K6 row splits for a launch at kernel size k: enough blocks for ~8 per

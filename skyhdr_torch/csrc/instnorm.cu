@@ -47,13 +47,21 @@
 //
 // Activation gradient at exactly 0: the mask is `ypre >= 0` (as the TPU
 // kernel), so a pre-activation of exactly 0 passes dy with slope 1; the
-// unfused graph's relu has slope 0 there.
+// unfused graph's relu has slope 0 there. K9 rounds ypre = xhat*gamma +
+// beta as its plain version does (the product, then the sum; no fused
+// multiply-add), so the two take the same slope where ypre is within an
+// ulp of 0: the slope's jump (1 - alpha) would otherwise reach dx.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// xhat*gamma + beta, rounded after the product and after the sum.
+__device__ __forceinline__ float pre_activation(float xhat, float gamma, float beta) {
+  return __fadd_rn(__fmul_rn(xhat, gamma), beta);
+}
 
 constexpr int kThreads = 256;
 
@@ -185,7 +193,7 @@ in_bwd_partials_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     const int i = p * C + c;
     const float xh = (ld(x + off, i) - m) * rs;
     float d = ld(dy + off, i);
-    if (!(xh * g + be >= 0.f)) d *= alpha;
+    if (!(pre_activation(xh, g, be) >= 0.f)) d *= alpha;
     s1 += d;
     s2 += d * xh;
   }
@@ -271,7 +279,7 @@ in_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     const float rs = rb[c], g = gamma[c];
     const float xh = (ld(x + off, j) - mb[c]) * rs;
     float d = ld(dy + off, j);
-    if (!(xh * g + beta[c] >= 0.f)) d *= alpha;
+    if (!(pre_activation(xh, g, beta[c]) >= 0.f)) d *= alpha;
     const float dxh = d * g;
     st(dx + off, j, rs * (dxh - qb[2 * c] - xh * qb[2 * c + 1]));
   }

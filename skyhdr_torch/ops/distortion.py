@@ -3,7 +3,10 @@ gather form, and the DAConv / DADeconv layers.
 
 The NumPy table builders are copies of `skyhdr.ops.distortion`
 (`distortion_offsets`, `gather_tables`, `scatter_tables`,
-`scatter_tables_k3`); the tests hold them `np.array_equal` to the originals. Geometry: every panorama row projects
+`scatter_tables_k3`); the tests hold them `np.array_equal` to the originals.
+`strip_tables` (the pair lists of the input-gradient kernels K2/K7) is the
+port's own; the tests hold it to `scatter_tables` and the k=3 slots.
+Geometry: every panorama row projects
 the k x k kernel grid onto the sphere's tangent plane at that row's
 elevation, so the sampling offsets depend on the row and the tap, never on
 the column. Width wraps cyclically (a true 360 degrees); height is
@@ -212,6 +215,57 @@ def scatter_tables_k3(h: int, w: int, stride: int = 1,
                            swx=swx.reshape(h, nslots * 3), nslots=nslots)
 
 
+class StripTables(NamedTuple):
+    """The gather inverted per strip of `rows` consecutive input rows, any
+    odd k: for strip s (input rows [s*rows, s*rows + rows)), the forward's
+    (output row i, tap) pairs whose floor row y0 or ceiling row y1 lies in
+    the strip, each listed once, sorted by y0. Pair n adds w0 * P to input
+    row y0 and w1 * P to row y0 + 1, where P = U @ K_t^T and
+    U[j] = (1-wx) g[i][(j-cx) mod w] + wx g[i][(j-cx-1) mod w]; a weight
+    whose row lies outside the strip (or is a zero pad row) is 0, and the
+    pole clamp (y1 == y0) gives its whole weight to w0."""
+
+    pint: np.ndarray   # [n, 4] int32 — (i, tap, cx, y0 - s*rows), the last in [-1, rows)
+    pflt: np.ndarray   # [n, 4] f32 — (wx, w0, w1, 0)
+    start: np.ndarray  # [strips + 1] int32 — strip s holds pairs start[s]:start[s+1]
+    rows: int
+
+
+@functools.lru_cache(maxsize=None)
+def strip_tables(h: int, w: int, kernel_size: int = 3, rows: int = 4,
+                 dilation_rate: int = 1, skydome: bool = True) -> StripTables:
+    """The pair lists of the input-gradient kernels K2/K7 (stride 1), from
+    `gather_tables`. The row weights are `scatter_tables`' (f32 of
+    1 - wy and wy), so a strip's pairs give each (input row, output row,
+    tap) the weight its references there carry."""
+    t = gather_tables(h, w, kernel_size, 1, dilation_rate, skydome)
+    k2 = kernel_size * kernel_size
+    strips = -(-h // rows)
+    pint = [[] for _ in range(strips)]
+    pflt = [[] for _ in range(strips)]
+    for i in range(h):
+        for tap in range(k2):
+            wy = float(t.wy[i, tap])
+            y0, y1 = int(t.y0[i, tap]) - t.pad, int(t.y1[i, tap]) - t.pad
+            for s in {y0 // rows, y1 // rows}:
+                lo = s * rows
+                wgt = [0.0, 0.0]  # to rows y0 and y0 + 1
+                for y, wr in ((y0, 1.0 - wy), (y1, wy)):
+                    if 0 <= y < h and lo <= y < lo + rows and wr != 0.0:
+                        wgt[y - y0] += wr
+                if wgt != [0.0, 0.0]:
+                    pint[s].append((i, tap, int(t.cx0[i, tap]), y0 - lo))
+                    pflt[s].append((float(t.wx[i, tap]), *wgt, 0.0))
+    order = [sorted(range(len(p)), key=lambda n, p=p: p[n][3]) for p in pint]
+    start = np.cumsum([0] + [len(p) for p in pint]).astype(np.int32)
+    return StripTables(
+        pint=np.array([pint[s][n] for s in range(strips) for n in order[s]],
+                      np.int32).reshape(-1, 4),
+        pflt=np.array([pflt[s][n] for s in range(strips) for n in order[s]],
+                      np.float32).reshape(-1, 4),
+        start=start, rows=rows)
+
+
 def _on(device, arr) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
@@ -244,6 +298,14 @@ def scatter_tables_on(device: torch.device, h: int, w: int, kernel_size: int,
     st = scatter_tables(h, w, kernel_size, 1, dilation_rate, skydome)
     return (tuple(_on(device, a) for a in (st.ri, st.rt, st.rw, st.rcx, st.rwx)),
             st.nrefs)
+
+
+@functools.lru_cache(maxsize=None)
+def strip_tables_on(device: torch.device, h: int, w: int, kernel_size: int,
+                    rows: int, dilation_rate: int = 1, skydome: bool = True):
+    """`strip_tables` (stride 1) as device tensors (pint, pflt, start)."""
+    st = strip_tables(h, w, kernel_size, rows, dilation_rate, skydome)
+    return tuple(_on(device, a) for a in (st.pint, st.pflt, st.start))
 
 
 def mm_dtype(x: torch.Tensor) -> torch.dtype:

@@ -34,7 +34,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # name -> argtypes; every entry point returns an int (a cudaError_t, or
-# for skyhdr_da_dk_splits a count).
+# for skyhdr_da_dk_splits and skyhdr_da_dx_tiles a count).
 _SIGNATURES = {
     # x, gamma, beta, ws, y, mean, rstd, B, HW, C, S, eps, alpha, is_bf16, device, stream
     "skyhdr_in_fwd_k8": [_P] * 7 + [_I] * 4 + [_F, _F] + [_I] * 2 + [_P],
@@ -45,10 +45,10 @@ _SIGNATURES = {
     "skyhdr_da_fwd_k3": [_P] * 9 + [_I] * 7 + [_P],
     # x, kern, bias, y0, y1, cx, wy, wx, out, B, H, W, C, F, k, is_bf16, device, stream
     "skyhdr_da_fwd": [_P] * 9 + [_I] * 8 + [_P],
-    # g, kt, si, sw, sky, scx, swx, nslots, dx, B, H, W, C, F, device, stream
-    "skyhdr_da_dx_k3": [_P] * 7 + [_I, _P] + [_I] * 6 + [_P],
-    # g, kt, ri, rt, rw, rcx, rwx, nrefs, dx, B, H, W, C, Cp, F, device, stream
-    "skyhdr_da_dx": [_P] * 7 + [_I, _P] + [_I] * 7 + [_P],
+    # g, kt, pint, pflt, start, strips, rows, dx, B, H, W, C, Cp, F, k, device, stream
+    "skyhdr_da_dx": [_P] * 5 + [_I, _I, _P] + [_I] * 8 + [_P],
+    # W, Cp, F -> blocks per (image, strip) of K2/K7 (or < 0)
+    "skyhdr_da_dx_tiles": [_I] * 3,
     # B, H, C, F, k, device -> number of row splits (or < 0)
     "skyhdr_da_dk_splits": [_I] * 6,
     # x, g, y0, y1, cx, wy, wx, ws, out, nsplit, B, H, W, C, F, is_bf16, device, stream

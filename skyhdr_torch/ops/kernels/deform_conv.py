@@ -4,10 +4,11 @@ the autograd glue.
 k = 3 (skyhdr/ops/pallas/deform_conv.py's fast path):
   K1 `da_conv_forward_k1` — CUDA forward (csrc/deform_conv.cu), replacing
      `_kernel_k3`. Plain version: `da_conv_forward_ref`.
-  K2 `da_conv_dx_k2` — CUDA input gradient, replacing `_dx_k3_kernel`.
-     Plain version: `da_conv_dx_ref`, the same slot formula vectorised in
-     torch (not autograd of the forward, so the CPU tests hold the very
-     algorithm K2 runs against `jax.vjp`).
+  K2 `da_conv_dx_k2` — CUDA input gradient, replacing `_dx_k3_kernel`:
+     one product per forward (row, tap) pair over the `strip_tables`.
+     Plain version: `da_conv_dx_ref`, the TPU kernel's slot formula
+     vectorised in torch (not autograd of the forward, so the CPU tests
+     hold it against `jax.vjp`, and the pair tables against the slots).
   K3 `da_conv_dk_k3` — CUDA weight gradient, replacing `_dk_k3_kernel`.
      Plain version: `da_conv_dk_ref`, the same sample-times-cotangent sum
      vectorised in torch (again not autograd of the forward).
@@ -16,9 +17,9 @@ Any other odd k (the generic kernels of the same file):
      version: `da_conv_forward_ref` at that k.
   K6 `da_conv_dk_k6` — CUDA weight gradient, replacing `_dk_kernel`. Plain
      version: `da_conv_dk_ref` at that k.
-  K7 `da_conv_dx_k7` — CUDA input gradient over the `scatter_tables`
-     references, replacing `_dx_kernel`. Plain version:
-     `da_conv_dx_ref_generic`, the same reference formula in torch.
+  K7 `da_conv_dx_k7` — CUDA input gradient, replacing `_dx_kernel`: K2's
+     kernel at that k. Plain version: `da_conv_dx_ref_generic`, the TPU
+     kernel's reference formula over the `scatter_tables` in torch.
 K4 `DAConvFunction` — the custom-VJP wiring (`_da_conv_core` / `_da_fwd` /
   `_da_bwd`): the forward kernel of the kernel size; the input gradient
   when the input needs one, the weight gradient and a plain sum for db
@@ -38,7 +39,7 @@ import torch
 
 from skyhdr_torch.ops.distortion import (deformable_conv2d, gather_tables_on,
                                          mm_dtype, scatter_tables_k3_on,
-                                         scatter_tables_on)
+                                         scatter_tables_on, strip_tables_on)
 
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
@@ -46,6 +47,11 @@ K3_LAUNCHES = 0
 K5_LAUNCHES = 0
 K6_LAUNCHES = 0
 K7_LAUNCHES = 0
+# The strip heights R of K2/K7, tallest first: a block forms every (output
+# row, tap) product that reaches its strip of R input rows once, at most
+# (R + 1) / R times the forward's products, so the tallest strip that still
+# fills the card wins (`dx_strip_rows`).
+DX_STRIP_ROWS = (8, 4, 2)
 _WEIGHT_GRADS = True
 
 
@@ -124,44 +130,29 @@ def da_conv_forward_k5(x, kernel, bias, *, kernel_size: int,
     return out
 
 
-def da_conv_dx_k2(g, kernel, *, x_shape, dilation_rate: int = 1,
-                  skydome: bool = True) -> torch.Tensor:
-    """K2: the k=3 DA input gradient on the card. g [b,h,w,f] (taken as
-    float32), kernel [9c,f]; returns dx [b,h,w,c] float32."""
-    global K2_LAUNCHES
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def dx_strip_rows(b: int, h: int, tiles: int, sms: int) -> int:
+    """The strip height of a K2/K7 launch: the tallest of DX_STRIP_ROWS whose
+    grid (b x strips x `tiles` blocks per strip) still gives each of `sms`
+    SMs 1.5 blocks; the shortest otherwise. Fewer, taller strips do fewer
+    products; below ~1.5 blocks per SM the idle SMs cost more than that."""
+    for rows in DX_STRIP_ROWS:
+        if b * -(-h // rows) * tiles >= 1.5 * sms:
+            return rows
+    return DX_STRIP_ROWS[-1]
+
+
+def _dx(g, kernel, x_shape, k: int, dilation_rate: int, skydome: bool,
+        name: str) -> torch.Tensor:
+    """Checks, then launches the input-gradient kernel at kernel size k
+    (K2 at k = 3, K7 otherwise) over the `strip_tables` of the strip height
+    `dx_strip_rows` picks."""
     from skyhdr_torch.ops.kernels.build import check, library
 
-    b, h, w, c = x_shape
-    f = kernel.shape[-1]
-    _require(g.is_cuda and kernel.device == g.device,
-             "DA kernels take CUDA tensors on one device")
-    _require(tuple(kernel.shape) == (9 * c, f),
-             f"kernel must be [{9 * c}, {f}], got {tuple(kernel.shape)}")
-    _require(tuple(g.shape) == (b, h, w, f),
-             f"g must be [{b},{h},{w},{f}], got {tuple(g.shape)}")
-    g32 = g.float().contiguous()
-    kt = kernel.float().reshape(9, c, f).transpose(1, 2).contiguous()  # [9, f, c]
-    (si, sw, sky, scx, swx), nslots = scatter_tables_k3_on(
-        g.device, h, w, dilation_rate, skydome)
-    dx = torch.empty((b, h, w, c), dtype=torch.float32, device=g.device)
-    code = library().skyhdr_da_dx_k3(
-        *_ptrs(g32, kt, si, sw, sky, scx, swx), nslots, *_ptrs(dx),
-        b, h, w, c, f, g.device.index, _stream(g))
-    check(code, "K2 (DA input gradient)")
-    K2_LAUNCHES += 1
-    return dx
-
-
-def da_conv_dx_k7(g, kernel, *, x_shape, kernel_size: int,
-                  dilation_rate: int = 1, skydome: bool = True) -> torch.Tensor:
-    """K7: the DA input gradient at an odd kernel size k other than 3 on the
-    card, over the `scatter_tables` references. g [b,h,w,f] (taken as
-    float32), kernel [k*k*c, f]; returns dx [b,h,w,c] float32."""
-    global K7_LAUNCHES
-    from skyhdr_torch.ops.kernels.build import check, library
-
-    k = kernel_size
-    _odd_other_than_3(k, "K7")
     b, h, w, c = x_shape
     f = kernel.shape[-1]
     _require(g.is_cuda and kernel.device == g.device,
@@ -170,17 +161,48 @@ def da_conv_dx_k7(g, kernel, *, x_shape, kernel_size: int,
              f"kernel must be [{k * k * c}, {f}], got {tuple(kernel.shape)}")
     _require(tuple(g.shape) == (b, h, w, f),
              f"g must be [{b},{h},{w},{f}], got {tuple(g.shape)}")
-    g32 = g.float().contiguous()
-    cp = -(-c // 4) * 4  # the kernel's register tile spans 4 channels
+    # The kernel stages F and tiles C in 16-byte vectors: zero channels pad
+    # both to a multiple of 4 (never at the model's shapes); the padded
+    # channels of dx are not stored.
+    cp, fp = -(-c // 4) * 4, -(-f // 4) * 4
+    _require(k != 3 or cp == c, f"{name} takes C % 4 == 0, got C={c}")
+    g32 = g.float()
     kt = kernel.float().reshape(k * k, c, f).transpose(1, 2)  # [k2, f, c]
-    kt = torch.nn.functional.pad(kt, (0, cp - c)).contiguous()
-    (ri, rt, rw, rcx, rwx), nrefs = scatter_tables_on(
-        g.device, h, w, k, dilation_rate, skydome)
+    if fp != f:
+        g32 = torch.nn.functional.pad(g32, (0, fp - f))
+    if (cp, fp) != (c, f):
+        kt = torch.nn.functional.pad(kt, (0, cp - c, 0, fp - f))
+    g32, kt = g32.contiguous(), kt.contiguous()
+    lib = library()
+    tiles = lib.skyhdr_da_dx_tiles(w, cp, fp)
+    _require(tiles > 0, f"{name} does not tile W={w}, C={c}, F={f}")
+    rows = dx_strip_rows(b, h, tiles, _sm_count(g.device.index))
+    pint, pflt, start = strip_tables_on(g.device, h, w, k, rows, dilation_rate, skydome)
     dx = torch.empty((b, h, w, c), dtype=torch.float32, device=g.device)
-    code = library().skyhdr_da_dx(
-        *_ptrs(g32, kt, ri, rt, rw, rcx, rwx), nrefs, *_ptrs(dx),
-        b, h, w, c, cp, f, g.device.index, _stream(g))
-    check(code, f"K7 (DA input gradient, k={k})")
+    code = lib.skyhdr_da_dx(
+        *_ptrs(g32, kt, pint, pflt, start), start.numel() - 1, rows, *_ptrs(dx),
+        b, h, w, c, cp, fp, k, g.device.index, _stream(g))
+    check(code, f"{name} (DA input gradient, k={k})")
+    return dx
+
+
+def da_conv_dx_k2(g, kernel, *, x_shape, dilation_rate: int = 1,
+                  skydome: bool = True) -> torch.Tensor:
+    """K2: the k=3 DA input gradient on the card. g [b,h,w,f] (taken as
+    float32), kernel [9c,f]; returns dx [b,h,w,c] float32."""
+    global K2_LAUNCHES
+    dx = _dx(g, kernel, x_shape, 3, dilation_rate, skydome, "K2")
+    K2_LAUNCHES += 1
+    return dx
+
+
+def da_conv_dx_k7(g, kernel, *, x_shape, kernel_size: int,
+                  dilation_rate: int = 1, skydome: bool = True) -> torch.Tensor:
+    """K7: the DA input gradient at an odd kernel size k other than 3 on the
+    card; as K2, with kernel [k*k*c, f]."""
+    global K7_LAUNCHES
+    _odd_other_than_3(kernel_size, "K7")
+    dx = _dx(g, kernel, x_shape, kernel_size, dilation_rate, skydome, "K7")
     K7_LAUNCHES += 1
     return dx
 

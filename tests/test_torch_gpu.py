@@ -98,6 +98,63 @@ def test_k3_kernels_at_odd_height(cuda):
     assert _rel(dc.da_conv_dk_k3(x, g), dc.da_conv_dk_ref(x, g)) <= 1e-4
 
 
+def _dx_pair(ksize):
+    """(kernel, plain version) of the input gradient at kernel size k."""
+    if ksize == 3:
+        return dc.da_conv_dx_k2, dc.da_conv_dx_ref
+    kw = dict(kernel_size=ksize)
+    return (lambda g, k, **a: dc.da_conv_dx_k7(g, k, **kw, **a),
+            lambda g, k, **a: dc.da_conv_dx_ref_generic(g, k, **kw, **a))
+
+
+# K2 and K7 are one kernel over the strip pair tables (`dx_strip_rows`
+# input rows a block): at other strip heights, the odd height at full
+# width, an F that is no multiple of 4 (padded), and two launches bitwise
+# equal.
+@pytest.mark.parametrize("ksize", [3, 5, 7])
+@pytest.mark.parametrize("rows", [1, 2, 3, 8])
+@pytest.mark.parametrize("skydome,dilation", [(True, 1), (False, 2)])
+def test_dx_at_other_strip_heights(cuda, monkeypatch, ksize, rows, skydome, dilation):
+    monkeypatch.setattr(dc, "dx_strip_rows", lambda *_: rows)
+    shape, f = (2, 9, 40, 16), 24
+    _, k, _, g = _operands(cuda, shape, f, ksize=ksize)
+    run, plain = _dx_pair(ksize)
+    geom = dict(x_shape=shape, skydome=skydome, dilation_rate=dilation)
+    assert _rel(run(g, k, **geom), plain(g, k, **geom)) <= 5e-4
+
+
+@pytest.mark.parametrize("ksize", [3, 5])
+def test_dx_at_odd_height(cuda, ksize):
+    shape, f = (32, 9, 32, 128), 128
+    _, k, _, g = _operands(cuda, shape, f, ksize=ksize)
+    run, plain = _dx_pair(ksize)
+    assert _rel(run(g, k, x_shape=shape), plain(g, k, x_shape=shape)) <= 5e-4
+
+
+@pytest.mark.parametrize("ksize,shape", [(3, (2, 8, 32, 8)), (5, (2, 8, 32, 8)),
+                                         (7, (2, 16, 64, 3))])
+def test_dx_pads_f(cuda, ksize, shape):
+    _, k, _, g = _operands(cuda, shape, 6, ksize=ksize)
+    run, plain = _dx_pair(ksize)
+    got = run(g, k, x_shape=shape)
+    assert got.shape == shape
+    assert _rel(got, plain(g, k, x_shape=shape)) <= 5e-4
+
+
+@pytest.mark.parametrize("ksize,shape,f", [(3, (8, 64, 256, 64), 32),
+                                           (5, (8, 16, 64, 128), 128)])
+def test_dx_is_bitwise_repeatable(cuda, ksize, shape, f):
+    _, k, _, g = _operands(cuda, shape, f, ksize=ksize)
+    run, _ = _dx_pair(ksize)
+    assert torch.equal(run(g, k, x_shape=shape), run(g, k, x_shape=shape))
+
+
+def test_k2_refuses_channels_it_does_not_tile(cuda):
+    _, k, _, g = _operands(cuda, (1, 8, 32, 6), 8)
+    with pytest.raises(ValueError, match="K2"):
+        dc.da_conv_dx_k2(g, k, x_shape=(1, 8, 32, 6))
+
+
 # (x shape, F) at k = 5 and 7: the trunk, the k = 7 sun-pose stage 1 (C = 3
 # and C = 32) at a narrow size, and an odd height.
 ODD_K_SHAPES = [((2, 8, 32, 128), 128), ((2, 16, 64, 3), 32), ((2, 16, 64, 32), 32),
@@ -216,6 +273,29 @@ def test_k8_variance_of_a_large_mean_channel(cuda):
     _, _, rstd = tin.instance_norm_act_k8(x, ones, zeros)
     _, _, rstd_ref = tin.instance_norm_act_ref(x, ones, zeros)  # two-pass
     assert _rel(rstd, rstd_ref) <= 1e-3
+
+
+def test_k9_takes_the_plain_slope_at_a_rounding_tie(cuda):
+    """Where xhat*gamma + beta is 0 once the product is rounded but negative
+    exactly (a fused multiply-add sees the sign), K9 takes the slope its
+    plain version takes: the slope's jump would reach dx, dgamma, dbeta."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    xs = (1 + rng.integers(1, 2 ** 12, 4096) * 2.0 ** -20).astype(np.float32)
+    gs = (1 + rng.integers(1, 2 ** 12, 4096) * 2.0 ** -20).astype(np.float32)
+    rounded = xs * gs  # float32 products, rounded to nearest
+    up = np.flatnonzero(rounded.astype(np.float64) > xs.astype(np.float64) * gs)[:64]
+    assert len(up) == 64
+    dev = dict(device=cuda)
+    x = torch.tensor(xs[up], **dev).expand(1, 1, 2, 64).contiguous()
+    gamma, beta = torch.tensor(gs[up], **dev), torch.tensor(-rounded[up], **dev)
+    mean, rstd = torch.zeros(1, 64, **dev), torch.ones(1, 64, **dev)
+    dy = torch.ones_like(x)
+    got = tin.instance_norm_act_bwd_k9(x, dy, gamma, beta, mean, rstd, alpha=0.1)
+    want = tin.instance_norm_act_bwd_ref(x, dy, gamma, beta, mean, rstd, alpha=0.1)
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= 1e-5
 
 
 def test_in_function_on_cuda_takes_kernels(cuda):
