@@ -15,15 +15,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     every DA layer shape: K1/K2 at the serving batches (b1,
                     b32; 32x128 and 64x256; f32 and bf16), K1/K2/K3 at the
                     training batches (64x256 b64 f32 and bf16, 32x128 b32
-                    f32); K3 and K2 twice on the same inputs give the same
-                    bits. K1/K2/K3 also at an odd height (32x9x32x128). K5
+                    f32); K1, K2 and K3 twice on the same inputs give the
+                    same bits. K1/K2/K3 also at an odd height (32x9x32x128). K5
                     (odd-k DA forward), K7 (its input gradient) and K6 (its
                     weight gradient) at the k=5 trunk (K5/K7 at 64x256 b32
                     f32 and bf16 and 32x128 b1, all three at 64x256 b64 f32
                     and bf16), K5/K7 at the odd height, and all three at
                     every k=7 layer shape (trunk, sunlayer1 conv1 with C=3
-                    and conv2) at 64x256 b32 f32; K6 and K7 twice give the
-                    same bits.
+                    and conv2) at 64x256 b32 f32; K5, K6 and K7 twice give
+                    the same bits.
                     K8 (InstanceNorm + activation forward) and K9 (its
                     backward) at every InstanceNorm shape with each slope
                     its layers use, at 64x256 b64 f32, 64x256 b32 f32 and
@@ -64,6 +64,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     and per-GAN-step totals and their bounds; K2/K7 also at
                     each strip height they can pick (R = 8, 4, 2), beside
                     the one picked and its products over the forward's;
+                    K1/K5 with the output rows and register tile picked;
                     K8/K9 also against the library's `F.instance_norm`
                     (forward, and its autograd backward).
   9. train_cli    — the training CLI (`skyhdr_torch.cli.train`) at DA
@@ -202,7 +203,8 @@ IN_KERNEL_CASES = [(2, 64, torch.float32), (2, 32, torch.float32),
 # K3 at the training batches; K5/K7 at the k=5 trunk at the serving batches,
 # K6 at the training batch; K5/K6/K7 at every k=7 layer shape; and K1-K3 and
 # K5/K7 at an odd height (9 rows), which they serve with the same tables.
-# The input gradient (K2/K7) runs in every case, twice (bitwise repeatable).
+# The forward (K1/K5) and the input gradient (K2/K7) run in every case,
+# twice (bitwise repeatable).
 K3_SHAPES = [(name, shape, f) for name, shape, f, _, _ in DA_LAYERS]
 K5_SHAPES = [(name, shape, f) for name, shape, f, _, _ in DA5_LAYERS]
 KERNEL_CASES = [(3, K3_SHAPES, 1, 1, torch.float32, "K1 K2"),
@@ -427,11 +429,12 @@ def phase_kernels(dc, report):
             calls = da_calls(dc, ksize, x, k, bias, g)
             results = []
             kern, run, plain = calls["fwd"]
-            got = run()
+            got, again = run(), run()
             torch.cuda.synchronize()
-            results.append((kern, f"x{[b, *hwc]} F={f}", got.dtype == dtype,
-                            *rel_err(got, plain())))
-            del got
+            same = bool(torch.equal(got, again))
+            results.append((kern, f"x{[b, *hwc]} F={f} (bitwise repeatable: {same})",
+                            got.dtype == dtype and same, *rel_err(got, plain())))
+            del got, again
             # As autograd hands it: g in the output dtype; dx cast to x.dtype.
             kern, run, plain = calls["dx"]
             dx, again = run(), run()
@@ -875,6 +878,9 @@ def phase_timing(dc, smi, report):
         row = {"kernel": kern, "path": path, "batch": b, "layer": name, "k": ksize,
                "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "calls": calls}
         note = ""
+        if ROLE[kern] == "fwd":
+            row["rows"], row["chans"] = dc.fwd_launch_tiling(b, hwc[0], hwc[1], f, 0)
+            note = f"; {row['rows']} rows x 8x{row['chans']} tiles a block"
         if ROLE[kern] == "dx":
             # The strip height picked, the products done / the forward's (the
             # bound's count), and the kernel's time at each strip height.
@@ -1525,13 +1531,13 @@ def main(argv=None):
     dc_src, in_src = "skyhdr_torch/csrc/deform_conv.cu", "skyhdr_torch/csrc/instnorm.cu"
     pallas = "skyhdr/ops/pallas/"
     # name, TPU kernel it replaces, the training run whose launches it reports
-    about = {"K1": ("K1 da_fwd_kernel<T, 3> (DA conv forward, k=3)",
+    about = {"K1": ("K1 da_fwd_kernel<T, 3, CH> (DA conv forward, k=3)",
                     pallas + "deform_conv.py:179", "gan"),
              "K2": ("K2 da_dx_kernel<3> (DA conv input gradient, k=3)",
                     pallas + "deform_conv.py:469", "gan"),
              "K3": ("K3 da_dk_kernel<T, 3> (DA conv weight gradient, k=3)",
                     pallas + "deform_conv.py:429", "gan"),
-             "K5": ("K5 da_fwd_kernel<T, 0> (DA conv forward, odd k)",
+             "K5": ("K5 da_fwd_kernel<T, 0, CH> (DA conv forward, odd k)",
                     pallas + "deform_conv.py:146", "gan_da5"),
              "K6": ("K6 da_dk_kernel<T, 0> (DA conv weight gradient, odd k)",
                     pallas + "deform_conv.py:364", "gan_da5"),

@@ -4,11 +4,12 @@
 // (skyhdr_torch/ops/kernels/deform_conv.py).
 //
 // What they replace (skyhdr/ops/pallas/deform_conv.py):
-//   K1 da_fwd_kernel<T, 3> — `_kernel_k3` driven by `_forward_k3`: the forward
-//        out[b,i,j] = bias + sum_t sample_t[b,i,j] @ K_t, with
+//   K1 da_fwd_kernel<T, 3, CH> — `_kernel_k3` driven by `_forward_k3`: the
+//        forward out[b,i,j] = bias + sum_t sample_t[b,i,j] @ K_t, with
 //        rowY   = (1-wy) xpad[y0] + wy xpad[y1]         (xpad: 1 zero row
 //                                                        above and below)
 //        sample = (1-wx) rowY[(j+cx) mod W] + wx rowY[(j+cx+1) mod W].
+//        Described below; K5 is the same kernel at a run-time k.
 //   K2 da_dx_kernel<3>  — `_dx_k3_kernel` driven by `_pallas_dx` (k3
 //        branch): the input gradient, over the forward's (row, tap) pairs,
 //        dx[y] = sum_{(i,t): y0 = y} (1-wy) P_it + sum_{(i,t): y1 = y} wy P_it,
@@ -22,26 +23,47 @@
 //        the sample rebuilt from x as in K1 (never stored), followed by
 //        da_dk_reduce_kernel, which sums the per-split partials.
 //
-// What bounds them on this card: at the serving shapes (C, F <= 128, H x W
-// <= 64 x 256) each output costs 2*9*C*F flops against 9*C interpolated
-// samples, each a 4-tap bilinear read, and a call moves little DRAM traffic
-// (the 64x256 b32 trunk layer: 9.7 GFLOP against ~34 MB). Run on CUDA
-// cores in f32, the limit is the on-chip operand feed: one shared-memory
-// load per 4 FMAs and one 16-byte L1 load of weights per 16. Measured on
-// an H100 80GB HBM3 at 700 W: 0.50 ms for that layer, 19.5 TFLOP/s, 29% of
-// the f32 CUDA-core peak.
+// What bounds K1 and K5 on this card: at the serving shapes (C, F <= 128,
+// H x W <= 64 x 256) each output costs 2*k^2*C*F flops against k^2*C
+// interpolated samples, and a call moves little DRAM traffic (the 64x256
+// b32 trunk layer at k = 3: 9.7 GFLOP against ~34 MB), so on CUDA cores in
+// f32 (TF32 stays off) they are bound by operations: 0.144 ms for that
+// layer at the 67 TFLOP/s peak. What held the first version (one block per
+// output row and column tile, a [TW, C] sample tile per tap behind a
+// barrier, a 4 x 4 register tile) to 17-30% of that bound: (1) the sample
+// build and the product ran one after the other, no copy in flight; (2)
+// every tap re-read and re-interpolated its two source rows, though y0, y1
+// and wy are the same for all taps of a kernel row; (3) the product was fed
+// one shared-memory float per 4 FMAs and one float4 of K from L1/L2 per 16
+// (K never staged: each block streamed all of K for one output row); (4)
+// the build, which scales with C, weighs most where F is small (F = 32).
 //
-// What the design does about it: one block per (batch, output row, tile of
-// TW columns). For each tap the block builds the interpolated [TW, C]
-// sample tile once in shared memory (coalesced along C; padded row stride
-// against bank conflicts), then each thread accumulates a 4-column x
-// 4-channel register tile over C, reading the tap's weights as 16-byte
-// vectors that stay in L1/L2 (K is at most 590 KB). The tables (per row
-// and tap) are device arrays that a block reads for itself. Interpolation
-// and accumulation are float32; with bf16 inputs the matmul operands are
-// rounded to bf16, as the TPU kernel feeds its MXU.
-// No tensor cores yet: this first port is right and simple; faster designs
-// come later.
+// What this design does (da_fwd_kernel below): a block owns `rows` output
+// rows x a column tile (rows x tw <= 128 outputs) x an F tile (the largest
+// power of two up to 128 dividing F). The host groups the gather tables
+// (ops/distortion.py:window_tables): where every tap of a kernel row reads
+// the same two source rows with the same weight (every shape the model
+// runs), one group per kernel row, with the column where the group's window
+// starts and each tap's offset into it; otherwise one group per tap. A
+// stage is (group, chunk of cc input channels), taps x cc <= 64 deep: the
+// window's two raw source rows (tw + span + 1 columns, wrapped; rows outside
+// [0, H) zero-filled) of each output row and the group's K chunk
+// [taps x cc, ft] are copied with cp.async a stage ahead, under the current
+// stage's product; the window is y-interpolated once per (output row,
+// group, chunk), and each tap x-interpolates from it into a transposed
+// sample tile [taps x cc][rows x tw], rounded to bf16 when x is bf16. Each
+// thread accumulates 8 columns x CH output channels (CH = 8 for full
+// 256-thread blocks of 128 channels, else 4; ops/kernels/deform_conv.py:
+// fwd_tiling picks the tile and the rows so that the grid still gives each
+// SM 1.5 blocks), fed by float4 shared loads of both operands: two of the
+// sample and CH/4 of K per 8 x CH FMAs; each staged sample serves ft
+// output channels and each staged K chunk every output of the block. Two barriers a stage. f32 FMAs and
+// sums in a fixed order, no atomics: bitwise repeatable. The wrapper pads C
+// to a multiple of 4 (the sun-pose input's 3) with zero channels.
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py's timing phase):
+// 0.307 ms for the 64x256 b32 trunk layer, 47% of its bound (the first
+// version 0.497 ms, 29%); 36-39% at F = 64 and 31% at F = 32, where the
+// 8 x 4 tile and the per-tap build weigh more against each product.
 //
 // K3 is bound by operations: 2*B*H*W*9*C*F flops (19.3 GFLOP for a 64x256
 // b64 trunk layer, 0.29 ms at the 67 TFLOP/s f32 CUDA-core peak) against
@@ -65,15 +87,13 @@
 //
 // The odd-k kernels (any odd k; the model runs k = 5 and k = 7) replace the
 // generic branches of the same file:
-//   K5 da_fwd_kernel<T, 0>  — `_kernel_body` driven by `_pallas_forward`:
+//   K5 da_fwd_kernel<T, 0, CH> — `_kernel_body` driven by `_pallas_forward`:
 //        K1's formula over k^2 taps, with k // 2 zero rows above and below.
 //        It IS K1's kernel, templated on the kernel size (3 at compile time
-//        for K1, 0 for a size given at run time): one block per (batch,
-//        output row, column tile), a y interpolation per (row, tap) as the
-//        TPU kernel does (no row dedup), the [TW, C] sample tile built once
-//        per tap in shared memory, a 4x4 register tile over C. The weights
-//        [k^2 C, F] (819 KB f32 at the k = 5 trunk) stay in L2. Bound by
-//        operations, as K1: 2*B*H*W*k^2*C*F.
+//        for K1, 0 for a size given at run time): k enters through the
+//        window tables (k groups of k taps, spans up to 9 columns at k = 5
+//        and 15 at k = 7) and the stage depth (40 at k = 5, 56 at k = 7).
+//        Bound by operations, as K1: 2*B*H*W*k^2*C*F.
 //   K6 da_dk_kernel<T, 0>   — `_dk_kernel` driven by `_pallas_dk`: K3's
 //        kernel at a run-time size. The grid is (C x F tile, tap in k^2,
 //        row split); the split count is chosen for ~8 blocks per SM over all
@@ -124,8 +144,12 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowsPerThread = 4;  // output columns held per thread
+constexpr int kThreads = 256;     // K3/K6: threads per block, at most
+constexpr int kFwdThreads = 256;  // K1/K5: threads per block, at most
+constexpr int kFwdCols = 8;       // K1/K5: output columns per thread (x 4 or 8 channels)
+constexpr int kFwdMaxM = 128;     // K1/K5: output rows x columns per block, at most
+constexpr int kFwdMaxFt = 128;    // K1/K5: output channels per block, at most
+constexpr int kFwdDepth = 64;     // K1/K5: taps x input channels per stage, at most
 constexpr int kDxThreads = 128;    // K2/K7: threads per block, at most
 constexpr int kDxCols = 8;         // K2/K7: dx columns per thread (x 4 channels)
 constexpr int kDxChunk = 32;       // K2/K7: output channels staged per stage (or twice)
@@ -138,9 +162,6 @@ __device__ __forceinline__ float round_operand(float v, const float*) { return v
 __device__ __forceinline__ float round_operand(float v, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(v));
 }
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -184,104 +205,241 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// acc[r][q] += sum_k tile[(lane + lanes*r), k] * m[k, 4*quad + q]
-// tile: [TW, ld] float32 in shared memory; m: [depth, width] row-major.
-template <typename M>
-__device__ __forceinline__ void accumulate(float (&acc)[kRowsPerThread][4],
-                                           const float* tile, int ld,
-                                           const M* __restrict__ m, int depth,
-                                           int width, int quad, int lane,
-                                           int lanes) {
-  const M* col = m + 4 * quad;
-  for (int k = 0; k < depth; ++k) {
-    const float4 mv = load4(col + static_cast<size_t>(k) * width);
-#pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) {
-      const float s = tile[(lane + lanes * r) * ld + k];
-      acc[r][0] = fmaf(s, mv.x, acc[r][0]);
-      acc[r][1] = fmaf(s, mv.y, acc[r][1]);
-      acc[r][2] = fmaf(s, mv.z, acc[r][2]);
-      acc[r][3] = fmaf(s, mv.w, acc[r][3]);
-    }
-  }
+// 4-element asynchronous copy global -> shared: 16 bytes of float32 through
+// L2 only, 8 bytes of bf16 through L1. When `valid` is false nothing is
+// read and the 4 elements are zero-filled.
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(__nv_bfloat16* smem, const __nv_bfloat16* gmem,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 8 : 0)
+               : "memory");
 }
 
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  memcpy(&u.x, &lo, sizeof(lo));
+  memcpy(&u.y, &hi, sizeof(hi));
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// K1/K5 launch plan (plan_fwd): a block owns `rows` output rows x tw
+// columns x ft output channels; stages of `depth` = taps x cc (taps of one
+// group x a chunk of cc input channels); shared memory as laid out below,
+// byte offsets from the start.
+struct FwdPlan {
+  int rows, tw, ft, cc, taps, groups, k;
+  int wn;     // window columns: tw + span + 1
+  int ldy;    // window row stride (floats): cc + 4
+  int ldm;    // sample tile row stride (floats): rows x tw rounded up to 32, + 4
+  int depth;  // taps x cc
+  int threads;
+  int off_s, off_raw, off_k, off_rtab, off_ttab, smem;
+};
+
 // K1 (KC = 3) and K5 (KC = 0: kernel size k at run time). Grid
-// (ceil(W/TW), H, B); block kThreads; dynamic smem TW*(C+1) floats. Tables
-// [H, k^2]: y0/y1 padded-row indices (k // 2 pad rows), cx column shift in
-// [0, W), wy/wx fractions. out = bias + sum, cast to T.
-template <typename T, int KC>
-__global__ void __launch_bounds__(kThreads)
+// (column tiles x F tiles, ceil(H / rows), B); block p.threads. x [B,H,W,Cp]
+// and kern [k^2 Cp, F] (both T), bias [F] f32, out [B,H,W,F] T. Tables
+// (ops/distortion.py:window_tables_on): rtab [H, G] (r0, r1, base, wy bits),
+// r0/r1 unpadded source rows (outside [0, H) read zero); ttab [H, k^2]
+// (d, wx bits).
+//
+// Stage s = (group g, channel chunk) of G x Cp / cc; per block and stage:
+//   raw   [rows][2][wn][cc]  T   rows r0, r1 of each output row, window
+//                                columns (j0 + base + c) mod W   (cp.async)
+//   ywin  [2][rows][wn][ldy] f32 (1-wy) raw0 + wy raw1            (built)
+//   kbuf  [2][depth][ft]     T   K_t[chunk, f-tile] of the group's taps (cp.async)
+//   stile [depth][ldm]       f32 per tap, (1-wx) ywin[j+d] + wx ywin[j+d+1],
+//                                rounded as the operand type     (built)
+// Stage s's barrier-to-barrier phase builds stile(s) from ywin(s) and
+// ywin(s+1) from raw(s+1); then the copies of raw(s+2) and K(s+1) are
+// issued and run under stage s's product, in which each thread
+// accumulates an 8-column x CH-channel register tile (CH = 4 or 8), fed by
+// two float4 of the sample tile and CH/4 4-vectors of K per 8 x CH FMAs.
+// Two barriers a stage.
+template <typename T, int KC, int CH>
+__global__ void __launch_bounds__(kFwdThreads, 2)
 da_fwd_kernel(const T* __restrict__ x, const T* __restrict__ kern,
-              const float* __restrict__ bias, const int* __restrict__ y0t,
-              const int* __restrict__ y1t, const int* __restrict__ cxt,
-              const float* __restrict__ wyt, const float* __restrict__ wxt,
-              T* __restrict__ out, int H, int W, int C, int F, int k) {
-  extern __shared__ float tile[];
-  const int ks = KC ? KC : k;
-  const int taps = ks * ks;
-  const int pad = ks / 2;
-  const int quads = F / 4;
-  const int lanes = kThreads / quads;
-  const int tw = lanes * kRowsPerThread;
-  const int ld = C + 1;
+              const float* __restrict__ bias, const int4* __restrict__ rows_tab,
+              const int2* __restrict__ taps_tab, T* __restrict__ out, int H, int W,
+              int Cp, int F, FwdPlan p) {
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  const int k2 = KC ? KC * KC : p.k * p.k;
+  const int R = p.rows, tw = p.tw, ft = p.ft, cc = p.cc, nt = p.taps, G = p.groups;
+  const int wn = p.wn, ldy = p.ldy, ldm = p.ldm, depth = p.depth;
+  float* ywin = reinterpret_cast<float*>(fwd_smem);
+  float* stile = reinterpret_cast<float*>(fwd_smem + p.off_s);
+  T* raw = reinterpret_cast<T*>(fwd_smem + p.off_raw);
+  T* kbuf = reinterpret_cast<T*>(fwd_smem + p.off_k);
+  int4* rtab = reinterpret_cast<int4*>(fwd_smem + p.off_rtab);
+  int2* ttab = reinterpret_cast<int2*>(fwd_smem + p.off_ttab);
   const int tid = threadIdx.x;
-  const int quad = tid % quads;
-  const int lane = tid / quads;
-  const int j0 = blockIdx.x * tw;
-  const int i = blockIdx.y;
+  const int nthr = blockDim.x;
+  const int ftiles = F / ft;
+  const int j0 = (blockIdx.x / ftiles) * tw;
+  const int f0 = (blockIdx.x % ftiles) * ft;
+  const int i0 = blockIdx.y * R;
   const int b = blockIdx.z;
-  const size_t row_stride = static_cast<size_t>(W) * C;
-  const T* xb = x + static_cast<size_t>(b) * H * row_stride;
+  const int chunks = Cp / cc;
+  const int stages = G * chunks;
+  const T* xb = x + static_cast<size_t>(b) * H * W * Cp;
+  const T* rnd = nullptr;  // selects round_operand's overload
 
-  float acc[kRowsPerThread][4] = {};
-  for (int t = 0; t < taps; ++t) {
-    const int e = i * taps + t;
-    const int r0 = y0t[e] - pad;  // unpadded rows; outside [0, H) is zero
-    const int r1 = y1t[e] - pad;
-    const int cx = cxt[e];
-    const float wy = wyt[e];
-    const float wx = wxt[e];
-    const bool in0 = r0 >= 0 && r0 < H;
-    const bool in1 = r1 >= 0 && r1 < H;
-    const T* row0 = xb + static_cast<size_t>(in0 ? r0 : 0) * row_stride;
-    const T* row1 = xb + static_cast<size_t>(in1 ? r1 : 0) * row_stride;
-
-    __syncthreads();  // the previous tap's tile is no longer read
-    for (int e = tid; e < tw * C; e += kThreads) {
-      const int jj = e / C;
-      const int c = e - jj * C;
-      const int j = j0 + jj;
-      float s = 0.f;
-      if (j < W) {
-        int q0 = j + cx;
-        if (q0 >= W) q0 -= W;
-        int q1 = q0 + 1;
-        if (q1 >= W) q1 -= W;
-        const float a00 = in0 ? to_float(row0[q0 * C + c]) : 0.f;
-        const float a10 = in1 ? to_float(row1[q0 * C + c]) : 0.f;
-        const float a01 = in0 ? to_float(row0[q1 * C + c]) : 0.f;
-        const float a11 = in1 ? to_float(row1[q1 * C + c]) : 0.f;
-        const float g0 = (1.f - wy) * a00 + wy * a10;
-        const float g1 = (1.f - wy) * a01 + wy * a11;
-        s = (1.f - wx) * g0 + wx * g1;
-      }
-      tile[jj * ld + c] = round_operand(s, x);
-    }
-    __syncthreads();
-    accumulate(acc, tile, ld, kern + static_cast<size_t>(t) * C * F, C, F,
-               quad, lane, lanes);
+  for (int e = tid; e < R * G; e += nthr) {
+    const int i = i0 + e / G;
+    rtab[e] = i < H ? rows_tab[i * G + e % G] : make_int4(-1, -1, 0, 0);
+  }
+  for (int e = tid; e < R * k2; e += nthr) {
+    const int i = i0 + e / k2;
+    ttab[e] = i < H ? taps_tab[i * k2 + e % k2] : make_int2(0, 0);
   }
 
-  const int f = 4 * quad;
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-    const int j = j0 + lane + lanes * r;
-    if (j < W) {
-      T* o = out + ((static_cast<size_t>(b) * H + i) * W + j) * F + f;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) store(o + q, acc[r][q] + bias[f + q]);
+  // Each walk starts at this thread and steps over the block's threads.
+  const DivWalk raw_walk(tid, nthr, cc / 4);  // (window column, 4 channels)
+  const DivWalk k_walk(tid, nthr, ft / 4);    // (channel, 4 output channels)
+  const DivWalk s_walk(tid, nthr, cc);        // (4 columns, channel)
+
+  auto load_raw = [&](int st) {
+    const int g = st / chunks;
+    const int c0 = (st % chunks) * cc;
+    for (int r = 0; r < R; ++r) {
+      const int4 rt = rtab[r * G + g];
+      for (int y = 0; y < 2; ++y) {
+        const int row = y ? rt.y : rt.x;
+        const bool in = row >= 0 && row < H;
+        const T* src = xb + static_cast<size_t>(in ? row : 0) * W * Cp + c0;
+        T* dst = raw + static_cast<size_t>(2 * r + y) * wn * cc;
+        for (DivWalk v = raw_walk; v.q < wn; v.next()) {
+          int col = j0 + rt.z + v.q;
+          while (col >= W) col -= W;
+          cp_async4(dst + v.q * cc + 4 * v.r, src + static_cast<size_t>(col) * Cp + 4 * v.r, in);
+        }
+      }
     }
+  };
+  auto load_k = [&](int st, int buf) {
+    const int g = st / chunks;
+    const int c0 = (st % chunks) * cc;
+    for (int m = 0; m < nt; ++m) {
+      const T* src = kern + (static_cast<size_t>(g * nt + m) * Cp + c0) * F + f0;
+      T* dst = kbuf + (static_cast<size_t>(buf) * depth + m * cc) * ft;
+      for (DivWalk v = k_walk; v.q < cc; v.next())
+        cp_async4(dst + v.q * ft + 4 * v.r, src + static_cast<size_t>(v.q) * F + 4 * v.r, true);
+    }
+  };
+  auto build_ywin = [&](int st, int buf) {
+    const int g = st / chunks;
+    for (int r = 0; r < R; ++r) {
+      const float wy = __int_as_float(rtab[r * G + g].w);
+      const T* a = raw + static_cast<size_t>(2 * r) * wn * cc;
+      const T* c = a + static_cast<size_t>(wn) * cc;
+      float* dst = ywin + static_cast<size_t>(buf * R + r) * wn * ldy;
+      for (DivWalk v = raw_walk; v.q < wn; v.next()) {
+        const float4 a0 = load4(a + v.q * cc + 4 * v.r);
+        const float4 a1 = load4(c + v.q * cc + 4 * v.r);
+        *reinterpret_cast<float4*>(dst + v.q * ldy + 4 * v.r) = make_float4(
+            (1.f - wy) * a0.x + wy * a1.x, (1.f - wy) * a0.y + wy * a1.y,
+            (1.f - wy) * a0.z + wy * a1.z, (1.f - wy) * a0.w + wy * a1.w);
+      }
+    }
+  };
+  auto build_s = [&](int st, int buf) {
+    const int g = st / chunks;
+    for (int m = 0; m < nt; ++m) {
+      for (int r = 0; r < R; ++r) {
+        const int2 tt = ttab[r * k2 + g * nt + m];
+        const float wx = __int_as_float(tt.y);
+        const float a0 = 1.f - wx;
+        const float* src = ywin + static_cast<size_t>(buf * R + r) * wn * ldy + tt.x * ldy;
+        float* dst = stile + static_cast<size_t>(m) * cc * ldm + r * tw;
+        for (DivWalk v = s_walk; v.q < tw / 4; v.next()) {
+          const float* s = src + 4 * v.q * ldy + v.r;
+          const float v0 = s[0], v1 = s[ldy], v2 = s[2 * ldy], v3 = s[3 * ldy], v4 = s[4 * ldy];
+          *reinterpret_cast<float4*>(dst + v.r * ldm + 4 * v.q) = make_float4(
+              round_operand(a0 * v0 + wx * v1, rnd), round_operand(a0 * v1 + wx * v2, rnd),
+              round_operand(a0 * v2 + wx * v3, rnd), round_operand(a0 * v3 + wx * v4, rnd));
+        }
+      }
+    }
+  };
+
+  const int ncg = ft / CH;
+  const int cg = tid % ncg;
+  const int rg = tid / ncg;
+  float acc[kFwdCols][CH] = {};
+  auto product = [&](int buf) {
+    const float* sp = stile + kFwdCols * rg;
+    const T* kp = kbuf + static_cast<size_t>(buf) * depth * ft + CH * cg;
+#pragma unroll 4
+    for (int q = 0; q < depth; ++q) {
+      const float4 s0 = *reinterpret_cast<const float4*>(sp + q * ldm);
+      const float4 s1 = *reinterpret_cast<const float4*>(sp + q * ldm + 4);
+      const float sv[kFwdCols] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+      float kv[CH];
+#pragma unroll
+      for (int n = 0; n < CH; n += 4) {
+        const float4 v = load4(kp + q * ft + n);
+        kv[n] = v.x;
+        kv[n + 1] = v.y;
+        kv[n + 2] = v.z;
+        kv[n + 3] = v.w;
+      }
+#pragma unroll
+      for (int m = 0; m < kFwdCols; ++m)
+#pragma unroll
+        for (int n = 0; n < CH; ++n) acc[m][n] = fmaf(sv[m], kv[n], acc[m][n]);
+    }
+  };
+
+  __syncthreads();  // the tables are in place
+  load_raw(0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  build_ywin(0, 0);
+  __syncthreads();  // raw is free again
+  if (stages > 1) load_raw(1);
+  load_k(0, 0);
+  cp_async_commit();
+  for (int st = 0; st < stages; ++st) {
+    const int buf = st & 1;
+    cp_async_wait_all();
+    __syncthreads();  // raw(st+1) and K(st) landed; the last product is done
+    build_s(st, buf);
+    if (st + 1 < stages) build_ywin(st + 1, buf ^ 1);
+    __syncthreads();  // stile(st) and ywin(st+1) built; raw is free again
+    if (st + 2 < stages) load_raw(st + 2);
+    if (st + 1 < stages) load_k(st + 1, buf ^ 1);
+    cp_async_commit();
+    product(buf);
+  }
+
+  const int r = kFwdCols * rg / tw;
+  const int jj = kFwdCols * rg - r * tw;
+  const int i = i0 + r;
+  if (i >= H) return;
+  const int f = f0 + CH * cg;
+  T* o = out + ((static_cast<size_t>(b) * H + i) * W + j0 + jj) * F + f;
+#pragma unroll
+  for (int n = 0; n < CH; n += 4) {
+    const float4 bv = *reinterpret_cast<const float4*>(bias + f + n);
+#pragma unroll
+    for (int m = 0; m < kFwdCols; ++m)
+      if (j0 + jj + m < W)
+        store4(o + static_cast<size_t>(m) * F + n,
+               make_float4(acc[m][n] + bv.x, acc[m][n + 1] + bv.y, acc[m][n + 2] + bv.z,
+                           acc[m][n + 3] + bv.w));
   }
 }
 
@@ -598,18 +756,6 @@ __global__ void da_dk_reduce_kernel(const float* __restrict__ ws, int nsplit,
   out[e] = s;
 }
 
-// Column tile and shared memory of a launch whose register tile spans
-// `width` outputs per column and whose shared tile is `depth` deep.
-// Returns false when `width` does not fit the thread layout.
-bool plan(int width, int depth, int* tw, size_t* smem) {
-  if (width <= 0 || width % 4 != 0) return false;
-  const int quads = width / 4;
-  if (quads > kThreads || kThreads % quads != 0) return false;
-  *tw = (kThreads / quads) * kRowsPerThread;
-  *smem = static_cast<size_t>(*tw) * (depth + 1) * sizeof(float);
-  return true;
-}
-
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -619,24 +765,90 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 
 bool odd_size(int k) { return k >= 1 && k % 2 == 1; }
 
-template <typename T, int KC>
-int launch_fwd(const void* x, const void* kern, const void* bias,
-               const void* y0, const void* y1, const void* cx, const void* wy,
-               const void* wx, void* out, int B, int H, int W, int C, int F,
-               int k, cudaStream_t stream) {
-  int tw;
-  size_t smem;
-  if (!odd_size(k) || !plan(F, C, &tw, &smem)) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(da_fwd_kernel<T, KC>, smem);
+// K1/K5 tiling for register tiles of 8 columns x `chans` (4 or 8) output
+// channels: ft output channels (the largest power of two up to kFwdMaxFt
+// dividing F) and m = rows x tw outputs, m at most kFwdMaxM and at most
+// what kFwdThreads threads hold; tw is W rounded up to 8, capped at that
+// m. The 8 x 8 tile only for a full block of kFwdThreads threads. False
+// when the shape does not tile.
+bool fwd_tiles(int W, int F, int rows, int chans, int* tw, int* ft) {
+  if (W <= 0 || F <= 0 || F % 4 != 0 || rows < 1 || (chans != 4 && chans != 8)) return false;
+  *ft = kFwdMaxFt;
+  while (F % *ft != 0) *ft /= 2;
+  if (*ft < chans) return false;
+  int m = kFwdThreads * kFwdCols * chans / *ft;
+  m = m < kFwdMaxM ? m : kFwdMaxM;
+  *tw = (W + 7) / 8 * 8;
+  *tw = *tw < m ? *tw : m;
+  const int threads = rows * *tw / kFwdCols * (*ft / chans);
+  return rows * *tw <= m && (chans == 4 || threads == kFwdThreads);
+}
+
+// K1/K5 launch plan: the tiles above, and cc input channels a stage (the
+// largest of 32, 16, 8, 4 dividing Cp with taps x cc <= kFwdDepth). elem:
+// the bytes of x's type. False when the shape does not tile or the shared
+// memory exceeds a block's.
+bool plan_fwd(int W, int Cp, int F, int k, int taps, int span, int rows, int chans, int elem,
+              FwdPlan* p) {
+  int tw, ft;
+  if (!fwd_tiles(W, F, rows, chans, &tw, &ft) || Cp <= 0 || Cp % 4 != 0 || !odd_size(k) ||
+      (taps != 1 && taps != k) || span < 0)
+    return false;
+  int cc = 32;
+  while (cc >= 4 && (Cp % cc != 0 || taps * cc > kFwdDepth)) cc /= 2;
+  if (cc < 4) return false;
+  const int m = rows * tw;
+  p->rows = rows;
+  p->tw = tw;
+  p->ft = ft;
+  p->cc = cc;
+  p->taps = taps;
+  p->groups = k * k / taps;
+  p->k = k;
+  p->wn = tw + span + 1;
+  p->ldy = cc + 4;
+  p->ldm = (m + 31) / 32 * 32 + 4;
+  p->depth = taps * cc;
+  p->threads = (m / kFwdCols) * (ft / chans);
+  auto up16 = [](size_t n) { return (n + 15) / 16 * 16; };
+  size_t off = sizeof(float) * 2 * static_cast<size_t>(rows) * p->wn * p->ldy;  // ywin
+  p->off_s = static_cast<int>(off);
+  off += up16(sizeof(float) * static_cast<size_t>(p->depth) * p->ldm);
+  p->off_raw = static_cast<int>(off);
+  off += up16(static_cast<size_t>(elem) * rows * 2 * p->wn * cc);
+  p->off_k = static_cast<int>(off);
+  off += up16(static_cast<size_t>(elem) * 2 * p->depth * ft);
+  p->off_rtab = static_cast<int>(off);
+  off += sizeof(int4) * static_cast<size_t>(rows) * p->groups;
+  p->off_ttab = static_cast<int>(off);
+  off += sizeof(int2) * static_cast<size_t>(rows) * k * k;
+  p->smem = static_cast<int>(off);
+  return off <= 232448;
+}
+
+template <typename T, int KC, int CH>
+int launch_fwd_plan(const FwdPlan& p, const void* x, const void* kern, const void* bias,
+                    const void* rows_tab, const void* taps_tab, void* out, int B, int H, int W,
+                    int Cp, int F, cudaStream_t stream) {
+  cudaError_t err = allow_smem(da_fwd_kernel<T, KC, CH>, p.smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((W + tw - 1) / tw, H, B);
-  da_fwd_kernel<T, KC><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(kern),
-      static_cast<const float*>(bias), static_cast<const int*>(y0),
-      static_cast<const int*>(y1), static_cast<const int*>(cx),
-      static_cast<const float*>(wy), static_cast<const float*>(wx),
-      static_cast<T*>(out), H, W, C, F, k);
+  const dim3 grid(((W + p.tw - 1) / p.tw) * (F / p.ft), (H + p.rows - 1) / p.rows, B);
+  da_fwd_kernel<T, KC, CH><<<grid, p.threads, p.smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(kern), static_cast<const float*>(bias),
+      static_cast<const int4*>(rows_tab), static_cast<const int2*>(taps_tab),
+      static_cast<T*>(out), H, W, Cp, F, p);
   return cudaGetLastError();
+}
+
+template <typename T, int KC>
+int launch_fwd(const void* x, const void* kern, const void* bias, const void* rows_tab,
+               const void* taps_tab, void* out, int B, int H, int W, int Cp, int F, int k,
+               int taps, int span, int rows, int chans, cudaStream_t stream) {
+  FwdPlan p;
+  if (!plan_fwd(W, Cp, F, k, taps, span, rows, chans, sizeof(T), &p))
+    return cudaErrorInvalidValue;
+  return (chans == 8 ? launch_fwd_plan<T, KC, 8> : launch_fwd_plan<T, KC, 4>)(
+      p, x, kern, bias, rows_tab, taps_tab, out, B, H, W, Cp, F, stream);
 }
 
 // K2/K7 tiling: ct channels (the largest of 64, 32, 16, 8, 4 dividing
@@ -721,38 +933,34 @@ int launch_dk(const void* x, const void* g, const void* y0, const void* y1,
 
 extern "C" {
 
-// K1: x [B,H,W,C] and kern [9C,F] of one dtype (bf16 when is_bf16, else
-// float32), bias [F] float32, out [B,H,W,F] in the dtype of x.
+// K1 (k = 3) and K5 (any other odd k): x [B,H,W,Cp] and kern [k^2 Cp, F]
+// of one dtype (bf16 when is_bf16, else float32; Cp a multiple of 4, the
+// wrapper pads C with zero channels), bias [F] float32, out [B,H,W,F] in
+// the dtype of x; the window tables rows [H, G, 4] and taps [H, k^2, 2]
+// int32 with `taps` taps per group and their span
+// (ops/distortion.py:window_tables_on); `rows` output rows a block, each
+// thread 8 columns x `chans` (4 or 8) output channels.
 // Returns the cudaError_t of the launch.
-int skyhdr_da_fwd_k3(const void* x, const void* kern, const void* bias,
-                     const void* y0, const void* y1, const void* cx,
-                     const void* wy, const void* wx, void* out, int B, int H,
-                     int W, int C, int F, int is_bf16, int device,
-                     void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_fwd<__nv_bfloat16, 3>(x, kern, bias, y0, y1, cx, wy, wx, out,
-                                        B, H, W, C, F, 3, s);
-  return launch_fwd<float, 3>(x, kern, bias, y0, y1, cx, wy, wx, out, B, H, W,
-                              C, F, 3, s);
-}
-
-// K5: K1 at any odd kernel size k: kern [k^2 C, F], tables [H, k^2].
-int skyhdr_da_fwd(const void* x, const void* kern, const void* bias,
-                  const void* y0, const void* y1, const void* cx,
-                  const void* wy, const void* wx, void* out, int B, int H,
-                  int W, int C, int F, int k, int is_bf16, int device,
+int skyhdr_da_fwd(const void* x, const void* kern, const void* bias, const void* rows_tab,
+                  const void* taps_tab, void* out, int B, int H, int W, int Cp, int F,
+                  int k, int taps, int span, int rows, int chans, int is_bf16, int device,
                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_fwd<__nv_bfloat16, 0>(x, kern, bias, y0, y1, cx, wy, wx, out,
-                                        B, H, W, C, F, k, s);
-  return launch_fwd<float, 0>(x, kern, bias, y0, y1, cx, wy, wx, out, B, H, W,
-                              C, F, k, s);
+  auto launch = k == 3 ? (is_bf16 ? launch_fwd<__nv_bfloat16, 3> : launch_fwd<float, 3>)
+                       : (is_bf16 ? launch_fwd<__nv_bfloat16, 0> : launch_fwd<float, 0>);
+  return launch(x, kern, bias, rows_tab, taps_tab, out, B, H, W, Cp, F, k, taps, span, rows,
+                chans, s);
+}
+
+// K1/K5: blocks per (image, group of `rows` output rows) of a launch with
+// 8 x `chans` register tiles (column tiles x F tiles), or -1 when that
+// does not tile W and F (fwd_tiles); the wrapper picks rows and chans.
+int skyhdr_da_fwd_tiles(int W, int F, int rows, int chans) {
+  int tw, ft;
+  if (!fwd_tiles(W, F, rows, chans, &tw, &ft)) return -1;
+  return ((W + tw - 1) / tw) * (F / ft);
 }
 
 // K2 (k = 3) and K7 (any other odd k): g [B,H,W,F] f32, kt [k^2,F,Cp] f32

@@ -4,8 +4,10 @@ gather form, and the DAConv / DADeconv layers.
 The NumPy table builders are copies of `skyhdr.ops.distortion`
 (`distortion_offsets`, `gather_tables`, `scatter_tables`,
 `scatter_tables_k3`); the tests hold them `np.array_equal` to the originals.
-`strip_tables` (the pair lists of the input-gradient kernels K2/K7) is the
-port's own; the tests hold it to `scatter_tables` and the k=3 slots.
+`strip_tables` (the pair lists of the input-gradient kernels K2/K7) and
+`window_tables` (the grouped rows of the forward kernels K1/K5) are the
+port's own; the tests hold them to `scatter_tables` and the k=3 slots, and
+to `gather_tables`.
 Geometry: every panorama row projects
 the k x k kernel grid onto the sphere's tangent plane at that row's
 elevation, so the sampling offsets depend on the row and the tap, never on
@@ -266,6 +268,75 @@ def strip_tables(h: int, w: int, kernel_size: int = 3, rows: int = 4,
         start=start, rows=rows)
 
 
+# A group's window grows by its span; past this many columns the forward
+# takes one group per tap (span 0) instead.
+WINDOW_SPAN_MAX = 32
+
+
+class WindowTables(NamedTuple):
+    """The sampling tables of the forward kernels K1/K5, grouped. A group
+    is a kernel row when every tap of each kernel row reads the same two
+    source rows with the same weight (`gather_tables` then has y0, y1 and
+    wy constant across kx), else a single tap. Per output row i and group
+    g: the group's source rows and row weight, and `base`, the column shift
+    of its window's first column. The kernel y-interpolates that window
+    (`span` + 1 columns more than its tile) once, and each tap of the
+    group x-interpolates from it at its offset `d` (in [0, span]):
+        window[c]  = (1-wy) xpad[y0][(j0 + base + c) mod w] + wy xpad[y1][...]
+        sample[j]  = (1-wx) window[j - j0 + d] + wx window[j - j0 + d + 1],
+    the gather form's sample, since (base + d) mod w is the tap's cx0."""
+
+    y0: np.ndarray    # [h, G] int32 — padded row of the floor sample (gather y0)
+    y1: np.ndarray    # [h, G] int32
+    wy: np.ndarray    # [h, G] f32 — weight toward y1
+    base: np.ndarray  # [h, G] int32 — window start, a column shift in [0, w)
+    d: np.ndarray     # [h, k2] int32 — the tap's offset into its group's window
+    wx: np.ndarray    # [h, k2] f32 — the tap's weight toward column x1
+    taps: int         # taps per group: k (a kernel row) or 1
+    span: int         # max of d over the table
+    pad: int
+
+
+def _rows_shared(t: GatherTables, k: int) -> bool:
+    """Whether y0, y1 and wy are constant across kx in every kernel row."""
+    h = t.y0.shape[0]
+    for a in (t.y0, t.y1, t.wy):
+        rows = a.reshape(h, k, k)
+        if not np.array_equal(rows, np.broadcast_to(rows[:, :, :1], rows.shape)):
+            return False
+    return True
+
+
+def _arcs(cx: np.ndarray, w: int):
+    """Per group (last axis: its taps' column shifts in [0, w)), the
+    shortest cyclic arc holding them all: its first shift and its length."""
+    s = np.sort(cx, -1)
+    gaps = np.diff(s, append=s[..., :1] + w, axis=-1)  # the last wraps around
+    m = gaps.argmax(-1)[..., None]
+    base = np.take_along_axis(s, (m + 1) % cx.shape[-1], -1)[..., 0]
+    return base, w - np.take_along_axis(gaps, m, -1)[..., 0]
+
+
+@functools.lru_cache(maxsize=None)
+def window_tables(h: int, w: int, kernel_size: int = 3, dilation_rate: int = 1,
+                  skydome: bool = True, dedup: bool = True) -> WindowTables:
+    """`gather_tables` (stride 1) grouped for K1/K5: one group per kernel
+    row where the rows are shared and the span stays within
+    WINDOW_SPAN_MAX, one per tap otherwise (or when `dedup` is False)."""
+    k = kernel_size
+    t = gather_tables(h, w, k, 1, dilation_rate, skydome)
+    n = k if dedup and _rows_shared(t, k) else 1
+    base, span = _arcs(t.cx0.reshape(h, k * k // n, n), w)
+    if n > 1 and span.max() > WINDOW_SPAN_MAX:
+        n = 1
+        base, span = _arcs(t.cx0.reshape(h, k * k, 1), w)
+    d = (t.cx0.reshape(h, -1, n) - base[..., None]) % w
+    return WindowTables(
+        y0=t.y0[:, ::n].copy(), y1=t.y1[:, ::n].copy(), wy=t.wy[:, ::n].copy(),
+        base=base.astype(np.int32), d=d.reshape(h, k * k).astype(np.int32),
+        wx=t.wx, taps=n, span=int(span.max()), pad=t.pad)
+
+
 def _on(device, arr) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
@@ -278,6 +349,19 @@ def gather_tables_on(device: torch.device, h: int, w: int,
     built once per shape and device."""
     t = gather_tables(h, w, kernel_size, 1, dilation_rate, skydome)
     return tuple(_on(device, a) for a in (t.y0, t.y1, t.cx0, t.wy, t.wx))
+
+
+@functools.lru_cache(maxsize=None)
+def window_tables_on(device: torch.device, h: int, w: int, kernel_size: int = 3,
+                     dilation_rate: int = 1, skydome: bool = True, dedup: bool = True):
+    """`window_tables` packed for the forward kernels as device tensors:
+    rows int32 [h, G, 4] (y0 - pad, y1 - pad, base, the bits of wy) and
+    taps int32 [h, k2, 2] (d, the bits of wx); plus the taps per group and
+    the span."""
+    t = window_tables(h, w, kernel_size, dilation_rate, skydome, dedup)
+    rows = np.stack([t.y0 - t.pad, t.y1 - t.pad, t.base, t.wy.view(np.int32)], -1)
+    taps = np.stack([t.d, t.wx.view(np.int32)], -1)
+    return _on(device, rows), _on(device, taps), t.taps, t.span
 
 
 @functools.lru_cache(maxsize=None)

@@ -34,17 +34,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # name -> argtypes; every entry point returns an int (a cudaError_t, or
-# for skyhdr_da_dk_splits and skyhdr_da_dx_tiles a count).
+# for skyhdr_da_dk_splits and skyhdr_da_{fwd,dx}_tiles a count).
 _SIGNATURES = {
     # x, gamma, beta, ws, y, mean, rstd, B, HW, C, S, eps, alpha, is_bf16, device, stream
     "skyhdr_in_fwd_k8": [_P] * 7 + [_I] * 4 + [_F, _F] + [_I] * 2 + [_P],
     # x, dy, gamma, beta, mean, rstd, ws, part, m12, dgamma, dbeta, dx,
     # B, HW, C, S, alpha, is_bf16, device, stream
     "skyhdr_in_bwd_k9": [_P] * 12 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
-    # x, kern, bias, y0, y1, cx, wy, wx, out, B, H, W, C, F, is_bf16, device, stream
-    "skyhdr_da_fwd_k3": [_P] * 9 + [_I] * 7 + [_P],
-    # x, kern, bias, y0, y1, cx, wy, wx, out, B, H, W, C, F, k, is_bf16, device, stream
-    "skyhdr_da_fwd": [_P] * 9 + [_I] * 8 + [_P],
+    # x, kern, bias, rows, taps, out, B, H, W, Cp, F, k, taps per group, span,
+    # rows per block, channels per thread, is_bf16, device, stream
+    "skyhdr_da_fwd": [_P] * 6 + [_I] * 12 + [_P],
+    # W, F, rows, chans -> blocks per (image, row group) of K1/K5 (or < 0)
+    "skyhdr_da_fwd_tiles": [_I] * 4,
     # g, kt, pint, pflt, start, strips, rows, dx, B, H, W, C, Cp, F, k, device, stream
     "skyhdr_da_dx": [_P] * 5 + [_I, _I, _P] + [_I] * 8 + [_P],
     # W, Cp, F -> blocks per (image, strip) of K2/K7 (or < 0)

@@ -3,7 +3,10 @@ the autograd glue.
 
 k = 3 (skyhdr/ops/pallas/deform_conv.py's fast path):
   K1 `da_conv_forward_k1` — CUDA forward (csrc/deform_conv.cu), replacing
-     `_kernel_k3`. Plain version: `da_conv_forward_ref`.
+     `_kernel_k3`: one y-interpolated window per (output row, kernel row)
+     over the `window_tables`, the kernel row's taps x-interpolated from it;
+     `fwd_tiling` picks a block's rows and a thread's register tile.
+     Plain version: `da_conv_forward_ref`.
   K2 `da_conv_dx_k2` — CUDA input gradient, replacing `_dx_k3_kernel`:
      one product per forward (row, tap) pair over the `strip_tables`.
      Plain version: `da_conv_dx_ref`, the TPU kernel's slot formula
@@ -13,8 +16,8 @@ k = 3 (skyhdr/ops/pallas/deform_conv.py's fast path):
      Plain version: `da_conv_dk_ref`, the same sample-times-cotangent sum
      vectorised in torch (again not autograd of the forward).
 Any other odd k (the generic kernels of the same file):
-  K5 `da_conv_forward_k5` — CUDA forward, replacing `_kernel_body`. Plain
-     version: `da_conv_forward_ref` at that k.
+  K5 `da_conv_forward_k5` — CUDA forward, replacing `_kernel_body`: K1's
+     kernel at that k. Plain version: `da_conv_forward_ref` at that k.
   K6 `da_conv_dk_k6` — CUDA weight gradient, replacing `_dk_kernel`. Plain
      version: `da_conv_dk_ref` at that k.
   K7 `da_conv_dx_k7` — CUDA input gradient, replacing `_dx_kernel`: K2's
@@ -39,7 +42,8 @@ import torch
 
 from skyhdr_torch.ops.distortion import (deformable_conv2d, gather_tables_on,
                                          mm_dtype, scatter_tables_k3_on,
-                                         scatter_tables_on, strip_tables_on)
+                                         scatter_tables_on, strip_tables_on,
+                                         window_tables_on)
 
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
@@ -52,6 +56,11 @@ K7_LAUNCHES = 0
 # (R + 1) / R times the forward's products, so the tallest strip that still
 # fills the card wins (`dx_strip_rows`).
 DX_STRIP_ROWS = (8, 4, 2)
+# The output rows R of a K1/K5 block, most first, and the output channels
+# of a thread's register tile (8 columns x 8 or 4), widest first
+# (`fwd_tiling`).
+FWD_ROWS = (8, 4, 2, 1)
+FWD_CHANS = (8, 4)
 _WEIGHT_GRADS = True
 
 
@@ -78,7 +87,9 @@ def _odd_other_than_3(k: int, name: str) -> None:
 
 def _forward(x, kernel, bias, k: int, dilation_rate: int, skydome: bool,
              name: str) -> torch.Tensor:
-    """Checks, then launches K1 (k = 3) or K5 (any other odd k)."""
+    """Checks, then launches the forward kernel at kernel size k (K1 at
+    k = 3, K5 otherwise) over the `window_tables` with the rows and
+    register tile `fwd_tiling` picks."""
     from skyhdr_torch.ops.kernels.build import check, library
 
     f = kernel.shape[-1]
@@ -91,19 +102,21 @@ def _forward(x, kernel, bias, k: int, dilation_rate: int, skydome: bool,
              f"{name} takes float32 or bfloat16 x, got {x.dtype}")
     _require(bias.shape == (f,), f"bias must be [{f}]")
     b, h, w, c = x.shape
-    x = x.contiguous()
-    kk = kernel.to(mm_dtype(x)).contiguous()
+    kk = kernel.to(mm_dtype(x))
+    # The kernel copies 4 channels at a time: zero channels pad x and the
+    # kernel's rows to a multiple of 4 (the 3-channel sun-pose input).
+    cp = -(-c // 4) * 4
+    if cp != c:
+        x = torch.nn.functional.pad(x, (0, cp - c))
+        kk = torch.nn.functional.pad(kk.reshape(k * k, c, f), (0, 0, 0, cp - c))
+    x, kk = x.contiguous(), kk.reshape(k * k * cp, f).contiguous()
     bias32 = bias.to(device=x.device, dtype=torch.float32).contiguous()
-    y0, y1, cx, wy, wx = gather_tables_on(x.device, h, w, k, dilation_rate, skydome)
+    rows_t, taps_t, taps, span = window_tables_on(x.device, h, w, k, dilation_rate, skydome)
+    rows, chans = fwd_launch_tiling(b, h, w, f, x.device.index)
     out = torch.empty((b, h, w, f), dtype=x.dtype, device=x.device)
-    ptrs = _ptrs(x, kk, bias32, y0, y1, cx, wy, wx, out)
-    bf16 = int(x.dtype == torch.bfloat16)
-    if k == 3:
-        code = library().skyhdr_da_fwd_k3(*ptrs, b, h, w, c, f, bf16,
-                                          x.device.index, _stream(x))
-    else:
-        code = library().skyhdr_da_fwd(*ptrs, b, h, w, c, f, k, bf16,
-                                       x.device.index, _stream(x))
+    code = library().skyhdr_da_fwd(*_ptrs(x, kk, bias32, rows_t, taps_t, out), b, h, w, cp, f, k,
+                             taps, span, rows, chans, int(x.dtype == torch.bfloat16),
+                             x.device.index, _stream(x))
     check(code, f"{name} (DA forward, k={k})")
     return out
 
@@ -133,6 +146,33 @@ def da_conv_forward_k5(x, kernel, bias, *, kernel_size: int,
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def fwd_tiling(b: int, h: int, tiles: dict, sms: int) -> tuple:
+    """(rows, chans) of a K1/K5 launch: the widest register tile of
+    FWD_CHANS, then the most output rows of FWD_ROWS, that tile the shape
+    (`tiles[rows, chans]`, the blocks per image and row group, > 0) with a
+    grid (b x row groups x tiles) that still gives each of `sms` SMs 1.5
+    blocks; one row of 4-channel tiles otherwise. A wider tile and more
+    rows share each staged sample and chunk of K among more products;
+    below ~1.5 blocks per SM the idle SMs cost more."""
+    for chans in FWD_CHANS:
+        for rows in FWD_ROWS:
+            n = tiles[rows, chans]
+            if n > 0 and b * -(-h // rows) * n >= 1.5 * sms:
+                return rows, chans
+    return FWD_ROWS[-1], FWD_CHANS[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_launch_tiling(b: int, h: int, w: int, f: int, index: int) -> tuple:
+    """`fwd_tiling` of a K1/K5 launch of x [b, h, w, *] -> F = f on card
+    `index`, from the kernel library's tiles; once per shape."""
+    from skyhdr_torch.ops.kernels.build import library
+
+    lib = library()
+    tiles = {(r, n): lib.skyhdr_da_fwd_tiles(w, f, r, n) for n in FWD_CHANS for r in FWD_ROWS}
+    return fwd_tiling(b, h, tiles, _sm_count(index))
 
 
 def dx_strip_rows(b: int, h: int, tiles: int, sms: int) -> int:

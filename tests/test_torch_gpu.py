@@ -149,6 +149,85 @@ def test_dx_is_bitwise_repeatable(cuda, ksize, shape, f):
     assert torch.equal(run(g, k, x_shape=shape), run(g, k, x_shape=shape))
 
 
+def _fwd_pair(ksize):
+    """(kernel, plain version) of the forward at kernel size k."""
+    if ksize == 3:
+        return dc.da_conv_forward_k1, dc.da_conv_forward_ref
+    kw = dict(kernel_size=ksize)
+    return (lambda x, k, b, **a: dc.da_conv_forward_k5(x, k, b, **kw, **a),
+            lambda x, k, b, **a: dc.da_conv_forward_ref(x, k, b, **kw, **a))
+
+
+# K1 and K5 are one kernel over the window tables (`fwd_tiling` picks the
+# output rows of a block and the channels of a thread's tile): the shapes
+# where its tiling could break — F = 32 at 64x256 (conv2_f/u, one
+# 128-column row a block), C = 3 at k = 7 (padded to 4), the odd height,
+# b1 (one row a block), bf16 — each against the plain version and twice
+# bitwise equal.
+FWD_CASES = [(3, (2, 64, 256, 64), 32), (7, (2, 64, 256, 3), 32), (3, (4, 9, 32, 128), 128),
+             (5, (4, 9, 32, 128), 128), (3, (1, 8, 32, 128), 128), (5, (1, 16, 64, 128), 128),
+             (7, (1, 16, 64, 128), 128), (3, (2, 32, 128, 32), 64), (3, (32, 16, 64, 128), 128)]
+
+
+@pytest.mark.parametrize("ksize,shape,f", FWD_CASES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_fwd_tilings_match_plain_and_repeat(cuda, ksize, shape, f, dtype, tol):
+    x, k, b, _ = _operands(cuda, shape, f, dtype, ksize)
+    run, plain = _fwd_pair(ksize)
+    got = run(x, k, b)
+    assert got.dtype == dtype and _rel(got, plain(x, k, b)) <= tol
+    assert torch.equal(got, run(x, k, b))
+
+
+# Other tilings, both geometries, and the per-tap window tables (one group
+# a tap, span 0) that a shape whose kernel rows read different source rows
+# would be given. (rows, chans, W, F): every row count of 4-channel tiles,
+# and 8-channel tiles of 8 rows x 16 and 2 rows x 64 columns.
+@pytest.mark.parametrize("ksize", [3, 5, 7])
+@pytest.mark.parametrize("rows,chans,w,f", [(1, 4, 16, 24), (2, 4, 16, 24), (4, 4, 16, 24),
+                                            (8, 4, 16, 24), (8, 8, 16, 128), (2, 8, 64, 128)])
+@pytest.mark.parametrize("skydome,dilation,dedup", [(True, 1, True), (False, 2, True),
+                                                    (True, 1, False)])
+def test_fwd_at_other_tilings_and_tables(cuda, monkeypatch, ksize, rows, chans, w, f, skydome,
+                                         dilation, dedup):
+    from skyhdr_torch.ops.distortion import window_tables_on
+
+    monkeypatch.setattr(dc, "fwd_launch_tiling", lambda *_: (rows, chans))
+    monkeypatch.setattr(dc, "window_tables_on",
+                        lambda *a: window_tables_on(*a, dedup=dedup))
+    x, k, b, _ = _operands(cuda, (2, 9, w, 16), f, ksize=ksize)
+    run, plain = _fwd_pair(ksize)
+    geom = dict(skydome=skydome, dilation_rate=dilation)
+    assert _rel(run(x, k, b, **geom), plain(x, k, b, **geom)) <= 1e-4
+
+
+def test_fwd_tiles_are_the_documented_ones(cuda):
+    """The kernel library's tiling agrees with the table the CPU test of
+    `fwd_tiling` (tests/test_torch_fwd_tables.py) is written from."""
+    from skyhdr_torch.ops.kernels.build import library
+
+    lib = library()
+    for (w, f), want in FWD_TILES.items():
+        got = {(r, n): lib.skyhdr_da_fwd_tiles(w, f, r, n)
+               for n in dc.FWD_CHANS for r in dc.FWD_ROWS}
+        assert got == want, (w, f)
+
+
+# Blocks per (image, row group) of K1/K5 at the model's (W, F), by (rows,
+# chans); -1 where that does not tile. The same table is in
+# tests/test_torch_fwd_tables.py.
+FWD_TILES = {
+    (64, 128): {(8, 8): -1, (4, 8): -1, (2, 8): 1, (1, 8): -1,
+                (8, 4): -1, (4, 4): -1, (2, 4): -1, (1, 4): 1},
+    (32, 128): {(8, 8): -1, (4, 8): 1, (2, 8): -1, (1, 8): -1,
+                (8, 4): -1, (4, 4): -1, (2, 4): 1, (1, 4): 1},
+    (128, 64): {(8, 8): -1, (4, 8): -1, (2, 8): -1, (1, 8): -1,
+                (8, 4): -1, (4, 4): -1, (2, 4): -1, (1, 4): 1},
+    (256, 32): {(8, 8): -1, (4, 8): -1, (2, 8): -1, (1, 8): -1,
+                (8, 4): -1, (4, 4): -1, (2, 4): -1, (1, 4): 2},
+}
+
+
 def test_k2_refuses_channels_it_does_not_tile(cuda):
     _, k, _, g = _operands(cuda, (1, 8, 32, 6), 8)
     with pytest.raises(ValueError, match="K2"):

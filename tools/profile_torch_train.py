@@ -37,8 +37,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The DA kernels by name (csrc/deform_conv.cu): K1/K5, K2/K7 and K3/K6 are
 # one template each, told apart by its kernel-size argument (3, or 0 for a
 # size given at run time).
-DA_GROUPS = ((r"da_fwd_kernel<[^>]*, 3>", "K1 DA forward"),
-             (r"da_fwd_kernel<[^>]*, 0>", "K5 DA forward"),
+DA_GROUPS = ((r"da_fwd_kernel<[^,>]*, 3, \d+>", "K1 DA forward"),
+             (r"da_fwd_kernel<[^,>]*, 0, \d+>", "K5 DA forward"),
              (r"da_dx_kernel<3>", "K2 DA input grad"), (r"da_dx_kernel<0>", "K7 DA input grad"),
              (r"da_dk_kernel<[^>]*, 3>", "K3 DA weight grad"),
              (r"da_dk_kernel<[^>]*, 0>", "K6 DA weight grad"))
