@@ -65,6 +65,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     each strip height they can pick (R = 8, 4, 2), beside
                     the one picked and its products over the forward's;
                     K1/K5 with the output rows and register tile picked;
+                    K3/K6 with their splits, blocks and threads (per layer
+                    and per step, and the k=7 shapes with C=3);
                     K8/K9 also against the library's `F.instance_norm`
                     (forward, and its autograd backward).
   9. train_cli    — the training CLI (`skyhdr_torch.cli.train`) at DA
@@ -81,13 +83,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     (f32 FMA and bf16 storage 1e-4, tensor cores 2e-3 of
                     the max) and, the whole forward, against the f32 DA
                     conv (1e-4 f32, 2e-2 with bf16); K11 bitwise; K12 at
-                    every exp_mmshape configuration in f32 and bf16 (1e-5);
+                    every exp_mmshape configuration in f32 and bf16 and at
+                    three shapes it pads, with one dot (1e-5);
                     then the main path: exp_daconv (every instantiation
                     through its variant names), exp_pack and exp_mmshape
                     through their entry points, launches read after; then
                     times (CUDA events, median of 20, in turns with the
                     plain version; K10 beside K1, K11 and K12 beside their
-                    library yardsticks).
+                    library yardsticks; K12, its plain version and the
+                    library with device work queued ahead, so that the
+                    events bracket device time, not the wrapper's host time).
 The line before the last is the nvidia-smi line, the one before it the
 kernels' JSON summary; the last line is the run's JSON result. Details go to
 chiprun_out/chip_smoke.json, the phases' lines to chiprun_out/chip_smoke.log. The train golden's comparison lives in
@@ -261,10 +266,16 @@ def scaled(shape, s):
     return (h * s, w * s, c)
 
 
-def time_ms(fn, iters=ITERS, warmup=WARMUP):
-    """Device times (ms) of `iters` calls, each bracketed by CUDA events."""
+def time_ms(fn, iters=ITERS, warmup=WARMUP, queued=False):
+    """Device times (ms) of `iters` calls, each bracketed by CUDA events.
+    `queued`: a ~10 ms device sleep is enqueued first, so the host enqueues
+    every call while the card is busy and each pair of events brackets the
+    call's device work alone, not the host's time between calls (for
+    kernels shorter than their wrapper's host time)."""
     for _ in range(warmup):
         fn()
+    if queued:
+        torch.cuda._sleep(20_000_000)
     pairs = []
     for _ in range(iters):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -276,12 +287,13 @@ def time_ms(fn, iters=ITERS, warmup=WARMUP):
     return [a.elapsed_time(b) for a, b in pairs]
 
 
-def paired_ms(kernel_fn, plain_fn):
+def paired_ms(kernel_fn, plain_fn, queued=False):
     """Median ms of a kernel and its plain version, timed in turns
     plain, kernel, kernel, plain."""
-    p = time_ms(plain_fn, ITERS // 2)
-    k = time_ms(kernel_fn, ITERS // 2) + time_ms(kernel_fn, ITERS // 2)
-    p += time_ms(plain_fn, ITERS // 2)
+    p = time_ms(plain_fn, ITERS // 2, queued=queued)
+    k = (time_ms(kernel_fn, ITERS // 2, queued=queued)
+         + time_ms(kernel_fn, ITERS // 2, queued=queued))
+    p += time_ms(plain_fn, ITERS // 2, queued=queued)
     return statistics.median(k), statistics.median(p)
 
 
@@ -881,6 +893,17 @@ def phase_timing(dc, smi, report):
         if ROLE[kern] == "fwd":
             row["rows"], row["chans"] = dc.fwd_launch_tiling(b, hwc[0], hwc[1], f, 0)
             note = f"; {row['rows']} rows x 8x{row['chans']} tiles a block"
+        if ROLE[kern] == "dk":
+            # The plan the library gave: splits x blocks per split of this
+            # many threads, and the blocks resident on an SM.
+            from skyhdr_torch.ops.distortion import window_tables_on
+
+            _, _, taps, span = window_tables_on(torch.device("cuda", 0), hwc[0], hwc[1], ksize)
+            (row["splits"], row["tiles"], row["threads"],
+             row["resident"]) = dc.dk_launch_tiling(b, hwc[0], hwc[1], -(-hwc[2] // 4) * 4, f,
+                                                    ksize, taps, span, False, 0)
+            note = (f"; {row['splits']} splits x {row['tiles']} blocks of {row['threads']} "
+                    f"threads, {row['resident']} resident an SM")
         if ROLE[kern] == "dx":
             # The strip height picked, the products done / the forward's (the
             # bound's count), and the kernel's time at each strip height.
@@ -1301,15 +1324,21 @@ def check_probes(tp, report):
             f"plain version: {same}")
         check(same, f"K11 {shape} p={p}")
     x600 = mm_input()
-    for cfg, (m, kk, f, ndots, steps) in exp_mmshape.CFGS.items():
+    # Every configuration, then shapes the wrapper pads (one block tile of
+    # each kind, several output tiles a block) with one dot.
+    cases = list(exp_mmshape.CFGS.items()) + [
+        ("pad", (13, 7, 5, 1, 2)), ("pad", (300, 100, 70, 1, 3)), ("pad", (40, 600, 300, 1, 3))]
+    for cfg, (m, kk, f, ndots, steps) in cases:
         for dtype in (torch.float32, torch.bfloat16):
             lhs, rhs = x600[:m, :kk].to(dtype).contiguous(), x600[:kk, :f].to(dtype).contiguous()
             got = tp.mm_shape_k12(lhs, rhs, ndots=ndots, steps=steps)
             rel, ab = rel_err(got, tp.mm_shape_ref(lhs, rhs, ndots=ndots, steps=1))
             worst["K12"] = max(worst["K12"], ab)
-            say("probes", f"K12 {cfg} {str(dtype)[6:]} ({m}x{kk}@{kk}x{f} x{ndots} x{steps}): "
-                f"max rel err {rel:.3e} (max abs {ab:.3e}, tol 1e-5)")
-            check(rel <= 1e-5, f"K12 {cfg} {dtype}")
+            tile = tp.MM_TILES[tp.mm_tiling(m, kk, f, dtype == torch.bfloat16)[3]]
+            say("probes", f"K12 {cfg} {str(dtype)[6:]} ({m}x{kk}@{kk}x{f} x{ndots} x{steps}, "
+                f"{tile[0]}x{tile[1]} block tile): max rel err {rel:.3e} (max abs {ab:.3e}, "
+                f"tol 1e-5)")
+            check(rel <= 1e-5 and got.shape == (m, f), f"K12 {cfg} {m}x{kk}x{f} {dtype}")
     report["checks"] = rows
     return worst
 
@@ -1423,11 +1452,13 @@ def time_probes(dc, tp, smi, report):
         dtype = torch.bfloat16 if name.endswith("h") else torch.float32
         m, kk, f, ndots, steps = exp_mmshape.CFGS[name.rstrip("h")]
         lhs, rhs = x600[:m, :kk].to(dtype).contiguous(), x600[:kk, :f].to(dtype).contiguous()
+        # Device times with work queued ahead: the bf16 kernels (~0.1 ms)
+        # are shorter than the wrapper's host time.
         ms, plain = paired_ms(
             lambda: tp.mm_shape_k12(lhs, rhs, ndots=ndots, steps=steps),
-            lambda: tp.mm_shape_ref(lhs, rhs, ndots=ndots, steps=steps))
+            lambda: tp.mm_shape_ref(lhs, rhs, ndots=ndots, steps=steps), queued=True)
         lib = statistics.median(time_ms(lambda: tp.mm_shape_library(lhs, rhs, ndots=ndots,
-                                                                    steps=steps)))
+                                                                    steps=steps), queued=True))
         free_cuda()
         flops = 2.0 * m * kk * f * ndots * steps
         bms = 1e3 * flops / (PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
@@ -1535,11 +1566,11 @@ def main(argv=None):
                     pallas + "deform_conv.py:179", "gan"),
              "K2": ("K2 da_dx_kernel<3> (DA conv input gradient, k=3)",
                     pallas + "deform_conv.py:469", "gan"),
-             "K3": ("K3 da_dk_kernel<T, 3> (DA conv weight gradient, k=3)",
+             "K3": ("K3 da_dk_kernel<T, 3, CH> (DA conv weight gradient, k=3)",
                     pallas + "deform_conv.py:429", "gan"),
              "K5": ("K5 da_fwd_kernel<T, 0, CH> (DA conv forward, odd k)",
                     pallas + "deform_conv.py:146", "gan_da5"),
-             "K6": ("K6 da_dk_kernel<T, 0> (DA conv weight gradient, odd k)",
+             "K6": ("K6 da_dk_kernel<T, 0, CH> (DA conv weight gradient, odd k)",
                     pallas + "deform_conv.py:364", "gan_da5"),
              "K7": ("K7 da_dx_kernel<0> (DA conv input gradient, odd k)",
                     pallas + "deform_conv.py:400", "gan_da5"),
@@ -1577,7 +1608,8 @@ def main(argv=None):
             ("K11", "K11 pack_samples_kernel (sample packing)", "tools/exp_pack.py:60",
              "bytes", "one run of the probe at its default shape: one pack of x "
              "(32,64,256,64) f32 with p=2; launches: the probes phase's drive"),
-            ("K12", "K12 mm_shape_f32_kernel / mm_shape_bf16_kernel (dot-shape microbench)",
+            ("K12", "K12 mm_shape_f32_kernel<BM> / mm_shape_bf16_kernel<WARPS_M, WTM, WTN> "
+             "(dot-shape microbench)",
              "tools/exp_mmshape.py:44", "operations",
              "one run of the probe at its default shape: one call each of exp_mmshape's "
              "default configurations a18, b9, c3, d2, t18, a18h, b9h, d2h (1024 blocks "

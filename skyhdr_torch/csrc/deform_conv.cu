@@ -18,10 +18,10 @@
 //        (the TPU kernel sums the same terms per input row over the
 //        scatter_tables_k3 slots). Described with K7 below: it is K7's
 //        kernel at k = 3.
-//   K3 da_dk_kernel<T, 3> — `_dk_k3_kernel` driven by `_pallas_dk`: the weight
-//        gradient dK[t*C+c, f] = sum_{b,i,j} sample_t[b,i,j,c] g[b,i,j,f],
-//        the sample rebuilt from x as in K1 (never stored), followed by
-//        da_dk_reduce_kernel, which sums the per-split partials.
+//   K3 da_dk_kernel<T, 3, CH> — `_dk_k3_kernel` driven by `_pallas_dk`:
+//        the weight gradient dK[t*C+c, f] = sum_{b,i,j} sample_t[b,i,j,c]
+//        g[b,i,j,f], the sample rebuilt from x as in K1 (never stored),
+//        followed by da_dk_reduce_kernel, which sums the per-split partials.
 //
 // What bounds K1 and K5 on this card: at the serving shapes (C, F <= 128,
 // H x W <= 64 x 256) each output costs 2*k^2*C*F flops against k^2*C
@@ -71,19 +71,41 @@
 // 147k floats at the trunk) and its reduction long (B*H*W = 65,536 rows at
 // the trunk, ~1M at conv2_f/u). The TPU kernel sums over its sequential
 // grid into one resident block; here blocks run in no order, so the
-// reduction over (b, i) rows is split across enough blocks to fill the
-// card: one block per (C x F tile, tap, row split) holds a 4x4 register
-// tile per thread, stages the rebuilt [64, Ct] sample and the [64, Ft]
-// cotangent of a column chunk in shared memory, and accumulates their
-// outer products over the chunk's columns. Each block writes its partial
-// tile to a workspace [nsplit, 9C, F]; a second pass sums the partials in
-// split order, so the result is deterministic (no float atomics). Each tap's
-// block rebuilds its own y-interpolation (the TPU kernel shares one per
-// kernel row): simpler, and the rebuild is about 1/Ft of the block's
-// arithmetic.
-// Measured on an H100 80GB HBM3 at 700 W: 1.23 ms for the b64 trunk layer,
-// 23% of its bound, the inner loop again fed one shared-memory float4 pair
-// per 16 FMAs.
+// reduction is split across one wave of blocks (ops/kernels/deform_conv.py:
+// dk_tiling) into a workspace [nsplit, 9C, F] that da_dk_reduce_kernel sums
+// in split order: deterministic, no float atomics.
+// What held the first version (one block per C x F tile, tap and row
+// split; per 64-column chunk the rebuilt [64, Ct] sample and the [64, Ft]
+// cotangent staged behind two barriers; a 4 x 4 register tile) to 12-25%
+// of that bound (1.23 ms at the b64 trunk, 4.68 at conv2_f/u): (1) one tap
+// a block, so each tap's block re-read and y-interpolated its two source
+// rows and staged its own copy of the same cotangent chunk; (2) each
+// sample built from four scalar loads and g copied synchronously, in
+// series with the product; (3) two shared float4 loads per 16 FMAs; (4) the
+// block size set by the tile: 8 threads at C = 4, F = 32 (k = 7,
+// sunlayer1.conv1: 0.5% of its bound).
+// What this design does (da_dk_kernel below, one template for every odd k):
+// a block owns one group of the forward's window tables (a kernel row's k
+// taps where they share their source rows, else one tap), cc input
+// channels and ft output channels: an M = taps x cc by ft tile of dK. Per
+// stage (one (b, i) row x tw columns) the group's two raw source rows
+// (tw + span + 1 columns, wrapped; rows outside [0, H) zero) and the
+// cotangent chunk [tw, ft] are copied with cp.async a stage ahead, under
+// the current stage's product; the window is y-interpolated once and every
+// tap x-interpolates its samples from it with float4 reads, so one staged g
+// chunk serves all the group's taps. Each thread accumulates an 8 x 8 tile
+// (8 x 4 below 64 output channels, and where 8 x 8 tiles leave a block
+// small) fed by float4 shared loads: two of the samples and CH/4 of g per
+// 8 x CH FMAs; the 8 x 8 instantiations keep ~160 registers (K3, two
+// blocks of 192 threads an SM) or 128 (K6, three of 160). Where the tile
+// leaves a block small (C = 3/4, or F = 4), `slices` copies of it split
+// each stage's columns and are summed in slice order at the end, so every
+// layer shape of the model gets a block of 160-256 threads (plan_dk). f32 samples even
+// for bf16 x, as the TPU kernels, f32 FMAs (TF32 stays off).
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py's timing phase):
+// 0.702 ms for the 64x256 b64 trunk layer, 41% of its bound (the first
+// version 1.23 ms, 23%); 38% at F = 64, 28% at conv2_f/u (F = 32), where
+// each sample feeds only 32 FMAs; K6 at the k = 5 trunk 2.00 ms, 40%.
 //
 // The odd-k kernels (any odd k; the model runs k = 5 and k = 7) replace the
 // generic branches of the same file:
@@ -94,11 +116,9 @@
 //        window tables (k groups of k taps, spans up to 9 columns at k = 5
 //        and 15 at k = 7) and the stage depth (40 at k = 5, 56 at k = 7).
 //        Bound by operations, as K1: 2*B*H*W*k^2*C*F.
-//   K6 da_dk_kernel<T, 0>   — `_dk_kernel` driven by `_pallas_dk`: K3's
-//        kernel at a run-time size. The grid is (C x F tile, tap in k^2,
-//        row split); the split count is chosen for ~8 blocks per SM over all
-//        k^2 taps, so the grid does not grow with k^2; the partials are
-//        summed in split order by da_dk_reduce_kernel (bitwise repeatable).
+//   K6 da_dk_kernel<T, 0, CH> — `_dk_kernel` driven by `_pallas_dk`:
+//        K3's kernel at a run-time size; k enters through the window
+//        tables (k groups of k taps) and the tile (taps x cc rows).
 //        C must be a multiple of 4, as for K3; the wrapper pads the k = 7
 //        sun-pose input (C = 3) with a zero channel.
 //   K7 da_dx_kernel<0>      — `_dx_kernel` driven by `_pallas_dx`: K2's
@@ -144,7 +164,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;     // K3/K6: threads per block, at most
+constexpr int kThreads = 256;     // K3/K6: threads per block, at most (8 x CH tiles x slices)
 constexpr int kFwdThreads = 256;  // K1/K5: threads per block, at most
 constexpr int kFwdCols = 8;       // K1/K5: output columns per thread (x 4 or 8 channels)
 constexpr int kFwdMaxM = 128;     // K1/K5: output rows x columns per block, at most
@@ -617,132 +637,242 @@ da_dx_kernel(const float* __restrict__ g, const float* __restrict__ kt,
   while (r_cur < rows) advance();
 }
 
-constexpr int kChunk = 64;  // K3/K6: columns staged in shared memory at a time
+// The threads a K3 (KC = 3) or K6 (KC = 0) block of 8 x CH tiles takes at
+// most, and the blocks each instantiation is compiled to keep resident on
+// an SM: the 8 x 8 tile runs fastest with ~160 registers, so K3's blocks of
+// up to 192 threads two an SM, and K6's (160 threads at the k = 5 trunk)
+// three, within 136 registers.
+constexpr int dk_max_threads(int kc, int ch) { return ch == 4 ? kThreads : kc == 3 ? 192 : 160; }
+constexpr int dk_min_blocks(int kc, int ch) { return ch == 8 && kc != 3 ? 3 : 2; }
 
-// K3/K6 tiling: a block covers Ct input channels x Ft output channels with
-// one thread per 4x4 quad, at most kThreads threads.
+// K3/K6 launch plan (plan_dk): a block owns one window group (`taps`
+// taps of a kernel row, or one tap), cc input channels and ft output
+// channels of dK, an M x ft tile (M = taps x cc rows, tap-major, padded to
+// mp, a multiple of 8), held by (mp / 8) x (ft / CH) threads of 8 x CH and
+// `slices` copies of them that split each stage's columns; a stage is one
+// (b, i) row x tw columns. Shared memory as laid out below, byte offsets
+// from the start (the window ywin at 0).
 struct DkPlan {
-  int ct, ft, tiles, threads;
-  size_t smem;
+  int cc, taps, groups, k, ft, chans, mp, slices, tw, chunks, wn, threads;
+  int tiles;  // blocks per split: groups x C / cc x F / ft
+  int off_s, off_raw, off_g, smem;
 };
 
-bool plan_dk(int C, int F, DkPlan* p) {
-  if (C <= 0 || F <= 0 || C % 4 != 0 || F % 4 != 0) return false;
-  p->ct = C <= 64 ? C : 64;
-  const int quads_c = p->ct / 4;
-  const int max_ft = 4 * (kThreads / quads_c);
-  p->ft = F <= max_ft ? F : max_ft;
-  if (C % p->ct != 0 || F % p->ft != 0) return false;
-  p->tiles = (C / p->ct) * (F / p->ft);
-  p->threads = quads_c * (p->ft / 4);
-  p->smem = static_cast<size_t>(kChunk) * (p->ct + 4 + p->ft + 4) * sizeof(float);
-  return true;
-}
-
 // K3 (KC = 3) and K6 (KC = 0: kernel size k at run time) partials. Grid
-// (tiles, k^2, nsplit); block plan.threads; dynamic smem kChunk*(Ct+4) +
-// kChunk*(Ft+4) floats. x [B,H,W,C] (T, read as f32), g [B,H,W,F] f32,
-// tables [H,k^2] as in K1; ws [nsplit, k^2 C, F] f32 receives each split's
-// sum over its rows r = b*H + i in [r_begin, r_end).
-template <typename T, int KC>
-__global__ void __launch_bounds__(kThreads)
+// (p.tiles, nsplit); block p.threads. x [B,H,W,Cp] (T, read as f32), g
+// [B,H,W,F] f32, the window tables as in K1 (rows_tab [H, G] (r0, r1,
+// base, wy bits), taps_tab [H, k^2] (d, wx bits)); ws [nsplit, k^2 Cp, F]
+// f32 receives each split's sum over its stages s in [s_begin, s_end) of
+// the B*H*chunks stages (row r = s / chunks, columns from (s % chunks) tw).
+//
+// Per block and stage:
+//   raw   [2][wn][cc]   T   rows r0, r1 of the group at (b, i), window
+//                           columns (j0 + base + q) mod W     (cp.async)
+//   ywin  [2][wn][cc]   f32 (1-wy) raw0 + wy raw1              (built)
+//   gbuf  [2][tw][ft]   f32 g[b, i, j0 + jj, f-tile], 0 past W (cp.async)
+//   stile [tw][mp]      f32 per tap m, (1-wx) ywin[jj+d] + wx ywin[jj+d+1]
+//                           at rows m cc + c                   (built)
+// Stage s's barrier-to-barrier phase builds stile(s) from ywin(s) and
+// ywin(s+1) from raw(s+1); then the copies of raw(s+2) and g(s+1) are
+// issued and run under stage s's product, in which each thread adds the
+// outer products of its slice's columns to an 8-row x CH-channel register
+// tile, fed by two float4 of the sample tile and CH/4 of g per 8 x CH FMAs.
+// Two barriers a stage. At the end the slices' tiles are summed through
+// shared memory in slice order.
+template <typename T, int KC, int CH>
+__global__ void __launch_bounds__(dk_max_threads(KC, CH), dk_min_blocks(KC, CH))
 da_dk_kernel(const T* __restrict__ x, const float* __restrict__ g,
-             const int* __restrict__ y0t, const int* __restrict__ y1t,
-             const int* __restrict__ cxt, const float* __restrict__ wyt,
-             const float* __restrict__ wxt, float* __restrict__ ws, int B,
-             int H, int W, int C, int F, int ct, int ft, int k) {
-  extern __shared__ __align__(16) float dk_smem[];
-  const int ks = KC ? KC : k;
-  const int taps = ks * ks;
-  const int pad = ks / 2;
-  const int lds = ct + 4;
-  const int ldg = ft + 4;
-  float* stile = dk_smem;                // [kChunk, lds] rebuilt samples
-  float* gtile = dk_smem + kChunk * lds;  // [kChunk, ldg] cotangents
-  const int quads_f = ft / 4;
-  const int tiles_f = F / ft;
-  const int c0 = (blockIdx.x / tiles_f) * ct;
-  const int f0 = (blockIdx.x % tiles_f) * ft;
-  const int t = blockIdx.y;
-  const int rows = B * H;
-  const int r_begin = static_cast<int>(static_cast<long long>(blockIdx.z) * rows / gridDim.z);
-  const int r_end = static_cast<int>(static_cast<long long>(blockIdx.z + 1) * rows / gridDim.z);
+             const int4* __restrict__ rows_tab, const int2* __restrict__ taps_tab,
+             float* __restrict__ ws, int B, int H, int W, int Cp, int F, DkPlan p) {
+  extern __shared__ __align__(16) unsigned char dk_smem[];
+  const int k2 = KC ? KC * KC : p.k * p.k;
+  const int nt = p.taps, G = p.groups, cc = p.cc, ft = p.ft, tw = p.tw, wn = p.wn;
+  const int mp = p.mp, nch = p.chunks;
+  float* ywin = reinterpret_cast<float*>(dk_smem);
+  float* stile = reinterpret_cast<float*>(dk_smem + p.off_s);
+  T* raw = reinterpret_cast<T*>(dk_smem + p.off_raw);
+  float* gbuf = reinterpret_cast<float*>(dk_smem + p.off_g);
   const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int fq = tid % quads_f;
-  const int cq = tid / quads_f;
-  const size_t row_stride = static_cast<size_t>(W) * C;
+  const int nthr = blockDim.x;
+  const int ftiles = F / ft;
+  const int ctiles = Cp / cc;
+  const int grp = blockIdx.x / (ctiles * ftiles);
+  const int c0 = (blockIdx.x / ftiles % ctiles) * cc;
+  const int f0 = (blockIdx.x % ftiles) * ft;
+  const long long total = static_cast<long long>(B) * H * nch;
+  const int s_begin = static_cast<int>(blockIdx.y * total / gridDim.y);
+  const int stages = static_cast<int>((blockIdx.y + 1) * total / gridDim.y) - s_begin;
 
-  float acc[4][4] = {};
-  for (int r = r_begin; r < r_end; ++r) {
-    const int b = r / H;
-    const int i = r - b * H;
-    const int e = i * taps + t;
-    const int r0 = y0t[e] - pad;  // unpadded rows; outside [0, H) is zero
-    const int r1 = y1t[e] - pad;
-    const int cx = cxt[e];
-    const float wy = wyt[e];
-    const float wx = wxt[e];
-    const bool in0 = r0 >= 0 && r0 < H;
-    const bool in1 = r1 >= 0 && r1 < H;
-    const T* xb = x + static_cast<size_t>(b) * H * row_stride + c0;
-    const T* row0 = xb + static_cast<size_t>(in0 ? r0 : 0) * row_stride;
-    const T* row1 = xb + static_cast<size_t>(in1 ? r1 : 0) * row_stride;
-    const float* grow = g + (static_cast<size_t>(b) * H + i) * W * F + f0;
+  // Stage st of this block: image row r = b H + i and its first column j0.
+  struct Stage {
+    int r, i, j0;
+  };
+  auto stage = [&](int st) {
+    const int s = s_begin + st;
+    const int r = s / nch;
+    return Stage{r, r % H, (s - r * nch) * tw};
+  };
 
-    for (int j0 = 0; j0 < W; j0 += kChunk) {
-      __syncthreads();  // the previous chunk's tiles are no longer read
-      for (int e = tid; e < kChunk * ct; e += nthreads) {
-        const int jj = e / ct;
-        const int c = e - jj * ct;
-        const int j = j0 + jj;
-        float s = 0.f;
-        if (j < W) {
-          int q0 = j + cx;
-          if (q0 >= W) q0 -= W;
-          int q1 = q0 + 1;
-          if (q1 >= W) q1 -= W;
-          const float a00 = in0 ? to_float(row0[q0 * C + c]) : 0.f;
-          const float a10 = in1 ? to_float(row1[q0 * C + c]) : 0.f;
-          const float a01 = in0 ? to_float(row0[q1 * C + c]) : 0.f;
-          const float a11 = in1 ? to_float(row1[q1 * C + c]) : 0.f;
-          const float g0 = (1.f - wy) * a00 + wy * a10;
-          const float g1 = (1.f - wy) * a01 + wy * a11;
-          s = (1.f - wx) * g0 + wx * g1;
-        }
-        stile[jj * lds + c] = s;
+  // The copies and builds walk their elements from this thread in steps of
+  // the block's threads: (window column, 4 channels), (column, 4 output
+  // channels) or (column, tap x 4 channels). Each walk is set up per stage,
+  // which keeps registers free for the product's tile.
+  auto load_raw = [&](int st) {
+    const Stage sg = stage(st);
+    const int4 rt = rows_tab[sg.i * G + grp];
+    const T* xb = x + static_cast<size_t>(sg.r - sg.i) * W * Cp + c0;  // image b
+    for (int y = 0; y < 2; ++y) {
+      const int row = y ? rt.y : rt.x;
+      const bool in = row >= 0 && row < H;
+      const T* src = xb + static_cast<size_t>(in ? row : 0) * W * Cp;
+      T* dst = raw + static_cast<size_t>(y) * wn * cc;
+      for (DivWalk v(tid, nthr, cc / 4); v.q < wn; v.next()) {
+        int col = sg.j0 + rt.z + v.q;
+        while (col >= W) col -= W;
+        cp_async4(dst + v.q * cc + 4 * v.r, src + static_cast<size_t>(col) * Cp + 4 * v.r, in);
       }
-      for (int e = tid; e < kChunk * quads_f; e += nthreads) {
-        const int jj = e / quads_f;
-        const int q = e - jj * quads_f;
-        const int j = j0 + jj;
-        const float4 v = j < W ? load4(grow + static_cast<size_t>(j) * F + 4 * q)
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
-        *reinterpret_cast<float4*>(gtile + jj * ldg + 4 * q) = v;
-      }
-      __syncthreads();
-      const int n = W - j0 < kChunk ? W - j0 : kChunk;
-      for (int jj = 0; jj < n; ++jj) {
-        const float4 s = *reinterpret_cast<const float4*>(stile + jj * lds + 4 * cq);
-        const float4 gv = *reinterpret_cast<const float4*>(gtile + jj * ldg + 4 * fq);
-        const float sv[4] = {s.x, s.y, s.z, s.w};
+    }
+  };
+  auto load_g = [&](int st, int buf) {
+    const Stage sg = stage(st);
+    const float* src = g + (static_cast<size_t>(sg.r) * W + sg.j0) * F + f0;
+    float* dst = gbuf + static_cast<size_t>(buf) * tw * ft;
+    for (DivWalk v(tid, nthr, ft / 4); v.q < tw; v.next()) {
+      const bool in = sg.j0 + v.q < W;
+      cp_async4(dst + v.q * ft + 4 * v.r, src + static_cast<size_t>(in ? v.q : 0) * F + 4 * v.r,
+                in);
+    }
+  };
+  auto build_ywin = [&](int st, int buf) {
+    const Stage sg = stage(st);
+    const float wy = __int_as_float(rows_tab[sg.i * G + grp].w);
+    const T* a = raw;
+    const T* c = raw + static_cast<size_t>(wn) * cc;
+    float* dst = ywin + static_cast<size_t>(buf) * wn * cc;
+    for (DivWalk v(tid, nthr, cc / 4); v.q < wn; v.next()) {
+      const int e = v.q * cc + 4 * v.r;
+      const float4 a0 = load4(a + e);
+      const float4 a1 = load4(c + e);
+      store4(dst + e, make_float4((1.f - wy) * a0.x + wy * a1.x, (1.f - wy) * a0.y + wy * a1.y,
+                                  (1.f - wy) * a0.z + wy * a1.z, (1.f - wy) * a0.w + wy * a1.w));
+    }
+  };
+  auto build_s = [&](int st, int buf) {
+    const Stage sg = stage(st);
+    const int2* tt = taps_tab + static_cast<size_t>(sg.i) * k2 + grp * nt;
+    const float* src = ywin + static_cast<size_t>(buf) * wn * cc;
+    const int lq = __ffs(cc) - 3;  // cc / 4 = 2^lq (cc is a power of two)
+    for (DivWalk v(tid, nthr, nt << lq); v.q < tw; v.next()) {
+      const int m = v.r >> lq;
+      const int c = 4 * (v.r & ((1 << lq) - 1));
+      const int2 t = tt[m];
+      const float wx = __int_as_float(t.y);
+      const float a0 = 1.f - wx;
+      const float* s = src + (v.q + t.x) * cc + c;
+      const float4 u0 = load4(s);
+      const float4 u1 = load4(s + cc);
+      store4(stile + v.q * mp + m * cc + c,
+             make_float4(a0 * u0.x + wx * u1.x, a0 * u0.y + wx * u1.y, a0 * u0.z + wx * u1.z,
+                         a0 * u0.w + wx * u1.w));
+    }
+  };
+
+  const int ncg = ft / CH;
+  const int base = mp / 8 * ncg;  // threads of one slice
+  const int slice = tid / base;
+  const int rg = tid % base / ncg;
+  const int cg = tid % ncg;
+  const int sw = tw / p.slices;  // columns of a slice per stage
+  float acc[8][CH] = {};
+  auto product = [&](int buf) {
+    const float* sp = stile + static_cast<size_t>(slice) * sw * mp + 8 * rg;
+    const float* gp = gbuf + (static_cast<size_t>(buf) * tw + slice * sw) * ft + CH * cg;
+#pragma unroll 4
+    for (int jj = 0; jj < sw; ++jj) {
+      const float4 s0 = *reinterpret_cast<const float4*>(sp + jj * mp);
+      const float4 s1 = *reinterpret_cast<const float4*>(sp + jj * mp + 4);
+      const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+      float gv[CH];
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          acc[a][0] = fmaf(sv[a], gv.x, acc[a][0]);
-          acc[a][1] = fmaf(sv[a], gv.y, acc[a][1]);
-          acc[a][2] = fmaf(sv[a], gv.z, acc[a][2]);
-          acc[a][3] = fmaf(sv[a], gv.w, acc[a][3]);
-        }
+      for (int n = 0; n < CH; n += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(gp + jj * ft + n);
+        gv[n] = v.x;
+        gv[n + 1] = v.y;
+        gv[n + 2] = v.z;
+        gv[n + 3] = v.w;
       }
+#pragma unroll
+      for (int m = 0; m < 8; ++m)
+#pragma unroll
+        for (int n = 0; n < CH; ++n) acc[m][n] = fmaf(sv[m], gv[n], acc[m][n]);
+    }
+  };
+
+  if (stages > 0) {
+    load_raw(0);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    build_ywin(0, 0);
+    __syncthreads();  // raw is free again
+    if (stages > 1) load_raw(1);
+    load_g(0, 0);
+    cp_async_commit();
+    for (int st = 0; st < stages; ++st) {
+      const int buf = st & 1;
+      cp_async_wait_all();
+      __syncthreads();  // raw(st+1) and g(st) landed; the last product is done
+      build_s(st, buf);
+      if (st + 1 < stages) build_ywin(st + 1, buf ^ 1);
+      __syncthreads();  // stile(st) and ywin(st+1) built; raw is free again
+      if (st + 2 < stages) load_raw(st + 2);
+      if (st + 1 < stages) load_g(st + 1, buf ^ 1);
+      cp_async_commit();
+      product(buf);
     }
   }
 
-  float* out = ws + static_cast<size_t>(blockIdx.z) * taps * C * F;
+  // The slices' tiles summed in slice order: slices 1.. through shared
+  // memory ([slices - 1][mp][ft] from the start), slice 0 adds and stores.
+  if (p.slices > 1) {
+    float* red = reinterpret_cast<float*>(dk_smem);
+    __syncthreads();  // every product is done; shared memory is free
+    if (slice > 0) {
+      float* r = red + (static_cast<size_t>(slice - 1) * mp + 8 * rg) * ft + CH * cg;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const size_t row = static_cast<size_t>(t) * C + c0 + 4 * cq + a;
-    *reinterpret_cast<float4*>(out + row * F + f0 + 4 * fq) =
-        make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+      for (int m = 0; m < 8; ++m)
+#pragma unroll
+        for (int n = 0; n < CH; n += 4)
+          *reinterpret_cast<float4*>(r + m * ft + n) =
+              make_float4(acc[m][n], acc[m][n + 1], acc[m][n + 2], acc[m][n + 3]);
+    }
+    __syncthreads();
+    if (slice > 0) return;
+    for (int s = 1; s < p.slices; ++s) {
+      const float* r = red + (static_cast<size_t>(s - 1) * mp + 8 * rg) * ft + CH * cg;
+#pragma unroll
+      for (int m = 0; m < 8; ++m)
+#pragma unroll
+        for (int n = 0; n < CH; n += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(r + m * ft + n);
+          acc[m][n] += v.x;
+          acc[m][n + 1] += v.y;
+          acc[m][n + 2] += v.z;
+          acc[m][n + 3] += v.w;
+        }
+    }
+  }
+  float* out = ws + static_cast<size_t>(blockIdx.y) * k2 * Cp * F + f0 + CH * cg;
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    const int e = 8 * rg + m;  // tap-major row of the block's tile
+    if (e >= nt * cc) break;
+    const int tap = e / cc;
+    const size_t row = static_cast<size_t>(grp * nt + tap) * Cp + c0 + e - tap * cc;
+#pragma unroll
+    for (int n = 0; n < CH; n += 4)
+      *reinterpret_cast<float4*>(out + row * F + n) =
+          make_float4(acc[m][n], acc[m][n + 1], acc[m][n + 2], acc[m][n + 3]);
   }
 }
 
@@ -903,25 +1033,108 @@ int launch_dx(const void* g, const void* kt, const void* pint, const void* pflt,
   return cudaGetLastError();
 }
 
-template <typename T, int KC>
-int launch_dk(const void* x, const void* g, const void* y0, const void* y1,
-              const void* cx, const void* wy, const void* wx, void* ws,
-              void* out, int nsplit, int B, int H, int W, int C, int F, int k,
-              cudaStream_t stream) {
-  DkPlan p;
-  if (!odd_size(k) || !plan_dk(C, F, &p) || nsplit < 1) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(da_dk_kernel<T, KC>, p.smem);
+// K3/K6 tiling: ft output channels (the largest power of two up to 128
+// dividing F); register tiles of 8 rows x CH, CH = 8 from ft = 64 on where
+// blocks of at most dk_max_threads still hold 160 threads, else CH = 4 in
+// up to kThreads; the most input channels cc (a power of two from 128 down
+// to 4 dividing Cp) whose taps x cc rows, padded to 8, fit those threads,
+// then the most slices (8, 4, 2) that do. A stage's columns tw: 64 where
+// its shared memory stays within 64 KB, else 32, at most W rounded up to
+// 8. elem: the bytes of x's type. False when the shape does not tile or
+// the shared memory exceeds a block's.
+bool plan_dk(int W, int Cp, int F, int k, int taps, int span, int elem, DkPlan* p) {
+  if (W <= 0 || Cp <= 0 || Cp % 4 != 0 || F <= 0 || F % 4 != 0 || !odd_size(k) ||
+      (taps != 1 && taps != k) || span < 0)
+    return false;
+  int ft = 128;
+  while (F % ft != 0) ft /= 2;
+  auto rows8 = [](int n) { return (n + 7) / 8 * 8; };
+  // The input channels and slices of 8 x ch tiles in at most `limit`
+  // threads: the most channels, then the most slices.
+  int chans, cc, mp, base, slices;
+  auto tile = [&](int ch, int limit) {
+    chans = ch;
+    cc = 128;
+    while (cc >= 4 && (Cp % cc != 0 || rows8(taps * cc) / 8 * (ft / chans) > limit)) cc /= 2;
+    if (cc < 4) return false;
+    mp = rows8(taps * cc);
+    base = mp / 8 * (ft / chans);
+    slices = 8;
+    while (slices > 1 && base * slices > limit) slices /= 2;
+    return true;
+  };
+  // 8 x 8 tiles from 64 output channels on, in blocks of at most
+  // dk_max_threads; 8 x 4 tiles where that leaves fewer than 160 threads.
+  const bool wide = ft >= 64 && tile(8, dk_max_threads(k == 3 ? 3 : 0, 8)) &&
+                    base * slices >= 160;
+  if (!wide && !tile(4, kThreads)) return false;
+  auto up16 = [](size_t n) { return (n + 15) / 16 * 16; };
+  auto layout = [&](int tw) {
+    p->wn = tw + span + 1;
+    size_t off = sizeof(float) * 2 * static_cast<size_t>(p->wn) * cc;  // ywin
+    p->off_s = static_cast<int>(off);
+    off += sizeof(float) * static_cast<size_t>(tw) * mp;
+    p->off_raw = static_cast<int>(off);
+    off += up16(static_cast<size_t>(elem) * 2 * p->wn * cc);
+    p->off_g = static_cast<int>(off);
+    off += sizeof(float) * 2 * static_cast<size_t>(tw) * ft;
+    const size_t red = sizeof(float) * static_cast<size_t>(slices - 1) * mp * ft;
+    return off > red ? off : red;
+  };
+  const int wcap = (W + 7) / 8 * 8;
+  int tw = wcap < 64 ? wcap : 64;
+  size_t smem = layout(tw);
+  if (tw > 32 && smem > 64 * 1024) smem = layout(tw = 32);
+  p->cc = cc;
+  p->taps = taps;
+  p->groups = k * k / taps;
+  p->k = k;
+  p->ft = ft;
+  p->chans = chans;
+  p->mp = mp;
+  p->slices = slices;
+  p->tw = tw;
+  p->chunks = (W + tw - 1) / tw;
+  p->threads = base * slices;
+  p->tiles = p->groups * (Cp / cc) * (F / ft);
+  p->smem = static_cast<int>(smem);
+  return smem <= 232448;
+}
+
+template <typename T, int KC, int CH>
+cudaError_t launch_dk_plan(const DkPlan& p, const void* x, const void* g, const void* rows_tab,
+                           const void* taps_tab, void* ws, int nsplit, int B, int H, int W,
+                           int Cp, int F, cudaStream_t stream) {
+  cudaError_t err = allow_smem(da_dk_kernel<T, KC, CH>, p.smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.tiles, k * k, nsplit);
-  da_dk_kernel<T, KC><<<grid, p.threads, p.smem, stream>>>(
+  da_dk_kernel<T, KC, CH><<<dim3(p.tiles, nsplit), p.threads, p.smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(g),
-      static_cast<const int*>(y0), static_cast<const int*>(y1),
-      static_cast<const int*>(cx), static_cast<const float*>(wy),
-      static_cast<const float*>(wx), static_cast<float*>(ws), B, H, W, C, F,
-      p.ct, p.ft, k);
-  err = cudaGetLastError();
+      static_cast<const int4*>(rows_tab), static_cast<const int2*>(taps_tab),
+      static_cast<float*>(ws), B, H, W, Cp, F, p);
+  return cudaGetLastError();
+}
+
+// Blocks of the K3/K6 instantiation that plan p launches resident on one
+// SM at once (its registers and shared memory decide).
+template <typename T, int KC, int CH>
+cudaError_t resident_dk(const DkPlan& p, int* blocks) {
+  cudaError_t err = allow_smem(da_dk_kernel<T, KC, CH>, p.smem);
   if (err != cudaSuccess) return err;
-  const size_t n = static_cast<size_t>(k) * k * C * F;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, da_dk_kernel<T, KC, CH>,
+                                                       p.threads, p.smem);
+}
+
+template <typename T, int KC>
+int launch_dk(const void* x, const void* g, const void* rows_tab, const void* taps_tab,
+              void* ws, void* out, int nsplit, int B, int H, int W, int Cp, int F, int k,
+              int taps, int span, cudaStream_t stream) {
+  DkPlan p;
+  if (!plan_dk(W, Cp, F, k, taps, span, sizeof(T), &p) || nsplit < 1)
+    return cudaErrorInvalidValue;
+  cudaError_t err = (p.chans == 8 ? launch_dk_plan<T, KC, 8> : launch_dk_plan<T, KC, 4>)(
+      p, x, g, rows_tab, taps_tab, ws, nsplit, B, H, W, Cp, F, stream);
+  if (err != cudaSuccess) return err;
+  const size_t n = static_cast<size_t>(k) * k * Cp * F;
   const int threads = 256;
   da_dk_reduce_kernel<<<static_cast<unsigned>((n + threads - 1) / threads), threads, 0,
                         stream>>>(static_cast<const float*>(ws), nsplit, n,
@@ -990,54 +1203,51 @@ int skyhdr_da_dx_tiles(int W, int Cp, int F) {
   return ((W + p.tw - 1) / p.tw) * (Cp / p.ct);
 }
 
-// K3/K6 row splits for a launch at kernel size k: enough blocks for ~8 per
-// SM (two waves at four resident blocks) over all k^2 taps, at most one
-// split per (b, i) row. Returns -1 when k is not odd or C or F does not fit
-// the tiling, or a negative cudaError_t.
-int skyhdr_da_dk_splits(int B, int H, int C, int F, int k, int device) {
+// K3/K6 tiling of x [*, W, Cp] -> F at kernel size k over window tables
+// of `taps` taps a group and this span (is_bf16: x's type): out[0] blocks
+// per split, out[1] threads a block, out[2] blocks resident on one SM of
+// card `device`, out[3] column chunks a (b, i) row. Returns 0, -1 when the
+// shape does not tile, or a cudaError_t.
+int skyhdr_da_dk_tiles(int W, int Cp, int F, int k, int taps, int span, int is_bf16,
+                       int device, int* out) {
   DkPlan p;
-  if (!odd_size(k) || !plan_dk(C, F, &p)) return -1;
-  int sms = 0;
-  const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  const int per_split = k * k * p.tiles;
-  const int n = (8 * sms + per_split - 1) / per_split;
-  const int rows = B * H;
-  return n < 1 ? 1 : (n > rows ? rows : n);
+  if (!plan_dk(W, Cp, F, k, taps, span, is_bf16 ? 2 : 4, &p)) return -1;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  const bool k3 = k == 3, c8 = p.chans == 8;
+  if (is_bf16)
+    err = k3 ? (c8 ? resident_dk<__nv_bfloat16, 3, 8>(p, &blocks)
+                   : resident_dk<__nv_bfloat16, 3, 4>(p, &blocks))
+             : (c8 ? resident_dk<__nv_bfloat16, 0, 8>(p, &blocks)
+                   : resident_dk<__nv_bfloat16, 0, 4>(p, &blocks));
+  else
+    err = k3 ? (c8 ? resident_dk<float, 3, 8>(p, &blocks) : resident_dk<float, 3, 4>(p, &blocks))
+             : (c8 ? resident_dk<float, 0, 8>(p, &blocks) : resident_dk<float, 0, 4>(p, &blocks));
+  if (err != cudaSuccess) return err;
+  out[0] = p.tiles;
+  out[1] = p.threads;
+  out[2] = blocks;
+  out[3] = p.chunks;
+  return 0;
 }
 
-// K3: x [B,H,W,C] (bf16 when is_bf16, else f32), g [B,H,W,F] f32, ws
-// [nsplit,9C,F] f32 scratch, out [9C,F] f32. Launches the partials and the
-// reduction on `stream`; returns the cudaError_t of the launches.
-int skyhdr_da_dk_k3(const void* x, const void* g, const void* y0,
-                    const void* y1, const void* cx, const void* wy,
-                    const void* wx, void* ws, void* out, int nsplit, int B,
-                    int H, int W, int C, int F, int is_bf16, int device,
-                    void* stream) {
+// K3 (k = 3) and K6 (any other odd k): x [B,H,W,Cp] (bf16 when is_bf16,
+// else f32; Cp a multiple of 4, the wrapper pads C with zero channels), g
+// [B,H,W,F] f32, the window tables rows [H, G, 4] and taps [H, k^2, 2]
+// int32 with `taps` taps a group and their span (as for K1), ws
+// [nsplit, k^2 Cp, F] f32 scratch, out [k^2 Cp, F] f32. Launches the
+// partials over nsplit splits of the (b, i) rows' column chunks and the
+// reduction in split order on `stream`; returns the cudaError_t.
+int skyhdr_da_dk(const void* x, const void* g, const void* rows_tab, const void* taps_tab,
+                 void* ws, void* out, int nsplit, int B, int H, int W, int Cp, int F, int k,
+                 int taps, int span, int is_bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_dk<__nv_bfloat16, 3>(x, g, y0, y1, cx, wy, wx, ws, out, nsplit,
-                                       B, H, W, C, F, 3, s);
-  return launch_dk<float, 3>(x, g, y0, y1, cx, wy, wx, ws, out, nsplit, B, H, W,
-                             C, F, 3, s);
-}
-
-// K6: K3 at any odd kernel size k: tables [H, k^2], ws [nsplit, k^2 C, F],
-// out [k^2 C, F].
-int skyhdr_da_dk(const void* x, const void* g, const void* y0, const void* y1,
-                 const void* cx, const void* wy, const void* wx, void* ws,
-                 void* out, int nsplit, int B, int H, int W, int C, int F,
-                 int k, int is_bf16, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_dk<__nv_bfloat16, 0>(x, g, y0, y1, cx, wy, wx, ws, out, nsplit,
-                                       B, H, W, C, F, k, s);
-  return launch_dk<float, 0>(x, g, y0, y1, cx, wy, wx, ws, out, nsplit, B, H, W,
-                             C, F, k, s);
+  auto launch = k == 3 ? (is_bf16 ? launch_dk<__nv_bfloat16, 3> : launch_dk<float, 3>)
+                       : (is_bf16 ? launch_dk<__nv_bfloat16, 0> : launch_dk<float, 0>);
+  return launch(x, g, rows_tab, taps_tab, ws, out, nsplit, B, H, W, Cp, F, k, taps, span, s);
 }
 
 const char* skyhdr_cuda_error_string(int code) {

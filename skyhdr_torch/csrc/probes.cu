@@ -67,12 +67,27 @@
 //   accumulation) and storing it (all blocks store the same values, so no
 //   block's work is dead). Bound by operations: 2*m*k*f*ndots*steps
 //   (38.65 GFLOP for every configuration of the tool: 0.577 ms f32 on CUDA
-//   cores, 0.039 ms bf16 on tensor cores). Both stage a chunk of the depth
-//   once per block and run the ndots products from shared memory. f32:
-//   lhs^T and rhs chunks of 32 rows, an 8x8 register tile per thread. bf16:
-//   lhs and rhs^T chunks of 64 columns (lhs [m,k] and rhs^T [f,k], k padded
-//   to 16 by the wrapper), mma.sync.m16n8k16 with both fragments read from
-//   shared memory, up to 16 output tiles per warp.
+//   cores, 0.039 ms bf16 on tensor cores). Every one of the ndots products
+//   reads its operands from shared memory, as each `jnp.dot` of the TPU
+//   kernel reads its VMEM refs. What held the first version (8.47 ms per
+//   default run against 5.38 for one batched matmul; bf16 at 4-5% of its
+//   bound): each chunk of the depth was staged synchronously behind two
+//   barriers, in series with the products (f32 c3/d2, ndots 2-3, lost to
+//   the library), lhs transposed one scalar at a time; and the bf16 mma
+//   was fed by six 32-bit shared loads, every fragment loaded again for
+//   each 16x8 tile. What this design does: stages of (output tile, 32-deep
+//   chunk of the depth), the next (f32) or the next two (bf16, a ring of
+//   three) copied with 16-byte cp.async under the current one's products;
+//   a block tile of 256 x 64, 128 x 128 or 64 x 256 outputs (the wrapper
+//   pads m, k and f to it). f32: 256 threads of 8 x 8, lhs kept row-major
+//   and read as float4 along the depth (no transpose). bf16: 8 warps of
+//   64 x 32 or 32 x 64 outputs; per 16-deep step a warp loads its A
+//   fragments with ldmatrix.x4 and its B fragments (rhs^T, K-contiguous)
+//   with ldmatrix.x4 from 80-byte rows (conflict-free), and each A
+//   fragment feeds 4-8 mma.sync.m16n8k16, each B fragment 2-4. Every block
+//   stages all of lhs and rhs (the TPU kernel's operands stay in VMEM
+//   across its grid steps): 377 MB through L2 per run at d2, which holds
+//   the long-depth bf16 configurations (c3h, d2h) to ~20-25% of the bound.
 //
 // Every launch is on the caller's stream, allocates nothing and returns
 // cudaGetLastError().
@@ -523,122 +538,256 @@ __global__ void pack_samples_kernel(const uint4* __restrict__ x, uint4* __restri
 }
 
 // ------------------------------------------------------------------ K12
-constexpr int kChunkK = 32;
+constexpr int kMmChunkF32 = 32;   // f32: depth staged per stage
+constexpr int kMmStagesF32 = 2;   // f32: stages in the ring (1 in flight)
+constexpr int kMmChunkBf16 = 32;  // bf16: depth staged per stage
+constexpr int kMmStagesBf16 = 3;  // bf16: stages in the ring (2 in flight)
+constexpr int kMmLdB = kMmChunkBf16 + 8;  // bf16 chunk row stride: 80 bytes
 
-// Grid (steps), (m/8)*(f/8) threads; dynamic smem kChunkK*(m+4) +
-// kChunkK*(f+4) floats. lhs [m,k], rhs [k,f], out [m,f], all f32; m, f
-// multiples of 8. Each chunk of the depth is staged once and the ndots
-// products are run over it.
-__global__ void mm_shape_f32_kernel(const float* __restrict__ lhs,
-                                    const float* __restrict__ rhs,
-                                    float* __restrict__ out, int m, int k, int f,
-                                    int ndots) {
-  extern __shared__ __align__(16) float mm_smem[];
-  const int ldl = m + 4, ldr = f + 4;
-  float* ls = mm_smem;                 // [kChunkK, ldl]: lhs^T chunk
-  float* rs = mm_smem + kChunkK * ldl;  // [kChunkK, ldr]: rhs chunk
-  const int tid = threadIdx.x;
-  const int tf = tid % (f / 8);
-  const int tm = tid / (f / 8);
-  float acc[8][8] = {};
-  for (int k0 = 0; k0 < k; k0 += kChunkK) {
-    const int kc = k - k0 < kChunkK ? k - k0 : kChunkK;
-    __syncthreads();
-    for (int e = tid; e < m * kc; e += blockDim.x) {
-      const int row = e / kc, kk = e - row * kc;
-      ls[kk * ldl + row] = lhs[static_cast<size_t>(row) * k + k0 + kk];
-    }
-    for (int e = tid; e < kc * f; e += blockDim.x) {
-      const int kk = e / f, col = e - kk * f;
-      rs[kk * ldr + col] = rhs[static_cast<size_t>(k0 + kk) * f + col];
-    }
-    __syncthreads();
-    for (int d = 0; d < ndots; ++d) {
-      for (int kk = 0; kk < kc; ++kk) {
-        const float4 a0 = ld4(ls + kk * ldl + 8 * tm);
-        const float4 a1 = ld4(ls + kk * ldl + 8 * tm + 4);
-        const float4 b0 = ld4(rs + kk * ldr + 8 * tf);
-        const float4 b1 = ld4(rs + kk * ldr + 8 * tf + 4);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int a = 0; a < 8; ++a)
-#pragma unroll
-          for (int q = 0; q < 8; ++q) acc[a][q] = fmaf(av[a], bv[q], acc[a][q]);
-      }
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    float* o = out + static_cast<size_t>(8 * tm + a) * f + 8 * tf;
-    *reinterpret_cast<float4*>(o) = make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
-    *reinterpret_cast<float4*>(o + 4) = make_float4(acc[a][4], acc[a][5], acc[a][6], acc[a][7]);
-  }
+// 16-byte asynchronous copy global -> shared (L2 only), and its groups.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-constexpr int kMmTilesPerWarp = 16;
-constexpr int kChunkMma = 64;  // depth staged per chunk (bf16)
+// ldmatrix: four 8 x 8 bf16 matrices from shared memory at the 32-bit
+// shared address s; lanes 8q..8q+7 give the row addresses of matrix q, and
+// r[q] is this lane's part of it.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], unsigned s) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
 
-// Grid (steps), kBlock threads; dynamic smem (m + f) * (kChunkMma + 8)
-// bf16. lhs bf16 [m,k], rt bf16 [f,k] (rhs^T), out f32 [m,f]; m a multiple
-// of 16, f of 8, k of 16, (m/16)*(f/8) <= 8 * kMmTilesPerWarp. Warp w takes
-// the 16x8 output tiles w, w+8, ...; each chunk of the depth is staged once
-// (16-byte vectors, rows padded by 8 so that the fragment loads are
-// conflict-free) and the ndots products are run over it.
-__global__ void __launch_bounds__(kBlock)
-mm_shape_bf16_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rt,
-                     float* __restrict__ out, int m, int k, int f, int ndots) {
-  extern __shared__ __align__(16) unsigned char mmb_smem[];
-  constexpr int ld = kChunkMma + 8;
-  bf16* la = reinterpret_cast<bf16*>(mmb_smem);  // [m, ld]: lhs chunk
-  bf16* rb = la + m * ld;                         // [f, ld]: rhs^T chunk
+// K12 f32: a block tile of BM x (16384 / BM) outputs, 256 threads of 8 x 8.
+// Grid (steps), 256 threads; dynamic smem 2 stages of lhs [BM][36] and rhs
+// [32][BF] f32. lhs [m,k], rhs [k,f], out [m,f]; m a multiple of BM, f of
+// BF, k of 32. Stages are (output tile, 32-deep chunk); the next stage is
+// copied with 16-byte cp.async under the current one's ndots products.
+// lhs keeps its row-major layout: a thread's 8 rows are tm + r BM/8, read
+// as float4 along the depth (4 depth steps of 64 FMAs each per 8 + 8
+// float4 loads); the rows of a warp are consecutive, so with the 36-float
+// stride the loads are conflict-free.
+template <int BM>
+__global__ void __launch_bounds__(kBlock, 2)
+mm_shape_f32_kernel(const float* __restrict__ lhs, const float* __restrict__ rhs,
+                    float* __restrict__ out, int m, int k, int f, int ndots) {
+  constexpr int BF = 16384 / BM;
+  constexpr int TF = BF / 8;                   // threads along f
+  constexpr int RS = BM / 8;                   // stride of a thread's rows
+  constexpr int ldl = kMmChunkF32 + 4;
+  constexpr int stage_floats = BM * ldl + kMmChunkF32 * BF;
+  extern __shared__ __align__(16) float mm_smem[];
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int g = (tid & 31) >> 2;
-  const int tq = tid & 3;
-  const int nt = f / 8;
-  const int tiles = (m / 16) * nt;
-  float acc[kMmTilesPerWarp][4] = {};
-  for (int k0 = 0; k0 < k; k0 += kChunkMma) {
-    const int kc = k - k0 < kChunkMma ? k - k0 : kChunkMma;
-    const int vpr = kc / 8;
-    __syncthreads();
-    for (int e = tid; e < (m + f) * vpr; e += blockDim.x) {
-      const int row = e / vpr, v = e - row * vpr;
-      const bf16* src = row < m ? lhs + static_cast<size_t>(row) * k
-                                : rt + static_cast<size_t>(row - m) * k;
-      *reinterpret_cast<uint4*>(la + row * ld + 8 * v) =
-          *reinterpret_cast<const uint4*>(src + k0 + 8 * v);
+  const int tf = tid % TF;
+  const int tm = tid / TF;
+  const int ftiles = f / BF;
+  const int chunks = k / kMmChunkF32;
+  const int stages = (m / BM) * ftiles * chunks;
+
+  auto load = [&](int st, int buf) {
+    const int tile = st / chunks;
+    const int k0 = (st % chunks) * kMmChunkF32;
+    const int m0 = tile / ftiles * BM;
+    const int f0 = tile % ftiles * BF;
+    float* ls = mm_smem + buf * stage_floats;
+    float* rs = ls + BM * ldl;
+    for (int e = tid; e < BM * kMmChunkF32 / 4; e += kBlock) {
+      const int row = e / (kMmChunkF32 / 4), v = e % (kMmChunkF32 / 4);
+      cp_async16(ls + row * ldl + 4 * v, lhs + static_cast<size_t>(m0 + row) * k + k0 + 4 * v);
     }
-    __syncthreads();
-    for (int d = 0; d < ndots; ++d) {
-      for (int kk = 0; kk < kc; kk += 16) {
+    for (int e = tid; e < kMmChunkF32 * BF / 4; e += kBlock) {
+      const int kk = e / (BF / 4), v = e % (BF / 4);
+      cp_async16(rs + kk * BF + 4 * v, rhs + static_cast<size_t>(k0 + kk) * f + f0 + 4 * v);
+    }
+    cp_async_commit();
+  };
+
+  float acc[8][8];
+  for (int q = 0; q < kMmStagesF32 - 1; ++q) {
+    if (q < stages) load(q, q);
+    else cp_async_commit();
+  }
+  for (int st = 0; st < stages; ++st) {
+    const int buf = st % kMmStagesF32;
+    const int chunk = st % chunks;
+    cp_async_wait<kMmStagesF32 - 2>();
+    __syncthreads();  // stage st landed; stage st - 1 is no longer read
+    const int next = st + kMmStagesF32 - 1;
+    if (next < stages) load(next, next % kMmStagesF32);
+    else cp_async_commit();
+    if (chunk == 0) {
 #pragma unroll
-        for (int s = 0; s < kMmTilesPerWarp; ++s) {
-          const int tile = warp + 8 * s;
-          if (tile < tiles) {
-            const bf16* pa = la + (16 * (tile / nt) + g) * ld + kk + 2 * tq;
-            const bf16* pb = rb + (8 * (tile % nt) + g) * ld + kk + 2 * tq;
-            const uint32_t a[4] = {ld32(pa), ld32(pa + 8 * ld), ld32(pa + 8),
-                                   ld32(pa + 8 * ld + 8)};
-            mma_bf16(acc[s], a, ld32(pb), ld32(pb + 8));
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[r][q] = 0.f;
+    }
+    const float* ls = mm_smem + buf * stage_floats + tm * ldl;
+    const float* rs = mm_smem + buf * stage_floats + BM * ldl + 8 * tf;
+    for (int d = 0; d < ndots; ++d) {
+#pragma unroll 2
+      for (int kq = 0; kq < kMmChunkF32 / 4; ++kq) {
+        float4 a[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) a[r] = ld4(ls + r * RS * ldl + 4 * kq);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float4 b0 = ld4(rs + (4 * kq + u) * BF);
+          const float4 b1 = ld4(rs + (4 * kq + u) * BF + 4);
+          const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            const float av = u == 0 ? a[r].x : u == 1 ? a[r].y : u == 2 ? a[r].z : a[r].w;
+#pragma unroll
+            for (int q = 0; q < 8; ++q) acc[r][q] = fmaf(av, bv[q], acc[r][q]);
           }
         }
       }
     }
-  }
+    if (chunk == chunks - 1) {
+      const int tile = st / chunks;
+      const int m0 = tile / ftiles * BM, f0 = tile % ftiles * BF;
 #pragma unroll
-  for (int s = 0; s < kMmTilesPerWarp; ++s) {
-    const int tile = warp + 8 * s;
-    if (tile < tiles) {
-      const int row = 16 * (tile / nt) + g;
-      const int col = 8 * (tile % nt) + 2 * tq;
-      *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * f + col) =
-          make_float2(acc[s][0], acc[s][1]);
-      *reinterpret_cast<float2*>(out + static_cast<size_t>(row + 8) * f + col) =
-          make_float2(acc[s][2], acc[s][3]);
+      for (int r = 0; r < 8; ++r) {
+        float* o = out + static_cast<size_t>(m0 + tm + r * RS) * f + f0 + 8 * tf;
+        *reinterpret_cast<float4*>(o) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+        *reinterpret_cast<float4*>(o + 4) =
+            make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+      }
     }
   }
+}
+
+// K12 bf16: 8 warps in a WARPS_M x (8 / WARPS_M) grid, each a warp tile of
+// (16 WTM) x (8 WTN) outputs: a block tile of BM x BF. Grid (steps), 256
+// threads; dynamic smem a ring of 3 stages of lhs [BM][40] and rhs^T
+// [BF][40] bf16 (the 80-byte rows put the 8 rows of every ldmatrix phase
+// in distinct bank groups). lhs bf16 [m,k], rt bf16 [f,k] (rhs^T), out f32
+// [m,f]; m a multiple of BM, f of BF, k of 32. Stages are (output tile,
+// 32-deep chunk); the next two are copied with 16-byte cp.async under the
+// current one's products. Per product and 16-deep step a warp loads its
+// WTM A fragments with ldmatrix.x4 and its WTN B fragments with WTN / 2
+// ldmatrix.x4 (rhs^T is K-contiguous, so no transpose), then issues
+// WTM x WTN mma.sync.m16n8k16: each A fragment feeds WTN mmas and each B
+// fragment WTM. (A 64-deep chunk left 4 such steps unrolled and spilled
+// ~600 bytes at 128 registers.)
+template <int WARPS_M, int WTM, int WTN>
+__global__ void __launch_bounds__(kBlock, 2)
+mm_shape_bf16_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rt,
+                     float* __restrict__ out, int m, int k, int f, int ndots) {
+  constexpr int BM = WARPS_M * 16 * WTM;
+  constexpr int BF = (8 / WARPS_M) * 8 * WTN;
+  constexpr int stage_elems = (BM + BF) * kMmLdB;
+  extern __shared__ __align__(16) unsigned char mmb_smem[];
+  bf16* smem = reinterpret_cast<bf16*>(mmb_smem);
+  const unsigned sbase = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid & 31;
+  const int wm = warp % WARPS_M;
+  const int wn = warp / WARPS_M;
+  const int ftiles = f / BF;
+  const int chunks = k / kMmChunkBf16;
+  const int stages = (m / BM) * ftiles * chunks;
+  // This lane's ldmatrix row addresses: A rows lane % 16 at depth
+  // (lane / 16) 8; B^T rows (lane & 7) + (lane / 16) 8 at depth
+  // ((lane / 8) & 1) 8.
+  const int a_off = (wm * 16 * WTM + lane % 16) * kMmLdB + (lane / 16) * 8;
+  const int b_off = (wn * 8 * WTN + (lane & 7) + (lane >> 4) * 8) * kMmLdB + ((lane >> 3) & 1) * 8;
+
+  auto load = [&](int st, int buf) {
+    const int tile = st / chunks;
+    const int k0 = (st % chunks) * kMmChunkBf16;
+    const int m0 = tile / ftiles * BM;
+    const int f0 = tile % ftiles * BF;
+    bf16* la = smem + buf * stage_elems;
+    for (int e = tid; e < (BM + BF) * (kMmChunkBf16 / 8); e += kBlock) {
+      const int row = e / (kMmChunkBf16 / 8), v = e % (kMmChunkBf16 / 8);
+      const bf16* src = row < BM ? lhs + static_cast<size_t>(m0 + row) * k
+                                 : rt + static_cast<size_t>(f0 + row - BM) * k;
+      cp_async16(la + row * kMmLdB + 8 * v, src + k0 + 8 * v);
+    }
+    cp_async_commit();
+  };
+
+  float acc[WTM][WTN][4];
+  // A ring of kMmStagesBf16 stages: stages st + 1 .. st + S - 1 in flight
+  // under stage st's products (an empty group where none is left).
+  for (int q = 0; q < kMmStagesBf16 - 1; ++q) {
+    if (q < stages) load(q, q);
+    else cp_async_commit();
+  }
+  for (int st = 0; st < stages; ++st) {
+    const int buf = st % kMmStagesBf16;
+    const int chunk = st % chunks;
+    cp_async_wait<kMmStagesBf16 - 2>();
+    __syncthreads();  // stage st landed; stage st - 1 is no longer read
+    const int next = st + kMmStagesBf16 - 1;
+    if (next < stages) load(next, next % kMmStagesBf16);
+    else cp_async_commit();
+    if (chunk == 0) {
+#pragma unroll
+      for (int i = 0; i < WTM; ++i)
+#pragma unroll
+        for (int j = 0; j < WTN; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+    }
+    // 32-bit shared addresses (bytes): the constant offsets below fold
+    // into the ldmatrix instructions.
+    const unsigned pa = sbase + 2 * (buf * stage_elems + a_off);
+    const unsigned pb = sbase + 2 * (buf * stage_elems + BM * kMmLdB + b_off);
+    for (int d = 0; d < ndots; ++d) {
+#pragma unroll
+      for (int ks = 0; ks < kMmChunkBf16; ks += 16) {
+        uint32_t a[WTM][4], b[WTN / 2][4];
+#pragma unroll
+        for (int i = 0; i < WTM; ++i) ldmatrix_x4(a[i], pa + 2 * (i * 16 * kMmLdB + ks));
+#pragma unroll
+        for (int j = 0; j < WTN / 2; ++j) ldmatrix_x4(b[j], pb + 2 * (j * 16 * kMmLdB + ks));
+#pragma unroll
+        for (int i = 0; i < WTM; ++i)
+#pragma unroll
+          for (int j = 0; j < WTN; ++j)
+            mma_bf16(acc[i][j], a[i], b[j / 2][2 * (j & 1)], b[j / 2][2 * (j & 1) + 1]);
+      }
+    }
+    if (chunk == chunks - 1) {
+      const int tile = st / chunks;
+      const int m0 = tile / ftiles * BM + wm * 16 * WTM + lane / 4;
+      const int f0 = tile % ftiles * BF + wn * 8 * WTN + 2 * (lane & 3);
+#pragma unroll
+      for (int i = 0; i < WTM; ++i)
+#pragma unroll
+        for (int j = 0; j < WTN; ++j) {
+          float* o = out + static_cast<size_t>(m0 + 16 * i) * f + f0 + 8 * j;
+          *reinterpret_cast<float2*>(o) = make_float2(acc[i][j][0], acc[i][j][1]);
+          *reinterpret_cast<float2*>(o + 8 * static_cast<size_t>(f)) =
+              make_float2(acc[i][j][2], acc[i][j][3]);
+        }
+    }
+  }
+}
+
+template <typename T, typename K>
+int launch_mm(K kernel, size_t smem, int steps, cudaStream_t s, const void* lhs,
+              const void* rhs, void* out, int m, int k, int f, int ndots) {
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<steps, kBlock, smem, s>>>(static_cast<const T*>(lhs), static_cast<const T*>(rhs),
+                                     static_cast<float*>(out), m, k, f, ndots);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -722,39 +871,31 @@ int skyhdr_pack_samples(const void* x, void* out, int B, int H, int W, int C, in
   return cudaGetLastError();
 }
 
-// K12: is_bf16 = 0: lhs f32 [m,k], rhs f32 [k,f] (m, f multiples of 8,
-// (m/8)*(f/8) <= 1024); is_bf16 = 1: lhs bf16 [m,k], rhs bf16 [f,k] (rhs^T;
-// m a multiple of 16, f of 8, k of 16, at most 128 16x8 tiles). out f32
+// K12: is_bf16 = 0: lhs f32 [m,k], rhs f32 [k,f]; is_bf16 = 1: lhs bf16
+// [m,k], rhs bf16 [f,k] (rhs^T). `tile` picks the block tile (0: 256 x 64,
+// 1: 128 x 128, 2: 64 x 256 outputs; ops/kernels/probes.py:mm_tiling); m
+// and f are multiples of its sides, k of 32. out f32
 // [m,f]; `steps` blocks.
 int skyhdr_mm_shape(const void* lhs, const void* rhs, void* out, int m, int k, int f,
-                    int ndots, int steps, int is_bf16, int device, void* stream) {
+                    int ndots, int steps, int is_bf16, int tile, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (steps < 1 || ndots < 1 || k < 1) return cudaErrorInvalidValue;
+  if (steps < 1 || ndots < 1 || k < 1 || tile < 0 || tile > 2) return cudaErrorInvalidValue;
+  const int bm = tile == 0 ? 256 : tile == 1 ? 128 : 64;
+  const int bf = 16384 / bm;
+  if (m % bm != 0 || f % bf != 0 || k % (is_bf16 ? kMmChunkBf16 : kMmChunkF32) != 0)
+    return cudaErrorInvalidValue;
   if (is_bf16) {
-    if (m % 16 != 0 || f % 8 != 0 || k % 16 != 0 ||
-        (m / 16) * (f / 8) > 8 * kMmTilesPerWarp)
-      return cudaErrorInvalidValue;
-    const size_t smem = static_cast<size_t>(m + f) * (kChunkMma + 8) * sizeof(bf16);
-    if (smem > kMaxSmem) return cudaErrorInvalidValue;
-    err = allow_smem(mm_shape_bf16_kernel, smem);
-    if (err != cudaSuccess) return err;
-    mm_shape_bf16_kernel<<<steps, kBlock, smem, s>>>(static_cast<const bf16*>(lhs),
-                                                  static_cast<const bf16*>(rhs),
-                                                  static_cast<float*>(out), m, k, f, ndots);
-    return cudaGetLastError();
+    const size_t smem = sizeof(bf16) * kMmStagesBf16 * (bm + bf) * kMmLdB;
+    auto kernel = tile == 0 ? mm_shape_bf16_kernel<4, 4, 4>
+                            : tile == 1 ? mm_shape_bf16_kernel<2, 4, 4> : mm_shape_bf16_kernel<2, 2, 8>;
+    return launch_mm<bf16>(kernel, smem, steps, s, lhs, rhs, out, m, k, f, ndots);
   }
-  const int threads = (m / 8) * (f / 8);
-  if (m % 8 != 0 || f % 8 != 0 || threads < 1 || threads > 1024) return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(kChunkK) * (m + 4 + f + 4) * sizeof(float);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  err = allow_smem(mm_shape_f32_kernel, smem);
-  if (err != cudaSuccess) return err;
-  mm_shape_f32_kernel<<<steps, threads, smem, s>>>(static_cast<const float*>(lhs),
-                                                   static_cast<const float*>(rhs),
-                                                   static_cast<float*>(out), m, k, f, ndots);
-  return cudaGetLastError();
+  const size_t smem = sizeof(float) * kMmStagesF32 * (bm * (kMmChunkF32 + 4) + kMmChunkF32 * bf);
+  auto kernel = tile == 0 ? mm_shape_f32_kernel<256>
+                          : tile == 1 ? mm_shape_f32_kernel<128> : mm_shape_f32_kernel<64>;
+  return launch_mm<float>(kernel, smem, steps, s, lhs, rhs, out, m, k, f, ndots);
 }
 
 }  // extern "C"

@@ -34,7 +34,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # name -> argtypes; every entry point returns an int (a cudaError_t, or
-# for skyhdr_da_dk_splits and skyhdr_da_{fwd,dx}_tiles a count).
+# for skyhdr_da_{fwd,dx}_tiles a count).
 _SIGNATURES = {
     # x, gamma, beta, ws, y, mean, rstd, B, HW, C, S, eps, alpha, is_bf16, device, stream
     "skyhdr_in_fwd_k8": [_P] * 7 + [_I] * 4 + [_F, _F] + [_I] * 2 + [_P],
@@ -50,19 +50,19 @@ _SIGNATURES = {
     "skyhdr_da_dx": [_P] * 5 + [_I, _I, _P] + [_I] * 8 + [_P],
     # W, Cp, F -> blocks per (image, strip) of K2/K7 (or < 0)
     "skyhdr_da_dx_tiles": [_I] * 3,
-    # B, H, C, F, k, device -> number of row splits (or < 0)
-    "skyhdr_da_dk_splits": [_I] * 6,
-    # x, g, y0, y1, cx, wy, wx, ws, out, nsplit, B, H, W, C, F, is_bf16, device, stream
-    "skyhdr_da_dk_k3": [_P] * 9 + [_I] * 8 + [_P],
-    # x, g, y0, y1, cx, wy, wx, ws, out, nsplit, B, H, W, C, F, k, is_bf16, device, stream
-    "skyhdr_da_dk": [_P] * 9 + [_I] * 9 + [_P],
+    # W, Cp, F, k, taps per group, span, is_bf16, device, out int32[4]: K3/K6's
+    # blocks per split, threads, resident blocks per SM, column chunks
+    "skyhdr_da_dk_tiles": [_I] * 8 + [_P],
+    # x, g, rows, taps, ws, out, nsplit, B, H, W, Cp, F, k, taps per group,
+    # span, is_bf16, device, stream
+    "skyhdr_da_dk": [_P] * 6 + [_I] * 11 + [_P],
     # x, kern, y0, y1, cx, wy, wx, out, is_bf16, gather, taps, dedup, mma,
     # diag, B, H, W, C, F, rblk, mblk, span, device, stream
     "skyhdr_probe_fwd": [_P] * 8 + [_I] * 15 + [_P],
     # x, out, B, H, W, C, P, elem_bytes, device, stream
     "skyhdr_pack_samples": [_P] * 2 + [_I] * 7 + [_P],
-    # lhs, rhs, out, m, k, f, ndots, steps, is_bf16, device, stream
-    "skyhdr_mm_shape": [_P] * 3 + [_I] * 7 + [_P],
+    # lhs, rhs, out, m, k, f, ndots, steps, is_bf16, tile, device, stream
+    "skyhdr_mm_shape": [_P] * 3 + [_I] * 8 + [_P],
 }
 
 

@@ -12,9 +12,13 @@ k = 3 (skyhdr/ops/pallas/deform_conv.py's fast path):
      Plain version: `da_conv_dx_ref`, the TPU kernel's slot formula
      vectorised in torch (not autograd of the forward, so the CPU tests
      hold it against `jax.vjp`, and the pair tables against the slots).
-  K3 `da_conv_dk_k3` — CUDA weight gradient, replacing `_dk_k3_kernel`.
-     Plain version: `da_conv_dk_ref`, the same sample-times-cotangent sum
-     vectorised in torch (again not autograd of the forward).
+  K3 `da_conv_dk_k3` — CUDA weight gradient, replacing `_dk_k3_kernel`:
+     over K1's `window_tables`, a block per window group (a kernel row's
+     taps) and chunk of channels, one y-interpolated window and one staged
+     cotangent chunk shared by the group's taps; `dk_tiling` splits the
+     reduction over one wave of blocks. Plain version: `da_conv_dk_ref`,
+     the same sample-times-cotangent sum vectorised in torch (again not
+     autograd of the forward).
 Any other odd k (the generic kernels of the same file):
   K5 `da_conv_forward_k5` — CUDA forward, replacing `_kernel_body`: K1's
      kernel at that k. Plain version: `da_conv_forward_ref` at that k.
@@ -36,6 +40,7 @@ kernel launches, one per wrapper call that launches.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 
 import torch
@@ -61,6 +66,10 @@ DX_STRIP_ROWS = (8, 4, 2)
 # (`fwd_tiling`).
 FWD_ROWS = (8, 4, 2, 1)
 FWD_CHANS = (8, 4)
+# K3/K6 split their (b, row, column chunk) stages over as few splits as
+# give a grid that fills this share of the waves of resident blocks it
+# takes (`dk_tiling`): each split adds a partial [k*k*c, f] to sum.
+DK_FILL = 0.95
 _WEIGHT_GRADS = True
 
 
@@ -247,9 +256,48 @@ def da_conv_dx_k7(g, kernel, *, x_shape, kernel_size: int,
     return dx
 
 
+def dk_tiling(stages: int, tiles: int, resident: int, sms: int) -> int:
+    """The row splits of a K3/K6 launch: the fewest (at most `stages`,
+    the reduction's (b, i, column chunk) stages) whose grid of `tiles`
+    blocks a split fills DK_FILL of the waves it takes on `sms` SMs of
+    `resident` blocks each; the best fill when none does. Every block of a
+    split does the same work, so a full last wave is what counts; fewer
+    splits mean a smaller workspace to sum."""
+    slots = sms * max(resident, 1)
+    best, best_fill = 1, 0.0
+    for n in range(1, stages + 1):
+        blocks = tiles * n
+        fill = blocks / (-(-blocks // slots) * slots)
+        if fill >= DK_FILL:
+            return n
+        if fill > best_fill:
+            best, best_fill = n, fill
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def dk_launch_tiling(b: int, h: int, w: int, cp: int, f: int, k: int, taps: int, span: int,
+                     bf16: bool, index: int) -> tuple:
+    """(splits, blocks per split, threads a block, resident blocks per SM)
+    of a K3/K6 launch of x [b, h, w, cp] -> F = f at kernel size k over
+    window tables of `taps` taps a group and this span, on card `index`:
+    the kernel library's tiles (`skyhdr_da_dk_tiles`), split by
+    `dk_tiling`; once per shape."""
+    from skyhdr_torch.ops.kernels.build import library
+
+    out = (ctypes.c_int * 4)()
+    code = library().skyhdr_da_dk_tiles(w, cp, f, k, taps, span, int(bf16), index,
+                                        ctypes.addressof(out))
+    _require(code == 0, f"the DA weight gradient does not tile W={w}, C={cp}, F={f}, "
+             f"k={k} (code {code})")
+    tiles, threads, resident, chunks = out
+    return dk_tiling(b * h * chunks, tiles, resident, _sm_count(index)), tiles, threads, resident
+
+
 def _dk(x, g, k: int, dilation_rate: int, skydome: bool, name: str) -> torch.Tensor:
-    """Checks, then launches K3 (k = 3) or K6 (any other odd k) and its
-    fixed-order reduction."""
+    """Checks, then launches K3 (k = 3) or K6 (any other odd k) over the
+    `window_tables` with the splits `dk_tiling` picks, and its fixed-order
+    reduction."""
     from skyhdr_torch.ops.kernels.build import check, library
 
     _require(x.is_cuda and g.device == x.device,
@@ -261,27 +309,20 @@ def _dk(x, g, k: int, dilation_rate: int, skydome: bool, name: str) -> torch.Ten
              f"{name} takes float32 or bfloat16 x, got {x.dtype}")
     b, h, w, c0 = x.shape
     f = g.shape[-1]
-    # The kernel tiles C by 4: a zero channel pads the 3-channel input, and
-    # its rows of dK are dropped.
+    # The kernel copies 4 channels at a time: a zero channel pads the
+    # 3-channel input, and its rows of dK are dropped.
     c = -(-c0 // 4) * 4
     if c != c0:
         x = torch.nn.functional.pad(x, (0, c - c0))
     x = x.contiguous()
     g32 = g.float().contiguous()
-    lib = library()
-    nsplit = lib.skyhdr_da_dk_splits(b, h, c, f, k, x.device.index)
-    _require(nsplit > 0, f"{name} does not tile C={c}, F={f} (code {nsplit})")
-    y0, y1, cx, wy, wx = gather_tables_on(x.device, h, w, k, dilation_rate, skydome)
+    bf16 = x.dtype == torch.bfloat16
+    rows_t, taps_t, taps, span = window_tables_on(x.device, h, w, k, dilation_rate, skydome)
+    nsplit = dk_launch_tiling(b, h, w, c, f, k, taps, span, bf16, x.device.index)[0]
     ws = torch.empty((nsplit, k * k * c, f), dtype=torch.float32, device=x.device)
     dk = torch.empty((k * k * c, f), dtype=torch.float32, device=x.device)
-    ptrs = _ptrs(x, g32, y0, y1, cx, wy, wx, ws, dk)
-    bf16 = int(x.dtype == torch.bfloat16)
-    if k == 3:
-        code = lib.skyhdr_da_dk_k3(*ptrs, nsplit, b, h, w, c, f, bf16,
-                                   x.device.index, _stream(x))
-    else:
-        code = lib.skyhdr_da_dk(*ptrs, nsplit, b, h, w, c, f, k, bf16,
-                                x.device.index, _stream(x))
+    code = library().skyhdr_da_dk(*_ptrs(x, g32, rows_t, taps_t, ws, dk), nsplit, b, h, w, c,
+                                  f, k, taps, span, int(bf16), x.device.index, _stream(x))
     check(code, f"{name} (DA weight gradient, k={k})")
     return dk if c == c0 else dk.view(k * k, c, f)[:, :c0].reshape(k * k * c0, f)
 

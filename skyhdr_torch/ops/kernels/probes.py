@@ -300,14 +300,38 @@ def blockdiag_kernel(kernel, p: int) -> torch.Tensor:
 # ------------------------------------------------------------ dot shapes
 
 def _pad_to(t, rows: int, cols: int):
+    if tuple(t.shape) == (rows, cols):
+        return t
     return torch.nn.functional.pad(t, (0, cols - t.shape[1], 0, rows - t.shape[0]))
+
+
+# K12's block tiles (rows, columns of the output; csrc/probes.cu), by the
+# index `skyhdr_mm_shape` takes, and the depth of a staged chunk.
+MM_TILES = ((256, 64), (128, 128), (64, 256))
+MM_CHUNK = 32
+
+
+def mm_tiling(m: int, k: int, f: int, bf16: bool) -> tuple:
+    """(padded m, k, f, tile index) of a K12 launch: the block tile of
+    MM_TILES whose padding of [m, f] leaves the fewest outputs (the first
+    of equals), m and f padded to its sides and k to the staged chunk. The
+    zero padding adds zero products. `bf16` picks the tensor-core kernel,
+    which takes the same tiles."""
+    def up(n, q):
+        return -(-n // q) * q
+
+    tile = min(range(len(MM_TILES)),
+               key=lambda t: up(m, MM_TILES[t][0]) * up(f, MM_TILES[t][1]))
+    bm, bf = MM_TILES[tile]
+    return up(m, bm), up(k, MM_CHUNK), up(f, bf), tile
 
 
 def mm_shape_k12(lhs, rhs, *, ndots: int, steps: int) -> torch.Tensor:
     """K12: `steps` blocks each computing ndots * (lhs @ rhs) (f32
     accumulation of ndots products) on the card; lhs [m,k], rhs [k,f], both
     float32 (CUDA-core FMA) or both bfloat16 (tensor cores). Returns [m,f]
-    float32. The shapes are zero-padded to what the kernel tiles."""
+    float32. The shapes are zero-padded to what the kernel tiles
+    (`mm_tiling`)."""
     global K12_LAUNCHES
     from skyhdr_torch.ops.kernels.build import check, library
 
@@ -318,17 +342,13 @@ def mm_shape_k12(lhs, rhs, *, ndots: int, steps: int) -> torch.Tensor:
     k2, f = rhs.shape
     _require(k == k2, f"K12: lhs {tuple(lhs.shape)} and rhs {tuple(rhs.shape)} do not chain")
     bf16 = lhs.dtype == torch.bfloat16
-    if bf16:
-        mp, kp, fp = -(-m // 16) * 16, -(-k // 16) * 16, -(-f // 8) * 8
-        a = _pad_to(lhs, mp, kp).contiguous()
-        bt = _pad_to(rhs.t(), fp, kp).contiguous()  # [f, k]
-    else:
-        mp, kp, fp = -(-m // 8) * 8, k, -(-f // 8) * 8
-        a = _pad_to(lhs, mp, kp).contiguous()
-        bt = _pad_to(rhs, kp, fp).contiguous()
+    mp, kp, fp, tile = mm_tiling(m, k, f, bf16)
+    a = _pad_to(lhs, mp, kp).contiguous()
+    # bf16 takes rhs^T [f, k]: the mma's B fragments are K-contiguous rows.
+    b = (_pad_to(rhs.t(), fp, kp) if bf16 else _pad_to(rhs, kp, fp)).contiguous()
     out = torch.empty((mp, fp), dtype=torch.float32, device=lhs.device)
-    code = library().skyhdr_mm_shape(*_ptrs(a, bt, out), mp, kp, fp, ndots, steps, int(bf16),
-                                     lhs.device.index, _stream(lhs))
+    code = library().skyhdr_mm_shape(*_ptrs(a, b, out), mp, kp, fp, ndots, steps, int(bf16),
+                                     tile, lhs.device.index, _stream(lhs))
     check(code, f"K12 ({m}x{k}@{k}x{f} x{ndots} x{steps}, {lhs.dtype})")
     K12_LAUNCHES += 1
     return out[:m, :f]

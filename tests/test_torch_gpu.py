@@ -296,6 +296,104 @@ def test_autograd_function_odd_k_on_cuda_takes_kernels(cuda):
     assert _rel(x.grad, want) <= 5e-4
 
 
+def _dk_pair(ksize):
+    """(kernel, plain version) of the weight gradient at kernel size k."""
+    if ksize == 3:
+        return dc.da_conv_dk_k3, dc.da_conv_dk_ref
+    kw = dict(kernel_size=ksize)
+    return (lambda x, g, **a: dc.da_conv_dk_k6(x, g, **kw, **a),
+            lambda x, g, **a: dc.da_conv_dk_ref(x, g, **kw, **a))
+
+
+# K3 and K6 are one kernel over the window tables (`skyhdr_da_dk_tiles`
+# plans the tile, `dk_tiling` the splits): the shapes where its tiling could
+# break — F = 32 at 64x256 (eight column chunks a row), C = 3 at k = 7
+# (padded to 4; eight slices of a 32-row tile), F = 64 at C = 32 (two
+# slices), the odd height, k = 5 and 7 at the trunk, b1 — each against the
+# plain version and twice bitwise equal.
+DK_CASES = [(3, (2, 64, 256, 64), 32), (7, (2, 64, 256, 3), 32), (3, (2, 32, 128, 32), 64),
+            (3, (4, 9, 32, 128), 128), (5, (4, 9, 32, 128), 128), (5, (2, 16, 64, 128), 128),
+            (7, (2, 16, 64, 128), 128), (3, (1, 8, 32, 128), 128), (7, (2, 32, 128, 32), 32)]
+
+
+@pytest.mark.parametrize("ksize,shape,f", DK_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dk_tilings_match_plain_and_repeat(cuda, ksize, shape, f, dtype):
+    x, _, _, g = _operands(cuda, shape, f, dtype, ksize)
+    run, plain = _dk_pair(ksize)
+    got = run(x, g)
+    assert got.shape == (ksize * ksize * shape[-1], f)
+    assert _rel(got, plain(x, g)) <= 1e-4
+    assert torch.equal(got, run(x, g))
+
+
+# Other splits (one, a few, more than the stages: some left empty), both
+# geometries, and the per-tap
+# window tables (one group a tap) that a shape whose kernel rows read
+# different source rows would be given.
+@pytest.mark.parametrize("ksize", [3, 5, 7])
+@pytest.mark.parametrize("splits", [1, 5, 10_000])
+@pytest.mark.parametrize("skydome,dilation,dedup", [(True, 1, True), (False, 2, True),
+                                                    (True, 1, False)])
+def test_dk_at_other_splits_and_tables(cuda, monkeypatch, ksize, splits, skydome, dilation,
+                                       dedup):
+    from skyhdr_torch.ops.distortion import window_tables_on
+
+    launch_tiling = dc.dk_launch_tiling
+    monkeypatch.setattr(dc, "dk_launch_tiling", lambda b, h, *a: (
+        min(splits, b * h * 4), *launch_tiling(b, h, *a)[1:]))
+    monkeypatch.setattr(dc, "window_tables_on",
+                        lambda *a: window_tables_on(*a, dedup=dedup))
+    x, _, _, g = _operands(cuda, (2, 9, 40, 16), 24, ksize=ksize)
+    run, plain = _dk_pair(ksize)
+    geom = dict(skydome=skydome, dilation_rate=dilation)
+    assert _rel(run(x, g, **geom), plain(x, g, **geom)) <= 1e-4
+
+
+def test_dk_tiles_are_the_documented_ones(cuda):
+    """The kernel library's plan agrees with the table the CPU test of
+    `dk_tiling` (tests/test_torch_dk_tables.py) is written from; every plan
+    has a block resident on an SM."""
+    import ctypes
+
+    from skyhdr_torch.ops.distortion import window_tables
+    from skyhdr_torch.ops.kernels.build import library
+
+    lib = library()
+    for (h, w, cp, f, k), want in DK_TILES.items():
+        wt = window_tables(h, w, k)
+        for bf16 in (0, 1):
+            out = (ctypes.c_int * 4)()
+            assert lib.skyhdr_da_dk_tiles(w, cp, f, k, wt.taps, wt.span, bf16, 0,
+                                          ctypes.addressof(out)) == 0
+            tiles, threads, resident, chunks = out
+            assert (tiles, threads, chunks) == want and resident >= 1, (h, w, cp, f, k, bf16)
+
+
+# (h, w, C padded to 4, F, k) -> (blocks per split, threads, column chunks)
+# of K3/K6 at every launch shape chip_smoke.py drives or times. The same
+# table is in tests/test_torch_dk_tables.py.
+DK_TILES = {
+    (32, 128, 32, 64, 3): (3, 192, 4),
+    (32, 128, 64, 64, 3): (3, 192, 4),
+    (16, 64, 64, 128, 3): (6, 192, 2),
+    (16, 64, 128, 128, 3): (12, 192, 2),
+    (32, 128, 128, 64, 3): (6, 192, 4),
+    (64, 256, 64, 32, 3): (3, 192, 8),
+    (16, 64, 32, 64, 3): (3, 192, 2),
+    (16, 64, 64, 64, 3): (3, 192, 2),
+    (8, 32, 64, 128, 3): (6, 192, 1),
+    (8, 32, 128, 128, 3): (12, 192, 1),
+    (16, 64, 128, 64, 3): (6, 192, 2),
+    (32, 128, 64, 32, 3): (3, 192, 4),
+    (9, 32, 128, 128, 3): (12, 192, 1),
+    (16, 64, 128, 128, 5): (40, 160, 2),
+    (16, 64, 128, 128, 7): (112, 224, 2),
+    (64, 256, 4, 32, 7): (7, 256, 4),
+    (64, 256, 32, 32, 7): (7, 224, 8),
+}
+
+
 def test_odd_k_wrappers_refuse_k3(cuda):
     x, k, b, g = _operands(cuda, (1, 8, 32, 16), 8)
     with pytest.raises(ValueError, match="K5"):
@@ -455,3 +553,18 @@ def test_k12_pads_an_odd_shape(cuda):
         got = tp.mm_shape_k12(lhs, rhs, ndots=3, steps=2)
         torch.cuda.synchronize()
         assert _rel(got, tp.mm_shape_ref(lhs, rhs, ndots=3, steps=1)) <= 1e-5
+
+
+# Shapes `mm_tiling` pads, one block tile of each kind and several output
+# tiles a block (300 x 70: 3 of 128 x 128; 40 x 300: 2 of 64 x 256), with
+# one dot and with three.
+@pytest.mark.parametrize("m,k,f", [(13, 7, 5), (300, 100, 70), (40, 600, 300), (256, 64, 64)])
+@pytest.mark.parametrize("ndots", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k12_pads_and_takes_one_dot(cuda, m, k, f, ndots, dtype):
+    x = torch.randn(600, 600, device=cuda)
+    lhs, rhs = x[:m, :k].to(dtype), x[:k, :f].to(dtype)
+    got = tp.mm_shape_k12(lhs, rhs, ndots=ndots, steps=3)
+    torch.cuda.synchronize()
+    assert got.shape == (m, f)
+    assert _rel(got, tp.mm_shape_ref(lhs, rhs, ndots=ndots, steps=1)) <= 1e-5

@@ -168,6 +168,33 @@ def test_mm_shape_plain_matches_make_bench(dtype):
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("cfg", sorted(exp_mmshape.CFGS))
+def test_mm_tiling_takes_every_configuration_unpadded(cfg, bf16):
+    """Each exp_mmshape configuration is a whole number of one K12 block
+    tile and staged chunks: the kernel runs it unpadded, 256 x 64 where m
+    is 256 and 64 x 256 where f is."""
+    m, k, f, _, _ = exp_mmshape.CFGS[cfg]
+    mp, kp, fp, tile = tp.mm_tiling(m, k, f, bf16)
+    assert (mp, kp, fp) == (m, k, f)
+    assert tp.MM_TILES[tile] == ((256, 64) if m == 256 else (64, 256))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("m,k,f,want", [
+    ((13, 7, 5, (0, 256, 64))),      # all three tiles pad to 16384: the first
+    ((300, 100, 70, (1, 384, 128))),  # 3 x 1 tiles of 128 x 128
+    ((40, 600, 300, (2, 64, 512))),   # 1 x 2 tiles of 64 x 256
+])
+def test_mm_tiling_pads_odd_shapes_to_whole_tiles(m, k, f, want, bf16):
+    mp, kp, fp, tile = tp.mm_tiling(m, k, f, bf16)
+    bm, bf = tp.MM_TILES[tile]
+    chunk = tp.MM_CHUNK
+    assert (tile, mp, fp) == want
+    assert mp % bm == 0 and fp % bf == 0 and kp % chunk == 0
+    assert 0 <= kp - k < chunk and mp >= m and fp >= f
+
+
 def test_dedup_span_and_blockdiag():
     assert tp.dedup_span(64, 256) == 5 and tp.dedup_span(8, 32) == 5
     k = torch.arange(9 * 2 * 3, dtype=torch.float32).reshape(18, 3)

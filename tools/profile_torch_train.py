@@ -40,8 +40,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DA_GROUPS = ((r"da_fwd_kernel<[^,>]*, 3, \d+>", "K1 DA forward"),
              (r"da_fwd_kernel<[^,>]*, 0, \d+>", "K5 DA forward"),
              (r"da_dx_kernel<3>", "K2 DA input grad"), (r"da_dx_kernel<0>", "K7 DA input grad"),
-             (r"da_dk_kernel<[^>]*, 3>", "K3 DA weight grad"),
-             (r"da_dk_kernel<[^>]*, 0>", "K6 DA weight grad"))
+             (r"da_dk_kernel<[^,>]*, 3, \d+>", "K3 DA weight grad"),
+             (r"da_dk_kernel<[^,>]*, 0, \d+>", "K6 DA weight grad"))
 
 
 def da_group(name: str, ksize: int):
