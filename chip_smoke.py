@@ -27,7 +27,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     K8 (InstanceNorm + activation forward) and K9 (its
                     backward) at every InstanceNorm shape with each slope
                     its layers use, at 64x256 b64 f32, 64x256 b32 f32 and
-                    bf16, and 32x128 b1; K9 twice gives the same bits.
+                    bf16, and 32x128 b1; K8 and K9 twice give the same
+                    bits; under torch.profiler each K8 and each K9 call
+                    runs one device kernel (every shape at 64x256 b64, f32
+                    and bf16).
   4. golden       — the serving forward on the card against the JAX
                     package's outputs in tests/fixtures/torch_golden_da_16x64.npz,
                     unfused and with fused_instance_norm (the same function),
@@ -49,10 +52,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     (both states filled from one draw of the seeded weights),
                     then at da_kernel_size=5 (its weights drawn once for
                     serving, training and timing), then the sun-pretrain step
-                    at 64x256 b32 for 2; every metric finite, gen_total
-                    moving, launch counts per step asserted (GAN: 20 K1, 24
-                    K2, 20 K3, and fused 25 K8, 29 K9; k=5: 12 K5, 12 K6, 12
-                    K7 and no K1-K3; sun: 4 each). Then step times (CUDA
+                    at 64x256 b32 for 2, unfused and then with fused
+                    InstanceNorm (the same weights); every metric finite,
+                    gen_total moving, launch counts per step asserted (GAN:
+                    20 K1, 24 K2, 20 K3, and fused 25 K8, 29 K9; k=5: 12 K5,
+                    12 K6, 12 K7 and no K1-K3; sun: 4 each, and fused 6 K8,
+                    6 K9). Then step times (CUDA
                     events, 1 warm-up, median of 5 further steps of the same
                     state) and peak device memory.
   8. timing       — CUDA events, warm-up, median of 20: serving forward
@@ -67,8 +72,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     K1/K5 with the output rows and register tile picked;
                     K3/K6 with their splits, blocks and threads (per layer
                     and per step, and the k=7 shapes with C=3);
-                    K8/K9 also against the library's `F.instance_norm`
-                    (forward, and its autograd backward).
+                    K8/K9 in f32 and bf16, with device work queued ahead
+                    (the events bracket device time, not the wrappers'),
+                    also against the library's `F.instance_norm` (forward,
+                    and its autograd backward), with each wrapper's host
+                    microseconds per call and the plan `in_tiling` picked.
   9. train_cli    — the training CLI (`skyhdr_torch.cli.train`) at DA
                     32x128 b32 on a TFRecord dataset this phase writes (128
                     train, 32 test synthetic skies): 2 epochs with a
@@ -482,11 +490,13 @@ def phase_kernels(dc, report):
             x, gamma, beta, dy = in_operands(hwc, b, dtype, gen)
             for alpha in alphas:
                 y, mean, rstd = tin.instance_norm_act_k8(x, gamma, beta, alpha=alpha)
+                fwd_again = tin.instance_norm_act_k8(x, gamma, beta, alpha=alpha)
                 grads = tin.instance_norm_act_bwd_k9(x, dy, gamma, beta, mean, rstd,
                                                      alpha=alpha)
                 again = tin.instance_norm_act_bwd_k9(x, dy, gamma, beta, mean, rstd,
                                                      alpha=alpha)
                 torch.cuda.synchronize()
+                same8 = all(torch.equal(a, b_) for a, b_ in zip((y, mean, rstd), fwd_again))
                 same = all(torch.equal(a, b_) for a, b_ in zip(grads, again))
                 y_ref, mean_ref, rstd_ref = tin.instance_norm_act_ref(x, gamma, beta,
                                                                       alpha=alpha)
@@ -496,7 +506,8 @@ def phase_kernels(dc, report):
                                                    (rstd, rstd_ref))]
                 e9 = [rel_err(a, b_) for a, b_ in zip(grads, want)]
                 for kern, what, ok, errs in (
-                        ("K8", "y, mean, rstd", y.dtype == dtype, e8),
+                        ("K8", f"y, mean, rstd (bitwise repeatable: {same8})",
+                         y.dtype == dtype and same8, e8),
                         ("K9", f"dx, dgamma, dbeta (bitwise repeatable: {same})", same, e9)):
                     rel, ab = max(e[0] for e in errs), errs[0][1]
                     tol = TOL[kern, dtype]
@@ -505,11 +516,58 @@ def phase_kernels(dc, report):
                     check(ok and rel <= tol, f"{kern} {hwc} alpha={alpha} {tag}")
                     key = (kern, res, b, str(dtype))
                     worst[key] = max(worst.get(key, 0.0), ab)
-                del y, mean, rstd, grads, again, y_ref, mean_ref, rstd_ref, want
+                del y, mean, rstd, fwd_again, grads, again, y_ref, mean_ref, rstd_ref, want
             del x, gamma, beta, dy
             free_cuda()
+    report["in_device_kernels"] = in_launch_check(gen)
     report["max_abs_err"] = {"/".join(map(str, k)): v for k, v in worst.items()}
     return worst
+
+
+def in_launch_check(gen, calls=5):
+    """K8 and K9 each run as one device kernel per call: `calls` calls of
+    each at every InstanceNorm shape (64x256 b64 f32 and bf16) under
+    torch.profiler, whose device kernels are counted by name. Returns
+    {"K8"/"K9": {shape: {kernel name: count}}}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from skyhdr_torch.ops.kernels import instnorm as tin
+
+    out = {"K8": {}, "K9": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, alphas in in_shapes():
+            hwc = scaled(shape, 2)
+            x, gamma, beta, dy = in_operands(hwc, 64, dtype, gen)
+            alpha = alphas[-1]
+            _, mean, rstd = tin.instance_norm_act_k8(x, gamma, beta, alpha=alpha)
+            tin.instance_norm_act_bwd_k9(x, dy, gamma, beta, mean, rstd, alpha=alpha)
+            torch.cuda.synchronize()  # warm: the library loaded, K9's counter made
+            for kern, fn, name in (
+                    ("K8", lambda: tin.instance_norm_act_k8(x, gamma, beta, alpha=alpha),
+                     "in_fwd_kernel"),
+                    ("K9", lambda: tin.instance_norm_act_bwd_k9(x, dy, gamma, beta, mean, rstd,
+                                                                alpha=alpha), "in_bwd_kernel")):
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(calls):
+                        fn()
+                    torch.cuda.synchronize()
+                seen = {}
+                for evt in prof.key_averages():
+                    t = getattr(evt, "self_device_time_total", None)
+                    if t is None:
+                        t = getattr(evt, "self_cuda_time_total", 0.0)
+                    if t > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+                        seen[evt.key] = seen.get(evt.key, 0) + evt.count
+                tag = f"{str(dtype)[6:]} x{[64, *hwc]}"
+                say("kernels", f"{kern} {tag}: {calls} calls under torch.profiler ran device "
+                    f"kernels {seen}")
+                check(sum(seen.values()) == calls and all(name in k for k in seen),
+                      f"{kern} {tag}: {calls} calls ran device kernels {seen}, want "
+                      f"{calls} x {name}")
+                out[kern][tag] = seen
+            del x, gamma, beta, dy, mean, rstd
+            free_cuda()
+    return out
 
 
 def build_port(cfg, seed, device="cuda"):
@@ -770,7 +828,7 @@ def phase_training(dc, smi, report):
     from skyhdr_torch.config import Config, DataConfig, ModelConfig
     from skyhdr_torch.data.degradation import make_banks
     from skyhdr_torch.models.vgg16 import random_vgg16_weights
-    from skyhdr_torch.train.engine import (create_sun_state, empty_gan_state,
+    from skyhdr_torch.train.engine import (create_sun_state, empty_gan_state, empty_sun_state,
                                            make_gan_train_step, make_sun_train_step)
     from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
     from skyhdr_torch.utils.transplant import init_gan_vars, load_model_vars
@@ -789,9 +847,10 @@ def phase_training(dc, smi, report):
         f"{time.perf_counter() - t0:.3f} s (one draw for the unfused and the fused state)")
     out = {}
     for kind, b, nsteps in (("gan", 64, 3), ("gan_fused", 64, 3), ("gan_da5", 64, 3),
-                            ("sun", 32, 2)):
+                            ("sun", 32, 2), ("sun_fused", 32, 2)):
         tag = {"gan": f"GAN DA {h}x{w} b{b}", "gan_fused": f"GAN DA {h}x{w} b{b} fused IN",
-               "gan_da5": f"GAN DA k=5 {h}x{w} b{b}", "sun": f"sun DA {h}x{w} b{b}"}[kind]
+               "gan_da5": f"GAN DA k=5 {h}x{w} b{b}", "sun": f"sun DA {h}x{w} b{b}",
+               "sun_fused": f"sun DA {h}x{w} b{b} fused IN"}[kind]
         t0 = time.perf_counter()
         if kind.startswith("gan"):
             cfg = da5_config(b) if kind == "gan_da5" else cfg_of(b, fuse=kind == "gan_fused")
@@ -803,12 +862,20 @@ def phase_training(dc, smi, report):
             want = {"gan": GAN_LAUNCHES, "gan_fused": fused(GAN_LAUNCHES, "gan"),
                     "gan_da5": DA5_GAN_LAUNCHES}[kind]
             moving = "gen_total"
-        else:
+        elif kind == "sun":
             del trees
             cfg = cfg_of(b)
             state = create_sun_state(cfg, 0, "cuda")
+            # The fused-IN state takes the same weights (no second draw).
+            fused_sun = empty_sun_state(cfg_of(b, fuse=True), "cuda")
+            fused_sun.sun.load_state_dict(state.sun.state_dict())
             step = make_sun_train_step(cfg, banks)
             want, moving = SUN_LAUNCHES, "sun_total"
+        else:
+            cfg, state = cfg_of(b, fuse=True), fused_sun
+            del fused_sun
+            step = make_sun_train_step(cfg, banks)
+            want, moving = fused(SUN_LAUNCHES, "sun"), "sun_total"
         torch.cuda.synchronize()
         say("training", f"{tag}: state built in {time.perf_counter() - t0:.3f} s")
         batches = train_batches(nsteps, b, h, w, seed=2000)
@@ -825,10 +892,11 @@ def phase_training(dc, smi, report):
                      "step_ms": ms, "step_ms_all": times, "peak_bytes": peak}
         del state, step, batches
         free_cuda()
-    u, f = out["gan"], out["gan_fused"]
-    say("training", f"GAN DA {h}x{w} b64 fused vs unfused IN: step {f['step_ms']:.4f} vs "
-        f"{u['step_ms']:.4f} ms ({f['step_ms'] - u['step_ms']:+.4f} ms), peak "
-        f"{f['peak_bytes'] / 2**30:.3f} vs {u['peak_bytes'] / 2**30:.3f} GiB; on {smi}")
+    for name, u, f in (("GAN DA 64x256 b64", out["gan"], out["gan_fused"]),
+                       ("sun DA 64x256 b32", out["sun"], out["sun_fused"])):
+        say("training", f"{name} fused vs unfused IN: step {f['step_ms']:.4f} vs "
+            f"{u['step_ms']:.4f} ms ({f['step_ms'] - u['step_ms']:+.4f} ms), peak "
+            f"{f['peak_bytes'] / 2**30:.3f} vs {u['peak_bytes'] / 2**30:.3f} GiB; on {smi}")
     report["training"] = out
     return {kind: o["launches"] for kind, o in out.items()}
 
@@ -959,70 +1027,106 @@ def phase_timing(dc, smi, report):
             f"kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, bound {t[2]:.4f} ms")
     report["kernel_totals"] = {f"{p}/{k}": t[:3] for (p, k), t in totals.items()}
 
-    # K8/K9 per serving dispatch (64x256 b32) and per GAN step (64x256 b64):
-    # [kernel ms, plain ms, bound ms, flop-bound ms, byte-bound ms, library ms].
-    # The library yardstick: F.instance_norm on the NCHW view (the slope-1
-    # case; it has no activation), and its autograd backward.
+    in_rows, in_totals = in_timing(smi, gen_)
+    report["in_kernel_ms"] = in_rows
+    for (path, kern, dt), t in in_totals.items():
+        say("timing", f"{kern} {dt} per {'64x256 b32 dispatch' if path == 'serving' else '64x256 b64 GAN step'}: "
+            f"kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, bound {t[2]:.4f} ms ({100 * t[2] / t[0]:.1f}% "
+            f"of it), library {t[5]:.4f} ms; device time with work queued ahead; on {smi}")
+        report["kernel_totals"][f"{path}/{kern}/{dt}"] = [t[0], t[1], t[2], t[5]]
+        if dt == "float32":
+            totals[path, kern] = t
+    return totals
+
+
+def host_us(fn, calls=200):
+    """Host microseconds per call of a wrapper: `calls` calls with no
+    synchronisation (the host's enqueue time), then one synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def in_timing(smi, gen, dtypes=(torch.float32, torch.bfloat16)):
+    """K8/K9 per serving dispatch (64x256 b32) and per GAN step (64x256 b64)
+    at every InstanceNorm shape and slope, in f32 and bf16: device ms (median
+    of 20, CUDA events, with device work queued ahead so that they bracket
+    the device's time, not the wrapper's; kernel and plain version in
+    turns), the library yardstick (F.instance_norm on the NCHW view, the
+    slope-1 case, it has no activation, and its autograd backward; queued
+    too), the wrapper's host microseconds per call, and the bound. Returns
+    (rows, {(path, kern, dtype): [kernel ms, plain ms, bound ms, flop-bound
+    ms, byte-bound ms, library ms] summed over the calls})."""
     import torch.nn.functional as F
+
     from skyhdr_torch.ops.kernels import instnorm as tin
 
-    for p in ("serving", "gan"):
-        for k in ("K8", "K9"):
-            totals[p, k] = [0.0] * 6
-    in_rows = []
-    for path, b in (("serving", 32), ("gan", 64)):
-        for shape, alphas in in_shapes():
-            hwc = scaled(shape, 2)
-            x, gamma, beta, dy = in_operands(hwc, b, torch.float32, gen_)
-            xv, dyv = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
-            lib8 = statistics.median(time_ms(
-                lambda: F.instance_norm(xv, weight=gamma, bias=beta, eps=1e-3)))
-            xr = xv.detach().requires_grad_()
-            gr, br = gamma.clone().requires_grad_(), beta.clone().requires_grad_()
-            yl = F.instance_norm(xr, weight=gr, bias=br, eps=1e-3)
-            lib9 = statistics.median(time_ms(
-                lambda: torch.autograd.grad(yl, (xr, gr, br), dyv, retain_graph=True)))
-            del xr, gr, br, yl
-            for alpha in alphas:
-                _, mean, rstd = tin.instance_norm_act_k8(x, gamma, beta, alpha=alpha)
-                n8, n9 = in_calls(shape, alpha, path)
-                runs = [("K8", n8, lib8,
-                         lambda: tin.instance_norm_act_k8(x, gamma, beta, alpha=alpha),
-                         lambda: tin.instance_norm_act_ref(x, gamma, beta, alpha=alpha))]
-                if n9:
-                    runs.append(("K9", n9, lib9,
-                                 lambda: tin.instance_norm_act_bwd_k9(
-                                     x, dy, gamma, beta, mean, rstd, alpha=alpha),
-                                 lambda: tin.instance_norm_act_bwd_ref(
-                                     x, dy, gamma, beta, mean, rstd, alpha=alpha)))
-                for kern, calls, lib, kfn, pfn in runs:
-                    ms, plain = paired_ms(kfn, pfn)
-                    bms, by = in_bound(kern, b, hwc)
-                    say("timing", f"{kern} 64x256 b{b} x{[b, *hwc]} alpha={alpha}: kernel "
-                        f"{ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, bound "
-                        f"{bms:.4f} ms ({by}; {100 * bms / ms:.1f}% of it), x{calls} per "
-                        f"{'dispatch' if path == 'serving' else 'GAN step'}; on {smi}")
-                    in_rows.append({"kernel": kern, "path": path, "batch": b,
-                                    "shape": [b, *hwc], "alpha": alpha, "ms": ms,
-                                    "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
-                                    "bound_by": by, "calls": calls})
-                    t = totals[path, kern]
-                    t[0] += calls * ms
-                    t[1] += calls * plain
-                    t[2] += calls * bms
-                    t[3 if by == "operations" else 4] += calls * bms
-                    t[5] += calls * lib
-                del mean, rstd
-            del x, gamma, beta, dy, xv, dyv
-            free_cuda()
-    report["in_kernel_ms"] = in_rows
-    for (path, kern), t in totals.items():
-        if kern in ("K8", "K9") and t[0]:
-            say("timing", f"{kern} per {'64x256 b32 dispatch' if path == 'serving' else '64x256 b64 GAN step'}: "
-                f"kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, bound {t[2]:.4f} ms, "
-                f"library {t[5]:.4f} ms")
-            report["kernel_totals"][f"{path}/{kern}"] = [t[0], t[1], t[2], t[5]]
-    return totals
+    totals, rows = {}, []
+    for dtype in dtypes:
+        dt = str(dtype)[6:]
+        for path, b in (("serving", 32), ("gan", 64)):
+            for shape, alphas in in_shapes():
+                hwc = scaled(shape, 2)
+                x, gamma, beta, dy = in_operands(hwc, b, dtype, gen)
+                xv, dyv = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+                lib8 = statistics.median(time_ms(
+                    lambda: F.instance_norm(xv, weight=gamma, bias=beta, eps=1e-3),
+                    queued=True))
+                xr = xv.detach().requires_grad_()
+                gr, br = gamma.clone().requires_grad_(), beta.clone().requires_grad_()
+                yl = F.instance_norm(xr, weight=gr, bias=br, eps=1e-3)
+                lib9 = statistics.median(time_ms(
+                    lambda: torch.autograd.grad(yl, (xr, gr, br), dyv, retain_graph=True),
+                    queued=True))
+                del xr, gr, br, yl
+                for alpha in alphas:
+                    _, mean, rstd = tin.instance_norm_act_k8(x, gamma, beta, alpha=alpha)
+                    n8, n9 = in_calls(shape, alpha, path)
+                    runs = [("K8", n8, lib8,
+                             lambda: tin.instance_norm_act_k8(x, gamma, beta, alpha=alpha),
+                             lambda: tin.instance_norm_act_ref(x, gamma, beta, alpha=alpha))]
+                    if n9:
+                        runs.append(("K9", n9, lib9,
+                                     lambda: tin.instance_norm_act_bwd_k9(
+                                         x, dy, gamma, beta, mean, rstd, alpha=alpha),
+                                     lambda: tin.instance_norm_act_bwd_ref(
+                                         x, dy, gamma, beta, mean, rstd, alpha=alpha)))
+                    for kern, calls, lib, kfn, pfn in runs:
+                        ms, plain = paired_ms(kfn, pfn, queued=True)
+                        us = host_us(kfn)
+                        bms, by = in_bound(kern, b, hwc, x.element_size())
+                        # A tree from before the plan (tools/time_torch_instnorm.py
+                        # --root times older ones too) has no `in_tiling`.
+                        plan = tin.in_tiling(b, hwc[0] * hwc[1], hwc[2], x.element_size(),
+                                             torch.cuda.get_device_properties(0).multi_processor_count,
+                                             1 if kern == "K8" else 2) \
+                            if hasattr(tin, "in_tiling") else None
+                        say("timing", f"{kern} {dt} 64x256 b{b} x{[b, *hwc]} alpha={alpha}: "
+                            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, "
+                            f"bound {bms:.4f} ms ({by}; {100 * bms / ms:.1f}% of it), host "
+                            f"{us:.2f} us a call, x{calls} per "
+                            f"{'dispatch' if path == 'serving' else 'GAN step'}; plan {plan}; "
+                            f"on {smi}")
+                        rows.append({"kernel": kern, "dtype": dt, "path": path, "batch": b,
+                                     "shape": [b, *hwc], "alpha": alpha, "ms": ms,
+                                     "plain_ms": plain, "library_ms": lib, "host_us": us,
+                                     "bound_ms": bms, "bound_by": by, "calls": calls,
+                                     "plan": plan._asdict() if plan else None})
+                        t = totals.setdefault((path, kern, dt), [0.0] * 6)
+                        t[0] += calls * ms
+                        t[1] += calls * plain
+                        t[2] += calls * bms
+                        t[3 if by == "operations" else 4] += calls * bms
+                        t[5] += calls * lib
+                    del mean, rstd
+                del x, gamma, beta, dy, xv, dyv
+                free_cuda()
+    return rows, totals
 
 
 def synth_panorama(rng, h, w):

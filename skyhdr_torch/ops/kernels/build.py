@@ -36,11 +36,12 @@ _F = ctypes.c_float
 # name -> argtypes; every entry point returns an int (a cudaError_t, or
 # for skyhdr_da_{fwd,dx}_tiles a count).
 _SIGNATURES = {
-    # x, gamma, beta, ws, y, mean, rstd, B, HW, C, S, eps, alpha, is_bf16, device, stream
-    "skyhdr_in_fwd_k8": [_P] * 7 + [_I] * 4 + [_F, _F] + [_I] * 2 + [_P],
-    # x, dy, gamma, beta, mean, rstd, ws, part, m12, dgamma, dbeta, dx,
-    # B, HW, C, S, alpha, is_bf16, device, stream
-    "skyhdr_in_bwd_k9": [_P] * 12 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
+    # x, gamma, beta, y, mean, rstd, B, HW, C, cluster, groups, threads, vec,
+    # hold, eps, alpha, is_bf16, device, stream
+    "skyhdr_in_fwd_k8": [_P] * 6 + [_I] * 8 + [_F, _F] + [_I] * 2 + [_P],
+    # x, dy, gamma, beta, mean, rstd, part, counter, dgamma, dbeta, dx, B, HW,
+    # C, cluster, groups, threads, vec, hold, alpha, is_bf16, device, stream
+    "skyhdr_in_bwd_k9": [_P] * 11 + [_I] * 8 + [_F] + [_I] * 2 + [_P],
     # x, kern, bias, rows, taps, out, B, H, W, Cp, F, k, taps per group, span,
     # rows per block, channels per thread, is_bf16, device, stream
     "skyhdr_da_fwd": [_P] * 6 + [_I] * 12 + [_P],

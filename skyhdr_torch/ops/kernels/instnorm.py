@@ -24,16 +24,141 @@ unfused graph's `F.relu` / `F.leaky_relu` (mask `> 0`) gives `alpha`.
 
 Dispatch is by device only: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernel or raises; there is no shape gate (the TPU's
-VMEM gate has no counterpart here). `K8_LAUNCHES` / `K9_LAUNCHES` count
-wrapper calls that launch.
+VMEM gate has no counterpart here). Each launch follows `in_tiling`, a
+pure-Python plan (cluster size, channel groups, threads, whether the
+blocks hold their share). `K8_LAUNCHES` / `K9_LAUNCHES` count wrapper
+calls that launch.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 K8_LAUNCHES = 0
 K9_LAUNCHES = 0
+
+# The plan's limits and aims (csrc/instnorm.cu mirrors the first two).
+IN_SMEM = 232448 - 1024       # dynamic shared memory a block may use, bytes
+IN_CLUSTERS = (1, 2, 4, 8, 16)  # blocks a cluster may have (16: non-portable)
+IN_SHARE = 64 * 1024          # bytes of x (K9: and dy) a block aims to hold
+IN_FILL = 2                   # blocks per SM a plan aims for
+IN_PER_THREAD = 16            # 16-byte vectors a thread aims to hold, over x (and dy)
+
+
+class InTiling(NamedTuple):
+    """A K8/K9 launch: `cluster` blocks per (sample, channel group) split
+    H*W, `groups` channel groups, `threads` a block, `per_thread` pixels
+    each thread walks at most, `holds` whether each block keeps its share
+    in shared memory (else it reads it again in each pass), `vec` elements
+    per load (16 bytes, or 1), `smem` dynamic shared memory bytes."""
+    cluster: int
+    groups: int
+    threads: int
+    per_thread: int
+    holds: bool
+    vec: int
+    smem: int
+
+
+def in_smem_bytes(hw: int, c: int, elem_bytes: int, tensors: int, cluster: int,
+                  groups: int, threads: int, vec: int, holds: bool) -> int:
+    """Dynamic shared memory of a launch, as `smem_bytes` in instnorm.cu:
+    the held shares (each padded to 16 bytes), then the cluster partials
+    and totals (4 floats a channel) and the block reduction's rows (two
+    quantities a channel and a count)."""
+    cg = c // groups
+    lanes = cg // vec
+    rows = threads // 32 if 32 % lanes == 0 else threads // lanes
+    held = -(-(-(-hw // cluster) * cg * elem_bytes) // 16) * 16 if holds else 0
+    return tensors * held + 4 * (4 * cg + rows * (2 * cg + 1))
+
+
+def _threads(pixels: int, lanes: int, vec: int, tensors: int = 1) -> int:
+    """Threads of a block of `lanes` along the channels and `pixels` pixels:
+    enough rows that each walks about IN_PER_THREAD / tensors pixels; a
+    multiple of 32 where whole rows fit a warp; at most 512 with 16-byte
+    vectors (1024 with one element a thread), 256 where rows straddle warps
+    (their reduction keeps a row each)."""
+    want = lanes * -(-pixels // max(1, IN_PER_THREAD // tensors))
+    if 32 % lanes == 0:
+        return min(512 if vec > 1 else 1024, max(32, -(-want // 32) * 32))
+    return max(lanes, min(want, max(256, lanes)) // lanes * lanes)
+
+
+@functools.lru_cache(maxsize=None)
+def in_tiling(b: int, hw: int, c: int, elem_bytes: int, sms: int, tensors: int = 1,
+              aligned: bool = True) -> InTiling:
+    """The plan of a K8 (`tensors` = 1: x) or K9 (2: x and dy) launch over x
+    [b, hw, c] of `elem_bytes` elements on `sms` SMs. 16-byte vectors where
+    the rows allow (`aligned` pointers, c a multiple of the vector);
+    channel groups keep a pixel's run >= 32 bytes. Of the (groups, cluster)
+    splits whose blocks hold at most IN_SHARE, the fewest splits that give
+    IN_FILL blocks per SM (else the most blocks), and of those the ones
+    with runs of >= 64 bytes, then portable clusters (<= 8 blocks), then
+    the fewest groups; where none holds IN_SHARE, the smallest share that
+    fits; where none fits, the blocks read their share again in each pass.
+    (The order is the fastest of those swept on the H100, PERF.md.)"""
+    vec = 16 // elem_bytes if aligned and c % (16 // elem_bytes) == 0 else 1
+    groups = [g for g in (2 ** i for i in range(11)) if c % g == 0 and (c // g) % vec == 0
+              and (g == 1 or (vec > 1 and c // g * elem_bytes >= 32))]
+    splits = sorted(((g, n) for g in groups for n in IN_CLUSTERS),
+                    key=lambda gn: (gn[0] * gn[1], c // gn[0] * elem_bytes < 64, gn[1] > 8,
+                                    gn[0]))
+
+    def most(gns):  # the most blocks, then as `splits` orders them
+        return max(gns, key=lambda gn: (gn[0] * gn[1], -splits.index(gn)))
+
+    def threads(gn):
+        return _threads(-(-hw // gn[1]), c // gn[0] // vec, vec, tensors)
+
+    def share(gn):
+        return tensors * -(-hw // gn[1]) * (c // gn[0]) * elem_bytes
+
+    def smem(gn, holds):
+        return in_smem_bytes(hw, c, elem_bytes, tensors, gn[1], gn[0], threads(gn), vec, holds)
+
+    fits = [gn for gn in splits if smem(gn, True) <= IN_SMEM]
+    held = [gn for gn in fits if share(gn) <= IN_SHARE]
+    full = [gn for gn in (held or splits) if b * gn[0] * gn[1] >= IN_FILL * sms]
+    if held:
+        g, n = full[0] if full else most(held)
+    elif fits:
+        g, n = min(fits, key=share)
+    else:
+        g, n = full[0] if full else most(splits)
+    holds = bool(fits)
+    rows = threads((g, n)) // (c // g // vec)
+    return InTiling(n, g, threads((g, n)), -(-(-(-hw // n)) // rows), holds, vec,
+                    smem((g, n), holds))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _plan(x: torch.Tensor, tensors: int, *others: torch.Tensor) -> InTiling:
+    b, h, w, c = x.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, *others))
+    return in_tiling(b, h * w, c, x.element_size(), _sm_count(x.device.index), tensors,
+                     aligned)
+
+
+# K9's ticket counters, one per (device, stream): zeroed once, left zero
+# by every K9 launch.
+_COUNTERS = {}
+
+
+def _counter(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    t = _COUNTERS.get(key)
+    if t is None:
+        t = _COUNTERS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return t
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -52,17 +177,13 @@ def _ptrs(*tensors):
 
 
 def _alpha_in(dtype: torch.dtype, alpha: float) -> float:
-    """`alpha` as JAX multiplies a `dtype` array by it: rounded to dtype."""
-    return float(torch.tensor(alpha, dtype=dtype).float())
-
-
-def _splits(b: int, hw: int, c: int, device) -> int:
-    """Pixel splits per sample: about 8 blocks per SM over the batch, each
-    split at least 4 rows of the block's pixel stride."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    rows = max(1, 256 // c)
-    want = -(-8 * sms // b)
-    return max(1, min(want, hw // (4 * rows)))
+    """`alpha` as JAX multiplies a `dtype` array by it: rounded to dtype
+    (float32, then bfloat16 by round-to-nearest-even of the float32 bits)."""
+    a = np.float32(alpha)
+    if dtype != torch.bfloat16 or a != a:
+        return float(a)
+    bits = int(a.view(np.uint32))
+    return float(np.uint32((bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000).view(np.float32))
 
 
 def _check_operands(x, gamma, beta, what):
@@ -90,24 +211,22 @@ def instance_norm_act_k8(x, gamma, beta, *, eps: float = 1e-3,
     x = x.contiguous()
     g32 = gamma.float().contiguous()
     b32 = beta.float().contiguous()
-    s = _splits(b, hw, c, x.device)
-    ws = torch.empty((b, s, c, 2), dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
-    mean = torch.empty((b, c), dtype=torch.float32, device=x.device)
-    rstd = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    stats = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
+    p = _plan(x, 1)
     code = library().skyhdr_in_fwd_k8(
-        *_ptrs(x, g32, b32, ws, y, mean, rstd), b, hw, c, s, float(eps),
-        _alpha_in(x.dtype, alpha), int(x.dtype == torch.bfloat16),
-        x.device.index, _stream(x))
+        *_ptrs(x, g32, b32, y, stats[0], stats[1]), b, hw, c, p.cluster, p.groups,
+        p.threads, p.vec, int(p.holds), float(eps), _alpha_in(x.dtype, alpha),
+        int(x.dtype == torch.bfloat16), x.device.index, _stream(x))
     check(code, "K8 (instance-norm forward)")
     K8_LAUNCHES += 1
-    return y, mean, rstd
+    return y, stats[0], stats[1]
 
 
 def instance_norm_act_bwd_k9(x, dy, gamma, beta, mean, rstd, *,
                              alpha: float = 1.0):
     """K9 on the card: (dx in x.dtype, dgamma [c] f32, dbeta [c] f32), the
-    batch sums in a fixed order (deterministic). dy is taken in x.dtype."""
+    batch sums in sample order (deterministic). dy is taken in x.dtype."""
     global K9_LAUNCHES
     from skyhdr_torch.ops.kernels.build import check, library
 
@@ -121,16 +240,16 @@ def instance_norm_act_bwd_k9(x, dy, gamma, beta, mean, rstd, *,
     g32 = gamma.float().contiguous()
     b32 = beta.float().contiguous()
     mean, rstd = mean.float().contiguous(), rstd.float().contiguous()
-    s = _splits(b, hw, c, x.device)
-    ws = torch.empty((b, s, c, 2), dtype=torch.float32, device=x.device)
-    scratch = torch.empty((2, b, c, 2), dtype=torch.float32, device=x.device)
-    dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
-    dbeta = torch.empty(c, dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
+    # dgamma, dbeta, then each sample's partials [b, c, 2]: one allocation.
+    out = torch.empty(2 * c + 2 * b * c, dtype=torch.float32, device=x.device)
+    dgamma, dbeta, part = out[:c], out[c:2 * c], out[2 * c:]
+    p = _plan(x, 2, dy)
+    stream = _stream(x)
     code = library().skyhdr_in_bwd_k9(
-        *_ptrs(x, dy, g32, b32, mean, rstd, ws, scratch[0], scratch[1], dgamma,
-               dbeta, dx), b, hw, c, s, float(alpha),
-        int(x.dtype == torch.bfloat16), x.device.index, _stream(x))
+        *_ptrs(x, dy, g32, b32, mean, rstd, part, _counter(x.device, stream), dgamma,
+               dbeta, dx), b, hw, c, p.cluster, p.groups, p.threads, p.vec, int(p.holds),
+        float(alpha), int(x.dtype == torch.bfloat16), x.device.index, stream)
     check(code, "K9 (instance-norm backward)")
     K9_LAUNCHES += 1
     return dx, dgamma, dbeta

@@ -490,6 +490,87 @@ def test_in_function_on_cuda_takes_kernels(cuda):
         assert _rel(a, b) <= 1e-5
 
 
+def _in_check(x, dy, gamma, beta, alpha, tol):
+    """K8 then K9 on (x, dy) against their plain versions; K8 and K9 twice
+    give the same bits."""
+    y, mean, rstd = tin.instance_norm_act_k8(x, gamma, beta, alpha=alpha)
+    fwd_again = tin.instance_norm_act_k8(x, gamma, beta, alpha=alpha)
+    got = tin.instance_norm_act_bwd_k9(x, dy, gamma, beta, mean, rstd, alpha=alpha)
+    again = tin.instance_norm_act_bwd_k9(x, dy, gamma, beta, mean, rstd, alpha=alpha)
+    torch.cuda.synchronize()
+    y_ref, mean_ref, rstd_ref = tin.instance_norm_act_ref(x, gamma, beta, alpha=alpha)
+    assert y.dtype == x.dtype and _rel(y, y_ref) <= tol
+    assert _rel(mean, mean_ref) <= 1e-5 and _rel(rstd, rstd_ref) <= 1e-5
+    want = tin.instance_norm_act_bwd_ref(x, dy, gamma, beta, mean, rstd, alpha=alpha)
+    for name, a, b in zip(("dx", "dgamma", "dbeta"), got, want):
+        assert _rel(a, b) <= tol, name
+    assert all(torch.equal(a, b) for a, b in zip((y, mean, rstd), fwd_again))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _in_plan(b, hw, c, elem, tensors, cluster, groups, holds=True, vec=None):
+    """An `in_tiling` plan with the split given (vec: 16 bytes unless 1),
+    held where its share fits."""
+    vec = vec or 16 // elem
+    threads = tin._threads(-(-hw // cluster), c // groups // vec, vec, tensors)
+    rows = threads // (c // groups // vec)
+
+    def smem(h):
+        return tin.in_smem_bytes(hw, c, elem, tensors, cluster, groups, threads, vec, h)
+
+    holds = holds and smem(True) <= tin.IN_SMEM
+    return tin.InTiling(cluster, groups, threads, -(-(-(-hw // cluster)) // rows), holds, vec,
+                        smem(holds))
+
+
+# K8/K9 at every cluster size and channel-group split `in_tiling` can pick,
+# held and read again, with 16-byte vectors and one element a thread.
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("groups,holds,vec", [(1, True, None), (2, True, None),
+                                              (4, True, None), (1, False, None),
+                                              (2, True, 1)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_k8_k9_at_each_plan(cuda, monkeypatch, cluster, groups, holds, vec, dtype, tol):
+    shape = (3, 16, 64, 32)
+    if dtype == torch.bfloat16 and groups == 4:
+        groups = 2  # a bf16 group of 8 channels would be a 16-byte run
+    x, gamma, beta, dy = _in_operands(cuda, shape, dtype)
+    elem = x.element_size()
+    monkeypatch.setattr(tin, "in_tiling", lambda b, hw, c, e, sms, tensors=1, aligned=True:
+                        _in_plan(b, hw, c, elem, tensors, cluster, groups, holds, vec))
+    _in_check(x, dy, gamma, beta, 0.1, tol)
+
+
+# The plans `in_tiling` picks at the model's shapes and batches (b64: the
+# fewest splits; b1, b2: the most) and at shapes off the model: one element
+# a thread (C = 3, 7, 1021, or a pointer off 16 bytes), C = 1024, a batch of
+# many clusters (the ticket counter), and a share too large to hold.
+@pytest.mark.parametrize("shape", [(64, 16, 64, 128), (64, 32, 128, 64), (2, 64, 256, 32),
+                                   (1, 8, 32, 128), (1, 5, 7, 3), (2, 3, 4, 1021),
+                                   (2, 2, 3, 1024), (300, 4, 8, 16), (1, 512, 256, 8),
+                                   (2, 3, 5, 7)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_k8_k9_at_picked_plans(cuda, shape, dtype, tol):
+    x, gamma, beta, dy = _in_operands(cuda, shape, dtype)
+    b, h, w, c = shape
+    plan = tin.in_tiling(b, h * w, c, x.element_size(), tin._sm_count(x.device.index), 1)
+    if shape == (1, 512, 256, 8) and dtype == torch.float32:
+        assert not plan.holds
+    _in_check(x, dy, gamma, beta, 0.1, tol)
+
+
+def test_k8_k9_misaligned_rows(cuda):
+    """x and dy 4 bytes off a 16-byte boundary: the plan takes one element
+    a thread."""
+    x, gamma, beta, dy = _in_operands(cuda, (2, 8, 32, 64), torch.float32)
+    xs = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape)
+    dys = torch.empty(dy.numel() + 1, device=cuda)[1:].view(dy.shape)
+    xs.copy_(x)
+    dys.copy_(dy)
+    assert xs.data_ptr() % 16 and xs.is_contiguous()
+    _in_check(xs, dys, gamma, beta, 0.0, 1e-5)
+
+
 # K10 shapes: (x shape, F, rblk, mblk); the sum modes need C >= F.
 PROBE_SHAPES = [((2, 8, 32, 64), 64, 2, 1), ((2, 4, 16, 128), 128, 4, 1),
                 ((1, 8, 40, 32), 32, 8, 1)]

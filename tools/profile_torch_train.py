@@ -60,9 +60,7 @@ def group_of(name: str, ksize: int = 3) -> str:
     if da:
         return da
     n = name.lower()
-    for key, group in (("in_moments", "K8 IN forward"),
-                       ("in_stats", "K8 IN forward"), ("in_apply", "K8 IN forward"),
-                       ("in_bwd", "K9 IN backward")):
+    for key, group in (("in_fwd_kernel", "K8 IN forward"), ("in_bwd_kernel", "K9 IN backward")):
         if key in n:
             return group
     if "fft" in n or "pointwise_mult_and_sum_complex" in n:
