@@ -93,14 +93,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     conv (1e-4 f32, 2e-2 with bf16); K11 bitwise; K12 at
                     every exp_mmshape configuration in f32 and bf16 and at
                     three shapes it pads, with one dot (1e-5);
-                    then the main path: exp_daconv (every instantiation
-                    through its variant names), exp_pack and exp_mmshape
-                    through their entry points, launches read after; then
-                    times (CUDA events, median of 20, in turns with the
-                    plain version; K10 beside K1, K11 and K12 beside their
-                    library yardsticks; K12, its plain version and the
-                    library with device work queued ahead, so that the
-                    events bracket device time, not the wrapper's host time).
+                    each K10 instantiation one device kernel a call under
+                    torch.profiler; then the main path: exp_daconv (every
+                    instantiation through its variant names), exp_pack and
+                    exp_mmshape through their entry points, launches read
+                    after; then times (CUDA events, median of 20, in turns
+                    with the plain version; K10 beside K1, K11 and K12
+                    beside their library yardsticks; K10, K1 and K12, their
+                    plain versions and the library with device work queued
+                    ahead, so that the events bracket device time, not the
+                    wrapper's host time; K10's default run also without).
 The line before the last is the nvidia-smi line, the one before it the
 kernels' JSON summary; the last line is the run's JSON result. Details go to
 chiprun_out/chip_smoke.json, the phases' lines to chiprun_out/chip_smoke.log. The train golden's comparison lives in
@@ -1447,6 +1449,54 @@ def check_probes(tp, report):
     return worst
 
 
+def k10_kernels_a_call():
+    """{K10 name: {device kernel: count}} that one call of each
+    instantiation on x in its storage type runs under torch.profiler, at
+    the probes' default shape, in this process."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from skyhdr_torch.ops.kernels import probes as tp
+
+    tag, shape, f = PROBE_SHAPES[0]
+    x, k = probe_operands(shape, f)
+    out = {}
+    for name, p in tp.PROBES.items():
+        xs = x.to(p.store)
+        tp.da_probe_k10(xs, k, name)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            tp.da_probe_k10(xs, k, name)
+            torch.cuda.synchronize()
+        seen = out[name] = {}
+        for evt in prof.key_averages():
+            t = getattr(evt, "self_device_time_total", None)
+            if t is None:
+                t = getattr(evt, "self_cuda_time_total", 0.0)
+            if t > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+                seen[evt.key] = seen.get(evt.key, 0) + evt.count
+        del xs
+    return out
+
+
+def k10_one_kernel():
+    """Each K10 instantiation runs one device kernel a call: counted by
+    `k10_kernels_a_call` in a fresh process. (In this script's own process,
+    after the earlier phases, the profiler has reported no device kernel
+    for a K10 call at all on the H100; a fresh process, `--only probes`
+    and the card tests see each call's one kernel.)"""
+    code = "import json, chip_smoke; print(json.dumps(chip_smoke.k10_kernels_a_call()))"
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=900)
+    check(proc.returncode == 0, f"K10 profiler count failed: {proc.stderr[-2000:]}")
+    seen = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name, kernels in seen.items():
+        check(sum(kernels.values()) == 1 and all("probe_" in key for key in kernels),
+              f"K10 {name}: one call ran device kernels {kernels}, want one probe kernel")
+    say("probes", f"K10: each of the {len(seen)} instantiations ran one device kernel a call "
+        f"under torch.profiler (a fresh process, x {list(PROBE_SHAPES[0][1])})")
+    return seen
+
+
 def mm_input():
     """exp_mmshape's first input (numpy seed 0, 600x600)."""
     return torch.from_numpy(np.random.default_rng(0).normal(size=(600, 600))
@@ -1489,55 +1539,87 @@ def drive_probes(tp, report):
     return launched
 
 
-def time_probes(dc, tp, smi, report):
-    """Each K10 instantiation on x in its storage type and K1 on the f32 x
-    at both shapes, each against its plain version in turns; K11 against
-    its plain version and the library's copy; K12 at each configuration
-    against its plain version and one batched matmul. Returns the JSON
-    line's K10-K12 numbers (the tools' default runs)."""
-    from skyhdr_torch.tools import exp_mmshape
+# exp_daconv's default run: a2, a4, a8 (direct reads, f32) and b4 (nine
+# taps staged, bf16 storage), one call each at the default shape.
+K10_DEFAULT_RUN = (("a", 2), ("a", 4), ("a", 8), ("cs_bf16", 4))
 
-    rows = {}
+
+def k10_timing(dc, tp, smi, plain=True):
+    """K10 at both probe shapes: each instantiation at rblk 2 (at the
+    default shape also the default run's other calls) on x in its storage
+    type, and K1 on the f32 x, in device ms with work queued ahead (median
+    of 20; with `plain`, in turns with the plain version, also queued).
+    Returns ({(shape tag, name, rblk): row}, {shape tag: K1 ms})."""
+    rows, k1s = {}, {}
     for tag, shape, f in PROBE_SHAPES:
         b, h, w, c = shape
         n = b * h * w
         x, k = probe_operands(shape, f)
         bias = torch.zeros(f, device="cuda")
-        k1, k1_plain = paired_ms(lambda: dc.da_conv_forward_k1(x, k, bias),
-                                 lambda: dc.da_conv_forward_ref(x, k, bias))
+        k1 = statistics.median(time_ms(lambda: dc.da_conv_forward_k1(x, k, bias), queued=True))
+        k1s[tag] = k1
         k1_bound, _ = probe_bound(n, c, f, 4, False, False)
-        say("probes", f"K1 {tag} x{list(shape)} F={f}: {k1:.4f} ms, plain {k1_plain:.4f} ms, "
-            f"bound {k1_bound:.4f} ms; on {smi}")
+        say("probes", f"K1 {tag} x{list(shape)} F={f}: {k1:.4f} ms (queued), bound "
+            f"{k1_bound:.4f} ms; on {smi}")
         runs = [(name, 2) for name in tp.PROBES]
         if tag == PROBE_SHAPES[0][0]:
-            runs += [("a", 4), ("a", 8), ("cs_bf16", 4)]
+            runs += [r for r in K10_DEFAULT_RUN if r[1] != 2]
         for name, rblk in runs:
             p = tp.PROBES[name]
             xs = x.to(p.store)
-            ms, plain = paired_ms(lambda: tp.da_probe_k10(xs, k, name, rblk=rblk),
-                                  lambda: tp.da_probe_ref(xs, k, name))
+
+            def kernel():
+                return tp.da_probe_k10(xs, k, name, rblk=rblk)
+
+            if plain:
+                ms, plain_ms = paired_ms(kernel, lambda: tp.da_probe_ref(xs, k, name), queued=True)
+            else:
+                ms, plain_ms = statistics.median(time_ms(kernel, queued=True)), None
             summing = p.diag in tp.SUM_MODES
             bms, by = probe_bound(n, c, f, xs.element_size(), p.mma, summing,
                                   2 if p.mma else 4)
             tfs = (n * 9 * c if summing else 2.0 * n * 9 * c * f) / ms / 1e9
-            say("probes", f"K10 {name} rblk={rblk} {tag}: {ms:.4f} ms ({tfs:.2f} TF/s), plain "
-                f"{plain:.4f} ms, bound {bms:.4f} ms ({by}; {100 * bms / ms:.1f}% of it), "
-                f"{ms / k1:.3f}x K1's {k1:.4f} ms; on {smi}")
+            vs_plain = "" if plain_ms is None else f", plain {plain_ms:.4f} ms"
+            say("probes", f"K10 {name} rblk={rblk} {tag}: {ms:.4f} ms ({tfs:.2f} TF/s){vs_plain}, "
+                f"bound {bms:.4f} ms ({by}; {100 * bms / ms:.1f}% of it), {ms / k1:.3f}x K1's "
+                f"{k1:.4f} ms; on {smi}")
             rows[tag, name, rblk] = {"probe": name, "rblk": rblk, "shape": list(shape), "f": f,
-                                     "ms": ms, "plain_ms": plain, "bound_ms": bms,
-                                     "bound_by": by, "tflops": tfs, "k1_ms": k1,
-                                     "k1_plain_ms": k1_plain}
+                                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                                     "bound_by": by, "tflops": tfs, "k1_ms": k1}
             del xs
         del x, k
         free_cuda()
+    return rows, k1s
+
+
+def time_probes(dc, tp, smi, report):
+    """K10 as `k10_timing` does (with its plain version), and the default
+    run also without work queued ahead (events around each call, which
+    also count the wrappers' host time); K11 against its plain version and the library's
+    copy; K12 at each configuration against its plain version and one
+    batched matmul. Returns the JSON line's K10-K12 numbers (the tools'
+    default runs)."""
+    from skyhdr_torch.tools import exp_mmshape
+
+    rows, _ = k10_timing(dc, tp, smi)
     report["k10"] = list(rows.values())
-    # exp_daconv's default run: a2, a4, a8 (direct reads, f32) and b4 (nine
-    # taps staged, bf16 storage), one call each at the default shape.
-    tag = PROBE_SHAPES[0][0]
-    picks = [rows[tag, "a", 2], rows[tag, "a", 4], rows[tag, "a", 8], rows[tag, "cs_bf16", 4]]
+    tag, shape, f = PROBE_SHAPES[0]
+    picks = [rows[tag, name, rblk] for name, rblk in K10_DEFAULT_RUN]
+    x, k = probe_operands(shape, f)
+    unqueued = 0.0
+    for name, rblk in K10_DEFAULT_RUN:
+        xs = x.to(tp.PROBES[name].store)
+        unqueued += statistics.median(time_ms(lambda: tp.da_probe_k10(xs, k, name, rblk=rblk)))
+        del xs
+    del x, k
+    free_cuda()
     out = {"K10": {"ms": sum(r["ms"] for r in picks),
                    "plain_ms": sum(r["plain_ms"] for r in picks),
-                   "bound_ms": sum(r["bound_ms"] for r in picks), "library_ms": None}}
+                   "bound_ms": sum(r["bound_ms"] for r in picks), "library_ms": None,
+                   "unqueued_ms": unqueued}}
+    say("probes", f"K10 default run (a2 + a4 + a8 + b4): {out['K10']['ms']:.4f} ms queued, "
+        f"{unqueued:.4f} ms unqueued (events around each call, the wrapper's host time "
+        f"included), bound {out['K10']['bound_ms']:.4f} ms; on {smi}")
 
     x = torch.from_numpy(np.random.default_rng(0).normal(size=(32, 64, 256, 64))
                          .astype(np.float32)).cuda()
@@ -1585,6 +1667,7 @@ def phase_probes(dc, smi, report):
 
     out = report["probes"] = {}
     worst = check_probes(tp, out)
+    out["k10_device_kernels"] = k10_one_kernel()
     launched = drive_probes(tp, out)
     numbers = time_probes(dc, tp, smi, out)
     for kern, row in numbers.items():
@@ -1702,13 +1785,15 @@ def main(argv=None):
         })
     probe_src = "skyhdr_torch/csrc/probes.cu"
     for kern, name, replaces, bound_by, per in (
-            ("K10", "K10 probe_direct_kernel / probe_staged_kernel (DA forward probe "
-             "variants)", "tools/exp_daconv.py:102", "operations",
+            ("K10", "K10 probe_direct_kernel<T, VEC, FT> / probe_staged_kernel<T, TAPS, "
+             "DEDUP, MMA, DIAG, CH> (DA forward probe variants)", "tools/exp_daconv.py:102",
+             "operations",
              "one run of the probe at its default shape: one call each of exp_daconv's "
              "default variants a2, a4, a8 (direct reads, f32) and b4 (nine taps staged, "
-             "bf16 storage) at x (32,64,256,64) -> F 64 (the forward_a call site; the "
-             "other variants' call sites :172/:272/:411/:440/:521/:604/:695 run the same "
-             "kernels); launches: the probes phase's drive of the three tools"),
+             "bf16 storage) at x (32,64,256,64) -> F 64, device time with work queued "
+             "ahead (the forward_a call site; the other variants' call sites "
+             ":172/:272/:411/:440/:521/:604/:695 run the same kernels); launches: the "
+             "probes phase's drive of the three tools"),
             ("K11", "K11 pack_samples_kernel (sample packing)", "tools/exp_pack.py:60",
              "bytes", "one run of the probe at its default shape: one pack of x "
              "(32,64,256,64) f32 with p=2; launches: the probes phase's drive"),

@@ -4,34 +4,38 @@
 // with ctypes (skyhdr_torch/ops/kernels/probes.py). They serve the probe
 // tools under skyhdr_torch/tools/, not the model.
 //
-// K10 (probe_direct_kernel<T> for G = kDirect, probe_staged_kernel<T, TAPS,
-//   DEDUP, MMA, DIAG> for G = kStaged; one entry point, skyhdr_probe_fwd,
-//   picks the instantiation by these choices) replaces the Pallas
-//   variants of tools/exp_daconv.py: forward_a (`_kernel_a`), forward_b
-//   (`_kernel_b`), forward_c (`_kernel_c`, `_kernel_cs`), forward_prodbf16
-//   (`_kernel_prodbf16`), forward_diag (`_kernel_diag`), forward_pair
-//   (`_kernel_pair`), forward_pack (those bodies on P samples packed along
-//   the channels, block-diagonal K) and forward_dedup (`_kernel_dedup`).
+// K10 (probe_direct_kernel<T, VEC, FT> for G = kDirect,
+//   probe_staged_kernel<T, TAPS, DEDUP, MMA, DIAG, CH> for G = kStaged; one
+//   entry point, skyhdr_probe_fwd, picks the instantiation by these
+//   choices) replaces the Pallas variants of tools/exp_daconv.py: forward_a
+//   (`_kernel_a`), forward_b (`_kernel_b`), forward_c (`_kernel_c`,
+//   `_kernel_cs`), forward_prodbf16 (`_kernel_prodbf16`), forward_diag
+//   (`_kernel_diag`), forward_pair (`_kernel_pair`), forward_pack (those
+//   bodies on P samples packed along the channels, block-diagonal K) and
+//   forward_dedup (`_kernel_dedup`).
 //   All compute out[b,i,j] = sum_t sample_t[b,i,j] @ K_t (no bias, f32 out),
 //     rowY   = (1-wy) xpad[y0] + wy xpad[y1]   (xpad: one zero row above
 //                                              and below, in the storage type)
 //     sample = (1-wx) rowY[(j+cx) mod W] + wx rowY[(j+cx+1) mod W],
-//   or, under DIAG, one stated part of it. What they ask, asked of this card:
+//   or, under DIAG, one stated part of it. The one design choice each
+//   instantiation exists to measure:
 //     T      storage of x: float, or bf16 (read as f32).
-//     G      kDirect (A): each thread reads its source rows from device
-//            memory through L1/L2 at (j+cx) mod W, no staging; kStaged: the
-//            interpolated [TW, TAPS*C] sample tile is built in shared memory
-//            (K1's scheme) and contracted from there.
-//     TAPS   taps contracted per staged tile: 1 (A, C, prodbf16, dedup),
-//            2 (pair), 9 (B, cs: one contraction of depth 9C).
+//     G      kDirect (A): the samples never go to shared memory: each lane
+//            computes them in registers from reads of x in device memory
+//            and feeds them straight to its FMAs; kStaged: the
+//            interpolated sample tile is built in shared memory and
+//            contracted from there.
+//     TAPS   taps of the staged tile: 1 (A, C, prodbf16, dedup), 2 (pair:
+//            one product of depth 2C per tap pair), 9 (B, cs: all nine
+//            taps' samples of a row block in one [9C, M] tile, one
+//            accumulation of depth 9C).
 //     DEDUP  one y-interpolation per (row, kernel row) over the columns its
 //            three taps read, staged in shared memory; the taps'
 //            x-interpolations read it. mblk rows are stacked in the tile's
 //            M (rows x columns of one block).
-//     MMA    false: f32 FMA on CUDA cores (a 4x4 register tile per thread,
-//            as K1); true: bf16 tensor cores, mma.sync.m16n8k16 (bf16
-//            samples and K in, f32 accumulate), the card's counterpart of
-//            a bf16 MXU dot.
+//     MMA    false: f32 FMA on CUDA cores; true: bf16 tensor cores,
+//            mma.sync.m16n8k16 (bf16 samples and K in, f32 accumulate), the
+//            card's counterpart of a bf16 MXU dot.
 //     DIAG   kFull, or a stage isolated as `_kernel_diag` does: kNoRoll
 //            (sample = rowY at column j), kNoMM (sum of samples, no
 //            product), kMMOnly (xpad[y0] at column j into the product),
@@ -42,17 +46,53 @@
 //   What bounds it: at the probes' default shape (x 32x64x256x64, F 64) the
 //   contraction is 38.65 GFLOP, 0.577 ms at the 67 TFLOP/s f32 CUDA-core
 //   peak; in bf16 on tensor cores 0.039 ms, below the 0.060 ms of moving the
-//   bf16 x (67 MB) and the f32 output (134 MB). The f32 variants are fed
-//   from shared memory at one load per 4 FMAs (K1's limit); the tensor-core
-//   variants by 32-bit shared loads of both fragments: the tap's K^T slice
-//   [F, C] (K pre-transposed to [F, 9C] by the wrapper) is staged in shared
-//   memory beside the sample tile, once per block and tap.
-//   What the design does about it: this is a probe, so each variant keeps
-//   its one design choice and shares the rest: the same block (batch, rblk
-//   output rows, TW columns), tables for the block's rows in shared memory,
-//   the tile built with coalesced channel-fastest reads. The tile width TW
-//   shrinks (fewer threads) until the tile fits the 227 KB a block may use
-//   (B and cs: [TW, 9C+1] f32 is 147 KB at C=64, TW=64).
+//   bf16 x (67 MB) and the f32 output (134 MB).
+//   What held the first version (29.9 ms per default run of the tool,
+//   7.7% of the bound): the direct variant's lanes held consecutive
+//   columns (each float4 of x 4C bytes from the next lane's), read K from
+//   device memory and walked the block's rows serially; the staged variants
+//   built their tile from scalar loads of x between barriers, in series
+//   with the product, read K from device memory at every depth step into
+//   a 4x4 register tile, and the nine-tap tile (147 KB) halved the lanes
+//   until it fitted; the tensor-core path loaded its fragments with 32-bit
+//   shared loads.
+//   What this design does (the launch plan is the host's: ops/kernels/
+//   probes.py:probe_tiling, passed in as DirectPlan / StagedPlan):
+//   * direct: a block is `rows` (rblk) output rows x wpr warps a row, the
+//     rows' warps working at once; a warp owns 4 output columns x an F
+//     tile of 4 FT channels. Its lanes are 8 along C (each a 16-byte run of
+//     VEC channels, so a warp's reads of x are runs along C) x 4 along F.
+//     A lane interpolates its channels' samples of its 4 columns in
+//     registers and multiplies them by the tap's K slice, which the block
+//     stages in shared memory with cp.async a tap ahead (the TPU kernel
+//     keeps K in VMEM): each sample feeds FT FMAs, each K value read from
+//     shared memory 4. The 8 lanes along C hold partial sums, summed by a
+//     butterfly of shuffles at the end.
+//   * staged: K1's scaffolding (deform_conv.cu:da_fwd_kernel). A step is
+//     (ts taps, cc input channels); per step the raw source rows (tile
+//     columns + 1, wrapped; rows outside [0, H) zero) are copied with
+//     16-byte cp.async in the storage type, two steps ahead of the
+//     product, and K's rows of the step one step ahead. One barrier a
+//     step: in the same phase the tile of step s + lead is built from its
+//     raw rows (DEDUP: from a y-interpolated window built a step earlier)
+//     while step s is contracted, so the build overlaps the product. f32:
+//     a transposed tile [depth][M] read as float4 into 8 x CH register
+//     tiles (CH = 8 where the F tile is >= 64), ks thread groups splitting
+//     each step's depth where a block would be small (their sums added in
+//     group order at the end of each row group). cs keeps the nine taps'
+//     tile [9C][M] and builds a kernel row (3C) ahead of the contraction;
+//     its split sums use the tile slots idle at a row group's end.
+//     Tensor cores: a bf16 tile [M][depth + 8] and the tap's K^T slice
+//     [fb][depth + 8] (read from the f32 K in device memory and rounded a
+//     step ahead), both loaded with ldmatrix.x4 from rows whose stride is
+//     an odd multiple of 16 bytes (conflict-free); a warp owns 32 x 32
+//     outputs, 8 mma per 4 ldmatrix.
+//   Measured on an H100 80GB HBM3 at 700 W (tools/time_torch_probes.py):
+//   the default run (a2 + a4 + a8 + b4) 8.52 ms against the first
+//   version's 29.9 (27% of its bound); every whole-forward variant faster
+//   than the first version's at both probe shapes; prodbf16 0.84x K1.
+//   Every call is one launch; f32 sums in a fixed order: bitwise
+//   repeatable.
 //
 // K11 pack_samples_kernel replaces `_pack_kernel` / `pack_pallas`
 //   (tools/exp_pack.py): out[i, :, :, s*C:(s+1)*C] = x[i*P + s], a copy
@@ -101,23 +141,26 @@
 namespace {
 
 constexpr int kBlock = 256;
-constexpr int kTileRows = 4;       // FMA: output columns held per thread
-constexpr int kMmaM = 64;          // tensor-core tile rows (4 m16 tiles)
-constexpr int kMaxGroup = 16;      // rows of one block's group (mblk)
-// Dynamic shared memory a block may take: 227 KB less the static tables.
-constexpr size_t kMaxSmem = 220 * 1024;
+using bf16 = __nv_bfloat16;
 
 // The values skyhdr_probe_fwd takes (probes.py's GATHERS and DIAGS, in order).
 enum Gather { kDirect = 0, kStaged = 1 };
 enum Diag { kFull = 0, kNoRoll, kNoMM, kMMOnly, kMMHoist, kLoadOnly, kLoad1Only };
 
+constexpr int kMaxRows = 16;  // K10: output rows a block (rblk), at most
+constexpr int kLanesC = 8;    // K10 direct: lanes of a warp along C
+constexpr int kLanesF = 4;    // K10 direct: lanes of a warp along F
+constexpr int kCols = 4;      // K10 direct: output columns a lane
+// Dynamic shared memory a K10 block may take: 227 KB less its static tables.
+constexpr int kMaxSmem = 232448 - 4096;
+
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+__device__ __forceinline__ float4 ld4(const bf16* p) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
   __nv_bfloat162 lo, hi;
   memcpy(&lo, &u.x, sizeof(lo));
@@ -127,8 +170,73 @@ __device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// VEC consecutive elements as f32: one 16-byte load (f32 x 4, bf16 x 8) or,
+// for bf16 with VEC = 4, one 8-byte load.
+template <int VEC>
+__device__ __forceinline__ void ldv(const float* p, float (&v)[VEC]) {
+  static_assert(VEC == 4, "f32 lanes read 16 bytes");
+  const float4 a = ld4(p);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+}
+template <int VEC>
+__device__ __forceinline__ void ldv(const bf16* p, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 a = ld4(p);
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  } else {
+    static_assert(VEC == 8, "bf16 lanes read 8 or 16 bytes");
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      __nv_bfloat162 h;
+      memcpy(&h, &w[q], sizeof(h));
+      const float2 f = __bfloat1622float2(h);
+      v[2 * q] = f.x, v[2 * q + 1] = f.y;
+    }
+  }
+}
+
+__device__ __forceinline__ void st_bf16x4(bf16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  memcpy(&u.x, &lo, sizeof(lo));
+  memcpy(&u.y, &hi, sizeof(hi));
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// 16-byte asynchronous copy global -> shared (L2 only), and its groups; the
+// zero-filling form reads nothing when `valid` is false.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ldmatrix: four 8 x 8 bf16 matrices from shared memory at the 32-bit
+// shared address s; lanes 8q..8q+7 give the row addresses of matrix q, and
+// r[q] is this lane's part of it.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], unsigned s) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
 }
 
 // d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate.
@@ -145,316 +253,585 @@ __host__ __device__ constexpr bool is_sum(int diag) {
   return diag == kNoMM || diag == kLoadOnly || diag == kLoad1Only;
 }
 
+// One step of a butterfly reduce-scatter over the lanes `mask` apart: the
+// lane keeps the lower (up = false) or upper half of its N + N values,
+// summed with its partner's; the sums land in a[0..N).
+template <int N>
+__device__ __forceinline__ void halve(float* a, bool up, int mask) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    const float send = up ? a[e] : a[e + N];
+    const float keep = up ? a[e + N] : a[e];
+    a[e] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
+  }
+}
+
 // ---------------------------------------------------------------- K10 (A)
-// Grid (ceil(W / cols), H / rblk, B), kBlock threads; cols = 32 * warps /
-// (F / 32). A warp holds 32 consecutive columns and one 32-wide chunk of F,
-// so its reads of K are uniform. x [B,H,W,C] (T), kern [9C,F] f32.
-template <typename T>
-__global__ void __launch_bounds__(kBlock)
+// The direct plan (ops/kernels/probes.py:DIRECT_FIELDS, in this order).
+struct DirectPlan {
+  int rows;     // output rows a block (rblk), each `wpr` warps
+  int wpr;      // warps per output row, kCols columns each
+  int vec;      // channels a lane reads at once (16 bytes; bf16 at C % 64: 8 bytes)
+  int fb;       // output channels a block: kLanesF x FT
+  int ldg;      // floats per channel group (VEC channels) of the staged K: VEC fb + 16
+  int threads;  // 32 rows wpr
+  int smem;     // two taps of K: 2 (C / VEC) ldg floats
+};
+
+// Grid (column tiles x F tiles, H / rows, B), p.threads threads. x
+// [B,H,W,C] (T), kern f32 [9C,F], tables [H,9], out f32 [B,H,W,F]. Warp w
+// owns output row i0 + w / wpr and columns j .. j + 3; lane (fs, cs) =
+// (lane % 4, lane / 4) the channel groups cs, cs + 8, ... (VEC channels
+// each) and the outputs f0 + 4 fs + 16 n + w (n < FT / 4, w < 4). Shared
+// memory: K_t [C][fb] for two taps, grouped by VEC channels with a 16-float
+// pad between groups (the 8 lanes of an LDS.128 phase hit distinct banks).
+template <typename T, int VEC, int FT>
+__global__ void __launch_bounds__(512)
 probe_direct_kernel(const T* __restrict__ x, const float* __restrict__ kern,
                     const int* __restrict__ y0t, const int* __restrict__ y1t,
                     const int* __restrict__ cxt, const float* __restrict__ wyt,
                     const float* __restrict__ wxt, float* __restrict__ out,
-                    int H, int W, int C, int F, int rblk) {
-  const int chunks = F / 32;
-  const int warp = threadIdx.x / 32;
-  const int chunk = warp % chunks;
-  const int cols = (kBlock / 32 / chunks) * 32;
-  const int j = blockIdx.x * cols + (warp / chunks) * 32 + threadIdx.x % 32;
+                    int H, int W, int C, int F, DirectPlan p) {
+  constexpr int NA = kCols * FT;  // accumulators a lane
+  extern __shared__ __align__(16) float ksm[];
+  __shared__ int s_r0[kMaxRows][9], s_r1[kMaxRows][9], s_cx[kMaxRows][9];
+  __shared__ float s_wy[kMaxRows][9], s_wx[kMaxRows][9];
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int fs = lane % kLanesF, cs = lane / kLanesF;
+  const int r = warp / p.wpr;
+  const int ftiles = F / p.fb;
+  const int j = (blockIdx.x / ftiles) * (kCols * p.wpr) + kCols * (warp % p.wpr);
+  const int f0 = (blockIdx.x % ftiles) * p.fb;
+  const int i0 = blockIdx.y * p.rows;
   const int b = blockIdx.z;
   const size_t row_stride = static_cast<size_t>(W) * C;
   const T* xb = x + static_cast<size_t>(b) * H * row_stride;
-  const float* kc = kern + 32 * chunk;
-  for (int r = 0; r < rblk; ++r) {
-    const int i = blockIdx.y * rblk + r;
-    float acc[32] = {};
-    if (j < W) {
-      for (int t = 0; t < 9; ++t) {
-        const int e = i * 9 + t;
-        const int r0 = y0t[e] - 1;
-        const int r1 = y1t[e] - 1;
-        const float wy = wyt[e];
-        const float wx = wxt[e];
-        const bool in0 = r0 >= 0 && r0 < H;
-        const bool in1 = r1 >= 0 && r1 < H;
-        int q0 = j + cxt[e];
-        if (q0 >= W) q0 -= W;
-        const int q1 = q0 + 1 == W ? 0 : q0 + 1;
-        const T* row0 = xb + static_cast<size_t>(in0 ? r0 : 0) * row_stride;
-        const T* row1 = xb + static_cast<size_t>(in1 ? r1 : 0) * row_stride;
-        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int c = 0; c < C; c += 4) {
-          const float4 a00 = in0 ? ld4(row0 + q0 * C + c) : z;
-          const float4 a10 = in1 ? ld4(row1 + q0 * C + c) : z;
-          const float4 a01 = in0 ? ld4(row0 + q1 * C + c) : z;
-          const float4 a11 = in1 ? ld4(row1 + q1 * C + c) : z;
-          const float s00[4] = {a00.x, a00.y, a00.z, a00.w};
-          const float s10[4] = {a10.x, a10.y, a10.z, a10.w};
-          const float s01[4] = {a01.x, a01.y, a01.z, a01.w};
-          const float s11[4] = {a11.x, a11.y, a11.z, a11.w};
+  for (int e = tid; e < p.rows * 9; e += nthr) {
+    const int rr = e / 9, t = e % 9, q = (i0 + rr) * 9 + t;
+    s_r0[rr][t] = y0t[q] - 1;
+    s_r1[rr][t] = y1t[q] - 1;
+    s_cx[rr][t] = cxt[q];
+    s_wy[rr][t] = wyt[q];
+    s_wx[rr][t] = wxt[q];
+  }
+  const int groups = C / VEC;
+  const int tap_floats = groups * p.ldg;
+  const int vpr = p.fb / 4;  // 16-byte vectors of a K row's F tile
+  auto load_k = [&](int t) {
+    float* dst = ksm + (t & 1) * tap_floats;
+    const float* src = kern + static_cast<size_t>(t) * C * F + f0;
+    for (int e = tid; e < C * vpr; e += nthr) {
+      const int c = e / vpr, v = e - c * vpr;
+      cp_async16(dst + (c / VEC) * p.ldg + (c % VEC) * p.fb + 4 * v,
+                 src + static_cast<size_t>(c) * F + 4 * v);
+    }
+    cp_async_commit();
+  };
+
+  float acc[NA];
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const float g0 = (1.f - wy) * s00[u] + wy * s10[u];
-            const float g1 = (1.f - wy) * s01[u] + wy * s11[u];
-            const float s = (1.f - wx) * g0 + wx * g1;
-            const float* kr = kc + static_cast<size_t>(t * C + c + u) * F;
+  for (int e = 0; e < NA; ++e) acc[e] = 0.f;
+  load_k(0);
+  for (int t = 0; t < 9; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // K_t landed (and the tables); K_{t-1} is no longer read
+    if (t + 1 < 9) load_k(t + 1);
+    const int r0 = s_r0[r][t], r1 = s_r1[r][t];
+    const float wy = s_wy[r][t], wx = s_wx[r][t];
+    const bool in0 = r0 >= 0 && r0 < H, in1 = r1 >= 0 && r1 < H;
+    const float w0 = in0 ? 1.f - wy : 0.f, w1 = in1 ? wy : 0.f;  // rows outside read zero
+    const T* row0 = xb + static_cast<size_t>(in0 ? r0 : 0) * row_stride;
+    const T* row1 = xb + static_cast<size_t>(in1 ? r1 : 0) * row_stride;
+    int col[kCols + 1];
+    col[0] = j + s_cx[r][t];
+    while (col[0] >= W) col[0] -= W;
 #pragma unroll
-            for (int v = 0; v < 8; ++v) {
-              const float4 kv = ld4(kr + 4 * v);
-              acc[4 * v + 0] = fmaf(s, kv.x, acc[4 * v + 0]);
-              acc[4 * v + 1] = fmaf(s, kv.y, acc[4 * v + 1]);
-              acc[4 * v + 2] = fmaf(s, kv.z, acc[4 * v + 2]);
-              acc[4 * v + 3] = fmaf(s, kv.w, acc[4 * v + 3]);
-            }
+    for (int u = 1; u <= kCols; ++u) col[u] = col[u - 1] + 1 == W ? 0 : col[u - 1] + 1;
+    const float* kt = ksm + (t & 1) * tap_floats + 4 * fs;
+    for (int k = cs; k < groups; k += kLanesC) {
+      const int c = k * VEC;
+      float g[kCols + 1][VEC];  // rowY at the kCols + 1 source columns
+#pragma unroll
+      for (int u = 0; u <= kCols; ++u) {
+        float a0[VEC], a1[VEC];
+        ldv<VEC>(row0 + static_cast<size_t>(col[u]) * C + c, a0);
+        ldv<VEC>(row1 + static_cast<size_t>(col[u]) * C + c, a1);
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) g[u][v] = w0 * a0[v] + w1 * a1[v];
+      }
+      const float* kr = kt + k * p.ldg;
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        float s[kCols];
+#pragma unroll
+        for (int m = 0; m < kCols; ++m) s[m] = (1.f - wx) * g[m][v] + wx * g[m + 1][v];
+#pragma unroll
+        for (int n = 0; n < FT / 4; ++n) {
+          const float4 kv = ld4(kr + v * p.fb + 4 * kLanesF * n);
+#pragma unroll
+          for (int m = 0; m < kCols; ++m) {
+            float* a = acc + m * FT + 4 * n;
+            a[0] = fmaf(s[m], kv.x, a[0]);
+            a[1] = fmaf(s[m], kv.y, a[1]);
+            a[2] = fmaf(s[m], kv.z, a[2]);
+            a[3] = fmaf(s[m], kv.w, a[3]);
           }
         }
       }
-      float* o = out + ((static_cast<size_t>(b) * H + i) * W + j) * F + 32 * chunk;
-#pragma unroll
-      for (int v = 0; v < 8; ++v)
-        *reinterpret_cast<float4*>(o + 4 * v) =
-            make_float4(acc[4 * v], acc[4 * v + 1], acc[4 * v + 2], acc[4 * v + 3]);
     }
+  }
+
+  // Sum over the kLanesC lanes along C (lane bits 2-4): a butterfly
+  // reduce-scatter leaves each lane NA / 8 of the sums, flat indices
+  // base + e of acc[m * FT + 4 n + w]: m = 2 cs0 + cs1, n = cs2 FT / 8 + e / 4.
+  halve<NA / 2>(acc, cs & 1, kLanesF);
+  halve<NA / 4>(acc, (cs >> 1) & 1, 2 * kLanesF);
+  halve<NA / 8>(acc, (cs >> 2) & 1, 4 * kLanesF);
+  const int m = 2 * (cs & 1) + ((cs >> 1) & 1);
+  const int n0 = ((cs >> 2) & 1) * (FT / 8);
+  if (j + m < W) {
+    float* o = out + ((static_cast<size_t>(b) * H + i0 + r) * W + j + m) * F + f0 + 4 * fs;
+#pragma unroll
+    for (int q = 0; q < FT / 8; ++q)
+      *reinterpret_cast<float4*>(o + 4 * kLanesF * (n0 + q)) =
+          make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
   }
 }
 
 // ------------------------------------------------------- K10 (staged)
-// Grid (ceil(W / tw), H / rblk, B); block `threads` (FMA and sum modes:
-// F/4 quads x lanes, M = 4 lanes tile rows; MMA: kBlock, M = kMmaM). The
-// block's rows go in groups of mblk (1 unless DEDUP); tile row m is
-// (row m / tw, column j0 + m % tw) with tw = M / mblk. Dynamic smem: the
-// tile (f32 [M, TAPS*C+1], or bf16 [M, TAPS*C+8] for MMA), for MMA the
-// tap's K^T slice bf16 [F, C+8], then for DEDUP the y-interpolated window
-// f32 [mblk, win, C], win = tw + span + 1. The +8 row pads make the
-// fragment loads conflict-free. kern: f32 [9C, F] (FMA) or bf16 K^T
-// [F, 9C] (MMA).
-template <typename T, int TAPS, bool DEDUP, bool MMA, int DIAG>
-__global__ void __launch_bounds__(kBlock)
-probe_staged_kernel(const T* __restrict__ x, const void* __restrict__ kern,
+// The staged plan (ops/kernels/probes.py:STAGED_FIELDS, in this order).
+// Byte sizes and offsets into the dynamic shared memory; the tile ring
+// starts at 0, then the raw ring, the window ring (DEDUP), the K ring and
+// the split sums (cs: in the tile ring's slots 3 C / cc + 1 .., which no
+// step reads or writes from a row group's last phase to the next one's).
+struct StagedPlan {
+  int g;       // output rows stacked in the tile: mblk for DEDUP, else 1
+  int tw;      // columns of a tile row; M = g tw tile rows (row m / tw, column j0 + m % tw)
+  int fb;      // output channels a block (F tile)
+  int cc;      // input channels a step
+  int ts;      // taps a step: 1; 2 (pair); 3 (DEDUP: a kernel row)
+  int lead;    // steps the tile is built ahead of its product: 1; cs: a kernel row (3 C / cc)
+  int nslot;   // tile slots of ts cc depth rows: 2; cs: 9 C / cc (the nine taps); mmhoist: 2 C / cc
+  int wn;      // raw columns a (tap, row): tw + 1; tw at column j (diag); DEDUP: tw + span + 1
+  int nrow;    // source rows copied a (tap, row): 2, or 1 (mmonly, mmhoist, load1only)
+  int ks;      // FMA: thread groups splitting each step's depth
+  int ch;      // FMA: output channels of a thread's register tile (x 8 columns): 4 or 8
+  int ld;      // tile stride: FMA floats a depth row (M + 4); MMA bf16 a tile row (ts cc + 8)
+  int ldk;     // K stride: FMA floats a depth row (fb); MMA bf16 an output channel (ts cc + 8)
+  int threads;
+  int smem;
+  int off_raw, off_ywin, off_k, off_red;
+  int raw_slot, ywin_slot, tile_slot, k_slot;
+};
+
+// Grid (column tiles x F tiles, H / rblk, B), p.threads threads. x
+// [B,H,W,C] (T), kern f32 [9C,F], tables [H,9], out f32 [B,H,W,F]. The
+// block's rblk rows go in row groups of g; a row group is 9 / ts tap groups
+// x C / cc chunks of steps. Phase s (one barrier): copy the raw rows of
+// step s + lead + 1 (+1 under DEDUP) and K of step s + 1 (MMA: read K of
+// step s + 1 and store it as bf16 K^T); DEDUP: y-interpolate the window of
+// step s + 2; build the tile of step s + lead; contract step s. A row
+// group's outputs are stored in the phase after its last step. The copy
+// and build loops walk (tap, row) alike in every thread and split only the
+// columns x channels (powers of two: shifts and masks, no division).
+// FMA threads: (split sp, tile tm, channel tile tf), tf fastest; a thread
+// owns tile rows 8 tm .. 8 tm + 7 x channels f0 + CH tf .. + CH - 1. MMA:
+// warps (wm, wn), wm fastest, each tile rows 32 wm .. x channels 32 wn ..
+template <typename T, int TAPS, bool DEDUP, bool MMA, int DIAG, int CH>
+__global__ void __launch_bounds__(kBlock, 2)
+probe_staged_kernel(const T* __restrict__ x, const float* __restrict__ kern,
                     const int* __restrict__ y0t, const int* __restrict__ y1t,
                     const int* __restrict__ cxt, const float* __restrict__ wyt,
                     const float* __restrict__ wxt, float* __restrict__ out,
-                    int H, int W, int C, int F, int rblk, int mblk, int span) {
-  static_assert(!(MMA && (TAPS != 1 || DIAG == kMMHoist)),
-                "the tensor-core product stages one tap's K per tile");
+                    int H, int W, int C, int F, int rblk, StagedPlan p) {
+  static_assert(!(MMA && (TAPS != 1 || DEDUP || DIAG == kMMHoist || is_sum(DIAG))),
+                "the tensor-core path contracts one tap a step");
+  constexpr bool kSum = is_sum(DIAG);
+  constexpr bool kAtJ = DIAG != kFull && DIAG != kNoMM;  // samples at column j, no shift
+  constexpr int kY = DEDUP ? 1 : 0;                      // the window stage
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_r0[kMaxGroup][9], s_r1[kMaxGroup][9], s_cx[kMaxGroup][9];
-  __shared__ float s_wy[kMaxGroup][9], s_wx[kMaxGroup][9];
-  __shared__ int s_start[kMaxGroup], s_off[kMaxGroup][3];
+  __shared__ int s_r0[kMaxRows][9], s_r1[kMaxRows][9], s_cx[kMaxRows][9], s_off[kMaxRows][9];
+  __shared__ int s_start[kMaxRows][3];
+  __shared__ float s_wy[kMaxRows][9], s_wx[kMaxRows][9];
 
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int depth = TAPS * C;
-  const int quads = F / 4;
-  const int lanes = nthr / quads;
-  const int M = MMA ? kMmaM : lanes * kTileRows;
-  const int tw = M / mblk;
-  const int j0 = blockIdx.x * tw;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int g = p.g, tw = p.tw, M = g * tw, fb = p.fb, cc = p.cc, ts = p.ts;
+  const int ftiles = F / fb;
+  const int j0 = (blockIdx.x / ftiles) * tw;
+  const int f0 = (blockIdx.x % ftiles) * fb;
+  const int i0 = blockIdx.y * rblk;
   const int b = blockIdx.z;
-  const size_t row_stride = static_cast<size_t>(W) * C;
-  const T* xb = x + static_cast<size_t>(b) * H * row_stride;
+  const T* xb = x + static_cast<size_t>(b) * H * W * C;
+  const int nch = C / cc;
+  const int spg = (9 + ts - 1) / ts * nch;  // steps a row group
+  const int S = rblk / g * spg;
 
+  for (int e = tid; e < rblk * 9; e += nthr) {
+    const int r = e / 9, t = e % 9;
+    const int q = (i0 + r) * 9 + t;
+    const int qy = DEDUP ? q - t % 3 : q;  // DEDUP: the kernel row's first tap's rows
+    s_r0[r][t] = y0t[qy] - 1;
+    s_r1[r][t] = y1t[qy] - 1;
+    s_wy[r][t] = wyt[qy];
+    s_cx[r][t] = cxt[q];
+    s_wx[r][t] = wxt[q];
+  }
+  if (DEDUP) {
+    __syncthreads();
+    for (int e = tid; e < rblk * 3; e += nthr) {  // each kernel row's window start and offsets
+      const int r = e / 3, ky = e % 3;
+      const int c0 = s_cx[r][3 * ky];
+      int rel[3], lo = 0;
+      for (int kx = 0; kx < 3; ++kx) {
+        int d = s_cx[r][3 * ky + kx] - c0;
+        if (d < 0) d += W;
+        if (d > W / 2) d -= W;
+        rel[kx] = d;
+        lo = d < lo ? d : lo;
+      }
+      for (int kx = 0; kx < 3; ++kx) s_off[r][3 * ky + kx] = rel[kx] - lo;
+      const int st = (j0 + c0 + lo) % W;
+      s_start[r][ky] = st < 0 ? st + W : st;
+    }
+  }
+
+  struct Step {
+    int gi, tg, c0, t0, ntap;
+  };
+  auto step = [&](int s) {
+    Step st;
+    st.gi = s / spg;
+    const int rem = s - st.gi * spg;
+    st.tg = rem / nch;
+    st.c0 = (rem - st.tg * nch) * cc;
+    st.t0 = st.tg * ts;
+    st.ntap = 9 - st.t0 < ts ? 9 - st.t0 : ts;
+    return st;
+  };
+  auto slot_of = [&](const Step& st, int s) {
+    return DIAG == kMMHoist ? (st.gi & 1) * nch + st.c0 / cc : s % p.nslot;
+  };
+
+  T* raw = reinterpret_cast<T*>(smem + p.off_raw);
+  float* ywin = reinterpret_cast<float*>(smem + p.off_ywin);
+  float* kf = reinterpret_cast<float*>(smem + p.off_k);
+  float* red = reinterpret_cast<float*>(smem + p.off_red);
+  const int raw_elems = p.raw_slot / static_cast<int>(sizeof(T));
+  const int ywin_floats = p.ywin_slot / 4;
+  const int kf_floats = p.k_slot / 4;
+
+  // The raw source rows of step s: [taps][g rows][nrow][wn columns][cc], T.
+  auto copy_raw = [&](int s) {
+    const Step st = step(s);
+    if (DIAG == kMMHoist && st.tg != 0) return;
+    constexpr int kEpv = 16 / static_cast<int>(sizeof(T));
+    const int lv = __ffs(cc / kEpv) - 1;  // log2 of a column's 16-byte vectors
+    const int n = p.wn << lv;
+    const int nk = (DEDUP ? 1 : st.ntap) * g * p.nrow;
+    for (int k = 0; k < nk; ++k) {  // (tap, row, source row): the same for every thread
+      const int y = k % p.nrow, r = k / p.nrow % g, tt = k / p.nrow / g;
+      const int ri = st.gi * g + r;
+      const int t = DEDUP ? 3 * st.tg : st.t0 + tt;
+      const int row = y ? s_r1[ri][t] : s_r0[ri][t];
+      const bool in = row >= 0 && row < H;
+      const int start = DEDUP ? s_start[ri][st.tg] : kAtJ ? j0 : j0 + s_cx[ri][t];
+      const T* src = xb + static_cast<size_t>(in ? row : 0) * W * C + st.c0;
+      T* dst = raw + (s & 1) * raw_elems + static_cast<size_t>(k) * p.wn * cc;
+      for (int e = tid; e < n; e += nthr) {
+        const int col_i = e >> lv, v = (e & ((1 << lv) - 1)) * kEpv;
+        int col = start + col_i;
+        while (col >= W) col -= W;
+        cp_async16_zfill(dst + col_i * cc + v, src + static_cast<size_t>(col) * C + v, in);
+      }
+    }
+  };
+  // FMA: K's rows of step s, f32 [ntap cc][fb] (fb a power of two).
+  auto copy_k = [&](int s) {
+    const Step st = step(s);
+    const int lv = __ffs(fb / 4) - 1;
+    const int n = cc << lv;
+    for (int tt = 0; tt < st.ntap; ++tt) {
+      float* dst = kf + (s & 1) * kf_floats + tt * cc * fb;
+      const float* src = kern + (static_cast<size_t>(st.t0 + tt) * C + st.c0) * F + f0;
+      for (int e = tid; e < n; e += nthr) {
+        const int q = e >> lv, v = 4 * (e & ((1 << lv) - 1));
+        cp_async16(dst + q * fb + v, src + static_cast<size_t>(q) * F + v);
+      }
+    }
+  };
+  // DEDUP: the window of step s, y-interpolated once: f32 [g][wn][cc].
+  auto build_ywin = [&](int s) {
+    const Step st = step(s);
+    const int n = p.wn * cc;
+    for (int r = 0; r < g; ++r) {
+      const T* a = raw + (s & 1) * raw_elems + static_cast<size_t>(2 * r) * n;
+      float* dst = ywin + (s & 1) * ywin_floats + r * n;
+      const float wy = s_wy[st.gi * g + r][3 * st.tg];
+      for (int e = tid; e < n; e += nthr)
+        dst[e] = (1.f - wy) * to_f(a[e]) + wy * to_f(a[n + e]);
+    }
+  };
+  // The f32 tile of step s: [ntap cc][ld] (depth row tt cc + c, tile row
+  // m), four tile rows a thread: 4 samples from 5 raw columns.
   float* tile = reinterpret_cast<float*>(smem);
-  __nv_bfloat16* tileb = reinterpret_cast<__nv_bfloat16*>(smem);
-  const int ld = MMA ? depth + 8 : depth + 1;
-  const int ldk = C + 8;
-  const int win = tw + span + 1;
-  const size_t tile_bytes = static_cast<size_t>(M) * ld * (MMA ? 2 : 4);
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + tile_bytes);
-  float* window = reinterpret_cast<float*>(
-      smem + tile_bytes + (MMA ? static_cast<size_t>(F) * ldk * 2 : 0));
-
-  // FMA / sum layout
-  const int quad = tid % quads;
-  const int lane = tid / quads;
-  // MMA layout: warp (m tile, n half), lane (group g, quad position tq)
-  const int warp = tid / 32;
-  const int mt = warp & 3;
-  const int nh = warp >> 2;
-  const int g = (tid & 31) >> 2;
-  const int tq = tid & 3;
-  const int ntw = F / 16;  // n8 tiles per warp
-
-  for (int gi = 0; gi < rblk; gi += mblk) {
-    const int ig = blockIdx.y * rblk + gi;
-    __syncthreads();  // the previous group's tables and tile are no longer read
-    for (int e = tid; e < mblk * 9; e += nthr) {
-      const int r = e / 9, t = e % 9;
-      const int q = (ig + r) * 9 + (DEDUP ? (t / 3) * 3 : t);  // dedup: kx = 0's y
-      s_r0[r][t] = y0t[q] - 1;
-      s_r1[r][t] = y1t[q] - 1;
-      s_wy[r][t] = wyt[q];
-      s_cx[r][t] = cxt[(ig + r) * 9 + t];
-      s_wx[r][t] = wxt[(ig + r) * 9 + t];
-    }
-    float acc[kTileRows][4] = {};
-    float macc[8][4] = {};
-
-    for (int t0 = 0; t0 < 9; t0 += TAPS) {
-      const int ntap = 9 - t0 < TAPS ? 9 - t0 : TAPS;
-      if (!(DIAG == kMMHoist && t0 > 0)) {
-        __syncthreads();  // tables visible; the previous tile is no longer read
-        if (DEDUP && t0 % 3 == 0) {
-          const int ky = t0 / 3;
-          if (tid < mblk) {
-            const int c0 = s_cx[tid][3 * ky];
-            int lo = 0, hi = 0;
-            for (int kx = 0; kx < 3; ++kx) {
-              int rel = s_cx[tid][3 * ky + kx] - c0;
-              if (rel < 0) rel += W;
-              if (rel > W / 2) rel -= W;
-              s_off[tid][kx] = rel;
-              lo = rel < lo ? rel : lo;
-              hi = rel > hi ? rel : hi;
-            }
-            for (int kx = 0; kx < 3; ++kx) s_off[tid][kx] -= lo;
-            int st = (j0 + c0 + lo) % W;
-            s_start[tid] = st < 0 ? st + W : st;
-          }
-          __syncthreads();
-          for (int e = tid; e < mblk * win * C; e += nthr) {
-            const int c = e % C;
-            const int p = (e / C) % win;
-            const int r = e / (C * win);
-            int col = s_start[r] + p;
-            col %= W;
-            const int r0 = s_r0[r][3 * ky], r1 = s_r1[r][3 * ky];
-            const float wy = s_wy[r][3 * ky];
-            const float a0 = (r0 >= 0 && r0 < H) ? to_f(xb[r0 * row_stride + col * C + c]) : 0.f;
-            const float a1 = (r1 >= 0 && r1 < H) ? to_f(xb[r1 * row_stride + col * C + c]) : 0.f;
-            window[e] = (1.f - wy) * a0 + wy * a1;
-          }
-          __syncthreads();
-        }
-        for (int e = tid; e < M * ntap * C; e += nthr) {
-          const int q = e / C;  // (tile row, tap of the group)
-          const int c = e - q * C;
-          const int tt = TAPS == 1 ? 0 : q % ntap;
-          const int m = TAPS == 1 ? q : q / ntap;
-          const int r = DEDUP ? m / tw : 0;  // one row per group unless DEDUP
-          const int jj = m - r * tw;
-          const int j = j0 + jj;
-          const int t = DIAG == kMMHoist ? 0 : t0 + tt;
-          float v = 0.f;
-          if (j < W) {
-            if (DEDUP) {
-              const int p = jj + s_off[r][t % 3];
-              const float* wr = window + (static_cast<size_t>(r) * win + p) * C + c;
-              const float wx = s_wx[r][t];
-              v = (1.f - wx) * wr[0] + wx * wr[C];
-            } else {
-              const int r0 = s_r0[r][t], r1 = s_r1[r][t];
-              const bool in0 = r0 >= 0 && r0 < H;
-              const bool in1 = r1 >= 0 && r1 < H;
-              const T* row0 = xb + static_cast<size_t>(in0 ? r0 : 0) * row_stride + c;
-              const T* row1 = xb + static_cast<size_t>(in1 ? r1 : 0) * row_stride + c;
-              const float wy = s_wy[r][t];
-              if (DIAG == kFull || DIAG == kNoMM) {
-                int q0 = j + s_cx[r][t];
-                if (q0 >= W) q0 -= W;
-                const int q1 = q0 + 1 == W ? 0 : q0 + 1;
-                const float a00 = in0 ? to_f(row0[q0 * C]) : 0.f;
-                const float a10 = in1 ? to_f(row1[q0 * C]) : 0.f;
-                const float a01 = in0 ? to_f(row0[q1 * C]) : 0.f;
-                const float a11 = in1 ? to_f(row1[q1 * C]) : 0.f;
-                const float g0 = (1.f - wy) * a00 + wy * a10;
-                const float g1 = (1.f - wy) * a01 + wy * a11;
-                const float wx = s_wx[r][t];
-                v = (1.f - wx) * g0 + wx * g1;
-              } else {
-                const float a0 = in0 ? to_f(row0[j * C]) : 0.f;
-                const float a1 = in1 ? to_f(row1[j * C]) : 0.f;
-                if (DIAG == kNoRoll) v = (1.f - wy) * a0 + wy * a1;
-                else if (DIAG == kLoadOnly) v = a0 + a1;
-                else v = a0;  // kMMOnly, kMMHoist, kLoad1Only
-              }
-            }
-          }
-          if (MMA) tileb[m * ld + tt * C + c] = __float2bfloat16(v);
-          else tile[m * ld + tt * C + c] = v;
-        }
-        if (MMA) {  // the tap's K^T slice, 16-byte vectors
-          const __nv_bfloat16* kt = static_cast<const __nv_bfloat16*>(kern);
-          const int vpr = C / 8;
-          for (int e = tid; e < F * vpr; e += nthr) {
-            const int col = e / vpr, v = e - col * vpr;
-            *reinterpret_cast<uint4*>(ks + col * ldk + 8 * v) =
-                *reinterpret_cast<const uint4*>(kt + static_cast<size_t>(col) * 9 * C +
-                                                t0 * C + 8 * v);
+  const int tile_floats = p.tile_slot / 4;
+  auto build_fma = [&](int s) {
+    const Step st = step(s);
+    float* dst = tile + slot_of(st, s) * tile_floats;
+    const T* src = raw + (s & 1) * raw_elems;
+    const float* yw = ywin + (s & 1) * ywin_floats;
+    const int lc = __ffs(cc) - 1;
+    const int n = (tw / 4) << lc;
+    for (int k = 0; k < st.ntap * g; ++k) {  // (tap, row): the same for every thread
+      const int r = k % g, tt = k / g;
+      const int ri = st.gi * g + r;
+      const int t = st.t0 + tt;
+      const float wy = s_wy[ri][t], wx = s_wx[ri][t];
+      const float* yk = yw + (static_cast<size_t>(r) * p.wn + (DEDUP ? s_off[ri][t] : 0)) * cc;
+      const T* sk = src + static_cast<size_t>(k * p.nrow) * p.wn * cc;
+      float* dk = dst + static_cast<size_t>(tt * cc) * p.ld + r * tw;
+      for (int e = tid; e < n; e += nthr) {
+        const int c = e & (cc - 1);
+        const int pc = 4 * (e >> lc);
+        float v[4];
+        if (DEDUP) {
+          const float* y = yk + pc * cc + c;
+          float a[5];
+#pragma unroll
+          for (int u = 0; u < 5; ++u) a[u] = y[u * cc];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) v[u] = (1.f - wx) * a[u] + wx * a[u + 1];
+        } else {
+          const T* a0 = sk + pc * cc + c;
+          const T* a1 = a0 + static_cast<size_t>(p.wn) * cc;
+          if (DIAG == kFull || DIAG == kNoMM) {
+            float gy[5];
+#pragma unroll
+            for (int u = 0; u < 5; ++u) gy[u] = (1.f - wy) * to_f(a0[u * cc]) + wy * to_f(a1[u * cc]);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) v[u] = (1.f - wx) * gy[u] + wx * gy[u + 1];
+          } else if (DIAG == kNoRoll) {
+#pragma unroll
+            for (int u = 0; u < 4; ++u) v[u] = (1.f - wy) * to_f(a0[u * cc]) + wy * to_f(a1[u * cc]);
+          } else if (DIAG == kLoadOnly) {
+#pragma unroll
+            for (int u = 0; u < 4; ++u) v[u] = to_f(a0[u * cc]) + to_f(a1[u * cc]);
+          } else {  // kMMOnly, kMMHoist, kLoad1Only: xpad[y0] at column j
+#pragma unroll
+            for (int u = 0; u < 4; ++u) v[u] = to_f(a0[u * cc]);
           }
         }
-        __syncthreads();
+        *reinterpret_cast<float4*>(dk + static_cast<size_t>(c) * p.ld + pc) =
+            make_float4(v[0], v[1], v[2], v[3]);
       }
-
-      if (is_sum(DIAG)) {
-#pragma unroll
-        for (int r = 0; r < kTileRows; ++r) {
-          const float* tr = tile + (lane + lanes * r) * ld + 4 * quad;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[r][q] += tr[q];
-        }
-      } else if (MMA) {
-        const __nv_bfloat16* ta = tileb + (16 * mt + g) * ld + 2 * tq;
-        for (int k0 = 0; k0 < C; k0 += 16) {
-          uint32_t a[4];
-          a[0] = ld32(ta + k0);
-          a[1] = ld32(ta + 8 * ld + k0);
-          a[2] = ld32(ta + k0 + 8);
-          a[3] = ld32(ta + 8 * ld + k0 + 8);
-#pragma unroll
-          for (int n = 0; n < 8; ++n) {
-            if (n < ntw) {
-              const __nv_bfloat16* kb = ks + (8 * (nh * ntw + n) + g) * ldk + k0 + 2 * tq;
-              mma_bf16(macc[n], a, ld32(kb), ld32(kb + 8));
-            }
-          }
-        }
+    }
+  };
+  // The bf16 tile of step s (MMA, one tap): [M][ld] (tile row m, depth c),
+  // four channels a thread, rounded to bf16 as the plain version rounds.
+  bf16* tileb = reinterpret_cast<bf16*>(smem);
+  const int tile_elems = p.tile_slot / 2;
+  auto build_mma = [&](int s) {
+    const Step st = step(s);
+    bf16* dst = tileb + slot_of(st, s) * tile_elems;
+    const T* src = raw + (s & 1) * raw_elems;
+    const int lq = __ffs(cc / 4) - 1;
+    const int n = tw << lq;  // g = 1: one row
+    const int ri = st.gi;
+    const float wy = s_wy[ri][st.t0], wx = s_wx[ri][st.t0];
+    for (int e = tid; e < n; e += nthr) {
+      const int c = 4 * (e & ((1 << lq) - 1)), jj = e >> lq;
+      const T* a0 = src + static_cast<size_t>(jj) * cc + c;
+      float4 v;
+      if (DIAG == kMMOnly) {
+        v = ld4(a0);
       } else {
-        const float* km = static_cast<const float*>(kern) +
-                          static_cast<size_t>(t0) * C * F + 4 * quad;
-        for (int k = 0; k < ntap * C; ++k) {
-          const float4 mv = ld4(km + static_cast<size_t>(k) * F);
+        const T* a1 = a0 + static_cast<size_t>(p.wn) * cc;
+        const float4 p00 = ld4(a0), p01 = ld4(a0 + cc), p10 = ld4(a1), p11 = ld4(a1 + cc);
+        auto smp = [&](float q00, float q01, float q10, float q11) {
+          return (1.f - wx) * ((1.f - wy) * q00 + wy * q10) + wx * ((1.f - wy) * q01 + wy * q11);
+        };
+        v = make_float4(smp(p00.x, p01.x, p10.x, p11.x), smp(p00.y, p01.y, p10.y, p11.y),
+                        smp(p00.z, p01.z, p10.z, p11.z), smp(p00.w, p01.w, p10.w, p11.w));
+      }
+      st_bf16x4(dst + static_cast<size_t>(jj) * p.ld + c, v);
+    }
+  };
+  // MMA: K's rows of step s (f32, from device memory, where the tap's
+  // slice stays in L2) -> bf16 K^T [fb][ldk], two depth rows a thread.
+  // (Batching a thread's loads ahead of its stores measured slower.)
+  bf16* ktb = reinterpret_cast<bf16*>(smem + p.off_k);
+  const int kt_elems = p.k_slot / 2;
+  auto convert_k = [&](int s) {
+    const Step st = step(s);
+    const float* src = kern + (static_cast<size_t>(st.t0) * C + st.c0) * F + f0;
+    bf16* dst = ktb + (s & 1) * kt_elems;
+    const int n = cc / 2 * fb;
+    const int lf = __ffs(fb) - 1;  // fb a power of two
+    for (int e = tid; e < n; e += nthr) {
+      const int nn = e & (fb - 1), q = 2 * (e >> lf);
+      *reinterpret_cast<__nv_bfloat162*>(dst + nn * p.ldk + q) = __floats2bfloat162_rn(
+          src[static_cast<size_t>(q) * F + nn], src[static_cast<size_t>(q + 1) * F + nn]);
+    }
+  };
+
+  // FMA thread layout and its register tile.
+  const int TF = fb / CH;
+  const int tpg = M / 8 * TF;  // threads of one split
+  const int sp = tid / tpg;
+  const int tf = (tid - sp * tpg) % TF, tm = (tid - sp * tpg) / TF;
+  float acc[8][CH];
+  auto product_fma = [&](int s) {
+    const Step st = step(s);
+    const float* tp = tile + slot_of(st, s) * tile_floats + 8 * tm;
+    if (kSum) {  // output channel f takes input channel f
+      const int fa = f0 + CH * tf - st.c0;
+      if (fa < 0 || fa >= cc) return;
+      for (int tt = 0; tt < st.ntap; ++tt)
 #pragma unroll
-          for (int r = 0; r < kTileRows; ++r) {
-            const float s = tile[(lane + lanes * r) * ld + k];
-            acc[r][0] = fmaf(s, mv.x, acc[r][0]);
-            acc[r][1] = fmaf(s, mv.y, acc[r][1]);
-            acc[r][2] = fmaf(s, mv.z, acc[r][2]);
-            acc[r][3] = fmaf(s, mv.w, acc[r][3]);
-          }
+        for (int n = 0; n < CH; ++n) {
+          const float* row = tp + static_cast<size_t>(tt * cc + fa + n) * p.ld;
+          const float4 lo = ld4(row), hi = ld4(row + 4);
+          acc[0][n] += lo.x, acc[1][n] += lo.y, acc[2][n] += lo.z, acc[3][n] += lo.w;
+          acc[4][n] += hi.x, acc[5][n] += hi.y, acc[6][n] += hi.z, acc[7][n] += hi.w;
         }
+      return;
+    }
+    const float* kp = kf + (s & 1) * kf_floats + CH * tf;
+    const int d = st.ntap * cc / p.ks;
+    const int q0 = sp * d;
+#pragma unroll 4
+    for (int q = q0; q < q0 + d; ++q) {
+      const float4 s0 = ld4(tp + q * p.ld), s1 = ld4(tp + q * p.ld + 4);
+      const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+      float kv[CH];
+#pragma unroll
+      for (int n = 0; n < CH; n += 4) {
+        const float4 v = ld4(kp + q * fb + n);
+        kv[n] = v.x, kv[n + 1] = v.y, kv[n + 2] = v.z, kv[n + 3] = v.w;
+      }
+#pragma unroll
+      for (int m = 0; m < 8; ++m)
+#pragma unroll
+        for (int n = 0; n < CH; ++n) acc[m][n] = fmaf(sv[m], kv[n], acc[m][n]);
+    }
+  };
+  // Splits 1.. hand their sums to split 0 (after a row group's last step).
+  auto spill_fma = [&]() {
+    float* rp = red + (static_cast<size_t>(sp - 1) * M + 8 * tm) * fb + CH * tf;
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+#pragma unroll
+      for (int n = 0; n < CH; n += 4)
+        *reinterpret_cast<float4*>(rp + m * fb + n) =
+            make_float4(acc[m][n], acc[m][n + 1], acc[m][n + 2], acc[m][n + 3]);
+  };
+  auto finish_fma = [&](int gi) {
+    if (sp != 0) return;
+    for (int k = 1; k < p.ks; ++k) {  // in split order: bitwise repeatable
+      const float* rp = red + (static_cast<size_t>(k - 1) * M + 8 * tm) * fb + CH * tf;
+#pragma unroll
+      for (int m = 0; m < 8; ++m)
+#pragma unroll
+        for (int n = 0; n < CH; n += 4) {
+          const float4 v = ld4(rp + m * fb + n);
+          acc[m][n] += v.x, acc[m][n + 1] += v.y, acc[m][n + 2] += v.z, acc[m][n + 3] += v.w;
+        }
+    }
+    const int r = 8 * tm / tw, jj = 8 * tm - r * tw;  // tw % 8 == 0: one row
+    float* o = out + ((static_cast<size_t>(b) * H + i0 + gi * g + r) * W + j0 + jj) * F + f0 +
+               CH * tf;
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+      if (j0 + jj + m < W)
+#pragma unroll
+        for (int n = 0; n < CH; n += 4)
+          *reinterpret_cast<float4*>(o + static_cast<size_t>(m) * F + n) =
+              make_float4(acc[m][n], acc[m][n + 1], acc[m][n + 2], acc[m][n + 3]);
+  };
+
+  // MMA warp layout: per 16-deep step two A fragments (tile rows) and two
+  // B fragment pairs (K^T rows) by ldmatrix.x4, 2 x 4 mma.
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wm = MMA ? warp % (M / 32) : 0, wn = MMA ? warp / (M / 32) : 0;
+  float macc[2][4][4];
+  const unsigned tile_s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const unsigned kt_s = static_cast<unsigned>(__cvta_generic_to_shared(ktb));
+  const int a_off = (wm * 32 + (lane & 15)) * p.ld + (lane >> 4) * 8;
+  const int b_off = (wn * 32 + (lane & 7) + (lane >> 4) * 8) * p.ldk + ((lane >> 3) & 1) * 8;
+  auto product_mma = [&](int s) {
+    const Step st = step(s);
+    const unsigned pa = tile_s + 2 * (slot_of(st, s) * tile_elems + a_off);
+    const unsigned pb = kt_s + 2 * ((s & 1) * kt_elems + b_off);
+    for (int k0 = 0; k0 < cc; k0 += 16) {
+      uint32_t a[2][4], bq[2][4];
+      ldmatrix_x4(a[0], pa + 2 * k0);
+      ldmatrix_x4(a[1], pa + 2 * (16 * p.ld + k0));
+      ldmatrix_x4(bq[0], pb + 2 * k0);
+      ldmatrix_x4(bq[1], pb + 2 * (16 * p.ldk + k0));
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          mma_bf16(macc[i][n], a[i], bq[n / 2][2 * (n & 1)], bq[n / 2][2 * (n & 1) + 1]);
+    }
+  };
+  auto finish_mma = [&](int gi) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = wm * 32 + 16 * i + (lane >> 2) + 8 * h;
+        const int r = m / tw, j = j0 + m - r * tw;
+        if (j >= W) continue;
+        float* o = out + ((static_cast<size_t>(b) * H + i0 + gi * g + r) * W + j) * F + f0 +
+                   wn * 32 + 2 * (lane & 3);
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          *reinterpret_cast<float2*>(o + 8 * n) = make_float2(macc[i][n][2 * h], macc[i][n][2 * h + 1]);
+      }
+  };
+
+  const int lead = p.lead;
+  for (int s = -(lead + 1 + kY); s <= S; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // this phase's copies landed; the last phase's reads are done
+    if (s >= 1 && s % spg == 0) {
+      if (MMA) finish_mma(s / spg - 1);
+      else finish_fma(s / spg - 1);
+    }
+    const int sr = s + lead + 1 + kY;
+    if (sr >= 0 && sr < S) copy_raw(sr);
+    if (!kSum && !MMA && s + 1 >= 0 && s + 1 < S) copy_k(s + 1);
+    cp_async_commit();
+    if (MMA && s + 1 >= 0 && s + 1 < S) convert_k(s + 1);
+    if (DEDUP && s + 2 >= 0 && s + 2 < S) build_ywin(s + 2);
+    const int sb = s + lead;
+    if (sb >= 0 && sb < S && (DIAG != kMMHoist || step(sb).tg == 0)) {
+      if (MMA) build_mma(sb);
+      else build_fma(sb);
+    }
+    if (s < 0 || s >= S) continue;
+    if (s % spg == 0) {
+      if (MMA) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) macc[i][n][q] = 0.f;
+      } else {
+#pragma unroll
+        for (int m = 0; m < 8; ++m)
+#pragma unroll
+          for (int n = 0; n < CH; ++n) acc[m][n] = 0.f;
       }
     }
-
     if (MMA) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        if (n < ntw) {
-          const int col = 8 * (nh * ntw + n) + 2 * tq;
-#pragma unroll
-          for (int h2 = 0; h2 < 2; ++h2) {
-            const int m = 16 * mt + g + 8 * h2;
-            const int r = m / tw;
-            const int j = j0 + m - r * tw;
-            if (j < W) {
-              float* o = out + ((static_cast<size_t>(b) * H + ig + r) * W + j) * F + col;
-              *reinterpret_cast<float2*>(o) = make_float2(macc[n][2 * h2], macc[n][2 * h2 + 1]);
-            }
-          }
-        }
-      }
+      product_mma(s);
     } else {
-#pragma unroll
-      for (int rr = 0; rr < kTileRows; ++rr) {
-        const int m = lane + lanes * rr;
-        const int r = m / tw;
-        const int j = j0 + m - r * tw;
-        if (j < W) {
-          float* o = out + ((static_cast<size_t>(b) * H + ig + r) * W + j) * F + 4 * quad;
-          *reinterpret_cast<float4*>(o) =
-              make_float4(acc[rr][0], acc[rr][1], acc[rr][2], acc[rr][3]);
-        }
-      }
+      product_fma(s);
+      if (p.ks > 1 && sp > 0 && s % spg == spg - 1) spill_fma();
     }
   }
 }
@@ -466,59 +843,78 @@ cudaError_t allow_smem(K kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <typename T>
-int launch_direct(const void* x, const void* kern, const void* const* tab, void* out,
-                  int B, int H, int W, int C, int F, int rblk, cudaStream_t s) {
-  if (F % 32 != 0 || (kBlock / 32) % (F / 32) != 0 || C % 4 != 0 || rblk < 1 ||
-      H % rblk != 0)
-    return cudaErrorInvalidValue;
-  const int cols = (kBlock / 32 / (F / 32)) * 32;
-  const dim3 grid((W + cols - 1) / cols, H / rblk, B);
-  probe_direct_kernel<T><<<grid, kBlock, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const float*>(kern),
-      static_cast<const int*>(tab[0]), static_cast<const int*>(tab[1]),
-      static_cast<const int*>(tab[2]), static_cast<const float*>(tab[3]),
-      static_cast<const float*>(tab[4]), static_cast<float*>(out), H, W, C, F, rblk);
+// Launches `kernel` (grid, plan's threads and smem), or with `resident`
+// set only counts the blocks an SM holds (the occupancy API).
+template <typename K, typename... Args>
+int launch_or_count(K kernel, dim3 grid, int threads, int smem, cudaStream_t s, int* resident,
+                    Args... args) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  if (resident) return cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, kernel, threads, smem);
+  kernel<<<grid, threads, smem, s>>>(args...);
   return cudaGetLastError();
+}
+
+template <typename P>
+bool read_plan(const int* plan, int n, P* p) {
+  if (n * static_cast<int>(sizeof(int)) != static_cast<int>(sizeof(P))) return false;
+  memcpy(p, plan, sizeof(P));
+  return true;
+}
+
+template <typename T>
+int launch_direct(const void* x, const void* kern, const void* const* tab, void* out, int B,
+                  int H, int W, int C, int F, int rblk, const int* plan, int nplan,
+                  cudaStream_t s, int* resident) {
+  DirectPlan p;
+  if (!read_plan(plan, nplan, &p) || p.rows != rblk || rblk < 1 || rblk > kMaxRows ||
+      H % rblk != 0 || p.wpr < 1 || p.threads != 32 * p.rows * p.wpr || p.threads > 512 ||
+      (p.vec != 4 && p.vec != 16 / static_cast<int>(sizeof(T))) || C % (kLanesC * p.vec) != 0 ||
+      (p.fb != 32 && p.fb != 64) || F % p.fb != 0 || p.ldg != p.vec * p.fb + 16 ||
+      p.smem != 8 * (C / p.vec) * p.ldg || p.smem > kMaxSmem)
+    return cudaErrorInvalidValue;
+  const dim3 grid((W + kCols * p.wpr - 1) / (kCols * p.wpr) * (F / p.fb), H / p.rows, B);
+  auto run = [&](auto kernel) {
+    return launch_or_count(kernel, grid, p.threads, p.smem, s, resident, static_cast<const T*>(x),
+                           static_cast<const float*>(kern), static_cast<const int*>(tab[0]),
+                           static_cast<const int*>(tab[1]), static_cast<const int*>(tab[2]),
+                           static_cast<const float*>(tab[3]), static_cast<const float*>(tab[4]),
+                           static_cast<float*>(out), H, W, C, F, p);
+  };
+  constexpr int kVec = 16 / sizeof(T);
+  if (p.vec == kVec)
+    return p.fb == 64 ? run(probe_direct_kernel<T, kVec, 16>) : run(probe_direct_kernel<T, kVec, 8>);
+  return p.fb == 64 ? run(probe_direct_kernel<T, 4, 16>) : run(probe_direct_kernel<T, 4, 8>);
 }
 
 template <typename T, int TAPS, bool DEDUP, bool MMA, int DIAG>
-int launch_staged(const void* x, const void* kern, const void* const* tab, void* out,
-                  int B, int H, int W, int C, int F, int rblk, int mblk, int span,
-                  cudaStream_t s) {
-  if (rblk < 1 || H % rblk != 0 || mblk < 1 || mblk > kMaxGroup || rblk % mblk != 0 ||
-      (!DEDUP && mblk != 1) || span < 0 || F % 4 != 0 || F / 4 > kBlock ||
-      kBlock % (F / 4) != 0 || (is_sum(DIAG) && C < F))
+int launch_staged(const void* x, const void* kern, const void* const* tab, void* out, int B,
+                  int H, int W, int C, int F, int rblk, const int* plan, int nplan,
+                  cudaStream_t s, int* resident) {
+  StagedPlan p;
+  if (!read_plan(plan, nplan, &p) || rblk < 1 || rblk > kMaxRows || H % rblk != 0 || p.g < 1 ||
+      rblk % p.g != 0 || (!DEDUP && p.g != 1) || p.tw < 8 || p.tw % 8 != 0 || p.fb < 1 ||
+      F % p.fb != 0 || p.cc < 1 || C % p.cc != 0 || p.ts != (DEDUP ? 3 : TAPS == 2 ? 2 : 1) ||
+      p.lead < 1 || p.nslot < p.lead + 1 || p.ks < 1 || p.threads < 32 || p.threads > kBlock ||
+      p.smem > kMaxSmem || (p.cc * static_cast<int>(sizeof(T))) % 16 != 0)
     return cudaErrorInvalidValue;
-  if (MMA && (C % 16 != 0 || F % 16 != 0 || F > 128)) return cudaErrorInvalidValue;
-  const int depth = TAPS * C;
-  int threads = kBlock, M = 0;
-  size_t smem = 0;
-  for (;;) {  // the widest tile that fits: halve the lanes until it does
-    M = MMA ? kMmaM : (threads / (F / 4)) * kTileRows;
-    if (M % mblk != 0) return cudaErrorInvalidValue;
-    const int tw = M / mblk;
-    smem = MMA ? static_cast<size_t>(M) * (depth + 8) * 2 + static_cast<size_t>(F) * (C + 8) * 2
-               : static_cast<size_t>(M) * (depth + 1) * 4;
-    if (DEDUP) smem += static_cast<size_t>(mblk) * (tw + span + 1) * C * 4;
-    if (smem <= kMaxSmem) break;
-    if (MMA || threads / (F / 4) <= 1) return cudaErrorInvalidValue;
-    threads /= 2;
-  }
-  auto kernel = probe_staged_kernel<T, TAPS, DEDUP, MMA, DIAG>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int tw = M / mblk;
-  const dim3 grid((W + tw - 1) / tw, H / rblk, B);
-  kernel<<<grid, threads, smem, s>>>(
-      static_cast<const T*>(x), kern, static_cast<const int*>(tab[0]),
-      static_cast<const int*>(tab[1]), static_cast<const int*>(tab[2]),
-      static_cast<const float*>(tab[3]), static_cast<const float*>(tab[4]),
-      static_cast<float*>(out), H, W, C, F, rblk, mblk, span);
-  return cudaGetLastError();
+  const int M = p.g * p.tw;
+  if (MMA ? (M % 32 != 0 || p.fb % 32 != 0 || (p.fb & (p.fb - 1)) != 0 || p.cc % 16 != 0 ||
+             p.threads != M * p.fb / 32)
+          : (p.ch != 4 && p.ch != 8) || p.fb % p.ch != 0 || p.cc % p.ks != 0 ||
+                p.threads != M / 8 * (p.fb / p.ch) * p.ks || (is_sum(DIAG) && (C < F || p.ks != 1)))
+    return cudaErrorInvalidValue;
+  const dim3 grid((W + p.tw - 1) / p.tw * (F / p.fb), H / rblk, B);
+  auto run = [&](auto kernel) {
+    return launch_or_count(kernel, grid, p.threads, p.smem, s, resident, static_cast<const T*>(x),
+                           static_cast<const float*>(kern), static_cast<const int*>(tab[0]),
+                           static_cast<const int*>(tab[1]), static_cast<const int*>(tab[2]),
+                           static_cast<const float*>(tab[3]), static_cast<const float*>(tab[4]),
+                           static_cast<float*>(out), H, W, C, F, rblk, p);
+  };
+  if (MMA || p.ch == 8) return run(probe_staged_kernel<T, TAPS, DEDUP, MMA, DIAG, 8>);
+  return run(probe_staged_kernel<T, TAPS, DEDUP, MMA, DIAG, 4>);
 }
-
-using bf16 = __nv_bfloat16;
 
 // ------------------------------------------------------------------ K11
 // Grid-stride over the output's 16-byte vectors; vpc vectors per sample's
@@ -543,32 +939,6 @@ constexpr int kMmStagesF32 = 2;   // f32: stages in the ring (1 in flight)
 constexpr int kMmChunkBf16 = 32;  // bf16: depth staged per stage
 constexpr int kMmStagesBf16 = 3;  // bf16: stages in the ring (2 in flight)
 constexpr int kMmLdB = kMmChunkBf16 + 8;  // bf16 chunk row stride: 80 bytes
-
-// 16-byte asynchronous copy global -> shared (L2 only), and its groups.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// ldmatrix: four 8 x 8 bf16 matrices from shared memory at the 32-bit
-// shared address s; lanes 8q..8q+7 give the row addresses of matrix q, and
-// r[q] is this lane's part of it.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], unsigned s) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s)
-               : "memory");
-}
 
 // K12 f32: a block tile of BM x (16384 / BM) outputs, 256 threads of 8 x 8.
 // Grid (steps), 256 threads; dynamic smem 2 stages of lhs [BM][36] and rhs
@@ -822,33 +1192,60 @@ int launch_mm(K kernel, size_t smem, int steps, cudaStream_t s, const void* lhs,
 
 extern "C" {
 
-// K10: x [B,H,W,C] in the probe's storage type (is_bf16); kern f32 [9C,F]
-// (FMA and sum modes) or bf16 [F,9C] (tensor cores); tables [H,9] (y0, y1
-// padded rows, cx, wy, wx); out f32 [B,H,W,F]. gather and diag take the
-// values of Gather and Diag; taps, dedup and mma as the template arguments.
-// span: the largest spread of the three column shifts of a kernel row
-// (DEDUP's window). Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for choices no instantiation has, or a shape the
-// probe does not take).
-int skyhdr_probe_fwd(const void* x, const void* kern, const void* y0, const void* y1,
-                     const void* cx, const void* wy, const void* wx, void* out,
-                     int is_bf16, int gather, int taps, int dedup, int mma, int diag,
-                     int B, int H, int W, int C, int F, int rblk, int mblk, int span,
-                     int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const void* tab[5] = {y0, y1, cx, wy, wx};
-#define SKYHDR_PROBE_CASE(T, G, TAPS, DEDUP, MMA, DIAG)                               \
-  if ((is_bf16 != 0) == (sizeof(T) == 2) && gather == G && taps == TAPS &&            \
-      (dedup != 0) == DEDUP && (mma != 0) == MMA && diag == DIAG) {                   \
-    if (G == kDirect) return launch_direct<T>(x, kern, tab, out, B, H, W, C, F, rblk, s); \
-    return launch_staged<T, TAPS, DEDUP, MMA, DIAG>(x, kern, tab, out, B, H, W, C, F,  \
-                                                    rblk, mblk, span, s);             \
+// The instantiation these choices name, launched with `plan` (or, with
+// `resident` set, only its resident blocks per SM counted).
+static int probe_dispatch(const void* x, const void* kern, const void* const* tab, void* out,
+                          int is_bf16, int gather, int taps, int dedup, int mma, int diag, int B,
+                          int H, int W, int C, int F, int rblk, const int* plan, int nplan,
+                          cudaStream_t s, int* resident) {
+#define SKYHDR_PROBE_CASE(T, G, TAPS, DEDUP, MMA, DIAG)                                      \
+  if ((is_bf16 != 0) == (sizeof(T) == 2) && gather == G && taps == TAPS &&                   \
+      (dedup != 0) == DEDUP && (mma != 0) == MMA && diag == DIAG) {                          \
+    if (G == kDirect)                                                                        \
+      return launch_direct<T>(x, kern, tab, out, B, H, W, C, F, rblk, plan, nplan, s,        \
+                              resident);                                                     \
+    return launch_staged<T, TAPS, DEDUP, MMA, DIAG>(x, kern, tab, out, B, H, W, C, F, rblk, \
+                                                    plan, nplan, s, resident);               \
   }
   SKYHDR_PROBES(SKYHDR_PROBE_CASE)
 #undef SKYHDR_PROBE_CASE
   return cudaErrorInvalidValue;
+}
+
+// K10: x [B,H,W,C] in the probe's storage type (is_bf16); kern f32 [9C,F];
+// tables [H,9] (y0, y1 padded rows, cx, wy, wx); out f32 [B,H,W,F]. gather
+// and diag take the values of Gather and Diag; taps, dedup and mma as the
+// template arguments. plan: nplan ints, the host's launch plan
+// (ops/kernels/probes.py:probe_tiling; a DirectPlan or a StagedPlan).
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue for choices
+// no instantiation has, or a plan or shape it does not take).
+int skyhdr_probe_fwd(const void* x, const void* kern, const void* y0, const void* y1,
+                     const void* cx, const void* wy, const void* wx, void* out,
+                     int is_bf16, int gather, int taps, int dedup, int mma, int diag,
+                     int B, int H, int W, int C, int F, int rblk, const void* plan, int nplan,
+                     int device, void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const void* tab[5] = {y0, y1, cx, wy, wx};
+  return probe_dispatch(x, kern, tab, out, is_bf16, gather, taps, dedup, mma, diag, B, H, W, C,
+                        F, rblk, static_cast<const int*>(plan), nplan,
+                        static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// K10: the blocks of the instantiation and plan an SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor: registers, threads and
+// shared memory), or minus a cudaError_t.
+int skyhdr_probe_resident(int is_bf16, int gather, int taps, int dedup, int mma, int diag,
+                          int H, int W, int C, int F, int rblk, const void* plan, int nplan,
+                          int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -err;
+  const void* tab[5] = {nullptr, nullptr, nullptr, nullptr, nullptr};
+  int blocks = 0;
+  const int code = probe_dispatch(nullptr, nullptr, tab, nullptr, is_bf16, gather, taps, dedup,
+                                  mma, diag, 1, H, W, C, F, rblk, static_cast<const int*>(plan),
+                                  nplan, nullptr, &blocks);
+  return code != 0 ? -code : blocks;
 }
 
 // K11: x [B,H,W,C] -> out [B/P,H,W,P*C], elements of elem_bytes bytes;

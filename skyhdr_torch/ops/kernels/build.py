@@ -58,8 +58,11 @@ _SIGNATURES = {
     # span, is_bf16, device, stream
     "skyhdr_da_dk": [_P] * 6 + [_I] * 11 + [_P],
     # x, kern, y0, y1, cx, wy, wx, out, is_bf16, gather, taps, dedup, mma,
-    # diag, B, H, W, C, F, rblk, mblk, span, device, stream
-    "skyhdr_probe_fwd": [_P] * 8 + [_I] * 15 + [_P],
+    # diag, B, H, W, C, F, rblk, plan (int array), plan ints, device, stream
+    "skyhdr_probe_fwd": [_P] * 8 + [_I] * 12 + [_P, _I, _I, _P],
+    # is_bf16, gather, taps, dedup, mma, diag, H, W, C, F, rblk, plan, plan
+    # ints, device -> K10's resident blocks per SM (or minus a CUDA error)
+    "skyhdr_probe_resident": [_I] * 11 + [_P, _I, _I],
     # x, out, B, H, W, C, P, elem_bytes, device, stream
     "skyhdr_pack_samples": [_P] * 2 + [_I] * 7 + [_P],
     # lhs, rhs, out, m, k, f, ndots, steps, is_bf16, tile, device, stream

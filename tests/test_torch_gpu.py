@@ -592,11 +592,52 @@ def test_k10_matches_plain(cuda, name, shape, f, rblk, mblk):
     assert _rel(got, tp.da_probe_ref(x, k, name)) <= (2e-3 if p.mma else 1e-4)
 
 
+# More K10 shapes: every rblk of 1, 2, 4, 8, 16 with the ones above, C/F
+# 32/32, 64/64 and 128/128, and widths that leave a ragged column tile (36:
+# a direct block of 32 columns and 4; 38: 2 of a lane's 4 columns; 200: a
+# staged tile of 128 and 72; 44).
+K10_CASES = [((1, 16, 36, 32), 32, 1), ((1, 16, 38, 64), 64, 16),
+             ((1, 8, 200, 128), 128, 8), ((2, 8, 44, 64), 64, 4)]
+
+
+@pytest.mark.parametrize("name", sorted(tp.PROBES))
+@pytest.mark.parametrize("shape,f,rblk", K10_CASES)
+def test_k10_tiles_rows_and_ragged_columns(cuda, name, shape, f, rblk):
+    p = tp.PROBES[name]
+    x, k, _, _ = _operands(cuda, shape, f)
+    n = tp.K10_LAUNCHES
+    got = tp.da_probe_k10(x, k, name, rblk=rblk, mblk=rblk if p.dedup else 1)
+    torch.cuda.synchronize()
+    assert tp.K10_LAUNCHES == n + 1 and got.shape == shape[:3] + (f,)
+    assert _rel(got, tp.da_probe_ref(x, k, name)) <= (2e-3 if p.mma else 1e-4)
+
+
+@pytest.mark.parametrize("name", sorted(tp.PROBES))
+def test_k10_is_bitwise_repeatable_and_one_kernel(cuda, name):
+    """Two calls give the same bits, and a call on x in the probe's storage
+    type runs one device kernel (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    p = tp.PROBES[name]
+    x, k, _, _ = _operands(cuda, (2, 8, 44, 64), 64)
+    x = x.to(p.store)
+    a = tp.da_probe_k10(x, k, name, rblk=4, mblk=4 if p.dedup else 1)
+    b = tp.da_probe_k10(x, k, name, rblk=4, mblk=4 if p.dedup else 1)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tp.da_probe_k10(x, k, name, rblk=4, mblk=4 if p.dedup else 1)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+               and getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) > 0]
+    assert sum(e.count for e in kernels) == 1, [(e.key, e.count) for e in kernels]
+
+
 def test_k10_refuses_what_it_does_not_tile(cuda):
     x, k, _, _ = _operands(cuda, (2, 8, 32, 16), 32)
     with pytest.raises(ValueError):
         tp.da_probe_k10(x, k, "c", rblk=3)
-    with pytest.raises(RuntimeError):
+    with pytest.raises(ValueError):
         tp.da_probe_k10(x, k, "nomm")  # the sum modes need C >= F
 
 
