@@ -20,30 +20,12 @@ def str2bool(v) -> bool:
     raise argparse.ArgumentTypeError("Boolean value expected.")
 
 
-def add_model_flags(parser: argparse.ArgumentParser):
-    """The model and runtime flags the port's CLIs share."""
-    parser.add_argument("--imheight", type=int, default=32)
-    parser.add_argument("--imwidth", type=int, default=128)
-    parser.add_argument("--da-conv", type=str2bool, default=False,
-                        help="use the distortion-aware equirect conv")
-    parser.add_argument("--compute-dtype", type=str, default="float32",
-                        choices=("float32", "bfloat16"),
-                        help="conv-stack compute dtype (norm statistics, the "
-                             "sun-pose softmax and the radiance head stay "
-                             "float32)")
-    parser.add_argument("--seed", type=int, default=0,
-                        help="seed of the weights when no SKY checkpoint "
-                             "exists (utils.transplant.init_model_vars)")
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device to run on")
-    return parser
-
-
 def add_common_flags(parser: argparse.ArgumentParser):
-    """The training CLIs' flags (`skyhdr.cli.common.add_common_flags`,
-    without the XLA runtime's `--compilation-cache` and
-    `--steps-per-dispatch` and the three storage-dtype knobs, which the
-    port does not have), plus `--device`."""
+    """Every flag of `skyhdr.cli.common.add_common_flags`, plus `--device`.
+    Only float32 training is ported: the three storage-dtype knobs take
+    float32 (`config_from_args` raises NotImplementedError for the other
+    value) and `--steps-per-dispatch` takes 1; `--compilation-cache` is the
+    XLA runtime's and does nothing here."""
     cwd = os.getcwd()
     parser.add_argument("--dir", type=str, default=None,
                         help="tfrecord dataset root (with train/ and test/)")
@@ -62,6 +44,13 @@ def add_common_flags(parser: argparse.ArgumentParser):
                         choices=("float32", "bfloat16"),
                         help="conv-stack compute dtype (radiance head, "
                              "softmax and norms stay f32)")
+    for knob, what in (("opt-state", "optimizer-moment storage"),
+                       ("grad", "gradient staging"),
+                       ("param", "stored model-parameter")):
+        parser.add_argument(f"--{knob}-dtype", type=str, default="float32",
+                            choices=("float32", "bfloat16"),
+                            help=f"{what} dtype; only float32 is ported "
+                                 f"(bfloat16 raises NotImplementedError)")
     parser.add_argument("--streaming", type=str2bool, default=None,
                         help="stream TFRecords with a windowed shuffle "
                              "buffer instead of caching the split in RAM "
@@ -75,28 +64,47 @@ def add_common_flags(parser: argparse.ArgumentParser):
     parser.add_argument("--ckpt-every", type=int, default=10,
                         help="checkpoint save cadence in epochs "
                              "(reference train.py:516)")
+    parser.add_argument("--steps-per-dispatch", type=int, default=1,
+                        help="train steps per dispatch; the port runs one "
+                             "(other values raise NotImplementedError)")
+    parser.add_argument("--compilation-cache", type=str, default=None,
+                        metavar="DIR",
+                        help="accepted for command lines of the JAX "
+                             "package (its persistent XLA compilation "
+                             "cache); does nothing here")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on")
     return parser
 
 
 def config_from_args(args) -> Config:
-    """The Config of the serving flags (`add_model_flags`) or of the
-    training flags (`add_common_flags`)."""
-    model = ModelConfig(im_height=args.imheight, im_width=args.imwidth,
-                        use_da_conv=args.da_conv, compute_dtype=args.compute_dtype)
-    if not hasattr(args, "batchsize"):
-        return Config(model=model)
-    return Config(
-        model=model,
+    """The Config of the `add_common_flags` flags. Raises
+    NotImplementedError for what the port does not run: a storage-dtype
+    knob other than float32, or more than one step per dispatch."""
+    from skyhdr_torch.train.engine import _require_f32_training
+
+    cfg = Config(
+        model=ModelConfig(im_height=args.imheight, im_width=args.imwidth,
+                          use_da_conv=args.da_conv,
+                          compute_dtype=args.compute_dtype),
         data=DataConfig(batch_size=args.batchsize,
                         dataset_dir=args.dir or os.path.join(
                             args.workdir,
                             f"dataset_{args.imwidth}_{args.imheight}/tfrecord")),
         train=TrainConfig(learning_rate=args.lr, epochs=args.epochs,
                           vgg_path=args.vgg, ckpt_every_epochs=args.ckpt_every,
+                          opt_state_dtype=args.opt_state_dtype,
+                          grad_dtype=args.grad_dtype,
+                          param_dtype=args.param_dtype,
+                          steps_per_dispatch=args.steps_per_dispatch,
                           seed=args.seed),
     )
+    _require_f32_training(cfg)
+    if cfg.train.steps_per_dispatch != 1:
+        raise NotImplementedError(
+            f"--steps-per-dispatch {cfg.train.steps_per_dispatch}: the port "
+            "runs one step per dispatch")
+    return cfg
 
 
 _STREAM_THRESHOLD_BYTES = 2 << 30  # cache below ~2 GB decoded, stream above

@@ -23,7 +23,7 @@ import os
 import numpy as np
 import torch
 
-from skyhdr_torch.cli.common import (add_model_flags, config_from_args,
+from skyhdr_torch.cli.common import (add_common_flags, config_from_args,
                                      restore_model_vars)
 from skyhdr_torch.train.engine import make_inference_fn
 from skyhdr_torch.utils.io import write_hdr
@@ -59,11 +59,9 @@ def _imread01(path: str) -> np.ndarray:
 def main(argv=None):
     parser = argparse.ArgumentParser(description="LDR -> HDR inference "
                                                  "(PyTorch)")
-    add_model_flags(parser)
+    add_common_flags(parser)
     parser.add_argument("--indir", type=str, required=True)
     parser.add_argument("--outdir", type=str, default="inference_out")
-    parser.add_argument("--workdir", type=str, default=os.getcwd(),
-                        help="where the training CLI wrote checkpoints/")
     parser.add_argument("--sky", type=str, default=None,
                         help="SKY checkpoint dir (default: "
                              "<workdir>/checkpoints/SKY)")

@@ -28,6 +28,10 @@ from skyhdr_torch.train.loop import TrainLoop
 def main(argv=None):
     parser = argparse.ArgumentParser(description="train the SKY GAN model (PyTorch)")
     add_common_flags(parser)
+    parser.add_argument("--sky", type=str, default=None,
+                        help="parsed for command lines of the JAX package, "
+                             "which reads it nowhere either: a rerun "
+                             "resumes from <workdir>/checkpoints/SKY")
     parser.add_argument("--sun", type=str, default=None,
                         help="pretrained SUN checkpoint dir to restore the "
                              "sun net from before fine-tuning (default: "

@@ -229,7 +229,9 @@ def replace_sun_params(cfg, state: GanState, sun_params: dict) -> GanState:
     return state
 
 
-def _degrade(cfg, banks, generator, hdr):
+def degrade(cfg, banks, generator, hdr):
+    """`degrade_batch` with `cfg.data`'s JPEG and noise settings: the
+    degradation of the train and eval steps and of `cli.evaluate`."""
     d = cfg.data
     return degrade_batch(generator, hdr, banks, jpeg_lo=d.jpeg_quality_lo,
                          jpeg_hi=d.jpeg_quality_hi, sigma_s_scale=d.sigma_s_scale,
@@ -244,7 +246,7 @@ def _with_degradation(cfg, banks, core, name: str = "train_on"):
 
     def step(state, batch, generator: torch.Generator):
         sunpose_gt = sunpose_gt_from_elevation(cfg.model, batch["elevation"])
-        hdr_t, ldr = _degrade(cfg, banks, generator, batch["hdr"])
+        hdr_t, ldr = degrade(cfg, banks, generator, batch["hdr"])
         return core(state, hdr_t, ldr, sunpose_gt)
 
     setattr(step, name, core)
