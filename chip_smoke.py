@@ -102,7 +102,29 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     step's degradation, forward and metrics timed (CUDA
                     events, median of 20) at DA 64x256 b32 and plain 32x128
                     b32, and each CLI's wall seconds.
-  11. probes     — the DA-conv probe tools (skyhdr_torch/tools/) and their
+  11. convert    — checkpoints of the JAX package on the card. (a) The
+                    resume golden at 16x64 DA b2: the export of
+                    `make_torch_golden.resume_export` (seeded weights,
+                    BatchNorm statistics and moments drawn nonzero, a
+                    nonzero step, epoch and Adam count; its digest against
+                    tests/fixtures/torch_golden_resume_16x64.npz) imported
+                    by `skyhdr_torch.cli.import_checkpoint`, then one GAN
+                    step and one sun step on the fixture's JAX-degraded
+                    inputs against JAX's metrics and update digests. (b) DA
+                    64x256: a GanState (6.5 GB) and a SunState (9.7 GB)
+                    with every tensor drawn on the card, written by
+                    `export_from_state` + `write_export` and imported by the
+                    CLI, one at a time; every tensor and counter read back
+                    bit-equal; the inference CLI (40 PNGs, b32) from the
+                    imports bit-equal to serving the source modules, 20 K1 +
+                    4 K2 per dispatch; one resumed GAN step at b64 from the
+                    import and from the source bit-equal under torch's
+                    deterministic algorithms (and, for the record, how far
+                    apart in the default mode); a SKY checkpoint with
+                    bfloat16 parameters served bit-equal to its source
+                    modules and refused a resume (NotImplementedError).
+                    Export, import and read-back seconds and GB/s.
+  12. probes     — the DA-conv probe tools (skyhdr_torch/tools/) and their
                     kernels, at the tools' default shape x (32,64,256,64) ->
                     F 64 and at the serving trunk layer (32,16,64,128) ->
                     128: every K10 instantiation against its plain version
@@ -141,6 +163,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -149,7 +172,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 ITERS, WARMUP = 20, 3
 STEP_ITERS = 5
 PHASES = ("kernels", "golden", "train_golden", "serving", "training", "timing",
-          "train_cli", "cli", "probes")
+          "train_cli", "cli", "convert", "probes")
 # (name, x shape at 32x128 [h, w, c], F, layers of that shape, in the
 # sun-pose net: Grad-CAM's pull differentiates through it)
 DA_LAYERS = [
@@ -1709,6 +1732,375 @@ PROBE_TOL = {"fma": 1e-4, "mma": 2e-3, "conv_f32": 1e-4, "conv_bf16": 2e-2}
 F32_VARIANTS = ("prod", "xla", "a2", "a4", "a8", "a2p", "c2", "c2p", "cs2")
 
 
+def fill_state(state, seed):
+    """Every tensor of a port state drawn on the card from a seeded
+    generator, nonzero and distinct: parameters N(0, 0.02), BatchNorm means
+    N(0, 0.1) and variances U(0.5, 1.5), second moments U(0.5, 1.5) x
+    10^U(-3, 3) per tensor and first moments U(-0.5, 0.5) x the root of the
+    second (as `make_torch_golden.resume_export` draws them); a nonzero
+    step, epoch and Adam count. A host draw at 64x256 takes ~42 s; this
+    takes well under one."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for module in state.modules().values():
+            for _, mod in module.named_modules():
+                for coll, name, t, _, _ in getattr(mod, "flax_leaves", list)():
+                    if coll == "params":
+                        t.normal_(0.0, 0.02, generator=g)
+                    elif name == "mean":
+                        t.normal_(0.0, 0.1, generator=g)
+                    else:
+                        t.uniform_(0.5, 1.5, generator=g)
+        for opt in state.optimizers().values():
+            moments = opt.moments()
+            for p, nu in moments["nu"].items():
+                scale = 10.0 ** float(torch.empty((), device="cuda").uniform_(
+                    -3.0, 3.0, generator=g))
+                nu.uniform_(0.5, 1.5, generator=g).mul_(scale)
+                if "mu" in moments:
+                    moments["mu"][p].uniform_(-0.5, 0.5, generator=g).mul_(nu.sqrt())
+    state.step, state.epoch = 40 + seed, 5
+    if state.kind == "sun":
+        state.opt.count = state.step
+    return state
+
+
+def state_bytes(state):
+    from skyhdr_torch.train.engine import state_dict
+
+    blob = state_dict(state)
+    tensors = [t for sd in blob["modules"].values() for t in sd.values()]
+    tensors += [t for o in blob["optimizers"].values() for v in o.values()
+                if isinstance(v, list) for t in v]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def blob_mismatches(blob, state):
+    """The tensors and counters of a checkpoint's `state_dict` (read to the
+    host) that are not bit-equal to `state`'s: (names, tensors compared)."""
+    from skyhdr_torch.train.engine import state_dict
+
+    want = state_dict(state)
+    bad, n = [], 0
+    for key in ("kind", "step", "epoch", "param_dtype"):
+        if blob[key] != want[key]:
+            bad.append(f"{key} {blob[key]} vs {want[key]}")
+    for group in ("modules", "optimizers"):
+        if sorted(blob[group]) != sorted(want[group]):
+            bad.append(f"{group}: {sorted(blob[group])} vs {sorted(want[group])}")
+            continue
+        for name, part in want[group].items():
+            for key, w in part.items():
+                got = blob[group][name].get(key)
+                pairs = list(zip(got, w)) if isinstance(w, list) else [(got, w)]
+                if isinstance(w, list) and len(got) != len(w):
+                    bad.append(f"{group}/{name}/{key}: {len(got)} vs {len(w)} tensors")
+                for i, (a, b) in enumerate(pairs):
+                    n += 1
+                    same = (torch.equal(a.to(b.device), b) if torch.is_tensor(b)
+                            else a == b)
+                    if not same:
+                        bad.append(f"{group}/{name}/{key}[{i}]")
+    return bad, n
+
+
+def serve_captured(dc, indir, outdir, workdir, h, w, batch):
+    """The serving CLI from the checkpoints under `workdir`: its outputs
+    (caught on their way to the .hdr encoder, which still writes them),
+    wall seconds and launches (counts set to 0 just before it)."""
+    from skyhdr_torch.cli import inference
+
+    got, real = {}, inference.write_hdr
+
+    def write(path, hdr):
+        got[os.path.basename(path)] = hdr
+        real(path, hdr)
+
+    inference.write_hdr = write
+    try:
+        text, secs, launched = run_cli(dc, "convert", inference.main, [
+            "--indir", indir, "--outdir", outdir, "--da-conv", "true", "--imheight", str(h),
+            "--imwidth", str(w), "--batch", str(batch), "--workdir", workdir],
+            f"inference CLI {h}x{w} DA b{batch} --workdir {os.path.basename(workdir)}")
+    finally:
+        inference.write_hdr = real
+    return got, text, secs, launched
+
+
+def serve_modules(cfg, gen_src, sun_src, indir, batch):
+    """What the serving CLI computes, on fresh serving modules holding
+    `gen_src`'s and `sun_src`'s tensors: the same groups, the last padded
+    with its last image. {name.hdr: y_final_lin}."""
+    from skyhdr_torch.cli import inference
+    from skyhdr_torch.train.engine import build_models, make_inference_fn
+
+    gen, sun = build_models(cfg, "cuda")
+    gen.load_state_dict(gen_src.state_dict())
+    sun.load_state_dict(sun_src.state_dict())
+    infer = make_inference_fn(cfg)
+    paths = sorted(os.path.join(indir, f) for f in os.listdir(indir))
+    out = {}
+    for start in range(0, len(paths), batch):
+        group = paths[start:start + batch]
+        imgs = [inference._imread01(p) for p in group]
+        x = np.stack(imgs + [imgs[-1]] * (batch - len(group)))
+        y = infer(gen, sun, torch.from_numpy(x).cuda())["y_final_lin"][:len(group)]
+        for path, hdr in zip(group, y.float().cpu().numpy()):
+            out[os.path.splitext(os.path.basename(path))[0] + ".hdr"] = hdr
+    return out
+
+
+def import_cli(dc, export, workdir, flags, tag):
+    """The import CLI on the card; (wall s, {SKY/SUN: the CLI's own s})."""
+    import re
+
+    from skyhdr_torch.cli import import_checkpoint
+
+    text, secs, launched = run_cli(dc, "convert", import_checkpoint.main,
+                                   ["--export", export, "--workdir", workdir, *flags], tag)
+    check(not any(launched.values()), f"the import launched kernels: {launched}")
+    return secs, {name: (float(a), float(b), float(c)) for name, a, b, c in re.findall(
+        r"^(SKY|SUN) checkpoint \d+ imported .* in ([\d.]+) s \(read onto \S+ ([\d.]+) s, "
+        r"saved ([\d.]+) s\)$", text, re.M)}
+
+
+def convert_golden(dc, work, report):
+    """(a) The resume golden at 16x64 DA b2: the export of
+    `make_torch_golden.resume_export`, imported by the CLI on the card, one
+    GAN step and one sun step on the fixture's JAX-degraded inputs, held to
+    JAX's metrics and update digests."""
+    from skyhdr_torch.train.checkpoints import CheckpointManager
+    from skyhdr_torch.utils.flax_export import write_export
+
+    mod = golden_tool()
+    stored = np.load(mod.RESUME_FIXTURE)
+    export = mod.resume_export(int(stored["seed"]))
+    digest = mod.export_digest(export)
+    check(abs(digest - float(stored["export_digest"])) <= 1e-9 * digest,
+          f"the resume export differs from the fixture's ({digest} vs "
+          f"{float(stored['export_digest'])}): the numpy stream changed")
+    out, pwork = os.path.join(work, "golden_export"), os.path.join(work, "golden_port")
+    for name, (manifest, leaves) in export.items():
+        write_export(os.path.join(out, name), manifest, leaves)
+    cfg = mod.golden_config()
+    import_cli(dc, out, pwork, ["--imheight", str(cfg.model.im_height), "--imwidth",
+                                str(cfg.model.im_width), "--da-conv", "true"],
+               "import CLI 16x64 (resume golden)")
+    gan, sun = (CheckpointManager(os.path.join(pwork, "checkpoints", name)).restore_latest(
+        cfg, "cuda") for name in ("SKY", "SUN"))
+    check((gan.step, gan.epoch, sun.step, sun.epoch, sun.opt.count) == (12, 2, 7, 1, 7),
+          "resume golden counters")
+    reset_counts(dc)
+    port = mod.port_steps(stored, cfg, gan, sun, "cuda")
+    launched = counts(dc)
+    fails, worst = mod.compare_train_golden(stored, port, GOLDEN_METRIC_RTOL,
+                                            GOLDEN_UPDATE_RTOL)
+    for kind in ("gan", "sun"):
+        for metric, a, b in zip(stored[f"{kind}_metric_names"], port[f"{kind}_metrics"],
+                                stored[f"{kind}_metrics"]):
+            say("convert", f"resume golden {kind} {metric}: card {a:.7g}, JAX {b:.7g}")
+    say("convert", f"resume golden 16x64 DA b2, one GAN step + one sun step from the "
+        f"imported checkpoints vs JAX: worst relative {json.dumps(worst)} (metrics rtol "
+        f"{GOLDEN_METRIC_RTOL}, updates {GOLDEN_UPDATE_RTOL} of sum |update|, BN sums "
+        f"1e-4); launches {launched}")
+    for line in fails:
+        say("convert", f"FAIL {line}")
+    check(not fails, f"resume golden: {len(fails)} mismatches")
+    want = {k: GAN_LAUNCHES[k] + SUN_LAUNCHES[k] for k in KERNELS}
+    check(launched == want, f"resume golden launches {launched}, want {want}")
+    report["convert"]["golden_worst"] = worst
+
+
+def convert_full_width(dc, smi, work, report):
+    """(b) DA 64x256: a GanState and a SunState with every tensor drawn,
+    exported by `export_from_state` and imported by the CLI one at a time
+    (an export deleted once imported), checked bit-equal; served from the
+    import and from the source modules; one resumed GAN step at b64 from
+    each; a bfloat16-parameter SKY checkpoint served and refused a resume."""
+    from skyhdr_torch.config import Config, DataConfig, ModelConfig
+    from skyhdr_torch.data.degradation import make_banks
+    from skyhdr_torch.models.vgg16 import random_vgg16_weights
+    from skyhdr_torch.train.checkpoints import CheckpointManager
+    from skyhdr_torch.train.convert import export_from_state
+    from skyhdr_torch.train.engine import (empty_gan_state, empty_sun_state,
+                                           make_gan_train_step, state_dict)
+    from skyhdr_torch.train.loop import TrainLoop
+    from skyhdr_torch.utils.flax_export import write_export
+    from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
+
+    h, w, b, serve_b = 64, 256, 64, 32
+    cfg = Config(model=ModelConfig(im_height=h, im_width=w, use_da_conv=True),
+                 data=DataConfig(batch_size=b))
+    flags = ["--imheight", str(h), "--imwidth", str(w), "--da-conv", "true"]
+    out = report["convert"]
+    t0 = time.perf_counter()
+    src = {"SKY": fill_state(empty_gan_state(cfg, "cuda"), 1),
+           "SUN": fill_state(empty_sun_state(cfg, "cuda"), 2)}
+    torch.cuda.synchronize()
+    say("convert", f"DA {h}x{w}: a GanState and a SunState drawn on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    pwork = os.path.join(work, "port")
+    for name, state in src.items():
+        export = os.path.join(work, f"export_{name}")
+        gb = state_bytes(state) / 1e9
+        t0 = time.perf_counter()
+        manifest, leaves = export_from_state(state)
+        t1 = time.perf_counter()
+        write_export(os.path.join(export, name), manifest, leaves)
+        t2 = time.perf_counter()
+        del leaves
+        wall, own = import_cli(dc, export, pwork, flags, f"import CLI {name} {h}x{w}")
+        shutil.rmtree(export)
+        t3 = time.perf_counter()
+        blob = CheckpointManager(os.path.join(pwork, "checkpoints", name)).read_latest()
+        t4 = time.perf_counter()
+        bad, n = blob_mismatches(blob, state)
+        del blob
+        total, onto, saved = own[name]
+        row = {"gb": gb, "export_from_state_s": t1 - t0, "write_export_s": t2 - t1,
+               "import_cli_s": wall, "import_read_onto_card_s": onto, "import_save_s": saved,
+               "read_back_s": t4 - t3, "tensors": n}
+        out[name] = row
+        say("convert", f"{name} DA {h}x{w} ({gb:.3f} GB): export_from_state {t1 - t0:.3f} s "
+            f"(card to host, {gb / (t1 - t0):.3f} GB/s), write_export {t2 - t1:.3f} s "
+            f"({gb / (t2 - t1):.3f} GB/s; no fsync); import CLI {wall:.3f} s wall "
+            f"({gb / wall:.3f} GB/s): the export mapped and placed on the card {onto:.3f} s "
+            f"({gb / onto:.3f} GB/s), torch.save with fsync {saved:.3f} s "
+            f"({gb / saved:.3f} GB/s); read back {t4 - t3:.3f} s ({gb / (t4 - t3):.3f} "
+            f"GB/s); {n} tensors and the counters bit-equal to the source: {not bad} "
+            f"{bad[:5]}; on {smi}")
+        check(not bad, f"{name} import not bit-equal: {bad[:10]}")
+
+    # Serving from the imported checkpoints: SKY, then SUN's sun-pose net.
+    indir = os.path.join(work, "ldr")
+    write_pngs(indir, 40, h, w, seed=40)
+    serve_cfg = Config(model=cfg.model, data=DataConfig(batch_size=serve_b))
+    got, text, secs, launched = serve_captured(dc, indir, os.path.join(work, "hdr"), pwork,
+                                               h, w, serve_b)
+    dispatches = -(-40 // serve_b)
+    want = {k: v * dispatches for k, v in SERVING_LAUNCHES.items()}
+    check("Latest SKY checkpoint restored" in text and "Latest SUN checkpoint restored" in text,
+          "serving did not restore the SKY and SUN checkpoints")
+    check(launched == want, f"serving launches {launched}, want {want}")
+    ref = serve_modules(serve_cfg, src["SKY"].gen, src["SUN"].sun, indir, serve_b)
+    same = sorted(got) == sorted(ref) and all(np.array_equal(got[k], ref[k]) for k in ref)
+    finite = all(np.isfinite(v).all() for v in got.values())
+    say("convert", f"served {len(got)} panoramas at DA {h}x{w} b{serve_b} from the imported "
+        f"checkpoints in {secs:.3f} s wall (restore included); launches {launched} (want "
+        f"{want}); bit-equal to serving the source modules: {same}; finite: {finite}")
+    check(same and finite, "serving from the import differs from the source modules")
+    out["serve_s"] = secs
+    del src["SUN"], ref
+    free_cuda()
+
+    # One resumed GAN step at b64 from the import and one from the source,
+    # under torch's deterministic algorithms; then one more of each in the
+    # default mode, which is not bitwise repeatable (cuDNN's algorithms, and
+    # the atomic index_add_ of the resize's index_select backward).
+    restored = CheckpointManager(os.path.join(pwork, "checkpoints", "SKY")).restore_latest(
+        cfg, "cuda")
+    banks = make_banks(make_synthetic_dorf(175, 1024), get_exposure_lists()[0], device="cuda")
+    step = make_gan_train_step(cfg, banks, random_vgg16_weights())
+    batch = train_batches(1, b, h, w, seed=3000)[0]
+    resumed = {}
+    # cuBLAS asks for this before it runs deterministically (checked per
+    # call); restored below, so that later phases run as before.
+    cublas_config = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    try:
+        for mode in ("deterministic", "default"):
+            # warn_only: an operation without a deterministic form warns (and
+            # is named below) instead of raising.
+            torch.use_deterministic_algorithms(mode == "deterministic", warn_only=True)
+            metrics = {}
+            for tag, state in (("imported", restored), ("source", src["SKY"])):
+                reset_counts(dc)
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    _, m = step(state, batch, torch.Generator(device="cuda").manual_seed(9))
+                    torch.cuda.synchronize()
+                for text in sorted({str(c.message)[:160] for c in caught}):
+                    say("convert", f"{mode} {tag} step warned: {text}")
+                metrics[tag] = {k: float(v) for k, v in m.items()}
+                launched = counts(dc)
+                check(launched == GAN_LAUNCHES, f"resumed GAN step ({tag}) launches {launched}")
+            bad, n = blob_mismatches(state_dict(restored), src["SKY"])
+            gap = max((float((a - b_).detach().abs().max()) for a, b_ in zip(
+                restored.gen.parameters(), src["SKY"].gen.parameters())), default=0.0)
+            resumed[mode] = {"tensors_differing": len(bad), "tensors": n,
+                             "gen_max_abs_diff": gap,
+                             "metrics_equal": metrics["imported"] == metrics["source"]}
+            say("convert", f"resumed GAN step at DA {h}x{w} b{b}, {mode} algorithms, from the "
+                f"import and from the source: launches {GAN_LAUNCHES} each; gen_total "
+                f"{metrics['imported']['gen_total']:.7g} vs {metrics['source']['gen_total']:.7g}; "
+                f"{n - len(bad)} of {n} tensors and the counters bit-equal after it "
+                f"{bad[:3]}; generator parameters max |diff| {gap:.3e}")
+            if mode == "deterministic":
+                check(not bad and metrics["imported"] == metrics["source"],
+                      f"the resumed step differs: {bad[:10]}")
+                # Both states stay equal for the default-mode step.
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if cublas_config is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+    out["resumed_step"] = resumed
+    del restored, step
+    free_cuda()
+
+    # A SKY checkpoint trained with bfloat16 parameters: the stored values,
+    # upcast; it serves, and a resume is refused.
+    state = src.pop("SKY")
+    with torch.no_grad():
+        for module in state.modules().values():
+            for p in module.parameters():
+                p.copy_(p.bfloat16().float())
+    state.param_dtype = "bfloat16"
+    export, bf16_work = os.path.join(work, "export_bf16"), os.path.join(work, "port_bf16")
+    manifest, leaves = export_from_state(state)
+    check(manifest["param_dtype"] == "bfloat16" and not any(
+        p.startswith("opt") for p in leaves), "bf16 export holds moments")
+    write_export(os.path.join(export, "SKY"), manifest, leaves)
+    del leaves
+    wall, _ = import_cli(dc, export, bf16_work, flags, f"import CLI SKY bf16 params {h}x{w}")
+    shutil.rmtree(export)
+    blob = CheckpointManager(os.path.join(bf16_work, "checkpoints", "SKY")).read_latest()
+    bad, n = blob_mismatches(blob, state)
+    check(blob["param_dtype"] == "bfloat16" and blob["optimizers"] == {} and not bad,
+          f"bf16 SKY checkpoint: {blob['param_dtype']}, {sorted(blob['optimizers'])}, {bad[:5]}")
+    del blob
+    got, text, secs, launched = serve_captured(dc, indir, os.path.join(work, "hdr_bf16"),
+                                               bf16_work, h, w, serve_b)
+    check(launched == want, f"bf16 serving launches {launched}, want {want}")
+    ref = serve_modules(serve_cfg, state.gen, state.sun, indir, serve_b)
+    same = sorted(got) == sorted(ref) and all(np.array_equal(got[k], ref[k]) for k in ref)
+    refused = None
+    try:
+        TrainLoop(cfg, "SKY", lambda: None, None, None, None, None, workdir=bf16_work,
+                  log=lambda *_: None, device="cuda")
+    except NotImplementedError as e:
+        refused = str(e)
+    say("convert", f"bf16-parameter SKY checkpoint: {n} tensors bit-equal, no optimizer "
+        f"state; served {len(got)} panoramas in {secs:.3f} s, launches {launched}, "
+        f"bit-equal to its source modules: {same}; TrainLoop resume: "
+        f"NotImplementedError {refused!r}")
+    check(same, "bf16 serving differs from its source modules")
+    check(refused is not None and "param_dtype" in refused, "TrainLoop resumed a bf16 state")
+    del state
+    free_cuda()
+
+
+def phase_convert(dc, smi, report):
+    work = tempfile.mkdtemp(prefix="skyhdr_convert_")
+    report["convert"] = {"device": smi}
+    try:
+        say("convert", f"disk free under {work}: "
+            f"{shutil.disk_usage(work).free / 1e9:.1f} GB")
+        convert_golden(dc, work, report)
+        convert_full_width(dc, smi, work, report)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def probe_bound(n, c, f, x_bytes, mma, summing, k_bytes=4):
     """(ms, "bytes" or "operations") of one DA probe call over n = b*h*w
     output pixels: operations 2*n*9*c*f (the products; the sum modes n*9*c
@@ -2122,6 +2514,7 @@ def main(argv=None):
     da5_trees.cache_clear()
     timed("train_cli", phase_train_cli, dc, smi, report)
     timed("cli", phase_cli, dc, smi, report)
+    timed("convert", phase_convert, dc, smi, report)
     probes = timed("probes", phase_probes, dc, smi, report)
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -113,6 +113,10 @@ class GanState:
     epoch count (set by `train.loop.TrainLoop`)."""
 
     kind = "gan"
+    # "bfloat16" for a checkpoint of the JAX package trained with bfloat16
+    # parameters (`convert.state_from_export`): served and handed off, not
+    # resumed.
+    param_dtype = "float32"
 
     def __init__(self, gen, sun, disc, opt_gen, opt_disc):
         self.gen, self.sun, self.disc = gen, sun, disc
@@ -131,6 +135,7 @@ class SunState:
     """The sun-pose net, its Adam optimizer, the step and epoch counts."""
 
     kind = "sun"
+    param_dtype = "float32"
 
     def __init__(self, sun, opt):
         self.sun, self.opt = sun, opt
@@ -197,15 +202,28 @@ def create_sun_state(cfg, seed: int = 0, device="cuda") -> SunState:
 def state_dict(state) -> dict:
     """Everything a resume needs, as tensors on the state's device: the
     modules' parameters and buffers, the optimizers' moments (and Adam's
-    count), the step and the epoch."""
+    count), the step, the epoch and the parameters' dtype in training. A
+    state with bfloat16 training parameters carries no optimizer state."""
+    f32 = state.param_dtype == "float32"
     return {"kind": state.kind, "step": state.step, "epoch": state.epoch,
+            "param_dtype": state.param_dtype,
             "modules": {n: m.state_dict() for n, m in state.modules().items()},
-            "optimizers": {n: o.state() for n, o in state.optimizers().items()}}
+            "optimizers": {n: o.state() for n, o in state.optimizers().items()}
+            if f32 else {}}
 
 
 def load_state(blob: dict, cfg, device="cuda"):
     """The state of a `state_dict` (read anywhere, e.g. to the host),
-    rebuilt on `device` without drawing seeded weights."""
+    rebuilt on `device` without drawing seeded weights. Raises
+    NotImplementedError for a checkpoint trained with bfloat16 parameters:
+    the port trains with float32 ones only."""
+    param_dtype = blob.get("param_dtype", "float32")
+    if param_dtype != "float32":
+        raise NotImplementedError(
+            f"checkpoint with param_dtype={param_dtype!r}: training with "
+            "bfloat16 parameters is not ported (ROADMAP.md, Queue 1 item 6), "
+            "so it cannot be resumed; it serves, and its sun-pose net hands "
+            "off to a fresh GAN run")
     make = {"gan": empty_gan_state, "sun": empty_sun_state}[blob["kind"]]
     state = make(cfg, device)
     with torch.no_grad():

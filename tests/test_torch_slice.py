@@ -225,7 +225,7 @@ def test_port_imports_no_jax():
         " 'skyhdr_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'skyhdr'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'skyhdr'))\n"
         "assert not bad, bad\n"
         "assert len(names) >= 15, names\n"
         "assert 'skyhdr_torch.tools.exp_daconv' in names, names\n"
