@@ -40,7 +40,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     of tests/fixtures/torch_golden_train_16x64.npz, against
                     JAX's metrics and per-leaf update / BatchNorm digests;
                     unfused, then fused; then at da_kernel_size=5 against
-                    torch_golden_train_da5_16x64.npz.
+                    torch_golden_train_da5_16x64.npz. Then under
+                    compute_dtype=bfloat16, unfused and fused: the GAN and
+                    sun eval steps and one GAN step and one sun step against
+                    JAX's bf16 steps (Pallas path) in
+                    torch_golden_train_bf16_16x64.npz: metrics, per-leaf
+                    gradient digests and BatchNorm sums within JAX's own
+                    bf16-vs-f32 gap; the eval steps' and the train steps'
+                    launches asserted apart.
   6. serving      — the inference CLI at 64x256 b32 (40 PNGs, 2 dispatches,
                     the second padded) and at 32x128 b1 (4 PNGs); every .hdr
                     read back finite; 20 K1 + 4 K2 launches per DA dispatch;
@@ -53,13 +60,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     then at da_kernel_size=5 (its weights drawn once for
                     serving, training and timing), then the sun-pretrain step
                     at 64x256 b32 for 2, unfused and then with fused
-                    InstanceNorm (the same weights); every metric finite,
+                    InstanceNorm (the same weights); under
+                    compute_dtype=bfloat16 the GAN step for 3, unfused and
+                    fused (the same draw), and the sun step for 3 (the sun
+                    state's weights); every metric finite,
                     gen_total moving, launch counts per step asserted (GAN:
                     20 K1, 24 K2, 20 K3, and fused 25 K8, 29 K9; k=5: 12 K5,
                     12 K6, 12 K7 and no K1-K3; sun: 4 each, and fused 6 K8,
                     6 K9). Then step times (CUDA
                     events, 1 warm-up, median of 5 further steps of the same
-                    state) and peak device memory.
+                    state) and peak device memory, and each bf16 row's
+                    ratio to its f32 row.
   8. timing       — CUDA events, warm-up, median of 20: serving forward
                     ms/dispatch (unfused and fused IN, in turns, the same
                     weights; and at da_kernel_size=5), and each kernel
@@ -83,7 +94,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     checkpoint each and TensorBoard scalars read back, a
                     rerun to 3 epochs that resumes at epoch 2 and runs one,
                     and in a fresh work directory a SUN checkpoint from
-                    `TrainLoop("SUN", ...)` handed to a fresh SKY run.
+                    `TrainLoop("SUN", ...)` handed to a fresh SKY run; then
+                    at plain 32x128 b32 with --compute-dtype bfloat16 (no DA
+                    kernel): one epoch with its eval pass and a float32
+                    checkpoint, and a resume to epoch 2, its epoch seconds.
   10. cli        — the port's other CLIs on the card, through their
                     `main(argv)`: dataset_generator on a synthetic Laval
                     tree of .hdr envmaps (64 train + 32 test records at
@@ -717,6 +731,60 @@ def phase_train_golden(dc, report):
         check(not fails, f"train golden ({name}): {len(fails)} mismatches")
         check(launched == want, f"train golden ({name}) launches {launched}, want {want}")
         report[key] = worst
+    train_golden_bf16(dc, mod, report)
+
+
+def train_golden_bf16(dc, mod, report):
+    """The bf16 train golden: the GAN and sun eval steps, then one GAN step
+    and one sun step under compute_dtype=bfloat16 at 16x64 DA b2, against
+    `skyhdr`'s bf16 steps (Pallas path) in
+    tests/fixtures/torch_golden_train_bf16_16x64.npz, unfused and fused IN:
+    metrics, per-leaf gradient digests and BatchNorm sums at the tolerances
+    of `make_torch_golden.compare_train_golden_bf16`."""
+    from skyhdr_torch.utils.transplant import init_gan_vars, tree_digest
+
+    stored = np.load(mod.BF16_TRAIN_FIXTURE)
+    gv, sv, dv = init_gan_vars(mod.bf16_config(), int(stored["seed"]))
+    digest = tree_digest({"gen": gv, "sun": sv, "disc": dv})
+    check(abs(digest - float(stored["weights_digest"])) <= 1e-9 * digest,
+          f"seeded GAN weights differ from the bf16 fixture's ({digest} vs "
+          f"{float(stored['weights_digest'])})")
+    eval_want = {k: SERVING_LAUNCHES[k] + SUN_EVAL_LAUNCHES[k] for k in KERNELS}
+    # The sun eval step's pull starts at sunlayer1's output, so it crosses
+    # the 4 norms of sunlayer2-3 (K9) after the sun-pose forward's 6 (K8).
+    fused_eval = {k: fused(SERVING_LAUNCHES, "serving")[k]
+                  + dict(SUN_EVAL_LAUNCHES, K8=N_IN_SUN, K9=N_IN_PULL)[k] for k in KERNELS}
+    for fuse, key in ((False, "train_golden_bf16_worst"), (True, "train_golden_bf16_fused_worst")):
+        name = "bf16 k=3 " + ("fused IN" if fuse else "unfused IN")
+        cfg = mod.bf16_config(fuse)
+        state, sun_state = mod.bf16_states(stored, cfg, "cuda")
+        reset_counts(dc)
+        port = mod.port_eval_bf16(stored, cfg, state, sun_state, "cuda")
+        eval_launched = counts(dc)
+        reset_counts(dc)
+        port.update(mod.port_steps_bf16(stored, cfg, state, sun_state, "cuda"))
+        launched = counts(dc)
+        fails, worst = mod.compare_train_golden_bf16(stored, port)
+        for kind in ("gan", "sun", "gan_eval", "sun_eval"):
+            for metric, a, b in zip(stored[f"{kind}_metric_names"], port[f"{kind}_metrics"],
+                                    stored[f"{kind}_metrics"]):
+                say("train_golden", f"{name} {kind} {metric}: card {a:.7g}, JAX {b:.7g} "
+                    f"(relative {abs(a - b) / abs(b):.3e})")
+        say("train_golden", f"16x64 DA b2 bf16 eval steps + GAN step + sun step, {name}, vs "
+            f"JAX: worst relative {json.dumps(worst)} (tolerances, JAX's own bf16-vs-f32 "
+            f"gap: {json.dumps(mod.bf16_tolerances(stored))}); launches: eval "
+            f"{eval_launched}, train {launched}")
+        for line in fails:
+            say("train_golden", f"FAIL {line}")
+        want_eval = fused_eval if fuse else eval_want
+        want = {k: (fused(GAN_LAUNCHES, "gan")[k] + fused(SUN_LAUNCHES, "sun")[k]) if fuse
+                else GAN_LAUNCHES[k] + SUN_LAUNCHES[k] for k in KERNELS}
+        check(not fails, f"train golden ({name}): {len(fails)} mismatches")
+        check(eval_launched == want_eval,
+              f"train golden ({name}) eval launches {eval_launched}, want {want_eval}")
+        check(launched == want, f"train golden ({name}) launches {launched}, want {want}")
+        report[key] = worst
+        del state, sun_state
 
 
 def write_pngs(folder, n, h, w, seed):
@@ -883,46 +951,53 @@ def phase_training(dc, smi, report):
     h, w = 64, 256
     banks = make_banks(make_synthetic_dorf(175, 1024), get_exposure_lists()[0], device="cuda")
 
-    def cfg_of(b, fuse=False):
+    def cfg_of(b, fuse=False, dtype="float32"):
         return Config(model=ModelConfig(im_height=h, im_width=w, use_da_conv=True,
-                                        fused_instance_norm=fuse),
+                                        fused_instance_norm=fuse, compute_dtype=dtype),
                       data=DataConfig(batch_size=b))
 
     t0 = time.perf_counter()
     trees = init_gan_vars(cfg_of(64), 0)
     say("training", f"GAN DA {h}x{w}: seeded weights drawn on the host in "
-        f"{time.perf_counter() - t0:.3f} s (one draw for the unfused and the fused state)")
+        f"{time.perf_counter() - t0:.3f} s (one draw for the unfused, the fused and the "
+        f"bf16 states)")
     out = {}
-    for kind, b, nsteps in (("gan", 64, 3), ("gan_fused", 64, 3), ("gan_da5", 64, 3),
-                            ("sun", 32, 2), ("sun_fused", 32, 2)):
-        tag = {"gan": f"GAN DA {h}x{w} b{b}", "gan_fused": f"GAN DA {h}x{w} b{b} fused IN",
-               "gan_da5": f"GAN DA k=5 {h}x{w} b{b}", "sun": f"sun DA {h}x{w} b{b}",
-               "sun_fused": f"sun DA {h}x{w} b{b} fused IN"}[kind]
+    # (kind, batch, steps, fused IN, compute dtype)
+    runs = (("gan", 64, 3, False, "float32"), ("gan_fused", 64, 3, True, "float32"),
+            ("gan_bf16", 64, 3, False, "bfloat16"), ("gan_bf16_fused", 64, 3, True, "bfloat16"),
+            ("gan_da5", 64, 3, False, "float32"), ("sun", 32, 2, False, "float32"),
+            ("sun_fused", 32, 2, True, "float32"), ("sun_bf16", 32, 3, False, "bfloat16"))
+    sun_weights = None  # the sun state's initial weights, on the host
+    for kind, b, nsteps, fuse, dtype in runs:
+        tag = (f"{'GAN' if kind.startswith('gan') else 'sun'} DA "
+               + ("k=5 " if kind == "gan_da5" else "") + f"{h}x{w} b{b}"
+               + (" bf16" if dtype == "bfloat16" else "") + (" fused IN" if fuse else ""))
         t0 = time.perf_counter()
         if kind.startswith("gan"):
-            cfg = da5_config(b) if kind == "gan_da5" else cfg_of(b, fuse=kind == "gan_fused")
+            cfg = da5_config(b) if kind == "gan_da5" else cfg_of(b, fuse, dtype)
             state = empty_gan_state(cfg, "cuda")
             for module, tree in zip((state.gen, state.sun, state.disc),
                                     da5_trees() if kind == "gan_da5" else trees):
                 load_model_vars(module, tree)
             step = make_gan_train_step(cfg, banks, random_vgg16_weights())
-            want = {"gan": GAN_LAUNCHES, "gan_fused": fused(GAN_LAUNCHES, "gan"),
-                    "gan_da5": DA5_GAN_LAUNCHES}[kind]
+            base = DA5_GAN_LAUNCHES if kind == "gan_da5" else GAN_LAUNCHES
+            want = fused(base, "gan") if fuse else base
             moving = "gen_total"
-        elif kind == "sun":
-            del trees
-            cfg = cfg_of(b)
-            state = create_sun_state(cfg, 0, "cuda")
-            # The fused-IN state takes the same weights (no second draw).
-            fused_sun = empty_sun_state(cfg_of(b, fuse=True), "cuda")
-            fused_sun.sun.load_state_dict(state.sun.state_dict())
-            step = make_sun_train_step(cfg, banks)
-            want, moving = SUN_LAUNCHES, "sun_total"
         else:
-            cfg, state = cfg_of(b, fuse=True), fused_sun
-            del fused_sun
+            trees = None
+            cfg = cfg_of(b, fuse, dtype)
+            if kind == "sun":
+                state = create_sun_state(cfg, 0, "cuda")
+                # The fused-IN and the bf16 states take the same weights (no
+                # second draw), kept on the host so that one state at a time
+                # holds device memory.
+                sun_weights = {k: v.cpu() for k, v in state.sun.state_dict().items()}
+            else:
+                state = empty_sun_state(cfg, "cuda")
+                state.sun.load_state_dict(sun_weights)
             step = make_sun_train_step(cfg, banks)
-            want, moving = fused(SUN_LAUNCHES, "sun"), "sun_total"
+            want = fused(SUN_LAUNCHES, "sun") if fuse else SUN_LAUNCHES
+            moving = "sun_total"
         torch.cuda.synchronize()
         say("training", f"{tag}: state built in {time.perf_counter() - t0:.3f} s")
         batches = train_batches(nsteps, b, h, w, seed=2000)
@@ -936,7 +1011,8 @@ def phase_training(dc, smi, report):
             f"spread {min(times):.4f}-{max(times):.4f}); peak device memory "
             f"{peak / 2**30:.3f} GiB; on {smi}")
         out[kind] = {"batch": b, "launches": launched, "history": history,
-                     "step_ms": ms, "step_ms_all": times, "peak_bytes": peak}
+                     "step_ms": ms, "step_ms_all": times, "peak_bytes": peak,
+                     "compute_dtype": dtype, "fused_instance_norm": fuse}
         del state, step, batches
         free_cuda()
     for name, u, f in (("GAN DA 64x256 b64", out["gan"], out["gan_fused"]),
@@ -944,6 +1020,14 @@ def phase_training(dc, smi, report):
         say("training", f"{name} fused vs unfused IN: step {f['step_ms']:.4f} vs "
             f"{u['step_ms']:.4f} ms ({f['step_ms'] - u['step_ms']:+.4f} ms), peak "
             f"{f['peak_bytes'] / 2**30:.3f} vs {u['peak_bytes'] / 2**30:.3f} GiB; on {smi}")
+    for name, f32, bf16 in (("GAN DA 64x256 b64", "gan", "gan_bf16"),
+                            ("GAN DA 64x256 b64 fused IN", "gan_fused", "gan_bf16_fused"),
+                            ("sun DA 64x256 b32", "sun", "sun_bf16")):
+        a, c = out[f32], out[bf16]
+        say("training", f"{name} bf16 vs f32 compute: step {c['step_ms']:.4f} vs "
+            f"{a['step_ms']:.4f} ms (ratio {c['step_ms'] / a['step_ms']:.4f}), peak "
+            f"{c['peak_bytes'] / 2**30:.3f} vs {a['peak_bytes'] / 2**30:.3f} GiB (ratio "
+            f"{c['peak_bytes'] / a['peak_bytes']:.4f}); on {smi}")
     report["training"] = out
     return {kind: o["launches"] for kind, o in out.items()}
 
@@ -1285,12 +1369,12 @@ def phase_train_cli(dc, smi, report):
             "--dorf", "", "--vgg", ""]
     epoch_s = {}
 
-    def run(workdir, *extra):
+    def run(workdir, *extra, flags=base, da=True):
         buf = io.StringIO()
         reset_counts(dc)
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
-            train.main(base + ["--workdir", workdir, *extra])
+            train.main(flags + ["--workdir", workdir, *extra])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         text = buf.getvalue()
@@ -1303,7 +1387,10 @@ def phase_train_cli(dc, smi, report):
         launched = counts(dc)
         say("train_cli", f"main({' '.join(extra)}): {secs:.3f} s wall (state, dataset "
             f"and banks set-up included); epochs run {epochs}; launches {launched}")
-        check(launched["K1"] > 0 and launched["K3"] > 0, "the CLI ran no DA kernel")
+        if da:
+            check(launched["K1"] > 0 and launched["K3"] > 0, "the CLI ran no DA kernel")
+        else:
+            check(not any(launched.values()), f"the plain-conv CLI launched {launched}")
         return text, epochs
 
     sky = os.path.join(work, "run")
@@ -1349,9 +1436,29 @@ def phase_train_cli(dc, smi, report):
         f"equal to the SUN checkpoint's: {same}")
     check("Pretrained SUN checkpoint restored for fine-tuning" in text and same,
           "SUN hand-off")
-    report["train_cli"] = {"epoch_s": epoch_s[sky], "device": smi}
+
+    # bf16 compute at plain 32x128 b32 (cuDNN bf16 convolutions, no DA
+    # kernel): one epoch with its eval pass and checkpoint, then a resume.
+    bf16 = os.path.join(work, "bf16")
+    flags = [f for f in base if f not in ("--da-conv", "true")] + [
+        "--da-conv", "false", "--compute-dtype", "bfloat16"]
+    _, epochs = run(bf16, "--epochs", "1", flags=flags, da=False)
+    bf16_ckpt = CheckpointManager(os.path.join(bf16, "checkpoints", "SKY"))
+    check(epochs == [1] and bf16_ckpt.steps() == [1],
+          f"bf16: 1 epoch, 1 checkpoint: ran {epochs}, saved {bf16_ckpt.steps()}")
+    blob = bf16_ckpt.read_latest()
+    check(all(v.dtype == torch.float32 for m in blob["modules"].values() for v in m.values()),
+          "bf16 compute: the checkpoint holds float32 tensors")
+    text, epochs = run(bf16, "--epochs", "2", flags=flags, da=False)
+    check("Latest SKY checkpoint restored (epoch 1)" in text and epochs == [2]
+          and bf16_ckpt.steps() == [1, 2], f"bf16 resume: ran {epochs}, saved "
+          f"{bf16_ckpt.steps()}")
+    report["train_cli"] = {"epoch_s": epoch_s[sky], "bf16_plain_epoch_s": epoch_s[bf16],
+                           "device": smi}
     say("train_cli", f"epoch seconds at DA {h}x{w} b{b} (4 train steps + 1 eval batch, "
         f"checkpoint save included): {epoch_s[sky]}; on {smi}")
+    say("train_cli", f"epoch seconds at plain {h}x{w} b{b} bf16 compute (4 train steps + 1 "
+        f"eval batch, checkpoint save included; epoch 2 resumed): {epoch_s[bf16]}; on {smi}")
 
 
 def run_cli(dc, phase, main, argv, tag):

@@ -21,9 +21,12 @@ draws the degradation from the `torch.Generator`, then runs its core
 pair the JAX package degraded. The state is updated IN PLACE (parameters,
 optimizer moments, BatchNorm buffers) and returned; metrics are 0-d device
 tensors with the JAX package's names. An eval step is `step(state, batch,
-generator) -> (metrics, outputs)` around its core `step.eval_on`. Only
-float32 training is ported: the `opt_state_dtype` / `grad_dtype` /
-`param_dtype` knobs must be "float32".
+generator) -> (metrics, outputs)` around its core `step.eval_on`.
+`ModelConfig.compute_dtype="bfloat16"` runs the layers that take the compute
+dtype in bfloat16, as the JAX package does: the activations and the gradients
+they carry round where `skyhdr`'s do, and the gradients reach the float32
+parameters through the casts. The storage knobs are not ported: the
+`opt_state_dtype` / `grad_dtype` / `param_dtype` knobs must be "float32".
 """
 
 from __future__ import annotations

@@ -14,6 +14,11 @@ seeded numpy inputs:
     the other convs plain)
       -> tests/fixtures/torch_golden_da5_16x64.npz,
          tests/fixtures/torch_golden_train_da5_16x64.npz
+  - one GAN step and one sun step under compute_dtype="bfloat16", with
+    `skyhdr`'s DA layers on the Pallas path (interpret mode), and its GAN
+    and sun eval steps on the same inputs: metrics, per-leaf gradient
+    digests (sum g and sum |g|) and BatchNorm statistics
+      -> tests/fixtures/torch_golden_train_bf16_16x64.npz
   - one GAN step and one sun step resumed from the checkpoints of
     `resume_export` (the seeded weights with BatchNorm statistics and
     optimizer moments drawn nonzero, a nonzero step and epoch, Adam's count
@@ -23,7 +28,8 @@ seeded numpy inputs:
     python tools/make_torch_golden.py
 
 `tests/test_torch_slice.py`, `tests/test_torch_train.py`,
-`tests/test_torch_da_generic.py` and `tests/test_torch_convert.py`
+`tests/test_torch_da_generic.py`, `tests/test_torch_convert.py` and
+`tests/test_torch_train_bf16.py`
 regenerate them and check them against the files; `chip_smoke.py` holds the
 port's CUDA run to them.
 """
@@ -43,16 +49,25 @@ DA5_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_golden_da5_16x64.np
 DA5_TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                                  "torch_golden_train_da5_16x64.npz")
 RESUME_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_golden_resume_16x64.npz")
+BF16_TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                                  "torch_golden_train_bf16_16x64.npz")
 H, W, BATCH = 16, 64, 2
 # (step, epoch) of the resumed checkpoints; Adam's count is the SUN step.
 RESUME_COUNTERS = {"SKY": (12, 2), "SUN": (7, 1)}
 
 
-def golden_config(da_kernel_size: int = 3):
+def golden_config(da_kernel_size: int = 3, compute_dtype: str = "float32"):
+    """The port's Config of the fixtures. Under bfloat16 compute `skyhdr`'s
+    DA layers take the Pallas path (run by the interpreter on the CPU): its
+    XLA path promotes the bilinear samples to float32 against a bfloat16
+    kernel, while the Pallas kernels, which the TPU runs and the port
+    follows, round samples and weights to bfloat16."""
     from skyhdr_torch.config import Config, DataConfig, ModelConfig
 
+    backend = "xla" if compute_dtype == "float32" else "pallas"
     return Config(model=ModelConfig(im_height=H, im_width=W, use_da_conv=True,
-                                    da_kernel_size=da_kernel_size, da_backend="xla"),
+                                    da_kernel_size=da_kernel_size, da_backend=backend,
+                                    compute_dtype=compute_dtype),
                   data=DataConfig(batch_size=BATCH))
 
 
@@ -137,11 +152,14 @@ def stat_abs_sums(tree):
     return np.array([np.abs(np.asarray(v, np.float64)).sum() for _, v in flat_leaves(tree)])
 
 
-def make_train_golden(seed: int = 0, full: bool = False,
-                      da_kernel_size: int = 3) -> dict:
-    """One GAN step and one sun step of `skyhdr` from the port's seeded
-    weights. With `full`, also the whole updated trees and optimizer states
-    under "trees" (not stored)."""
+def _jax_train_steps(tcfg, seed: int):
+    """One GAN step and one sun step of `skyhdr` under `tcfg` (the port's
+    Config, mirrored) from the port's seeded weights on `train_batch(seed)`
+    and the key `seed + 1`: a namespace of the config, banks, batch, key,
+    the initial trees (gv, sv, dv), the initial and stepped states, the
+    metrics and the JAX-degraded inputs."""
+    from types import SimpleNamespace
+
     import jax
     import jax.numpy as jnp
 
@@ -151,9 +169,8 @@ def make_train_golden(seed: int = 0, full: bool = False,
     from skyhdr.models.vgg16 import random_vgg16_weights
     from skyhdr.train import engine
     from skyhdr.utils.io import get_exposure_lists, make_synthetic_dorf
-    from skyhdr_torch.utils.transplant import init_gan_vars, tree_digest
+    from skyhdr_torch.utils.transplant import init_gan_vars
 
-    tcfg = golden_config(da_kernel_size)
     cfg = Config(model=ModelConfig(**vars(tcfg.model)),
                  data=DataConfig(batch_size=BATCH))
     lr = cfg.train.learning_rate
@@ -170,7 +187,8 @@ def make_train_golden(seed: int = 0, full: bool = False,
         opt_gen=engine._rmsprop(lr).init((gv["params"], sv["params"])),
         opt_disc=engine._rmsprop(lr).init(dv["params"]),
         step=jnp.zeros((), jnp.int32), epoch=jnp.zeros((), jnp.int32))
-    gan_step = engine.make_gan_train_step(cfg, banks, random_vgg16_weights(), jit=False)
+    vgg = random_vgg16_weights()
+    gan_step = engine.make_gan_train_step(cfg, banks, vgg, jit=False)
     new, metrics = jax.jit(gan_step)(state, batch, key)
     sun_state = engine.SunState(sun_vars={"params": sv["params"]},
                                 opt=engine._adam(lr).init(sv["params"]),
@@ -178,7 +196,30 @@ def make_train_golden(seed: int = 0, full: bool = False,
                                 epoch=jnp.zeros((), jnp.int32))
     sun_step = engine.make_sun_train_step(cfg, banks, jit=False)
     new_sun, sun_metrics = jax.jit(sun_step)(sun_state, batch, key)
+    return SimpleNamespace(cfg=cfg, banks=banks, batch=batch, key=key, vgg=vgg,
+                           gv=gv, sv=sv, dv=dv, state=state, sun_state=sun_state,
+                           new=new, metrics=metrics, new_sun=new_sun,
+                           sun_metrics=sun_metrics, hdr_t=hdr_t, ldr=ldr,
+                           sunpose_gt=sunpose_gt, elevation=elevation)
 
+
+def _metric_entries(prefix: str, metrics) -> dict:
+    """{prefix_metric_names, prefix_metrics} of a metrics dict, sorted."""
+    return {f"{prefix}_metric_names": np.array(sorted(metrics)),
+            f"{prefix}_metrics": np.array([float(metrics[k]) for k in sorted(metrics)])}
+
+
+def make_train_golden(seed: int = 0, full: bool = False,
+                      da_kernel_size: int = 3) -> dict:
+    """One GAN step and one sun step of `skyhdr` from the port's seeded
+    weights. With `full`, also the whole updated trees and optimizer states
+    under "trees" (not stored)."""
+    import jax
+
+    from skyhdr_torch.utils.transplant import tree_digest
+
+    r = _jax_train_steps(golden_config(da_kernel_size), seed)
+    gv, sv, dv, new, new_sun = r.gv, r.sv, r.dv, r.new, r.new_sun
     to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)
     params = {"gen": to_np(new.gen_vars["params"]), "sun": to_np(new.sun_vars["params"]),
               "disc": to_np(new.disc_vars["params"])}
@@ -188,13 +229,10 @@ def make_train_golden(seed: int = 0, full: bool = False,
     out = {
         "seed": np.int64(seed),
         "weights_digest": np.float64(tree_digest({"gen": gv, "sun": sv, "disc": dv})),
-        "elevation": elevation,
-        "hdr_t": np.asarray(hdr_t), "ldr": np.asarray(ldr),
-        "sunpose_gt": np.asarray(sunpose_gt),
-        "gan_metric_names": np.array(sorted(metrics)),
-        "gan_metrics": np.array([float(metrics[k]) for k in sorted(metrics)]),
-        "sun_metric_names": np.array(sorted(sun_metrics)),
-        "sun_metrics": np.array([float(sun_metrics[k]) for k in sorted(sun_metrics)]),
+        "elevation": r.elevation,
+        "hdr_t": np.asarray(r.hdr_t), "ldr": np.asarray(r.ldr),
+        "sunpose_gt": np.asarray(r.sunpose_gt),
+        **_metric_entries("gan", r.metrics), **_metric_entries("sun", r.sun_metrics),
     }
     old = {"gen": gv["params"], "sun": sv["params"], "disc": dv["params"]}
     out["gan_param_paths"], out["gan_param_digests"] = update_digests(params, old)
@@ -215,6 +253,103 @@ def make_train_golden(seed: int = 0, full: bool = False,
             "nu_disc": to_np(new.opt_disc[0].nu),
             "sun_mu": to_np(new_sun.opt[0].mu), "sun_nu": to_np(new_sun.opt[0].nu),
         }
+    return out
+
+
+def rmsprop_grads(nu_tree, new_tree, old_tree):
+    """The gradient of RMSprop's first step from zero moments, per leaf of
+    the sorted paths: |g| = sqrt(10 nu) (nu = 0.1 g^2), its sign opposite
+    to the update's."""
+    new, old = dict(flat_leaves(new_tree)), dict(flat_leaves(old_tree))
+    return {p: -np.sign(np.asarray(new[p], np.float64) - np.asarray(old[p], np.float64))
+            * np.sqrt(10.0 * np.asarray(nu, np.float64))
+            for p, nu in flat_leaves(nu_tree)}
+
+
+def adam_grads(mu_tree):
+    """The gradient of Adam's first step from zero moments: g = 10 mu (mu =
+    0.1 g), per leaf of the sorted paths."""
+    return {p: 10.0 * np.asarray(mu, np.float64) for p, mu in flat_leaves(mu_tree)}
+
+
+def grad_digests(grads: dict):
+    """(paths, [n, 2] float64): per leaf (sorted paths), sum g and sum |g|."""
+    paths = sorted(grads)
+    return np.array(paths), np.array([(grads[p].sum(), np.abs(grads[p]).sum())
+                                      for p in paths], np.float64)
+
+
+def _bf16_golden_entries(r, eval_metrics, sun_eval_metrics) -> dict:
+    """The bf16 golden's reduction of one `_jax_train_steps` run and its eval
+    steps' metrics: the four steps' metrics, per-leaf gradient digests and
+    the BatchNorm running sums."""
+    import jax
+
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)
+    new, new_sun = r.new, r.new_sun
+    stats = {"gen": to_np(new.gen_vars["batch_stats"]),
+             "disc": to_np(new.disc_vars["batch_stats"])}
+    grads = rmsprop_grads(
+        {"gen": to_np(new.opt_gen[0].nu[0]), "sun": to_np(new.opt_gen[0].nu[1]),
+         "disc": to_np(new.opt_disc[0].nu)},
+        {"gen": to_np(new.gen_vars["params"]), "sun": to_np(new.sun_vars["params"]),
+         "disc": to_np(new.disc_vars["params"])},
+        {"gen": r.gv["params"], "sun": r.sv["params"], "disc": r.dv["params"]})
+    out = {**_metric_entries("gan", r.metrics), **_metric_entries("sun", r.sun_metrics),
+           **_metric_entries("gan_eval", eval_metrics),
+           **_metric_entries("sun_eval", sun_eval_metrics)}
+    out["gan_grad_paths"], out["gan_grad_digests"] = grad_digests(grads)
+    out["sun_grad_paths"], out["sun_grad_digests"] = grad_digests(
+        adam_grads(to_np(new_sun.opt[0].mu)))
+    out["gan_stat_paths"], out["gan_stat_digests"] = stat_digests(stats)
+    out["gan_stat_abs"] = stat_abs_sums(stats)
+    return out
+
+
+def _jax_steps_and_evals(tcfg, seed: int):
+    """`_jax_train_steps` under `tcfg`, then `skyhdr`'s GAN and sun eval
+    steps from the same initial states on the same batch and key."""
+    from skyhdr.train import engine
+
+    r = _jax_train_steps(tcfg, seed)
+    eval_metrics, _ = engine.make_gan_eval_step(r.cfg, r.banks, r.vgg)(
+        r.state, r.batch, r.key)
+    sun_eval_metrics, _ = engine.make_sun_eval_step(r.cfg, r.banks)(
+        r.sun_state, r.batch, r.key)
+    return _bf16_golden_entries(r, eval_metrics, sun_eval_metrics), r
+
+
+def make_train_golden_bf16(seed: int = 0) -> dict:
+    """`make_train_golden`'s GAN step and sun step under
+    `compute_dtype="bfloat16"`, with `skyhdr`'s DA layers on the Pallas path
+    run by the interpreter, and the GAN and sun eval steps from the seeded
+    weights on the same batch and key (so on the same degraded inputs).
+    Stores per-leaf digests of the GRADIENT (sum g, sum |g|), recovered from
+    the optimizers' moments, not of the update: a first step of RMSprop or
+    Adam moves each element by about a constant times lr sign(g), so an
+    update digest counts sign flips of small gradients, which bf16 rounding
+    flips. Under "f32_..." the same values of `skyhdr`'s float32 steps (the
+    f32 train golden's configuration), from which `bf16_tolerances` takes
+    `skyhdr`'s own bf16-vs-f32 gap."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from skyhdr_torch.utils.transplant import tree_digest
+
+    with pltpu.force_tpu_interpret_mode():
+        entries, r = _jax_steps_and_evals(golden_config(compute_dtype="bfloat16"), seed)
+    f32, _ = _jax_steps_and_evals(golden_config(), seed)
+    out = {
+        "seed": np.int64(seed),
+        "weights_digest": np.float64(tree_digest({"gen": r.gv, "sun": r.sv, "disc": r.dv})),
+        "elevation": r.elevation,
+        "hdr_t": np.asarray(r.hdr_t), "ldr": np.asarray(r.ldr),
+        "sunpose_gt": np.asarray(r.sunpose_gt), **entries,
+    }
+    for k, v in f32.items():
+        if k.endswith(("_names", "_paths")):
+            assert np.array_equal(v, entries[k]), k
+        else:
+            out[f"f32_{k}"] = v
     return out
 
 
@@ -437,38 +572,123 @@ def port_steps(stored, cfg, state, sun_state, device) -> dict:
     """The port's GAN step from `state` and sun step from `sun_state` on the
     stored JAX-degraded inputs, reduced to the fixture's metrics and digests
     (keys as in `make_train_golden`, with the port's values)."""
-    import torch
-
-    from skyhdr_torch.data.degradation import make_banks
-    from skyhdr_torch.models.vgg16 import random_vgg16_weights
     from skyhdr_torch.train.engine import make_gan_train_step, make_sun_train_step
-    from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
     from skyhdr_torch.utils.transplant import export_model_vars
 
-    banks = make_banks(make_synthetic_dorf(175, 1024), get_exposure_lists()[0],
-                       device=device)
-    inputs = [torch.from_numpy(np.array(stored[k])).to(device)
-              for k in ("hdr_t", "ldr", "sunpose_gt")]
+    banks, inputs, vgg = _port_setup(stored, device)
 
     def params(*modules):
         return {n: export_model_vars(m, collections=("params",))["params"]
                 for n, m in zip(("gen", "sun", "disc"), modules)}
 
     old = params(state.gen, state.sun, state.disc)
-    state, metrics = make_gan_train_step(cfg, banks, random_vgg16_weights()).train_on(
-        state, *inputs)
+    state, metrics = make_gan_train_step(cfg, banks, vgg).train_on(state, *inputs)
     sun_old = params(sun_state.sun)["gen"]
     sun_state, sun_metrics = make_sun_train_step(cfg, banks).train_on(sun_state, *inputs)
-    out = {
-        "gan_metrics": np.array([float(metrics[k]) for k in stored["gan_metric_names"]]),
-        "sun_metrics": np.array([float(sun_metrics[k]) for k in stored["sun_metric_names"]]),
-    }
+    out = {"gan_metrics": _metric_values(stored, "gan", metrics),
+           "sun_metrics": _metric_values(stored, "sun", sun_metrics)}
     _, out["gan_param_digests"] = update_digests(
         params(state.gen, state.sun, state.disc), old)
     _, out["gan_stat_digests"] = stat_digests(
         {n: export_model_vars(m, collections=("batch_stats",))["batch_stats"]
          for n, m in (("gen", state.gen), ("disc", state.disc))})
     _, out["sun_param_digests"] = update_digests(params(sun_state.sun)["gen"], sun_old)
+    return out
+
+
+def port_train_golden_bf16(stored, device, fused_instance_norm: bool = False) -> dict:
+    """`port_eval_bf16` and then `port_steps_bf16` from the port's seeded
+    weights under `compute_dtype="bfloat16"` (with `fused_instance_norm`,
+    that configuration: the same function, so the same fixture holds)."""
+    cfg = bf16_config(fused_instance_norm)
+    state, sun_state = bf16_states(stored, cfg, device)
+    return {**port_eval_bf16(stored, cfg, state, sun_state, device),
+            **port_steps_bf16(stored, cfg, state, sun_state, device)}
+
+
+def bf16_config(fused_instance_norm: bool = False):
+    """The port's Config of the bf16 train golden."""
+    import dataclasses
+
+    cfg = golden_config(compute_dtype="bfloat16")
+    return cfg.replace(model=dataclasses.replace(
+        cfg.model, fused_instance_norm=fused_instance_norm))
+
+
+def bf16_states(stored, cfg, device):
+    """(GanState, SunState) of the port from the fixture's seed."""
+    from skyhdr_torch.train.engine import create_gan_state, create_sun_state
+
+    seed = int(stored["seed"])
+    return create_gan_state(cfg, seed, device), create_sun_state(cfg, seed, device)
+
+
+def _port_setup(stored, device):
+    """(banks, [hdr_t, ldr, sunpose_gt] on `device`, VGG16 weights)."""
+    import torch
+
+    from skyhdr_torch.data.degradation import make_banks
+    from skyhdr_torch.models.vgg16 import random_vgg16_weights
+    from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
+
+    banks = make_banks(make_synthetic_dorf(175, 1024), get_exposure_lists()[0],
+                       device=device)
+    inputs = [torch.from_numpy(np.array(stored[k])).to(device)
+              for k in ("hdr_t", "ldr", "sunpose_gt")]
+    return banks, inputs, random_vgg16_weights()
+
+
+def _metric_values(stored, prefix: str, metrics) -> np.ndarray:
+    return np.array([float(metrics[k]) for k in stored[f"{prefix}_metric_names"]])
+
+
+def port_eval_bf16(stored, cfg, state, sun_state, device) -> dict:
+    """The port's GAN and sun eval steps from `state` and `sun_state` on the
+    stored JAX-degraded inputs: {"gan_eval_metrics", "sun_eval_metrics"}."""
+    from skyhdr_torch.train.engine import make_gan_eval_step, make_sun_eval_step
+
+    banks, inputs, vgg = _port_setup(stored, device)
+    gan = make_gan_eval_step(cfg, banks, vgg).eval_on(state, *inputs)[0]
+    sun = make_sun_eval_step(cfg, banks).eval_on(sun_state, *inputs)[0]
+    return {"gan_eval_metrics": _metric_values(stored, "gan_eval", gan),
+            "sun_eval_metrics": _metric_values(stored, "sun_eval", sun)}
+
+
+def port_steps_bf16(stored, cfg, state, sun_state, device) -> dict:
+    """The port's GAN train step from `state` and sun train step from
+    `sun_state` on the stored JAX-degraded inputs, reduced to the keys of
+    `make_train_golden_bf16` (the port's values), plus per leaf the largest
+    |update| (`gan_update_max`, `sun_update_max`), which the leaves of
+    exactly zero gradient are held to."""
+    from skyhdr_torch.train.engine import make_gan_train_step, make_sun_train_step
+    from skyhdr_torch.utils.transplant import export_model_vars
+
+    banks, inputs, vgg = _port_setup(stored, device)
+
+    def params(value_of=None, **modules):
+        return {n: export_model_vars(m, value_of=value_of, collections=("params",))["params"]
+                for n, m in modules.items()}
+
+    out = {}
+    modules = {"gen": state.gen, "sun": state.sun, "disc": state.disc}
+    old = params(**modules)
+    state, metrics = make_gan_train_step(cfg, banks, vgg).train_on(state, *inputs)
+    new = params(**modules)
+    nu = {**state.opt_gen.moments()["nu"], **state.opt_disc.moments()["nu"]}
+    _, out["gan_grad_digests"] = grad_digests(
+        rmsprop_grads(params(nu.__getitem__, **modules), new, old))
+    out["gan_update_max"] = update_digests(new, old)[1][:, 2]
+    sun_old = params(sun=sun_state.sun)
+    sun_state, sun_metrics = make_sun_train_step(cfg, banks).train_on(sun_state, *inputs)
+    mu = sun_state.opt.moments()["mu"]
+    _, out["sun_grad_digests"] = grad_digests(
+        adam_grads(params(mu.__getitem__, sun=sun_state.sun)["sun"]))
+    out["sun_update_max"] = update_digests(params(sun=sun_state.sun), sun_old)[1][:, 2]
+    out["gan_metrics"] = _metric_values(stored, "gan", metrics)
+    out["sun_metrics"] = _metric_values(stored, "sun", sun_metrics)
+    _, out["gan_stat_digests"] = stat_digests(
+        {n: export_model_vars(m, collections=("batch_stats",))["batch_stats"]
+         for n, m in (("gen", state.gen), ("disc", state.disc))})
     return out
 
 
@@ -521,13 +741,123 @@ def compare_train_golden(stored, port, metric_rtol: float, update_rtol: float):
     return fails, worst
 
 
+def in_fed_biases(paths) -> np.ndarray:
+    """[n] bool: which leaves are the bias of a conv whose output goes
+    straight into an InstanceNorm (`<prefix>/conv<s>/bias` beside a
+    `<prefix>/norm<s>`). The norm subtracts each channel's mean, so such a
+    bias has exactly zero gradient; in float arithmetic both packages carry
+    noise there, which bf16 makes large."""
+    paths = [str(p) for p in paths]
+    norms = {p.rsplit("/", 1)[0] for p in paths}
+    out = []
+    for p in paths:
+        parts = p.split("/")
+        fed = (len(parts) >= 2 and parts[-1] == "bias" and parts[-2].startswith("conv")
+               and "/".join(parts[:-2] + ["norm" + parts[-2][4:]]) in norms)
+        out.append(fed)
+    return np.array(out)
+
+
+def _grad_gaps(got, want, paths):
+    """Per leaf, the larger gap of sum g and sum |g| relative to the wanted
+    sum |g|; NaN at the leaves of exactly zero gradient (`in_fed_biases`)."""
+    e = np.max(np.abs(got - want), axis=1) / np.maximum(want[:, 1], 1e-30)
+    return np.where(in_fed_biases(paths), np.nan, e)
+
+
+def _is_kernel(paths) -> np.ndarray:
+    return np.array([str(p).endswith("/kernel") for p in paths])
+
+
+def _stat_gaps(got, stored):
+    """BatchNorm running sums' gaps, relative to max(|sum|, 1e-2 sum |.|) as
+    the float32 golden scales them: a sum that cancels (a running mean) is
+    held to its terms' scale."""
+    scale = np.maximum(np.abs(stored["gan_stat_digests"]), 1e-2 * stored["gan_stat_abs"])
+    return np.abs(got - stored["gan_stat_digests"]) / np.maximum(scale, 1e-30)
+
+
+def bf16_tolerances(stored) -> dict:
+    """The bf16 golden's tolerances: `skyhdr`'s own gap between its float32
+    steps (`f32_...`) and its bf16 steps on the same inputs, the worst over
+    each class of quantity. That gap is the scale of bf16 noise on this
+    step, and the port's gap to `skyhdr`'s bf16 step may not pass it. One
+    bf16 ulp is 2^-8 of a value: the metrics of the GAN steps come out of
+    bf16 layers (the sun-pose net, SunRadNet's convolutions, VGG16) whose
+    outputs either package rounds at its own summation order, and
+    SunRadNet's batch-statistics BatchNorm divides by the spread of a few
+    values; a sun metric moves with one bf16 rounding of a large logit.
+    The classes:
+      - each step's metrics (GAN, sun, GAN eval, sun eval), relative;
+      - per-leaf gradient digests (sum g and sum |g|, relative to the leaf's
+        sum |g|), per step, kernels apart from the rest: a kernel's gradient
+        sums products over the batch and every position, while a norm's
+        scale or bias, or a bias, sums one channel's cotangents, which bf16
+        noise moves further. Leaves of exactly zero gradient
+        (`in_fed_biases`) are left out;
+      - BatchNorm running sums (`_stat_gaps`)."""
+    tol = {}
+    for kind in ("gan", "sun", "gan_eval", "sun_eval"):
+        want = stored[f"{kind}_metrics"]
+        tol[f"{kind}_metrics"] = float(np.max(np.abs(stored[f"f32_{kind}_metrics"] - want)
+                                              / np.abs(want)))
+    for kind in ("gan", "sun"):
+        paths = stored[f"{kind}_grad_paths"]
+        e = _grad_gaps(stored[f"f32_{kind}_grad_digests"], stored[f"{kind}_grad_digests"],
+                       paths)
+        kernel = _is_kernel(paths)
+        tol[f"{kind}_kernel_grads"] = float(np.nanmax(e[kernel]))
+        tol[f"{kind}_other_grads"] = float(np.nanmax(e[~kernel]))
+    tol["gan_stats"] = float(_stat_gaps(stored["f32_gan_stat_digests"], stored).max())
+    return tol
+
+
+def compare_train_golden_bf16(stored, port):
+    """Failures (a list of strings) of the port's `port_eval_bf16` and
+    `port_steps_bf16` against the stored `skyhdr` bf16 values at
+    `bf16_tolerances`, and the port's largest gap in each class. A leaf of
+    exactly zero gradient (`in_fed_biases`) is held to the optimizer's bound
+    on |update| instead (3.17 lr for RMSprop, 1.01 lr for Adam's first
+    step)."""
+    tol = bf16_tolerances(stored)
+    fails, worst = [], {}
+    for kind in ("gan", "sun", "gan_eval", "sun_eval"):
+        got, want = port[f"{kind}_metrics"], stored[f"{kind}_metrics"]
+        e = np.abs(got - want) / np.abs(want)
+        worst[f"{kind}_metrics"] = float(e.max())
+        fails += [f"{kind} metric {n}: {a} vs {b}" for n, a, b, x in
+                  zip(stored[f"{kind}_metric_names"], got, want, e)
+                  if not x <= tol[f"{kind}_metrics"]]
+    for kind, lr_bound in (("gan", 3.17e-4), ("sun", 1.01e-4)):
+        paths = stored[f"{kind}_grad_paths"]
+        got, want = port[f"{kind}_grad_digests"], stored[f"{kind}_grad_digests"]
+        e = _grad_gaps(got, want, paths)
+        kernel = _is_kernel(paths)
+        for cls, mask in (("kernel", kernel), ("other", ~kernel)):
+            worst[f"{kind}_{cls}_grads"] = float(np.nanmax(e[mask]))
+        for path, g, w, x, k, umax in zip(paths, got, want, e, kernel,
+                                          port[f"{kind}_update_max"]):
+            if np.isnan(x):
+                if not umax <= lr_bound:
+                    fails.append(f"{kind} update {path}: max |update| {umax}")
+            elif not x <= tol[f"{kind}_{'kernel' if k else 'other'}_grads"]:
+                fails.append(f"{kind} gradient {path}: digests {g} vs {w}")
+    e = _stat_gaps(port["gan_stat_digests"], stored)
+    worst["gan_stats"] = float(e.max())
+    fails += [f"batch_stats {p}: {a} vs {b}" for p, a, b, x in
+              zip(stored["gan_stat_paths"], port["gan_stat_digests"],
+                  stored["gan_stat_digests"], e) if not x <= tol["gan_stats"]]
+    return fails, worst
+
+
 def main():
     sys.path.insert(0, ROOT)
     for path, make in ((FIXTURE, lambda: make_golden(0)),
                        (TRAIN_FIXTURE, lambda: make_train_golden(0)),
                        (DA5_FIXTURE, lambda: make_golden(0, da_kernel_size=5)),
                        (DA5_TRAIN_FIXTURE, lambda: make_train_golden(0, da_kernel_size=5)),
-                       (RESUME_FIXTURE, lambda: make_resume_golden(0))):
+                       (RESUME_FIXTURE, lambda: make_resume_golden(0)),
+                       (BF16_TRAIN_FIXTURE, lambda: make_train_golden_bf16(0))):
         np.savez_compressed(path, **make())
         print(f"wrote {path} ({os.path.getsize(path)} bytes)")
 
