@@ -58,17 +58,30 @@ def vgg_constants(weights, device) -> Dict[str, Tuple[torch.Tensor, torch.Tensor
             for name, (w, b) in weights.items()}
 
 
+def vgg16_input(rgb01, dtype=torch.float32):
+    """rgb01 [b,h,w,3] in [0,1] -> the first layer's NCHW input in `dtype`;
+    x255 and the mean subtraction in float32."""
+    mean = torch.tensor(VGG_MEAN_RGB, dtype=torch.float32, device=rgb01.device)
+    return (rgb01.float() * 255.0 - mean).to(dtype).permute(0, 3, 1, 2)
+
+
+def vgg16_layer(consts, name, x):
+    """One layer of the backbone on NCHW `x`, in x's dtype: the 3x3 conv
+    `name`, ReLU, and the SAME 2x2 stride-2 max pool after conv1_2, conv2_2
+    and conv3_3."""
+    w, b = consts[name]
+    x = F.relu(F.conv2d(x, w.to(x.dtype), b.to(x.dtype), padding=1))
+    return F.max_pool2d(x, 2, 2, ceil_mode=True) if name in _POOL_AFTER else x
+
+
 def vgg16_features(consts, rgb01, dtype=torch.float32):
     """rgb01 [b,h,w,3] in [0,1] -> (pool1, pool2, pool3), NHWC, in `dtype`.
-    `consts` from `vgg_constants`; x255 and the mean subtraction in float32."""
-    mean = torch.tensor(VGG_MEAN_RGB, dtype=torch.float32, device=rgb01.device)
-    x = (rgb01.float() * 255.0 - mean).to(dtype).permute(0, 3, 1, 2)
+    `consts` from `vgg_constants`."""
+    x = vgg16_input(rgb01, dtype)
     outs = []
     for name, _, _ in _LAYERS:
-        w, b = consts[name]
-        x = F.relu(F.conv2d(x, w.to(dtype), b.to(dtype), padding=1))
+        x = vgg16_layer(consts, name, x)
         if name in _POOL_AFTER:
-            x = F.max_pool2d(x, 2, 2, ceil_mode=True)  # SAME 2x2 stride 2
             outs.append(x.permute(0, 2, 3, 1))
     return tuple(outs)
 

@@ -9,10 +9,7 @@ the Pallas kernels (and the port) round samples and weights to bf16. That
 JAX run takes minutes, so only the test that regenerates the fixture makes
 it (marked slow); the port's tests read the stored fixture.
 
-What is compared, and the tolerances (`make_torch_golden.bf16_tolerances`:
-`skyhdr`'s own gap between its bf16 and its float32 steps on the same
-inputs, the worst over each class of quantity, with the reasons there): the
-metrics of both train steps and both eval steps, the
+What is compared: the metrics of both train steps and both eval steps, the
 per-leaf GRADIENT digests (sum g, sum |g|) recovered from the optimizers'
 moments, and the BatchNorm running sums. Not the first-step updates: RMSprop
 and Adam move each element by about a constant times lr sign(g), so an
@@ -20,10 +17,15 @@ update digest counts sign flips of small gradients, which bf16 rounding
 flips. A conv bias that feeds an InstanceNorm has exactly zero gradient and
 is held to the optimizer's bound on |update| (`in_fed_biases`).
 
-The planted faults show what the comparison sees: two trunk kernels'
-gradients swapped, a sun-pose conv's gradient scaled by 1.05, and
-InstanceNorm's statistics taken in bf16 (a rounding point moved); and what
-it does not: the sun-pose softmax's output rounded to bf16.
+The tolerances (`make_torch_golden.bf16_tolerances`) are per quantity: half
+of `skyhdr`'s own gap between its bf16 and its float32 steps on that
+quantity (the own gap floored at a quarter of its class's median), so that
+the port run in float32 fails the comparison; SunRadNet's and the sky
+decoder's quantities, which an amplifier puts outside that resolution, within
+their class's largest own gap. The planted faults show what the comparison
+sees: two trunk kernels' gradients swapped, a sun-pose conv's gradient
+scaled by 1.05, InstanceNorm's statistics taken in bf16 and the sun-pose
+softmax's output rounded to bf16 (two rounding points moved).
 """
 
 import importlib.util
@@ -124,7 +126,24 @@ def test_bf16_eval_steps_match_skyhdr(stored, clean_eval):
     for kind in ("gan_eval", "sun_eval"):
         for name, got, want in zip(stored[f"{kind}_metric_names"], clean_eval[f"{kind}_metrics"],
                                    stored[f"{kind}_metrics"]):
-            assert abs(got - want) <= tol[f"{kind}_metrics"] * abs(want), (kind, name)
+            assert abs(got - want) <= tol[f"{kind} metric {name}"] * abs(want), (kind, name)
+
+
+@pytest.mark.parametrize("resolved", [True, False], ids=["cpu", "card"])
+def test_bf16_golden_fails_a_float32_port(stored, resolved):
+    """The port run under compute_dtype="float32" lands on `skyhdr`'s own
+    bf16-vs-f32 gap on every quantity: the CPU's per-quantity tolerances
+    fail it nearly everywhere, and the card's (each class's largest own
+    gap) through the median of gap / own gap."""
+    cfg = G.golden_config()
+    state, sun_state = G.bf16_states(stored, cfg, "cpu")
+    port = {**G.port_eval_bf16(stored, cfg, state, sun_state, "cpu"),
+            **G.port_steps(stored, cfg, state, sun_state, "cpu")}
+    fails, worst = G.compare_train_golden_bf16(stored, port, resolved=resolved)
+    assert worst["median_of_own"] > 0.9, worst
+    assert any(line.startswith("median gap / own gap") for line in fails), fails
+    if resolved:
+        assert len(fails) > len(G.bf16_own_gaps(stored)) // 2, fails
 
 
 def _flips(got, want):
@@ -221,16 +240,22 @@ def test_bf16_folded_tiny_conv_matches_skyhdr():
 
 def test_bf16_perceptual_l1_within_skyhdrs_own_gap():
     """VGG16's perceptual L1 with bf16 features against `skyhdr`'s on the
-    same inputs: the port's gap to its bf16 value, of the loss and of its
-    gradient, is no larger than `skyhdr`'s own gap between bf16 and float32.
-    Both packages accumulate the bf16 convolutions in float32 and round
-    their outputs; they differ where a sum falls on the other side of a
-    rounding boundary, and through three pools those flips spread."""
+    same inputs. The features, where the bf16 rounding happens, are held at
+    each pool to half of `skyhdr`'s own bf16-vs-f32 gap (relative L1): both
+    packages accumulate the bf16 convolutions in float32 and round their
+    outputs, and differ only where a sum falls on the other side of a
+    rounding boundary, which spreads through the pools (pool3: 6% of the
+    elements, 0.07 of the own gap). The loss, mean |f(pred) - f(target)|,
+    and its gradient are held within the own gap only: in the loss the
+    features' bf16 errors cancel between f(pred) and f(target) (the own gap
+    drops from the features' ~5e-3 to ~1.6e-4 here, 1.5e-5 on the train
+    golden's inputs), the other package's rounding-boundary differences do
+    not."""
     import jax
     import jax.numpy as jnp
 
     from skyhdr.models import vgg16 as jvgg
-    from skyhdr_torch.models.vgg16 import perceptual_l1, vgg_constants
+    from skyhdr_torch.models.vgg16 import perceptual_l1, vgg16_features, vgg_constants
 
     weights = jvgg.random_vgg16_weights()
     rng = np.random.default_rng(2)
@@ -238,14 +263,69 @@ def test_bf16_perceptual_l1_within_skyhdrs_own_gap():
     b = np.clip(a + rng.normal(0, 0.05, a.shape), 0, 1).astype(np.float32)
     want = {dt: jax.value_and_grad(lambda p: jvgg.perceptual_l1(weights, p, b, dt))(a)
             for dt in (jnp.float32, jnp.bfloat16)}
+    feats = {dt: [np.asarray(f, np.float32) for f in jvgg.vgg16_features(weights, a, dt)]
+             for dt in (jnp.float32, jnp.bfloat16)}
+    consts = vgg_constants(weights, "cpu")
+    got = [f.float().numpy() for f in vgg16_features(consts, torch.from_numpy(a),
+                                                      torch.bfloat16)]
+    rel_l1 = lambda x, y: np.abs(x - y).sum() / np.abs(y).sum()
+    for level, (g, w16, w32) in enumerate(zip(got, feats[jnp.bfloat16], feats[jnp.float32])):
+        assert rel_l1(g, w16) <= G.BF16_GAP_SHARE * rel_l1(w32, w16), level
     pt = torch.from_numpy(a).requires_grad_()
-    loss = perceptual_l1(vgg_constants(weights, "cpu"), pt, torch.from_numpy(b),
-                         dtype=torch.bfloat16)
+    loss = perceptual_l1(consts, pt, torch.from_numpy(b), dtype=torch.bfloat16)
     (grad,) = torch.autograd.grad(loss, pt)
     (l16, g16), (l32, g32) = want[jnp.bfloat16], want[jnp.float32]
     l16, l32, g16, g32 = float(l16), float(l32), np.asarray(g16), np.asarray(g32)
     assert abs(float(loss.detach()) - l16) <= abs(l16 - l32)
     assert np.abs(grad.numpy() - g16).sum() <= np.abs(g16 - g32).sum()
+
+
+def _flip_one_ulp(rate, seed):
+    """A forward hook that moves a `rate` share of a bf16 output's elements
+    (drawn from `seed`) one bf16 ulp up or down: what a device whose float32
+    sums run in another order does to a bf16 layer's output."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def hook(module, args, out):
+        if out.dtype != torch.bfloat16:
+            return out
+        f = out.detach().float()
+        ulp = torch.exp2(torch.floor(torch.log2(f.abs().clamp_min(1e-30))) - 7)
+        pick = (torch.rand(f.shape, generator=gen) < rate).float()
+        sign = torch.where(torch.rand(f.shape, generator=gen) < 0.5, -1.0, 1.0)
+        return out + ((f + pick * sign * ulp).to(out.dtype) - out).detach()
+    return hook
+
+
+def test_one_ulp_roundings_move_the_bf16_sun_step(stored):
+    """Why the card's run is held to coarser tolerances than the CPU's. On
+    the card every bf16 layer of the sun-pose net rounds as on the CPU, to
+    one ulp in ~1e-4 of the elements (chip_smoke.py: `bf16_layers`); the
+    net amplifies such differences. Moving 1e-4 of every bf16 layer output
+    one ulp, as a device that sums in another order does, moves the sun
+    step's KL by as much as half `skyhdr`'s own bf16-vs-f32 gap on it (an
+    H100: 2.74e-4 against 4.16e-4), and the unperturbed port stays within a
+    fiftieth of that gap."""
+    from skyhdr_torch.train.losses import kl_divergence
+
+    cfg = G.bf16_config()
+    x, gt = (torch.from_numpy(np.array(stored[k])) for k in ("ldr", "sunpose_gt"))
+    names = list(stored["sun_metric_names"])
+    want = float(stored["sun_metrics"][names.index("kl")])
+    own = abs(float(stored["f32_sun_metrics"][names.index("kl")]) - want) / want
+
+    def kl(rate, seed):
+        net = G.bf16_states(stored, cfg, "cpu")[1].sun
+        if rate:
+            for m in net.modules():
+                if not any(True for _ in m.children()):
+                    m.register_forward_hook(_flip_one_ulp(rate, seed))
+        with torch.no_grad():
+            return float(kl_divergence(gt, net(x)[0]))
+
+    assert abs(kl(0, 0) - want) / want <= own / 50
+    moved = [abs(kl(1e-4, seed) - want) / want for seed in range(3)]
+    assert max(moved) >= own / 2, (moved, own)
 
 
 def _planted(opt, edit):
@@ -279,13 +359,12 @@ FAULTS = {
                            "gan gradient gen/res0/conv2/kernel"),
     "scale_sunpose_conv": ("gan gradient sun/sunlayer2/conv1/kernel",
                            "sun gradient sunlayer2/conv1/kernel"),
-    # A rounding point moved: InstanceNorm's statistics taken in bf16, not
-    # float32 (`skyhdr/models/layers.py:67-71`).
+    # Rounding points moved: InstanceNorm's statistics taken in bf16, not
+    # float32 (`skyhdr/models/layers.py:67-71`); the sun-pose softmax's
+    # output rounded to bf16 (`skyhdr/models/sunpose.py:105-108` keeps it
+    # float32).
     "instance_norm_stats_bf16": ("sun metric dog", "sun_eval metric dog"),
-    # Another, under the comparison's resolution: the sun-pose softmax's
-    # output rounded to bf16 moves the sun metrics twentyfold over the
-    # port's own gap, and stays within `skyhdr`'s bf16-vs-f32 gap.
-    "softmax_output_bf16": (),
+    "softmax_output_bf16": ("sun metric dog", "sun_eval metric dog"),
 }
 
 
@@ -299,7 +378,7 @@ def _in_stats_in_x_dtype(self, x, act="none"):
 
 
 @pytest.mark.parametrize("fault", sorted(FAULTS))
-def test_bf16_golden_sees_a_planted_fault(stored, clean_port, clean_eval, monkeypatch, fault):
+def test_bf16_golden_sees_a_planted_fault(stored, clean_eval, monkeypatch, fault):
     cfg = G.bf16_config()
     state, sun_state = G.bf16_states(stored, cfg, "cpu")
     evals = clean_eval
@@ -320,14 +399,44 @@ def test_bf16_golden_sees_a_planted_fault(stored, clean_port, clean_eval, monkey
 
             monkeypatch.setattr(sunpose.SunPoseNet, "forward", rounded)
         evals = G.port_eval_bf16(stored, cfg, state, sun_state, "cpu")
-    port = {**evals, **G.port_steps_bf16(stored, cfg, state, sun_state, "cpu")}
-    fails, worst = G.compare_train_golden_bf16(stored, port)
+    port = {**evals, **G.port_steps(stored, cfg, state, sun_state, "cpu")}
+    fails, _ = G.compare_train_golden_bf16(stored, port)
     for want in FAULTS[fault]:
         assert any(line.startswith(want + ":") for line in fails), (want, fails)
-    if not FAULTS[fault]:
-        assert not fails, fails
-        clean = G.compare_train_golden_bf16(stored, clean_port)[1]
-        assert worst["sun_metrics"] > 10 * clean["sun_metrics"], (worst, clean)
+
+
+def test_bf16_layer_check_sees_a_float32_layer(stored):
+    """chip_smoke.py's card-vs-CPU layer check, here between two CPU copies
+    of the bf16 sun-pose net: every layer equal, and the check passes; a
+    copy whose sunlayer1.conv2 keeps its kernel in float32 (rounding only
+    its output to bf16) differs there in over a quarter of the elements, and
+    fails it."""
+    from skyhdr_torch.models.layers import Conv2D
+    from skyhdr_torch.train.losses import kl_divergence
+
+    smoke = _load_chip_smoke()
+    tables = smoke.bf16_layers(G, stored, False, ("cpu", "cpu"))
+    assert all(row[5] == 0 for rows in tables.values() for row in rows)
+    smoke.check_bf16_layers(tables, "cpu")
+    cfg = G.bf16_config()
+    nets = [smoke.build_port(cfg, int(stored["seed"]), "cpu")[1].requires_grad_(True)
+            for _ in range(2)]
+    conv = nets[1].sunlayer1.conv2
+    conv.dtype = None
+    conv.forward = lambda x, padding="SAME": Conv2D.forward(conv, x, padding).bfloat16()
+    x, gt = (torch.from_numpy(np.array(stored[k])) for k in ("ldr", "sunpose_gt"))
+    rows = smoke.layers_across_devices(nets, lambda net, dev: kl_divergence(gt, net(x)[0]))
+    y = next(r for r in rows if r[:2] == ("sunlayer1.conv2", "y"))
+    assert y[5] > 0.25, y
+    with pytest.raises(SystemExit, match="sunlayer1.conv2"):
+        smoke.check_bf16_layers({"sunpose": rows}, "planted")
+
+
+def _load_chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _write_dataset(root, h, w, counts, seed=0):

@@ -570,40 +570,53 @@ def port_train_golden(stored, device, fused_instance_norm: bool = False,
 
 def port_steps(stored, cfg, state, sun_state, device) -> dict:
     """The port's GAN step from `state` and sun step from `sun_state` on the
-    stored JAX-degraded inputs, reduced to the fixture's metrics and digests
-    (keys as in `make_train_golden`, with the port's values)."""
+    stored JAX-degraded inputs, reduced to the fixtures' keys (the port's
+    values): the metrics; per leaf the update digests (sum, sum |.|, max
+    |.|; the float32 goldens compare the first two, the bf16 golden holds
+    the leaves of exactly zero gradient to the third); the gradient digests
+    recovered from the optimizers' moments (`rmsprop_grads`, `adam_grads`;
+    the bf16 golden's, valid only for a step from zero moments); and the
+    BatchNorm sums."""
     from skyhdr_torch.train.engine import make_gan_train_step, make_sun_train_step
     from skyhdr_torch.utils.transplant import export_model_vars
 
     banks, inputs, vgg = _port_setup(stored, device)
 
-    def params(*modules):
-        return {n: export_model_vars(m, collections=("params",))["params"]
-                for n, m in zip(("gen", "sun", "disc"), modules)}
+    def params(value_of=None, **modules):
+        return {n: export_model_vars(m, value_of=value_of, collections=("params",))["params"]
+                for n, m in modules.items()}
 
-    old = params(state.gen, state.sun, state.disc)
+    modules = {"gen": state.gen, "sun": state.sun, "disc": state.disc}
+    old = params(**modules)
     state, metrics = make_gan_train_step(cfg, banks, vgg).train_on(state, *inputs)
-    sun_old = params(sun_state.sun)["gen"]
+    new = params(**modules)
+    sun_old = params(sun=sun_state.sun)["sun"]
     sun_state, sun_metrics = make_sun_train_step(cfg, banks).train_on(sun_state, *inputs)
+    sun_new = params(sun=sun_state.sun)["sun"]
     out = {"gan_metrics": _metric_values(stored, "gan", metrics),
            "sun_metrics": _metric_values(stored, "sun", sun_metrics)}
-    _, out["gan_param_digests"] = update_digests(
-        params(state.gen, state.sun, state.disc), old)
+    _, out["gan_param_digests"] = update_digests(new, old)
+    _, out["sun_param_digests"] = update_digests(sun_new, sun_old)
+    nu = {**state.opt_gen.moments()["nu"], **state.opt_disc.moments()["nu"]}
+    _, out["gan_grad_digests"] = grad_digests(
+        rmsprop_grads(params(nu.__getitem__, **modules), new, old))
+    mu = sun_state.opt.moments()["mu"]
+    _, out["sun_grad_digests"] = grad_digests(
+        adam_grads(params(mu.__getitem__, sun=sun_state.sun)["sun"]))
     _, out["gan_stat_digests"] = stat_digests(
         {n: export_model_vars(m, collections=("batch_stats",))["batch_stats"]
          for n, m in (("gen", state.gen), ("disc", state.disc))})
-    _, out["sun_param_digests"] = update_digests(params(sun_state.sun)["gen"], sun_old)
     return out
 
 
 def port_train_golden_bf16(stored, device, fused_instance_norm: bool = False) -> dict:
-    """`port_eval_bf16` and then `port_steps_bf16` from the port's seeded
+    """`port_eval_bf16` and then `port_steps` from the port's seeded
     weights under `compute_dtype="bfloat16"` (with `fused_instance_norm`,
     that configuration: the same function, so the same fixture holds)."""
     cfg = bf16_config(fused_instance_norm)
     state, sun_state = bf16_states(stored, cfg, device)
     return {**port_eval_bf16(stored, cfg, state, sun_state, device),
-            **port_steps_bf16(stored, cfg, state, sun_state, device)}
+            **port_steps(stored, cfg, state, sun_state, device)}
 
 
 def bf16_config(fused_instance_norm: bool = False):
@@ -652,44 +665,6 @@ def port_eval_bf16(stored, cfg, state, sun_state, device) -> dict:
     sun = make_sun_eval_step(cfg, banks).eval_on(sun_state, *inputs)[0]
     return {"gan_eval_metrics": _metric_values(stored, "gan_eval", gan),
             "sun_eval_metrics": _metric_values(stored, "sun_eval", sun)}
-
-
-def port_steps_bf16(stored, cfg, state, sun_state, device) -> dict:
-    """The port's GAN train step from `state` and sun train step from
-    `sun_state` on the stored JAX-degraded inputs, reduced to the keys of
-    `make_train_golden_bf16` (the port's values), plus per leaf the largest
-    |update| (`gan_update_max`, `sun_update_max`), which the leaves of
-    exactly zero gradient are held to."""
-    from skyhdr_torch.train.engine import make_gan_train_step, make_sun_train_step
-    from skyhdr_torch.utils.transplant import export_model_vars
-
-    banks, inputs, vgg = _port_setup(stored, device)
-
-    def params(value_of=None, **modules):
-        return {n: export_model_vars(m, value_of=value_of, collections=("params",))["params"]
-                for n, m in modules.items()}
-
-    out = {}
-    modules = {"gen": state.gen, "sun": state.sun, "disc": state.disc}
-    old = params(**modules)
-    state, metrics = make_gan_train_step(cfg, banks, vgg).train_on(state, *inputs)
-    new = params(**modules)
-    nu = {**state.opt_gen.moments()["nu"], **state.opt_disc.moments()["nu"]}
-    _, out["gan_grad_digests"] = grad_digests(
-        rmsprop_grads(params(nu.__getitem__, **modules), new, old))
-    out["gan_update_max"] = update_digests(new, old)[1][:, 2]
-    sun_old = params(sun=sun_state.sun)
-    sun_state, sun_metrics = make_sun_train_step(cfg, banks).train_on(sun_state, *inputs)
-    mu = sun_state.opt.moments()["mu"]
-    _, out["sun_grad_digests"] = grad_digests(
-        adam_grads(params(mu.__getitem__, sun=sun_state.sun)["sun"]))
-    out["sun_update_max"] = update_digests(params(sun=sun_state.sun), sun_old)[1][:, 2]
-    out["gan_metrics"] = _metric_values(stored, "gan", metrics)
-    out["sun_metrics"] = _metric_values(stored, "sun", sun_metrics)
-    _, out["gan_stat_digests"] = stat_digests(
-        {n: export_model_vars(m, collections=("batch_stats",))["batch_stats"]
-         for n, m in (("gen", state.gen), ("disc", state.disc))})
-    return out
 
 
 def compare_train_golden(stored, port, metric_rtol: float, update_rtol: float):
@@ -758,95 +733,133 @@ def in_fed_biases(paths) -> np.ndarray:
     return np.array(out)
 
 
-def _grad_gaps(got, want, paths):
-    """Per leaf, the larger gap of sum g and sum |g| relative to the wanted
-    sum |g|; NaN at the leaves of exactly zero gradient (`in_fed_biases`)."""
-    e = np.max(np.abs(got - want), axis=1) / np.maximum(want[:, 1], 1e-30)
-    return np.where(in_fed_biases(paths), np.nan, e)
+# The bf16 golden's tolerances (`bf16_tolerances`). One bf16 ulp is 2^-8 of
+# a value. `skyhdr`'s own gap between its bf16 and its float32 steps on the
+# same inputs (the fixture's "f32_..." values) is the size of the bf16
+# effect on each quantity; a port that rounds where `skyhdr` rounds lands
+# well inside it, a port that ignored the compute dtype lands on it. So
+# each quantity is held to BF16_GAP_SHARE of its own gap: the float32
+# port then fails (test_torch_train_bf16.py:test_bf16_golden_fails_a_float32_port).
+BF16_GAP_SHARE = 0.5
+# A quantity's own gap is taken at least BF16_FLOOR_SHARE of the median own
+# gap of its class: a quantity whose own gap falls far below its class's
+# got there by its terms' bf16 errors cancelling, which understates its
+# bf16 noise (perceptual: VGG16's pool3 features 4.8e-3 from float32,
+# relative L1, the loss 1.5e-5).
+BF16_FLOOR_SHARE = 0.25
+# Quantities that an amplifier puts outside this resolution, held to their
+# class's largest own gap instead: SunRadNet, whose BatchNorm takes the
+# statistics of two samples in the train step and divides by their spread
+# (its outputs' maxima b_out and g_out, its gradients and running sums),
+# and the sky decoder, whose gradient the perceptual loss dominates, routed
+# through VGG16's bf16 max-pools (a feature rounded the other way moves a
+# pool's gradient to another element). ROADMAP Queue 3 records them.
+BF16_UNRESOLVED = ("gan metric b_out", "gan metric g_out", "gan gradient gen/sun/",
+                   "gan gradient gen/conv1_f/", "gan gradient gen/conv2_f/",
+                   "gan gradient gen/conv3_f/", "gan gradient gen/norm2_f/",
+                   "gan gradient gen/norm3_f/", "batch_stats gen/sun/")
 
 
-def _is_kernel(paths) -> np.ndarray:
-    return np.array([str(p).endswith("/kernel") for p in paths])
-
-
-def _stat_gaps(got, stored):
-    """BatchNorm running sums' gaps, relative to max(|sum|, 1e-2 sum |.|) as
-    the float32 golden scales them: a sum that cancels (a running mean) is
-    held to its terms' scale."""
-    scale = np.maximum(np.abs(stored["gan_stat_digests"]), 1e-2 * stored["gan_stat_abs"])
-    return np.abs(got - stored["gan_stat_digests"]) / np.maximum(scale, 1e-30)
-
-
-def bf16_tolerances(stored) -> dict:
-    """The bf16 golden's tolerances: `skyhdr`'s own gap between its float32
-    steps (`f32_...`) and its bf16 steps on the same inputs, the worst over
-    each class of quantity. That gap is the scale of bf16 noise on this
-    step, and the port's gap to `skyhdr`'s bf16 step may not pass it. One
-    bf16 ulp is 2^-8 of a value: the metrics of the GAN steps come out of
-    bf16 layers (the sun-pose net, SunRadNet's convolutions, VGG16) whose
-    outputs either package rounds at its own summation order, and
-    SunRadNet's batch-statistics BatchNorm divides by the spread of a few
-    values; a sun metric moves with one bf16 rounding of a large logit.
-    The classes:
-      - each step's metrics (GAN, sun, GAN eval, sun eval), relative;
-      - per-leaf gradient digests (sum g and sum |g|, relative to the leaf's
-        sum |g|), per step, kernels apart from the rest: a kernel's gradient
-        sums products over the batch and every position, while a norm's
-        scale or bias, or a bias, sums one channel's cotangents, which bf16
-        noise moves further. Leaves of exactly zero gradient
-        (`in_fed_biases`) are left out;
-      - BatchNorm running sums (`_stat_gaps`)."""
-    tol = {}
+def bf16_gaps(stored, values) -> list:
+    """[(class, quantity, gap)] of `values` (a port's `port_eval_bf16` +
+    `port_steps` keys, or the stored float32 steps') against the stored
+    `skyhdr` bf16 values. Classes: each step's metrics (GAN, sun, GAN eval,
+    sun eval; relative); per step the per-leaf gradient digests, kernels
+    apart from the rest (the larger gap of sum g and sum |g|, relative to
+    the leaf's sum |g|: a kernel's gradient sums products over the batch
+    and every position, a norm's or a bias's one channel's cotangents); the
+    BatchNorm running sums (relative to max(|sum|, 1e-2 sum |.|), as the
+    float32 golden scales them: a sum that cancels is held to its terms'
+    scale). The leaves of exactly zero gradient (`in_fed_biases`) are not
+    in it."""
+    rows = []
     for kind in ("gan", "sun", "gan_eval", "sun_eval"):
         want = stored[f"{kind}_metrics"]
-        tol[f"{kind}_metrics"] = float(np.max(np.abs(stored[f"f32_{kind}_metrics"] - want)
-                                              / np.abs(want)))
+        gaps = np.abs(values[f"{kind}_metrics"] - want) / np.abs(want)
+        rows += [(f"{kind}_metrics", f"{kind} metric {n}", float(g))
+                 for n, g in zip(stored[f"{kind}_metric_names"], gaps)]
     for kind in ("gan", "sun"):
-        paths = stored[f"{kind}_grad_paths"]
-        e = _grad_gaps(stored[f"f32_{kind}_grad_digests"], stored[f"{kind}_grad_digests"],
-                       paths)
-        kernel = _is_kernel(paths)
-        tol[f"{kind}_kernel_grads"] = float(np.nanmax(e[kernel]))
-        tol[f"{kind}_other_grads"] = float(np.nanmax(e[~kernel]))
-    tol["gan_stats"] = float(_stat_gaps(stored["f32_gan_stat_digests"], stored).max())
-    return tol
+        want = stored[f"{kind}_grad_digests"]
+        gaps = (np.max(np.abs(values[f"{kind}_grad_digests"] - want), axis=1)
+                / np.maximum(want[:, 1], 1e-30))
+        for path, g, fed in zip(stored[f"{kind}_grad_paths"], gaps,
+                                in_fed_biases(stored[f"{kind}_grad_paths"])):
+            if not fed:
+                cls = "kernel" if str(path).endswith("/kernel") else "other"
+                rows.append((f"{kind}_{cls}_grads", f"{kind} gradient {path}", float(g)))
+    want = stored["gan_stat_digests"]
+    scale = np.maximum(np.abs(want), 1e-2 * stored["gan_stat_abs"])
+    gaps = np.abs(values["gan_stat_digests"] - want) / np.maximum(scale, 1e-30)
+    rows += [("gan_stats", f"batch_stats {p}", float(g))
+             for p, g in zip(stored["gan_stat_paths"], gaps)]
+    return rows
 
 
-def compare_train_golden_bf16(stored, port):
+def bf16_own_gaps(stored) -> list:
+    """`bf16_gaps` of `skyhdr`'s float32 steps stored in the fixture: the
+    bf16 effect on each quantity."""
+    return bf16_gaps(stored, {k[len("f32_"):]: v for k, v in stored.items()
+                              if k.startswith("f32_")})
+
+
+def bf16_tolerances(stored, resolved: bool = True) -> dict:
+    """{quantity: tolerance} of the bf16 golden (`bf16_gaps`' quantities):
+    BF16_GAP_SHARE of the quantity's own gap (`bf16_own_gaps`), the own gap
+    taken at least BF16_FLOOR_SHARE of its class's median; a
+    BF16_UNRESOLVED quantity, or every quantity when not `resolved`, within
+    its class's largest own gap.
+
+    `resolved=False` is the card's: there every layer rounds as on the CPU
+    (chip_smoke.py: `bf16_layers`, one ulp), but the float32 sums run in
+    other orders, so other elements round the other way, and the bf16
+    sun-pose net amplifies such one-ulp differences into the sun metrics
+    and gradients as far as `skyhdr`'s own bf16-vs-f32 gap
+    (test_torch_train_bf16.py:test_one_ulp_roundings_move_the_bf16_sun_step).
+    The CPU run, which rounds as XLA:CPU nearly everywhere, is what resolves
+    the bf16 step quantity by quantity."""
+    own = bf16_own_gaps(stored)
+    median, largest = {}, {}
+    for cls in {c for c, _, _ in own}:
+        gaps = [g for c, _, g in own if c == cls]
+        median[cls], largest[cls] = float(np.median(gaps)), max(gaps)
+    return {name: (largest[cls] if not resolved or name.startswith(BF16_UNRESOLVED)
+                   else BF16_GAP_SHARE * max(g, BF16_FLOOR_SHARE * median[cls]))
+            for cls, name, g in own}
+
+
+def compare_train_golden_bf16(stored, port, resolved: bool = True):
     """Failures (a list of strings) of the port's `port_eval_bf16` and
-    `port_steps_bf16` against the stored `skyhdr` bf16 values at
-    `bf16_tolerances`, and the port's largest gap in each class. A leaf of
-    exactly zero gradient (`in_fed_biases`) is held to the optimizer's bound
-    on |update| instead (3.17 lr for RMSprop, 1.01 lr for Adam's first
-    step)."""
-    tol = bf16_tolerances(stored)
-    fails, worst = [], {}
-    for kind in ("gan", "sun", "gan_eval", "sun_eval"):
-        got, want = port[f"{kind}_metrics"], stored[f"{kind}_metrics"]
-        e = np.abs(got - want) / np.abs(want)
-        worst[f"{kind}_metrics"] = float(e.max())
-        fails += [f"{kind} metric {n}: {a} vs {b}" for n, a, b, x in
-                  zip(stored[f"{kind}_metric_names"], got, want, e)
-                  if not x <= tol[f"{kind}_metrics"]]
+    `port_steps` values against the stored `skyhdr` bf16 values at
+    `bf16_tolerances(stored, resolved)`, and per class the largest gap and
+    the largest gap as a share of its tolerance. A leaf of exactly zero
+    gradient (`in_fed_biases`) is held to the optimizer's bound on |update|
+    instead (3.17 lr for RMSprop, 1.01 lr for Adam's first step).
+
+    Besides, the median over every quantity of its gap as a share of its own
+    gap (`worst["median_of_own"]`) stays under BF16_GAP_SHARE in either
+    mode: one-ulp differences carry a few quantities as far as their own
+    gap, a run that computes in float32 carries all of them there."""
+    tol = bf16_tolerances(stored, resolved)
+    own = {name: g for _, name, g in bf16_own_gaps(stored)}
+    fails, worst, shares = [], {}, []
+    for cls, name, g in bf16_gaps(stored, port):
+        worst[cls] = max(worst.get(cls, 0.0), g)
+        worst[f"{cls}_of_tol"] = max(worst.get(f"{cls}_of_tol", 0.0), g / tol[name])
+        if own[name] > 0:
+            shares.append(g / own[name])
+        if not g <= tol[name]:
+            fails.append(f"{name}: gap {g:.3e}, tolerance {tol[name]:.3e}")
+    worst["median_of_own"] = float(np.median(shares))
+    if not worst["median_of_own"] <= BF16_GAP_SHARE:
+        fails.append(f"median gap / own gap {worst['median_of_own']:.3f} over "
+                     f"{len(shares)} quantities")
     for kind, lr_bound in (("gan", 3.17e-4), ("sun", 1.01e-4)):
+        # The update digests run over the same sorted leaves as the gradients.
         paths = stored[f"{kind}_grad_paths"]
-        got, want = port[f"{kind}_grad_digests"], stored[f"{kind}_grad_digests"]
-        e = _grad_gaps(got, want, paths)
-        kernel = _is_kernel(paths)
-        for cls, mask in (("kernel", kernel), ("other", ~kernel)):
-            worst[f"{kind}_{cls}_grads"] = float(np.nanmax(e[mask]))
-        for path, g, w, x, k, umax in zip(paths, got, want, e, kernel,
-                                          port[f"{kind}_update_max"]):
-            if np.isnan(x):
-                if not umax <= lr_bound:
-                    fails.append(f"{kind} update {path}: max |update| {umax}")
-            elif not x <= tol[f"{kind}_{'kernel' if k else 'other'}_grads"]:
-                fails.append(f"{kind} gradient {path}: digests {g} vs {w}")
-    e = _stat_gaps(port["gan_stat_digests"], stored)
-    worst["gan_stats"] = float(e.max())
-    fails += [f"batch_stats {p}: {a} vs {b}" for p, a, b, x in
-              zip(stored["gan_stat_paths"], port["gan_stat_digests"],
-                  stored["gan_stat_digests"], e) if not x <= tol["gan_stats"]]
+        for path, fed, umax in zip(paths, in_fed_biases(paths),
+                                   port[f"{kind}_param_digests"][:, 2]):
+            if fed and not umax <= lr_bound:
+                fails.append(f"{kind} update {path}: max |update| {umax}")
     return fails, worst
 
 
