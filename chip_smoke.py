@@ -52,7 +52,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     that run in bf16 there (the sun-pose net with K1-K3,
                     and K8/K9 when fused; SunRadNet) layer by layer
                     against the same port on the CPU, each from the same
-                    input and cotangent: within one bf16 ulp.
+                    input and cotangent: within one bf16 ulp. Then the
+                    knob golden: one GAN step and one sun step at 16x64 DA
+                    b2 f32 compute from the resume golden's states under
+                    each storage-knob configuration (a float32 control,
+                    bf16 moments, bf16 gradients, bf16 parameters with a
+                    float32 master, all three), unfused and fused, against
+                    torch_golden_train_knobs_16x64.npz: metrics, update
+                    digests, every leaf's dtype, parameters equal to their
+                    master rounded, bf16 samples bit-equal on >= 99%.
   6. serving      — the inference CLI at 64x256 b32 (40 PNGs, 2 dispatches,
                     the second padded) and at 32x128 b1 (4 PNGs); every .hdr
                     read back finite; 20 K1 + 4 K2 launches per DA dispatch;
@@ -68,14 +76,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     InstanceNorm (the same weights); under
                     compute_dtype=bfloat16 the GAN step for 3, unfused and
                     fused (the same draw), and the sun step for 3 (the sun
-                    state's weights); every metric finite,
+                    state's weights); under the storage knobs at f32
+                    compute the GAN step with bf16 moments and with bf16
+                    parameters (f32 master), and the sun step with bf16
+                    moments; "bf16 everything" (bf16 compute and the three
+                    knobs) the GAN step fused and the sun step, 3 steps
+                    each, every stored leaf's dtype checked and the
+                    parameters their master rounded; every metric finite,
                     gen_total moving, launch counts per step asserted (GAN:
                     20 K1, 24 K2, 20 K3, and fused 25 K8, 29 K9; k=5: 12 K5,
                     12 K6, 12 K7 and no K1-K3; sun: 4 each, and fused 6 K8,
                     6 K9). Then step times (CUDA
                     events, 1 warm-up, median of 5 further steps of the same
                     state) and peak device memory, and each bf16 row's
-                    ratio to its f32 row.
+                    ratio to its f32 row, as each knob row's.
   8. timing       — CUDA events, warm-up, median of 20: serving forward
                     ms/dispatch (unfused and fused IN, in turns, the same
                     weights; and at da_kernel_size=5), and each kernel
@@ -102,7 +116,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     `TrainLoop("SUN", ...)` handed to a fresh SKY run; then
                     at plain 32x128 b32 with --compute-dtype bfloat16 (no DA
                     kernel): one epoch with its eval pass and a float32
-                    checkpoint, and a resume to epoch 2, its epoch seconds.
+                    checkpoint, and a resume to epoch 2, its epoch seconds;
+                    then "bf16 everything" at DA 32x128 b32 (bf16 compute,
+                    moments, gradients and parameters): the float32 SUN
+                    checkpoint handed to a fresh run at lr 0 (its
+                    checkpoint shows the master refreshed), a resume to
+                    epoch 2, its epoch seconds and checkpoint bytes.
   10. cli        — the port's other CLIs on the card, through their
                     `main(argv)`: dataset_generator on a synthetic Laval
                     tree of .hdr envmaps (64 train + 32 test records at
@@ -140,8 +159,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     import and from the source bit-equal under torch's
                     deterministic algorithms (and, for the record, how far
                     apart in the default mode); a SKY checkpoint with
-                    bfloat16 parameters served bit-equal to its source
-                    modules and refused a resume (NotImplementedError).
+                    bfloat16 parameters (its float32 master and moments
+                    exported too) served bit-equal to its source modules,
+                    refused by a float32 run (ValueError), and resumed one
+                    GAN step at b64 bit-equal to its source under
+                    deterministic algorithms; a SUN checkpoint with
+                    bfloat16 moments imported and resumed the same way.
                     Export, import and read-back seconds and GB/s.
   12. probes     — the DA-conv probe tools (skyhdr_torch/tools/) and their
                     kernels, at the tools' default shape x (32,64,256,64) ->
@@ -737,6 +760,52 @@ def phase_train_golden(dc, report):
         check(launched == want, f"train golden ({name}) launches {launched}, want {want}")
         report[key] = worst
     train_golden_bf16(dc, mod, report)
+    train_golden_knobs(dc, mod, report)
+
+
+def train_golden_knobs(dc, mod, report):
+    """The knob golden: one GAN step and one sun step at 16x64 DA b2 f32
+    compute from the resume golden's states under each storage-knob
+    configuration (`make_torch_golden.KNOB_CONFIGS`: a float32 control,
+    bf16 moments, bf16 gradients, bf16 parameters with a float32 master,
+    all three), unfused and fused IN, against `skyhdr`'s in
+    tests/fixtures/torch_golden_train_knobs_16x64.npz
+    (`compare_knobs_golden`: metrics, update digests, BatchNorm sums,
+    every leaf's dtype, parameters == round(master), bf16 samples bit-equal
+    on >= 99% and within one ulp, float32 samples within KNOB_STEP_RTOL of
+    their leaf's step or KNOB_MOMENT_RTOL of their value)."""
+    stored = dict(np.load(mod.KNOBS_FIXTURE))
+    check(abs(mod.export_digest(mod.resume_export(0)) - float(stored["export_digest"]))
+          <= 1e-12 * float(stored["export_digest"]), "the resume export differs from the "
+          "knob fixture's")
+    worst_all, failed = {}, []
+    for fuse in (False, True):
+        want = ({k: fused(GAN_LAUNCHES, "gan")[k] + fused(SUN_LAUNCHES, "sun")[k]
+                 for k in KERNELS} if fuse else
+                {k: GAN_LAUNCHES[k] + SUN_LAUNCHES[k] for k in KERNELS})
+        step_rtol, moment_rtol, share = (KNOB_CARD_FUSED_RTOL if fuse else
+                                         (mod.KNOB_STEP_RTOL, mod.KNOB_MOMENT_RTOL, 0.99))
+        for c in mod.KNOB_CONFIGS:
+            name = f"{c} {'fused' if fuse else 'unfused'} IN"
+            reset_counts(dc)
+            port = mod.port_knob_steps(c, "cuda", fused_instance_norm=fuse)
+            launched = counts(dc)
+            fails, worst = mod.compare_knobs_golden(stored, port, c, step_rtol, moment_rtol,
+                                                    share)
+            say("train_golden", f"knobs {name}: 16x64 DA b2 GAN step + sun step from the "
+                f"resume states vs skyhdr: worst {json.dumps(worst)} (float32 samples: "
+                f"{step_rtol} of a leaf's step, {moment_rtol} of a moment; bf16 samples "
+                f">= {share} bit-equal); launches {launched}")
+            for line in fails:
+                say("train_golden", f"FAIL knobs {name}: {line}")
+            if fails:
+                failed.append(f"knob golden ({name}): {len(fails)} mismatches")
+            if launched != want:
+                failed.append(f"knob golden ({name}) launches {launched}, want {want}")
+            worst_all[name] = worst
+            del port
+    check(not failed, "; ".join(failed))
+    report["train_golden_knobs_worst"] = worst_all
 
 
 def train_golden_bf16(dc, mod, report):
@@ -1164,58 +1233,71 @@ def phase_training(dc, smi, report):
     from skyhdr_torch.config import Config, DataConfig, ModelConfig
     from skyhdr_torch.data.degradation import make_banks
     from skyhdr_torch.models.vgg16 import random_vgg16_weights
+    from skyhdr_torch.config import TrainConfig
     from skyhdr_torch.train.engine import (create_sun_state, empty_gan_state, empty_sun_state,
-                                           make_gan_train_step, make_sun_train_step)
+                                           load_weights, make_gan_train_step,
+                                           make_sun_train_step)
     from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
-    from skyhdr_torch.utils.transplant import init_gan_vars, load_model_vars
+    from skyhdr_torch.utils.transplant import init_gan_vars
 
     h, w = 64, 256
     banks = make_banks(make_synthetic_dorf(175, 1024), get_exposure_lists()[0], device="cuda")
 
-    def cfg_of(b, fuse=False, dtype="float32"):
+    def cfg_of(b, fuse=False, dtype="float32", knobs=KNOBS_F32):
+        opt, grad, param = knobs
         return Config(model=ModelConfig(im_height=h, im_width=w, use_da_conv=True,
                                         fused_instance_norm=fuse, compute_dtype=dtype),
-                      data=DataConfig(batch_size=b))
+                      data=DataConfig(batch_size=b),
+                      train=TrainConfig(opt_state_dtype=opt, grad_dtype=grad, param_dtype=param))
 
     t0 = time.perf_counter()
     trees = init_gan_vars(cfg_of(64), 0)
     say("training", f"GAN DA {h}x{w}: seeded weights drawn on the host in "
-        f"{time.perf_counter() - t0:.3f} s (one draw for the unfused, the fused and the "
-        f"bf16 states)")
+        f"{time.perf_counter() - t0:.3f} s (one draw for every k=3 GAN state)")
     out = {}
-    # (kind, batch, steps, fused IN, compute dtype)
-    runs = (("gan", 64, 3, False, "float32"), ("gan_fused", 64, 3, True, "float32"),
-            ("gan_bf16", 64, 3, False, "bfloat16"), ("gan_bf16_fused", 64, 3, True, "bfloat16"),
-            ("gan_da5", 64, 3, False, "float32"), ("sun", 32, 2, False, "float32"),
-            ("sun_fused", 32, 2, True, "float32"), ("sun_bf16", 32, 3, False, "bfloat16"))
+    bf16 = ("bfloat16",) * 3
+    # (kind, batch, steps, fused IN, compute dtype, (opt_state, grad, param)
+    # dtypes, the row of the same step in float32 that it is compared with)
+    runs = (("gan", 64, 3, False, "float32", KNOBS_F32, None),
+            ("gan_fused", 64, 3, True, "float32", KNOBS_F32, None),
+            ("gan_bf16", 64, 3, False, "bfloat16", KNOBS_F32, "gan"),
+            ("gan_bf16_fused", 64, 3, True, "bfloat16", KNOBS_F32, "gan_fused"),
+            ("gan_opt", 64, 3, False, "float32", KNOBS_OPT, "gan"),
+            ("gan_param", 64, 3, False, "float32", KNOBS_PARAM, "gan"),
+            ("gan_bf16_all", 64, 3, True, "bfloat16", bf16, "gan_fused"),
+            ("gan_da5", 64, 3, False, "float32", KNOBS_F32, None),
+            ("sun", 32, 2, False, "float32", KNOBS_F32, None),
+            ("sun_fused", 32, 2, True, "float32", KNOBS_F32, None),
+            ("sun_bf16", 32, 3, False, "bfloat16", KNOBS_F32, "sun"),
+            ("sun_opt", 32, 3, False, "float32", KNOBS_OPT, "sun"),
+            ("sun_bf16_all", 32, 3, False, "bfloat16", bf16, "sun"))
     sun_weights = None  # the sun state's initial weights, on the host
-    for kind, b, nsteps, fuse, dtype in runs:
+    for kind, b, nsteps, fuse, dtype, knobs, f32_row in runs:
         tag = (f"{'GAN' if kind.startswith('gan') else 'sun'} DA "
                + ("k=5 " if kind == "gan_da5" else "") + f"{h}x{w} b{b}"
-               + (" bf16" if dtype == "bfloat16" else "") + (" fused IN" if fuse else ""))
+               + (" bf16" if dtype == "bfloat16" else "") + (" fused IN" if fuse else "")
+               + knob_tag(knobs))
         t0 = time.perf_counter()
         if kind.startswith("gan"):
-            cfg = da5_config(b) if kind == "gan_da5" else cfg_of(b, fuse, dtype)
+            cfg = da5_config(b) if kind == "gan_da5" else cfg_of(b, fuse, dtype, knobs)
             state = empty_gan_state(cfg, "cuda")
-            for module, tree in zip((state.gen, state.sun, state.disc),
-                                    da5_trees() if kind == "gan_da5" else trees):
-                load_model_vars(module, tree)
+            load_weights(state, da5_trees() if kind == "gan_da5" else trees)
             step = make_gan_train_step(cfg, banks, random_vgg16_weights())
             base = DA5_GAN_LAUNCHES if kind == "gan_da5" else GAN_LAUNCHES
             want = fused(base, "gan") if fuse else base
             moving = "gen_total"
         else:
             trees = None
-            cfg = cfg_of(b, fuse, dtype)
+            cfg = cfg_of(b, fuse, dtype, knobs)
             if kind == "sun":
                 state = create_sun_state(cfg, 0, "cuda")
-                # The fused-IN and the bf16 states take the same weights (no
-                # second draw), kept on the host so that one state at a time
-                # holds device memory.
+                # The other sun states take the same weights (no second
+                # draw), kept on the host so that one state at a time holds
+                # device memory.
                 sun_weights = {k: v.cpu() for k, v in state.sun.state_dict().items()}
             else:
                 state = empty_sun_state(cfg, "cuda")
-                state.sun.load_state_dict(sun_weights)
+                load_sun_weights(state, sun_weights)
             step = make_sun_train_step(cfg, banks)
             want = fused(SUN_LAUNCHES, "sun") if fuse else SUN_LAUNCHES
             moving = "sun_total"
@@ -1223,6 +1305,7 @@ def phase_training(dc, smi, report):
         say("training", f"{tag}: state built in {time.perf_counter() - t0:.3f} s")
         batches = train_batches(nsteps, b, h, w, seed=2000)
         state, history, launched = run_steps(dc, step, state, batches, want, tag, moving)
+        stored = check_knob_state(state, knobs, tag)
         torch.cuda.reset_peak_memory_stats()
         gen = torch.Generator(device="cuda").manual_seed(2)
         times = time_ms(lambda: step(state, batches[0], gen), iters=STEP_ITERS, warmup=1)
@@ -1230,10 +1313,21 @@ def phase_training(dc, smi, report):
         ms = statistics.median(times)
         say("training", f"{tag}: step {ms:.4f} ms (median of {STEP_ITERS}, CUDA events, "
             f"spread {min(times):.4f}-{max(times):.4f}); peak device memory "
-            f"{peak / 2**30:.3f} GiB; on {smi}")
+            f"{peak / 2**30:.3f} GiB; state {stored}; on {smi}")
         out[kind] = {"batch": b, "launches": launched, "history": history,
                      "step_ms": ms, "step_ms_all": times, "peak_bytes": peak,
-                     "compute_dtype": dtype, "fused_instance_norm": fuse}
+                     "compute_dtype": dtype, "fused_instance_norm": fuse,
+                     "knobs": dict(zip(("opt_state_dtype", "grad_dtype", "param_dtype"), knobs)),
+                     "state_bytes": state_bytes(state)}
+        if f32_row is not None:
+            a, c = out[f32_row], out[kind]
+            c["vs_f32_row"] = {"row": f32_row, "step_ms_ratio": c["step_ms"] / a["step_ms"],
+                               "peak_ratio": c["peak_bytes"] / a["peak_bytes"]}
+            say("training", f"{tag} vs {f32_row}: step {c['step_ms']:.4f} vs "
+                f"{a['step_ms']:.4f} ms (ratio {c['step_ms'] / a['step_ms']:.4f}), peak "
+                f"{c['peak_bytes'] / 2**30:.3f} vs {a['peak_bytes'] / 2**30:.3f} GiB (ratio "
+                f"{c['peak_bytes'] / a['peak_bytes']:.4f}), state "
+                f"{c['state_bytes'] / 1e9:.3f} vs {a['state_bytes'] / 1e9:.3f} GB; on {smi}")
         del state, step, batches
         free_cuda()
     for name, u, f in (("GAN DA 64x256 b64", out["gan"], out["gan_fused"]),
@@ -1241,16 +1335,64 @@ def phase_training(dc, smi, report):
         say("training", f"{name} fused vs unfused IN: step {f['step_ms']:.4f} vs "
             f"{u['step_ms']:.4f} ms ({f['step_ms'] - u['step_ms']:+.4f} ms), peak "
             f"{f['peak_bytes'] / 2**30:.3f} vs {u['peak_bytes'] / 2**30:.3f} GiB; on {smi}")
-    for name, f32, bf16 in (("GAN DA 64x256 b64", "gan", "gan_bf16"),
-                            ("GAN DA 64x256 b64 fused IN", "gan_fused", "gan_bf16_fused"),
-                            ("sun DA 64x256 b32", "sun", "sun_bf16")):
-        a, c = out[f32], out[bf16]
-        say("training", f"{name} bf16 vs f32 compute: step {c['step_ms']:.4f} vs "
-            f"{a['step_ms']:.4f} ms (ratio {c['step_ms'] / a['step_ms']:.4f}), peak "
-            f"{c['peak_bytes'] / 2**30:.3f} vs {a['peak_bytes'] / 2**30:.3f} GiB (ratio "
-            f"{c['peak_bytes'] / a['peak_bytes']:.4f}); on {smi}")
     report["training"] = out
     return {kind: o["launches"] for kind, o in out.items()}
+
+
+# The knob golden on the card with fused InstanceNorm: K8/K9 sum in
+# another order than the CPU, so the float32 control's GAN gradients sit
+# further from `skyhdr`'s (update digests 4.1e-3 against the CPU's 6.0e-4)
+# and the samples' gaps grow with them: 0.054 of a leaf's step and 8.2e-3
+# of a moment in float32 (held at about 4 times that), and 98.5% of the
+# bf16 parameters bit-equal under bf16 parameters, every one within one ulp
+# or the float32 bound (held at 97%). The unfused card run passes the
+# CPU's tolerances.
+KNOB_CARD_FUSED_RTOL = (0.25, 0.04, 0.97)
+KNOBS_F32 = ("float32", "float32", "float32")
+KNOBS_OPT = ("bfloat16", "float32", "float32")
+KNOBS_PARAM = ("float32", "float32", "bfloat16")
+
+
+def knob_tag(knobs) -> str:
+    """" opt bf16" etc.: the storage knobs at bfloat16, for a row's name."""
+    names = [n for n, v in zip(("opt", "grad", "param"), knobs) if v == "bfloat16"]
+    return "" if not names else (" " + "+".join(names) + " bf16")
+
+
+def load_sun_weights(state, weights):
+    """A sun-pose state_dict into a SunState: the parameters (rounded to
+    their stored dtype) and, under bfloat16 parameters, the master."""
+    state.sun.load_state_dict(weights)
+    if state.opt.master is not None:
+        master = state.opt.moments()["master"]
+        with torch.no_grad():
+            for name, p in state.sun.named_parameters():
+                master[p].copy_(weights[name])
+
+
+def check_knob_state(state, knobs, tag) -> str:
+    """Checks every stored leaf's dtype under `knobs` (opt_state, grad,
+    param): the parameters in param_dtype, the BatchNorm statistics
+    float32, the moments in opt_state_dtype, a float32 master exactly when
+    the parameters are bfloat16, and each parameter its master rounded.
+    Returns a summary."""
+    want_m, _, want_p = (getattr(torch, k) for k in knobs)
+    params = {p.dtype for m in state.modules().values() for p in m.parameters()}
+    buffers = {b.dtype for m in state.modules().values() for b in m.buffers()}
+    moments, master, rounded = set(), set(), True
+    for opt in state.optimizers().values():
+        moments |= {t.dtype for name in opt.MOMENTS for t in getattr(opt, name)}
+        if opt.master is not None:
+            master |= {t.dtype for t in opt.master}
+            rounded &= all(torch.equal(p, m.to(p.dtype)) for p, m in zip(opt.params, opt.master))
+    check(params == {want_p} and buffers <= {torch.float32} and moments == {want_m},
+          f"{tag}: params {params}, buffers {buffers}, moments {moments}")
+    check(master == ({torch.float32} if want_p == torch.bfloat16 else set()),
+          f"{tag}: master {master}")
+    check(rounded, f"{tag}: a stored parameter is not its master rounded")
+    short = lambda ds: "/".join(sorted(str(d).replace("torch.", "") for d in ds)) or "none"
+    return (f"params {short(params)}, moments {short(moments)}, master {short(master)}"
+            + (", params == round(master)" if master else ""))
 
 
 def phase_timing(dc, smi, report):
@@ -1569,7 +1711,7 @@ def phase_train_cli(dc, smi, report):
     from skyhdr_torch.data.degradation import make_banks
     from skyhdr_torch.data.pipeline import PanoramaDataset
     from skyhdr_torch.train.checkpoints import CheckpointManager
-    from skyhdr_torch.train.engine import (create_sun_state, make_sun_eval_step,
+    from skyhdr_torch.train.engine import (build_models, create_sun_state, make_sun_eval_step,
                                            make_sun_train_step)
     from skyhdr_torch.train.loop import TrainLoop
     from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
@@ -1675,8 +1817,58 @@ def phase_train_cli(dc, smi, report):
     check("Latest SKY checkpoint restored (epoch 1)" in text and epochs == [2]
           and bf16_ckpt.steps() == [1, 2], f"bf16 resume: ran {epochs}, saved "
           f"{bf16_ckpt.steps()}")
+
+    # "bf16 everything" at DA 32x128 b32: the float32 SUN checkpoint above
+    # handed to a fresh run at lr 0 (its first epoch's updates are zero, so
+    # its checkpoint shows the sun-pose weights it started from: rounded,
+    # with the float32 master equal to the SUN checkpoint's, which a stale
+    # master would revert), then a resume to epoch 2 at the default lr.
+    knobs = os.path.join(work, "knobs")
+    flags = base + ["--compute-dtype", "bfloat16", "--opt-state-dtype", "bfloat16",
+                    "--grad-dtype", "bfloat16", "--param-dtype", "bfloat16"]
+    sun_dir = os.path.join(handoff, "checkpoints", "SUN")
+    text, epochs = run(knobs, "--epochs", "1", "--lr", "0", "--sun", sun_dir, flags=flags)
+    knob_ckpt = CheckpointManager(os.path.join(knobs, "checkpoints", "SKY"))
+    blob = knob_ckpt.read_latest()
+    # opt_gen's master runs over the generator's parameters, then the
+    # sun-pose net's, in module order.
+    gen_net, sun_net = build_models(cfg, "meta")
+    n_gen = len(list(gen_net.parameters()))
+    names = [n for n, _ in sun_net.named_parameters()]
+    sun_master = blob["optimizers"]["opt_gen"]["master"][n_gen:n_gen + len(names)]
+    want = sun_ckpt["modules"]["sun"]
+    handed = all(torch.equal(m.cpu(), want[n].cpu()) and torch.equal(
+        blob["modules"]["sun"][n].cpu(), want[n].cpu().to(torch.bfloat16))
+        for n, m in zip(names, sun_master))
+    say("train_cli", f"bf16 everything: SUN hand-off into bf16 parameters, {len(names)} "
+        f"sun-pose tensors stored as the SUN checkpoint's rounded, master its float32 "
+        f"values: {handed}")
+    check("Pretrained SUN checkpoint restored for fine-tuning" in text and epochs == [1]
+          and handed, "bf16-everything hand-off")
+    dtypes = {k: {t.dtype for t in ts} for k, ts in (
+        ("params", [v for m in blob["modules"].values() for k, v in m.items()
+                    if not k.endswith(("mean", "var"))]),
+        ("stats", [v for m in blob["modules"].values() for k, v in m.items()
+                   if k.endswith(("mean", "var"))]),
+        ("moments", [t for o in blob["optimizers"].values() for t in o["nu"]]),
+        ("master", [t for o in blob["optimizers"].values() for t in o["master"]]))}
+    check(dtypes == {"params": {torch.bfloat16}, "stats": {torch.float32},
+                     "moments": {torch.bfloat16}, "master": {torch.float32}},
+          f"bf16-everything checkpoint dtypes {dtypes}")
+    text, epochs = run(knobs, "--epochs", "2", flags=flags)
+    check("Latest SKY checkpoint restored (epoch 1)" in text and epochs == [2]
+          and knob_ckpt.steps() == [1, 2], f"bf16-everything resume: ran {epochs}, saved "
+          f"{knob_ckpt.steps()}")
+    ckpt_bytes = {name: os.path.getsize(os.path.join(d, "checkpoints", "SKY", "1", "state.pt"))
+                  for name, d in (("f32", sky), ("bf16_everything", knobs))}
+    say("train_cli", f"bf16 everything at DA {h}x{w} b{b}: epoch seconds {epoch_s[knobs]} "
+        f"(epoch 1 at lr 0 after the hand-off, epoch 2 resumed) vs float32 {epoch_s[sky]}; "
+        f"checkpoint {ckpt_bytes['bf16_everything'] / 1e9:.4f} GB vs float32 "
+        f"{ckpt_bytes['f32'] / 1e9:.4f} GB (ratio "
+        f"{ckpt_bytes['bf16_everything'] / ckpt_bytes['f32']:.4f}); on {smi}")
     report["train_cli"] = {"epoch_s": epoch_s[sky], "bf16_plain_epoch_s": epoch_s[bf16],
-                           "device": smi}
+                           "bf16_everything_epoch_s": epoch_s[knobs],
+                           "checkpoint_bytes": ckpt_bytes, "device": smi}
     say("train_cli", f"epoch seconds at DA {h}x{w} b{b} (4 train steps + 1 eval batch, "
         f"checkpoint save included): {epoch_s[sky]}; on {smi}")
     say("train_cli", f"epoch seconds at plain {h}x{w} b{b} bf16 compute (4 train steps + 1 "
@@ -2245,14 +2437,18 @@ def convert_full_width(dc, smi, work, report):
     exported by `export_from_state` and imported by the CLI one at a time
     (an export deleted once imported), checked bit-equal; served from the
     import and from the source modules; one resumed GAN step at b64 from
-    each; a bfloat16-parameter SKY checkpoint served and refused a resume."""
+    each; a bfloat16-parameter SKY checkpoint (with its master) and a SUN
+    checkpoint with bfloat16 moments imported, bit-equal, and resumed
+    bit-equal to their sources; the bf16 SKY one served and refused by a
+    float32 run."""
     from skyhdr_torch.config import Config, DataConfig, ModelConfig
     from skyhdr_torch.data.degradation import make_banks
     from skyhdr_torch.models.vgg16 import random_vgg16_weights
     from skyhdr_torch.train.checkpoints import CheckpointManager
     from skyhdr_torch.train.convert import export_from_state
     from skyhdr_torch.train.engine import (empty_gan_state, empty_sun_state,
-                                           make_gan_train_step, state_dict)
+                                           make_gan_train_step, make_sun_train_step,
+                                           state_dict)
     from skyhdr_torch.train.loop import TrainLoop
     from skyhdr_torch.utils.flax_export import write_export
     from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
@@ -2376,46 +2572,145 @@ def convert_full_width(dc, smi, work, report):
     del restored, step
     free_cuda()
 
-    # A SKY checkpoint trained with bfloat16 parameters: the stored values,
-    # upcast; it serves, and a resume is refused.
-    state = src.pop("SKY")
-    with torch.no_grad():
-        for module in state.modules().values():
-            for p in module.parameters():
-                p.copy_(p.bfloat16().float())
-    state.param_dtype = "bfloat16"
-    export, bf16_work = os.path.join(work, "export_bf16"), os.path.join(work, "port_bf16")
-    manifest, leaves = export_from_state(state)
-    check(manifest["param_dtype"] == "bfloat16" and not any(
-        p.startswith("opt") for p in leaves), "bf16 export holds moments")
-    write_export(os.path.join(export, "SKY"), manifest, leaves)
-    del leaves
-    wall, _ = import_cli(dc, export, bf16_work, flags, f"import CLI SKY bf16 params {h}x{w}")
-    shutil.rmtree(export)
-    blob = CheckpointManager(os.path.join(bf16_work, "checkpoints", "SKY")).read_latest()
-    bad, n = blob_mismatches(blob, state)
-    check(blob["param_dtype"] == "bfloat16" and blob["optimizers"] == {} and not bad,
-          f"bf16 SKY checkpoint: {blob['param_dtype']}, {sorted(blob['optimizers'])}, {bad[:5]}")
-    del blob
+    # A SKY checkpoint trained with bfloat16 parameters (the source's
+    # float32 weights as its master, their rounding stored): exported with
+    # its master and moments, imported, served, and resumed.
+    cfg_p = state_cfg(cfg, param_dtype="bfloat16")
+    state = bf16_param_state(src.pop("SKY"), cfg_p)
+    bf16_work = os.path.join(work, "port_bf16")
+    knob_import(dc, state, "SKY", work, bf16_work, flags + ["--param-dtype", "bfloat16"],
+                f"SKY bf16 params {h}x{w}", "SKY_bf16_params", out, smi)
     got, text, secs, launched = serve_captured(dc, indir, os.path.join(work, "hdr_bf16"),
                                                bf16_work, h, w, serve_b)
     check(launched == want, f"bf16 serving launches {launched}, want {want}")
     ref = serve_modules(serve_cfg, state.gen, state.sun, indir, serve_b)
     same = sorted(got) == sorted(ref) and all(np.array_equal(got[k], ref[k]) for k in ref)
+    say("convert", f"bf16-parameter SKY checkpoint served: {len(got)} panoramas in {secs:.3f} s, "
+        f"launches {launched}, bit-equal to its source modules: {same}")
+    check(same, "bf16 serving differs from its source modules")
     refused = None
     try:
         TrainLoop(cfg, "SKY", lambda: None, None, None, None, None, workdir=bf16_work,
                   log=lambda *_: None, device="cuda")
-    except NotImplementedError as e:
+    except ValueError as e:
         refused = str(e)
-    say("convert", f"bf16-parameter SKY checkpoint: {n} tensors bit-equal, no optimizer "
-        f"state; served {len(got)} panoramas in {secs:.3f} s, launches {launched}, "
-        f"bit-equal to its source modules: {same}; TrainLoop resume: "
-        f"NotImplementedError {refused!r}")
-    check(same, "bf16 serving differs from its source modules")
-    check(refused is not None and "param_dtype" in refused, "TrainLoop resumed a bf16 state")
+    say("convert", f"the bf16-parameter checkpoint under float32 parameters: ValueError "
+        f"{refused!r}")
+    check(refused is not None and "--param-dtype bfloat16" in refused,
+          "a float32 run resumed a bf16-parameter checkpoint")
+    step = make_gan_train_step(cfg_p, banks, random_vgg16_weights())
+    out["resumed_step_bf16_params"] = knob_resume(
+        dc, step, cfg_p, bf16_work, "SKY", state, batch, GAN_LAUNCHES,
+        f"resumed GAN step at DA {h}x{w} b{b}, bf16 parameters")
+    del state, step
+    free_cuda()
+
+    # A SUN checkpoint with bfloat16 moments, imported and resumed the same way.
+    cfg_o = state_cfg(Config(model=cfg.model, data=DataConfig(batch_size=serve_b)),
+                      opt_state_dtype="bfloat16")
+    state = fill_state(empty_sun_state(cfg_o, "cuda"), 2)
+    sun_work = os.path.join(work, "port_bf16_moments")
+    knob_import(dc, state, "SUN", work, sun_work, flags + ["--opt-state-dtype", "bfloat16"],
+                f"SUN bf16 moments {h}x{w}", "SUN_bf16_moments", out, smi)
+    out["resumed_step_bf16_moments"] = knob_resume(
+        dc, make_sun_train_step(cfg_o, banks), cfg_o, sun_work, "SUN", state,
+        train_batches(1, serve_b, h, w, seed=3001)[0], SUN_LAUNCHES,
+        f"resumed sun step at DA {h}x{w} b{serve_b}, bf16 moments")
     del state
     free_cuda()
+
+
+def state_cfg(cfg, **knobs):
+    """`cfg` with storage knobs set in its TrainConfig."""
+    import dataclasses
+
+    return cfg.replace(train=dataclasses.replace(cfg.train, **knobs))
+
+
+def bf16_param_state(state, cfg):
+    """`state` held under bfloat16 parameters (`cfg`), on the card: its float32
+    parameters become the optimizer's master and their rounding the stored
+    copy; the moments, BatchNorm statistics and counters stay."""
+    from skyhdr_torch.train.engine import load_state, state_dict
+
+    blob = state_dict(state)
+    for name, opt in state.optimizers().items():
+        blob["optimizers"][name]["master"] = [p.detach().clone() for p in opt.params]
+    for name, module in state.modules().items():
+        params = {n for n, _ in module.named_parameters()}
+        blob["modules"][name] = {k: v.to(torch.bfloat16) if k in params else v
+                                 for k, v in blob["modules"][name].items()}
+    blob["param_dtype"] = "bfloat16"
+    return load_state(blob, cfg, "cuda")
+
+
+def knob_import(dc, state, name, work, pwork, flags, tag, key, out, smi):
+    """`state` exported (`export_from_state`, with its master and moments),
+    imported by the CLI into `pwork` and read back bit-equal, dtypes
+    included."""
+    from skyhdr_torch.train.checkpoints import CheckpointManager
+    from skyhdr_torch.train.convert import export_from_state
+    from skyhdr_torch.utils.flax_export import write_export
+
+    export = os.path.join(work, f"export_{name}_knobs")
+    gb = state_bytes(state) / 1e9
+    t0 = time.perf_counter()
+    manifest, leaves = export_from_state(state)
+    write_export(os.path.join(export, name), manifest, leaves)
+    del leaves
+    t1 = time.perf_counter()
+    wall, _ = import_cli(dc, export, pwork, flags, f"import CLI {tag}")
+    shutil.rmtree(export)
+    blob = CheckpointManager(os.path.join(pwork, "checkpoints", name)).read_latest()
+    bad, n = blob_mismatches(blob, state)
+    del blob
+    say("convert", f"{tag} ({gb:.3f} GB, param_dtype {manifest['param_dtype']}, moments "
+        f"{manifest['opt_state_dtype']}): exported in {t1 - t0:.3f} s, import CLI "
+        f"{wall:.3f} s; {n} tensors (master included) and the counters bit-equal, dtypes "
+        f"included: {not bad} {bad[:5]}; on {smi}")
+    check(not bad, f"{tag} import not bit-equal: {bad[:10]}")
+    out[key] = {"gb": gb, "import_cli_s": wall, "tensors": n}
+
+
+def knob_resume(dc, step, cfg, pwork, name, source, batch, want, tag):
+    """One resumed step from the import in `pwork` and one from `source`
+    under deterministic algorithms: the launches, and every tensor (master
+    and moments in their dtypes) and counter bit-equal after it."""
+    from skyhdr_torch.train.checkpoints import CheckpointManager
+    from skyhdr_torch.train.engine import state_dict
+
+    restored = CheckpointManager(os.path.join(pwork, "checkpoints", name)).restore_latest(
+        cfg, "cuda")
+    cublas_config = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    metrics = {}
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        for who, state in (("imported", restored), ("source", source)):
+            reset_counts(dc)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                _, m = step(state, batch, torch.Generator(device="cuda").manual_seed(9))
+                torch.cuda.synchronize()
+            metrics[who] = {k: float(v) for k, v in m.items()}
+            launched = counts(dc)
+            check(launched == want, f"{tag} ({who}) launches {launched}, want {want}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if cublas_config is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+    bad, n = blob_mismatches(state_dict(restored), source)
+    knobs = tuple(getattr(cfg.train, k) for k in ("opt_state_dtype", "grad_dtype",
+                                                   "param_dtype"))
+    stored = check_knob_state(restored, knobs, tag)
+    total = "gen_total" if "gen_total" in metrics["source"] else "sun_total"
+    say("convert", f"{tag}, from the import and from the source, deterministic algorithms: "
+        f"launches {want} each; {total} {metrics['imported'][total]:.7g} vs "
+        f"{metrics['source'][total]:.7g}; {n - len(bad)} of {n} tensors and the counters "
+        f"bit-equal after it {bad[:3]}; {stored}")
+    check(not bad and metrics["imported"] == metrics["source"], f"{tag} differs: {bad[:10]}")
+    return {"tensors_differing": len(bad), "tensors": n,
+            "metrics_equal": metrics["imported"] == metrics["source"]}
 
 
 def phase_convert(dc, smi, report):

@@ -22,9 +22,8 @@ def str2bool(v) -> bool:
 
 def add_common_flags(parser: argparse.ArgumentParser):
     """Every flag of `skyhdr.cli.common.add_common_flags`, plus `--device`.
-    Only float32 training is ported: the three storage-dtype knobs take
-    float32 (`config_from_args` raises NotImplementedError for the other
-    value) and `--steps-per-dispatch` takes 1; `--compilation-cache` is the
+    `--steps-per-dispatch` takes 1 (`config_from_args` raises
+    NotImplementedError for another value); `--compilation-cache` is the
     XLA runtime's and does nothing here."""
     cwd = os.getcwd()
     parser.add_argument("--dir", type=str, default=None,
@@ -44,13 +43,28 @@ def add_common_flags(parser: argparse.ArgumentParser):
                         choices=("float32", "bfloat16"),
                         help="conv-stack compute dtype (radiance head, "
                              "softmax and norms stay f32)")
-    for knob, what in (("opt-state", "optimizer-moment storage"),
-                       ("grad", "gradient staging"),
-                       ("param", "stored model-parameter")):
-        parser.add_argument(f"--{knob}-dtype", type=str, default="float32",
-                            choices=("float32", "bfloat16"),
-                            help=f"{what} dtype; only float32 is ported "
-                                 f"(bfloat16 raises NotImplementedError)")
+    parser.add_argument("--opt-state-dtype", type=str, default="float32",
+                        choices=("float32", "bfloat16"),
+                        help="optimizer-moment storage dtype: bfloat16 "
+                             "halves the optimizer slice of device memory "
+                             "and checkpoint bytes (update math stays f32; "
+                             "measured quality-free in skyhdr's one-knob DA "
+                             "ablation — see BASELINE.md)")
+    parser.add_argument("--grad-dtype", type=str, default="float32",
+                        choices=("float32", "bfloat16"),
+                        help="gradient staging dtype: bfloat16 casts the "
+                             "gradients before the optimizer update (update "
+                             "math stays f32; costs ~1-2 dB PSNR in skyhdr's "
+                             "one-knob DA ablation — prefer --opt-state-dtype "
+                             "for memory relief; see BASELINE.md)")
+    parser.add_argument("--param-dtype", type=str, default="float32",
+                        choices=("float32", "bfloat16"),
+                        help="stored model-parameter dtype for training: "
+                             "bfloat16 streams half-width params through the "
+                             "forward/backward while the optimizer keeps an "
+                             "f32 master copy in its state (update math and "
+                             "accumulation stay f32; see "
+                             "TrainConfig.param_dtype)")
     parser.add_argument("--streaming", type=str2bool, default=None,
                         help="stream TFRecords with a windowed shuffle "
                              "buffer instead of caching the split in RAM "
@@ -79,10 +93,8 @@ def add_common_flags(parser: argparse.ArgumentParser):
 
 def config_from_args(args) -> Config:
     """The Config of the `add_common_flags` flags. Raises
-    NotImplementedError for what the port does not run: a storage-dtype
-    knob other than float32, or more than one step per dispatch."""
-    from skyhdr_torch.train.engine import _require_f32_training
-
+    NotImplementedError for what the port does not run: more than one step
+    per dispatch."""
     cfg = Config(
         model=ModelConfig(im_height=args.imheight, im_width=args.imwidth,
                           use_da_conv=args.da_conv,
@@ -99,7 +111,6 @@ def config_from_args(args) -> Config:
                           steps_per_dispatch=args.steps_per_dispatch,
                           seed=args.seed),
     )
-    _require_f32_training(cfg)
     if cfg.train.steps_per_dispatch != 1:
         raise NotImplementedError(
             f"--steps-per-dispatch {cfg.train.steps_per_dispatch}: the port "
@@ -163,9 +174,14 @@ def restore_model_vars(cfg: Config, workdir: str, *, sky: str = None,
     SKY checkpoint under `<workdir>/<checkpoint_dir>/SKY` (or `sky`), its
     sun-pose net then replaced by the newest SUN checkpoint's (`sun`).
     The seeded weights of `init_model_vars(cfg, seed)` are drawn only when
-    no SKY checkpoint exists. A checkpoint is read to the host and only the
-    serving modules' parameters and buffers reach the device; the optimizer
-    moments (2 x 3.2 GB of sun-pose FC at 64x256) never do."""
+    no SKY checkpoint exists (rounded to bfloat16 under `--param-dtype
+    bfloat16`, as `skyhdr`'s `create_gan_state` stores them). A checkpoint
+    of any `param_dtype` serves: its stored parameters load exactly. A
+    checkpoint is read to the host and only the serving modules' parameters
+    and buffers reach the device; the optimizer moments (2 x 3.2 GB of
+    sun-pose FC at 64x256) never do."""
+    import torch
+
     from skyhdr_torch.train.checkpoints import CheckpointManager
     from skyhdr_torch.train.engine import build_models
     from skyhdr_torch.utils.transplant import init_model_vars, load_model_vars
@@ -188,6 +204,10 @@ def restore_model_vars(cfg: Config, workdir: str, *, sky: str = None,
         gen_vars, sun_vars = init_model_vars(cfg, seed)
         load_model_vars(gen, gen_vars)
         load_model_vars(sun_net, sun_vars)
+        if cfg.train.param_dtype == "bfloat16":
+            with torch.no_grad():
+                for p in (*gen.parameters(), *sun_net.parameters()):
+                    p.copy_(p.to(torch.bfloat16))
     del modules
     # The SUN -> SKY hand-off's key handling (`engine.replace_sun_params`):
     # a SUN checkpoint holds the sun-pose net's state_dict under

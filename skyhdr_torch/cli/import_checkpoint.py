@@ -15,8 +15,13 @@ writes them as `<W>/checkpoints/{SKY,SUN}/<orbax step>/state.pt`, through
 the port's `CheckpointManager.save`. `skyhdr_torch.cli.inference --workdir
 W` then serves them and `skyhdr_torch.cli.train --workdir W` resumes from
 them, as the JAX CLIs do from Orbax's. The model flags are those the
-checkpoint was trained with; the storage dtypes are the export's (its
-manifest), whatever `--param-dtype` / `--opt-state-dtype` say.
+checkpoint was trained with. The parameters' dtype is the export's (its
+manifest's `param_dtype`, which fixes the optimizer state's structure, as
+in `skyhdr`; a resume then needs the same `--param-dtype`). The moments
+keep their exported values and dtype, held in float32 where
+`--opt-state-dtype float32` asks for it (exact); float32 moments under
+`--opt-state-dtype bfloat16` stay float32 until the first step rounds them,
+as `skyhdr`'s restore keeps the saved dtype.
 """
 
 from __future__ import annotations
@@ -41,9 +46,6 @@ def main(argv=None):
     parser.add_argument("--export", type=str, required=True,
                         help="the export tool's --out directory (SKY/ and/or SUN/)")
     args = parser.parse_args(argv)
-    # The storage dtypes come from the manifest: the port's state is float32.
-    for knob in ("opt_state_dtype", "grad_dtype", "param_dtype"):
-        setattr(args, knob, "float32")
     cfg = config_from_args(args)
 
     found = [name for name in _KINDS

@@ -58,8 +58,10 @@ def main(argv=None):
 
     # Cross-stage SUN weight hand-off (reference train.py:223-230), only on
     # a fresh start: a SKY resume already carries fine-tuned sun weights.
-    # The SUN checkpoint is read to the host and only its sun-pose
-    # parameters are copied in.
+    # The SUN checkpoint (of any param_dtype, as `skyhdr` tries each
+    # template) is read to the host and only its sun-pose parameters are
+    # copied in; under --param-dtype bfloat16 they also refresh the
+    # optimizer's float32 master (`replace_sun_params`).
     sun_dir = args.sun or os.path.join(args.workdir, cfg.train.checkpoint_dir, "SUN")
     if not loop.resumed and os.path.isdir(sun_dir):
         blob = CheckpointManager(sun_dir, cfg.train.ckpt_max_to_keep).read_latest()

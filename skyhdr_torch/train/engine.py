@@ -24,9 +24,15 @@ tensors with the JAX package's names. An eval step is `step(state, batch,
 generator) -> (metrics, outputs)` around its core `step.eval_on`.
 `ModelConfig.compute_dtype="bfloat16"` runs the layers that take the compute
 dtype in bfloat16, as the JAX package does: the activations and the gradients
-they carry round where `skyhdr`'s do, and the gradients reach the float32
-parameters through the casts. The storage knobs are not ported: the
-`opt_state_dtype` / `grad_dtype` / `param_dtype` knobs must be "float32".
+they carry round where `skyhdr`'s do, and the gradients reach the parameters
+through the casts.
+
+The storage knobs of `cfg.train` (`train.optim` says how the optimizers run
+them): `param_dtype="bfloat16"` stores the `params` leaves in bfloat16 (never
+the BatchNorm buffers) beside the optimizer's float32 master, and every
+layer promotes them against its input as Flax does, so a gradient for a
+bfloat16 leaf arrives rounded through the cast; `grad_dtype` casts the
+gradients after `torch.autograd.grad`; `opt_state_dtype` is the moments'.
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ from skyhdr_torch.ops.dog import dog_l1_loss
 from skyhdr_torch.ops.geometry import sunpose_gt_from_elevation
 from skyhdr_torch.ops.hdr import hdr_log_compression, hdr_log_decompression
 from skyhdr_torch.train import losses
-from skyhdr_torch.train.optim import Adam, RMSprop
+from skyhdr_torch.train.optim import Adam, RMSprop, storage_dtype
 
 
 def _act_dtype(cfg):
@@ -111,19 +117,16 @@ def make_inference_fn(cfg):
 
 class GanState:
     """Generator, sun-pose net and discriminator (parameters requiring
-    gradients), `opt_gen` (RMSprop over generator then sun parameters),
-    `opt_disc` (RMSprop over the discriminator's), the step count and the
-    epoch count (set by `train.loop.TrainLoop`)."""
+    gradients, stored in `param_dtype`), `opt_gen` (RMSprop over generator
+    then sun parameters), `opt_disc` (RMSprop over the discriminator's),
+    the step count and the epoch count (set by `train.loop.TrainLoop`)."""
 
     kind = "gan"
-    # "bfloat16" for a checkpoint of the JAX package trained with bfloat16
-    # parameters (`convert.state_from_export`): served and handed off, not
-    # resumed.
-    param_dtype = "float32"
 
-    def __init__(self, gen, sun, disc, opt_gen, opt_disc):
+    def __init__(self, gen, sun, disc, opt_gen, opt_disc, param_dtype="float32"):
         self.gen, self.sun, self.disc = gen, sun, disc
         self.opt_gen, self.opt_disc = opt_gen, opt_disc
+        self.param_dtype = param_dtype
         self.step = 0
         self.epoch = 0
 
@@ -138,10 +141,10 @@ class SunState:
     """The sun-pose net, its Adam optimizer, the step and epoch counts."""
 
     kind = "sun"
-    param_dtype = "float32"
 
-    def __init__(self, sun, opt):
+    def __init__(self, sun, opt, param_dtype="float32"):
         self.sun, self.opt = sun, opt
+        self.param_dtype = param_dtype
         self.step = 0
         self.epoch = 0
 
@@ -152,81 +155,116 @@ class SunState:
         return {"opt": self.opt}
 
 
-def _require_f32_training(cfg):
-    for knob in ("opt_state_dtype", "grad_dtype", "param_dtype"):
-        if getattr(cfg.train, knob) not in (None, "float32"):
-            raise NotImplementedError(
-                f"TrainConfig.{knob}={getattr(cfg.train, knob)!r}: only float32 "
-                "training is ported")
+def _param_dtype(cfg) -> str:
+    return cfg.train.param_dtype or "float32"
+
+
+def _optimizer(cls, cfg, params):
+    t = cfg.train
+    return cls(list(params), t.learning_rate, opt_state_dtype=t.opt_state_dtype,
+               param_dtype=_param_dtype(cfg))
+
+
+@torch.no_grad()
+def _store_params(cfg, *modules):
+    """Reallocate the modules' parameters (not their buffers) in the stored
+    dtype, unfilled; the optimizer's master gives them their values."""
+    dtype = storage_dtype(_param_dtype(cfg))
+    for m in modules:
+        for p in m.parameters():
+            if p.dtype != dtype:
+                p.data = torch.empty_like(p, dtype=dtype)
 
 
 def empty_gan_state(cfg, device="cuda") -> GanState:
     """A GAN state with its tensors allocated on `device` but not filled
-    (zero moments): for `create_gan_state` and a checkpoint restore."""
-    _require_f32_training(cfg)
+    (zero moments): for `create_gan_state` and a checkpoint restore. The
+    parameters are in `cfg.train.param_dtype`, the moments in its
+    `opt_state_dtype`."""
     gen, sun = build_models(cfg, device)
     disc = Discriminator(cfg.model.channels, device=device)
     for m in (gen, sun, disc):
         m.requires_grad_(True)
-    lr = cfg.train.learning_rate
+    _store_params(cfg, gen, sun, disc)
     return GanState(gen, sun, disc,
-                    RMSprop([*gen.parameters(), *sun.parameters()], lr),
-                    RMSprop(disc.parameters(), lr))
+                    _optimizer(RMSprop, cfg, [*gen.parameters(), *sun.parameters()]),
+                    _optimizer(RMSprop, cfg, disc.parameters()), _param_dtype(cfg))
 
 
 def empty_sun_state(cfg, device="cuda") -> SunState:
     """A sun-pretrain state allocated on `device`, not filled."""
-    _require_f32_training(cfg)
     sun = SunPoseNet(cfg.model, device=device).requires_grad_(True)
-    return SunState(sun, Adam(sun.parameters(), cfg.train.learning_rate))
+    _store_params(cfg, sun)
+    return SunState(sun, _optimizer(Adam, cfg, sun.parameters()), _param_dtype(cfg))
+
+
+def load_weights(state, trees) -> None:
+    """Fill `state`'s modules (in `state.modules()` order) from Flax-layout
+    trees: the `params` into the parameters, or under bfloat16 parameters
+    into the optimizers' float32 master, the parameters then written as it
+    rounded; the BatchNorm statistics into the buffers."""
+    from skyhdr_torch.utils.transplant import load_model_vars
+
+    master = {p: m for opt in state.optimizers().values()
+              for p, m in opt.moments().get("master", {}).items()}
+    for module, tree in zip(state.modules().values(), trees):
+        if master:
+            load_model_vars(module, tree, target_of=master.__getitem__,
+                            collections=("params",))
+            load_model_vars(module, tree, collections=("batch_stats",))
+        else:
+            load_model_vars(module, tree)
+    for opt in state.optimizers().values():
+        opt.sync_params()
 
 
 def create_gan_state(cfg, seed: int = 0, device="cuda") -> GanState:
     """The GAN state with the weights of `utils.transplant.init_gan_vars(cfg,
-    seed)` on `device` and zero RMSprop moments."""
-    from skyhdr_torch.utils.transplant import init_gan_vars, load_model_vars
+    seed)` on `device` and zero RMSprop moments (under bfloat16 parameters
+    the float32 draw is the master, as `skyhdr`'s optimizer init sees the
+    float32 parameters before the stored copy is cast)."""
+    from skyhdr_torch.utils.transplant import init_gan_vars
 
     state = empty_gan_state(cfg, device)
-    for module, tree in zip((state.gen, state.sun, state.disc), init_gan_vars(cfg, seed)):
-        load_model_vars(module, tree)
+    load_weights(state, init_gan_vars(cfg, seed))
     return state
 
 
 def create_sun_state(cfg, seed: int = 0, device="cuda") -> SunState:
     """The sun-pretrain state: the sun-pose weights of
     `init_model_vars(cfg, seed)` on `device`, zero Adam moments."""
-    from skyhdr_torch.utils.transplant import init_model_vars, load_model_vars
+    from skyhdr_torch.utils.transplant import init_model_vars
 
     state = empty_sun_state(cfg, device)
-    load_model_vars(state.sun, init_model_vars(cfg, seed)[1])
+    load_weights(state, [init_model_vars(cfg, seed)[1]])
     return state
 
 
 def state_dict(state) -> dict:
     """Everything a resume needs, as tensors on the state's device: the
-    modules' parameters and buffers, the optimizers' moments (and Adam's
-    count), the step, the epoch and the parameters' dtype in training. A
-    state with bfloat16 training parameters carries no optimizer state."""
-    f32 = state.param_dtype == "float32"
+    modules' parameters and buffers, the optimizers' moments (Adam's count,
+    the float32 master under bfloat16 parameters), each in its own dtype,
+    the step, the epoch and the parameters' dtype."""
     return {"kind": state.kind, "step": state.step, "epoch": state.epoch,
             "param_dtype": state.param_dtype,
             "modules": {n: m.state_dict() for n, m in state.modules().items()},
-            "optimizers": {n: o.state() for n, o in state.optimizers().items()}
-            if f32 else {}}
+            "optimizers": {n: o.state() for n, o in state.optimizers().items()}}
 
 
 def load_state(blob: dict, cfg, device="cuda"):
     """The state of a `state_dict` (read anywhere, e.g. to the host),
-    rebuilt on `device` without drawing seeded weights. Raises
-    NotImplementedError for a checkpoint trained with bfloat16 parameters:
-    the port trains with float32 ones only."""
-    param_dtype = blob.get("param_dtype", "float32")
-    if param_dtype != "float32":
-        raise NotImplementedError(
-            f"checkpoint with param_dtype={param_dtype!r}: training with "
-            "bfloat16 parameters is not ported (ROADMAP.md, Queue 1 item 6), "
-            "so it cannot be resumed; it serves, and its sun-pose net hands "
-            "off to a fresh GAN run")
+    rebuilt on `device` for `cfg` without drawing seeded weights. The
+    moments keep their saved values and the next step stores them in
+    `cfg.train.opt_state_dtype`, as `skyhdr`'s restore keeps the saved
+    dtype. Raises ValueError for a checkpoint saved under another
+    `param_dtype`, as `skyhdr`'s resume does (its optimizer state has
+    another tree structure there); the serving CLIs and the SUN hand-off
+    read any."""
+    saved = blob.get("param_dtype", "float32")
+    if saved != _param_dtype(cfg):
+        raise ValueError(
+            f"checkpoint saved with param_dtype={saved!r}, the run has "
+            f"param_dtype={_param_dtype(cfg)!r}: resume it with --param-dtype {saved}")
     make = {"gan": empty_gan_state, "sun": empty_sun_state}[blob["kind"]]
     state = make(cfg, device)
     with torch.no_grad():
@@ -240,14 +278,29 @@ def load_state(blob: dict, cfg, device="cuda"):
 
 @torch.no_grad()
 def replace_sun_params(cfg, state: GanState, sun_params: dict) -> GanState:
-    """SUN -> GAN weight hand-off (reference train.py:223-230): the
-    sun-pose net's parameters (a `SunPoseNet.state_dict()`, as a SUN
-    checkpoint holds it under modules/sun) copied into the GAN state. Its
-    RMSprop moments stay as they are. Only float32 parameters are ported,
-    so there is no master copy to refresh."""
-    _require_f32_training(cfg)
+    """SUN -> GAN weight hand-off (reference train.py:223-230,
+    `skyhdr.train.engine.replace_sun_params`): the sun-pose net's
+    parameters (a `SunPoseNet.state_dict()`, as a SUN checkpoint holds it
+    under modules/sun, in any param_dtype) copied into the GAN state. Under
+    bfloat16 parameters the optimizer's master takes their float32 values
+    and the stored copy their rounding, so that the first update does not
+    revert the hand-off. The RMSprop moments stay as they are."""
     state.sun.load_state_dict(sun_params)
+    if state.opt_gen.master is not None:
+        master = state.opt_gen.moments()["master"]
+        for name, p in state.sun.named_parameters():
+            master[p].copy_(sun_params[name])
+        state.opt_gen.sync_params()
     return state
+
+
+def _grads(cfg, total, params):
+    """The gradients of `total`, cast to `cfg.train.grad_dtype` unless that
+    is float32 (`skyhdr`'s `grad_store`)."""
+    grads = torch.autograd.grad(total, params)
+    if storage_dtype(cfg.train.grad_dtype) == torch.float32:
+        return grads
+    return [g.to(storage_dtype(cfg.train.grad_dtype)) for g in grads]
 
 
 def degrade(cfg, banks, generator, hdr):
@@ -339,13 +392,12 @@ def make_gan_train_step(cfg, banks, vgg_weights):
     """The GAN train step for states from `create_gan_state`, on the device
     of `banks` (from `data.degradation.make_banks`); `vgg_weights` is the
     NumPy weight dict of `models.vgg16`."""
-    _require_f32_training(cfg)
     vgg = vgg_constants(vgg_weights, banks.crfs.device)
 
     def train_on(state: GanState, hdr_t, ldr, sunpose_gt):
         total, aux = generator_forward(cfg, state.gen, state.sun, state.disc,
                                        ldr, hdr_t, sunpose_gt, vgg, train=True)
-        grads = torch.autograd.grad(total, state.opt_gen.params)
+        grads = _grads(cfg, total, state.opt_gen.params)
         state.opt_gen.step(grads)
         del grads
 
@@ -353,7 +405,7 @@ def make_gan_train_step(cfg, banks, vgg_weights):
         real = state.disc(ldr, hdr_t, train=True)
         generated = state.disc(ldr, y_final_lin, train=True)
         disc_total, real_l, gen_l = losses.lsgan_disc_loss(real, generated)
-        state.opt_disc.step(torch.autograd.grad(disc_total, state.opt_disc.params))
+        state.opt_disc.step(_grads(cfg, disc_total, state.opt_disc.params))
         state.step += 1
 
         metrics = dict(aux["losses"], disc_total=disc_total, disc_real=real_l,
@@ -373,7 +425,6 @@ def make_gan_eval_step(cfg, banks, vgg_weights):
     generator losses and the discriminator's on the real and generated
     pairs, every BatchNorm with its frozen statistics, no update. Returns
     (metrics, outputs), the outputs named as in JAX."""
-    _require_f32_training(cfg)
     vgg = vgg_constants(vgg_weights, banks.crfs.device)
 
     @torch.no_grad()
@@ -396,7 +447,6 @@ def make_sun_train_step(cfg, banks):
     the sun-pose PDF against the vMF ground truth, one Adam update. Its
     Grad-CAM maps feed nothing in this step, so they are not computed (the
     JAX step drops them as dead code)."""
-    _require_f32_training(cfg)
     h, w = cfg.model.im_height, cfg.model.im_width
 
     def train_on(state: SunState, hdr_t, ldr, sunpose_gt):
@@ -404,7 +454,7 @@ def make_sun_train_step(cfg, banks):
         kl = losses.kl_divergence(sunpose_gt, sm)
         dog = dog_l1_loss(sm.reshape(-1, h, w, 1), sunpose_gt.reshape(-1, h, w, 1))
         total = kl + dog
-        state.opt.step(torch.autograd.grad(total, state.opt.params))
+        state.opt.step(_grads(cfg, total, state.opt.params))
         state.step += 1
         return state, {"sun_total": total.detach(), "kl": kl.detach(),
                        "dog": dog.detach()}
@@ -416,7 +466,6 @@ def make_sun_eval_step(cfg, banks):
     """The sun-pretrain test step (`skyhdr.train.engine.make_sun_eval_step`):
     KL + DoG, no update, and the Grad-CAM maps seeded at the ground truth's
     bin. Returns ({"sun_total", "kl", "dog"}, {"pred", "gt", "cams"})."""
-    _require_f32_training(cfg)
     h, w = cfg.model.im_height, cfg.model.im_width
 
     @torch.no_grad()

@@ -14,12 +14,13 @@ An export is a directory:
                         `epoch`, Adam's `count` (null for "gan"), the model
                         shape (`im_height`, `im_width`, `use_da_conv`,
                         `da_kernel_size`), the dtypes found (`param_dtype`,
-                        and `opt_state_dtype`, the moments', null when no
-                        moments are exported), and `leaves`: per leaf path
-                        its original `dtype` and its `shape`;
+                        and `opt_state_dtype`, the moments'), and `leaves`:
+                        per leaf path its original `dtype` and its `shape`;
   <leaf path>.npy     — one array per leaf, at the leaf's Flax path:
                         `gen_vars/params/res0/conv1/kernel.npy`,
-                        `opt_gen/nu/1/fc1/kernel.npy`, ...
+                        `opt_gen/nu/1/fc1/kernel.npy`, and under bfloat16
+                        parameters the float32 master,
+                        `opt_gen/master/1/fc1/kernel.npy`, ...
 
 numpy has no bfloat16 without `ml_dtypes`, which the card's machine may
 lack, so a bfloat16 leaf is stored upcast to float32 (exact) and the

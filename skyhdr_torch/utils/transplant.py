@@ -156,12 +156,13 @@ def load_model_vars(module: torch.nn.Module, tree: dict, target_of=None,
     return module
 
 
-def leaf_paths(module: torch.nn.Module, collections=("params", "batch_stats")):
-    """The Flax paths ('params/res0/conv1/kernel', ...) of `module`'s leaves
-    in `collections`, as `export_model_vars` would name them."""
-    return ["/".join([coll, *path, name])
+def leaf_tensors(module: torch.nn.Module, collections=("params", "batch_stats")):
+    """[(Flax path, tensor)] of `module`'s leaves in `collections`, the
+    paths ('params/res0/conv1/kernel', ...) as `export_model_vars` would
+    name them."""
+    return [("/".join([coll, *path, name]), tensor)
             for path, mod in _leaf_modules(module)
-            for coll, name, *_ in mod.flax_leaves() if coll in collections]
+            for coll, name, tensor, *_ in mod.flax_leaves() if coll in collections]
 
 
 @torch.no_grad()

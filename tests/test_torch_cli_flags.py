@@ -1,11 +1,15 @@
 """Every `skyhdr` CLI's command line parses through its port counterpart to
 the same values, and what the port does not run raises NotImplementedError
-(a storage-dtype knob other than float32, more than one step per
-dispatch), not an argparse exit. Also `StepTimer`'s stats keys."""
+(more than one step per dispatch), not an argparse exit. Each storage-dtype
+knob at bfloat16 runs through the four model CLIs at 16x64 on the CPU, and
+a training CLI's checkpoint holds the dtypes the knob stores. Also
+`StepTimer`'s stats keys."""
 
 import argparse
 import importlib
+import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -67,12 +71,70 @@ def _main(cli):
     return importlib.import_module(f"skyhdr_torch.cli.{cli}").main
 
 
+def _records(root, n=2, h=16, w=64, seed=0):
+    """<root>/{train,test}/0000.tfrecord: `n` random HDR skies each."""
+    from skyhdr_torch.data import records as trec
+
+    rng = np.random.default_rng(seed)
+    for split in ("train", "test"):
+        os.makedirs(os.path.join(root, split))
+        trec.write_tfrecord(os.path.join(root, split, "0000.tfrecord"), [
+            {"image": rng.uniform(0.0, 4.0, (h, w, 3)).astype(np.float32).tobytes(),
+             "azimuth": float(w // 2 - 1), "elevation": float(rng.uniform(2, h - 3))}
+            for _ in range(n)])
+    return root
+
+
+def _stored_dtypes(blob):
+    """{what: set of dtypes} of a training checkpoint's state_dict."""
+    params = {t.dtype for name, sd in blob["modules"].items() for k, t in sd.items()
+              if not k.endswith(("mean", "var"))}
+    stats = {t.dtype for sd in blob["modules"].values() for k, t in sd.items()
+             if k.endswith(("mean", "var"))}
+    opts = blob["optimizers"].values()
+    moments = {t.dtype for o in opts for k in ("mu", "nu") for t in o.get(k, ())}
+    master = {t.dtype for o in opts for t in o.get("master", ())}
+    return {"params": params, "stats": stats, "moments": moments, "master": master}
+
+
 @pytest.mark.parametrize("knob", ["--opt-state-dtype", "--grad-dtype", "--param-dtype"])
 @pytest.mark.parametrize("cli", ["inference", "train", "train_sun", "evaluate"])
-def test_bf16_knob_raises(cli, knob, tmp_path):
-    with pytest.raises(NotImplementedError, match="only float32"):
-        _main(cli)(["--indir", str(tmp_path)] * (cli == "inference")
-                   + ["--device", "cpu", knob, "bfloat16"])
+def test_bf16_knob_runs(cli, knob, tmp_path):
+    """The CLI runs with the knob at bfloat16; a training CLI's checkpoint
+    stores the parameters, moments and master in the knob's dtypes (the
+    gradient staging leaves no trace at rest), BatchNorm statistics float32."""
+    from skyhdr_torch.train.checkpoints import CheckpointManager
+    from skyhdr_torch.utils.png import write_png
+
+    work = str(tmp_path / "run")
+    argv = ["--imheight", "16", "--imwidth", "64", "--batchsize", "2", "--device", "cpu",
+            "--dorf", "", "--vgg", "", "--workdir", work, knob, "bfloat16"]
+    ds = _records(str(tmp_path / "ds"))
+    if cli == "inference":
+        os.makedirs(tmp_path / "in")
+        write_png(str(tmp_path / "in" / "pano.png"),
+                  np.random.default_rng(1).integers(0, 256, (16, 64, 3), dtype=np.uint8))
+        argv += ["--indir", str(tmp_path / "in"), "--outdir", str(tmp_path / "out")]
+    elif cli == "evaluate":
+        argv += ["--dir", os.path.join(ds, "test")]
+    else:
+        argv += ["--dir", ds, "--epochs", "1", "--ckpt-every", "1"]
+        argv += ["--train", "true", "--outputimg-every", "0"] * (cli == "train_sun")
+    _main(cli)(argv)
+    if cli == "inference":
+        assert sorted(os.listdir(tmp_path / "out"))
+        return
+    if cli == "evaluate":
+        return
+    name = "SKY" if cli == "train" else "SUN"
+    blob = CheckpointManager(os.path.join(work, "checkpoints", name)).read_latest()
+    bf16, f32 = {torch.bfloat16}, {torch.float32}
+    want = {"params": bf16 if knob == "--param-dtype" else f32,
+            "stats": f32 if cli == "train" else set(),
+            "moments": bf16 if knob == "--opt-state-dtype" else f32,
+            "master": f32 if knob == "--param-dtype" else set()}
+    assert _stored_dtypes(blob) == want
+    assert blob["param_dtype"] == ("bfloat16" if knob == "--param-dtype" else "float32")
 
 
 @pytest.mark.parametrize("cli", ["inference", "train", "train_sun", "evaluate"])

@@ -309,10 +309,11 @@ def test_bf16_params_serve_the_stored_params(bf16_params, source, tmp_path, monk
     _, out, pwork = bf16_params
     for name in ("SKY", "SUN"):
         manifest, leaves = read_export(os.path.join(out, name))
-        assert manifest["param_dtype"] == "bfloat16" and manifest["opt_state_dtype"] is None
-        assert not any(p.startswith("opt") for p in leaves)
+        assert manifest["param_dtype"] == "bfloat16" and manifest["opt_state_dtype"] == "float32"
+        assert any(p.startswith(("opt_gen/master/", "opt/master/")) for p in leaves)
         blob = _blob(pwork, name)
-        assert blob["param_dtype"] == "bfloat16" and blob["optimizers"] == {}
+        assert blob["param_dtype"] == "bfloat16"
+        assert blob["optimizers"] and all("master" in o for o in blob["optimizers"].values())
     indir, ldr = _write_pngs(str(tmp_path / "in"))
     got = _serve(monkeypatch, indir, str(tmp_path / "out"), pwork)
     sky, sun = source["SKY"][1], source["SUN"][1]
@@ -350,13 +351,30 @@ def test_bf16_params_hand_off_the_stored_sun_pose_net(bf16_params, tmp_path, cap
     assert sorted(got) == sorted(want) and all(torch.equal(got[k], v) for k, v in want.items())
 
 
-def test_bf16_params_refuse_to_resume(bf16_params):
+def test_bf16_params_resume(bf16_params, source):
+    """A checkpoint of `skyhdr` trained with param_dtype=bfloat16 resumes
+    under --param-dtype bfloat16: its stored parameters the source's
+    rounded, its float32 master the source's values and its moments as
+    exported, every leaf exactly; one GAN step and one sun step from it
+    within the knob golden's "param" configuration. Under float32
+    parameters its resume raises ValueError, as `skyhdr`'s does (its
+    template there has another tree structure), and TrainLoop draws no
+    fresh state in its place."""
     pwork = bf16_params[2]
+    cfg = G.knob_config("param")
+    gan, sun = (CheckpointManager(os.path.join(pwork, "checkpoints", name)).restore_latest(
+        cfg, "cpu") for name in ("SKY", "SUN"))
+    for state, name in ((gan, "SKY"), (sun, "SUN")):
+        _same_leaves(export_from_state(state)[1],
+                     G.knob_export(source[name], "float32", "bfloat16")[1])
+    port = G.port_knob_steps("param", "cpu", states=(gan, sun))
+    fails, worst = G.compare_knobs_golden(np.load(G.KNOBS_FIXTURE), port, "param")
+    assert not fails, (fails[:10], json.dumps(worst))
     for name in ("SKY", "SUN"):
-        with pytest.raises(NotImplementedError, match="param_dtype='bfloat16'.*Queue 1 item 6"):
+        with pytest.raises(ValueError, match="param_dtype='bfloat16'"):
             CheckpointManager(os.path.join(pwork, "checkpoints", name)).restore_latest(CFG, "cpu")
     drawn = []
-    with pytest.raises(NotImplementedError, match="param_dtype"):
+    with pytest.raises(ValueError, match="--param-dtype bfloat16"):
         TrainLoop(CFG, "SKY", lambda: drawn.append(1), None, None, None, None,
                   workdir=pwork, log=lambda *_: None, device="cpu")
     assert not drawn  # no fresh start in its place

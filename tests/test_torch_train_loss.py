@@ -144,13 +144,37 @@ def test_steps_degrade_and_thread_the_state(banks):
 
 
 @pytest.mark.parametrize("knob", ["opt_state_dtype", "grad_dtype", "param_dtype"])
-def test_low_precision_knobs_raise(banks, knob):
+def test_low_precision_knobs_build_their_dtypes(banks, knob):
+    """Each knob at bfloat16 builds states of its dtypes: parameters in
+    param_dtype beside a float32 master holding the seeded draw (the
+    parameters its rounding), BatchNorm statistics float32, moments in
+    opt_state_dtype; and its train steps build."""
+    from skyhdr_torch.utils.transplant import init_model_vars
+
     cfg = G.golden_config()
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **{knob: "bfloat16"}))
-    with pytest.raises(NotImplementedError, match=knob):
-        tengine.create_sun_state(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match=knob):
-        tengine.make_gan_train_step(cfg, banks, random_vgg16_weights())
+    bf16 = knob == "param_dtype"
+    gan = tengine.create_gan_state(cfg, 0, device="cpu")
+    sun = tengine.create_sun_state(cfg, 0, device="cpu")
+    draws = (*init_gan_vars(cfg, 0), init_model_vars(cfg, 0)[1])
+    for state, modules in ((gan, (gan.gen, gan.sun, gan.disc)), (sun, (sun.sun,))):
+        assert state.param_dtype == ("bfloat16" if bf16 else "float32")
+        for m in modules:
+            assert {p.dtype for p in m.parameters()} == {torch.bfloat16 if bf16 else torch.float32}
+            assert {b.dtype for b in m.buffers()} <= {torch.float32}
+        for opt in state.optimizers().values():
+            moments = [t for name in opt.MOMENTS for t in getattr(opt, name)]
+            assert {t.dtype for t in moments} == {torch.bfloat16 if knob == "opt_state_dtype"
+                                                  else torch.float32}
+            assert (opt.master is not None) == bf16
+            if bf16:
+                assert all(m.dtype == torch.float32 and torch.equal(p, m.to(p.dtype))
+                           for p, m in zip(opt.params, opt.master))
+    if bf16:  # the master holds the float32 draw itself
+        fc1 = gan.opt_gen.moments()["master"][gan.sun.fc1.weight]
+        np.testing.assert_array_equal(fc1.numpy().T, draws[1]["params"]["fc1"]["kernel"])
+    tengine.make_gan_train_step(cfg, banks, random_vgg16_weights())
+    tengine.make_sun_train_step(cfg, banks)
 
 
 @pytest.mark.parametrize("kind", ["rmsprop", "adam"])

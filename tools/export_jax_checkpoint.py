@@ -14,8 +14,9 @@ checkpoint trained with `param_dtype=bfloat16` has another tree shape (its
 optimizer state is a `MasterParamsState`), so each `param_dtype` is tried
 in turn, as `skyhdr.cli.common.restore_model_vars` does. It writes
 EXPORT/SKY/ and EXPORT/SUN/: the parameters and BatchNorm statistics, the
-optimizer moments (none for bfloat16 parameters, which the port does not
-train), the step, the epoch and Adam's count. Then, where the port runs:
+optimizer moments in their stored dtype (and, for bfloat16 parameters, the
+float32 master of the `MasterParamsState`), the step, the epoch and Adam's
+count. Then, where the port runs:
 
   python -m skyhdr_torch.cli.import_checkpoint --export EXPORT --workdir W \
       --imheight 64 --imwidth 256 --da-conv true
@@ -90,27 +91,33 @@ def export_state(kind: str, orbax_step: int, state, cfg):
     leaves = {}
     for name in names:
         leaves.update(flatten(getattr(state, name), name))
-    count = opt_dtype = None
-    if not bf16_params:  # the port resumes float32 parameters only
-        if kind == "gan":
-            nu_gen, nu_sun = _moments(state.opt_gen).nu
-            leaves.update(flatten(nu_gen, "opt_gen/nu/0"))
-            leaves.update(flatten(nu_sun, "opt_gen/nu/1"))
-            leaves.update(flatten(_moments(state.opt_disc).nu, "opt_disc/nu"))
-        else:
-            adam = _moments(state.opt)
-            leaves.update(flatten(adam.mu, "opt/mu"))
-            leaves.update(flatten(adam.nu, "opt/nu"))
-            count = int(adam.count)
-        opt_dtype = next(np.asarray(v).dtype.name for p, v in leaves.items()
-                         if p.startswith("opt"))
+    moments = {}
+    if kind == "gan":
+        nu_gen, nu_sun = _moments(state.opt_gen).nu
+        moments.update(flatten(nu_gen, "opt_gen/nu/0"))
+        moments.update(flatten(nu_sun, "opt_gen/nu/1"))
+        moments.update(flatten(_moments(state.opt_disc).nu, "opt_disc/nu"))
+        if bf16_params:
+            master_gen, master_sun = state.opt_gen.master
+            leaves.update(flatten(master_gen, "opt_gen/master/0"))
+            leaves.update(flatten(master_sun, "opt_gen/master/1"))
+            leaves.update(flatten(state.opt_disc.master, "opt_disc/master"))
+        count = None
+    else:
+        adam = _moments(state.opt)
+        moments.update(flatten(adam.mu, "opt/mu"))
+        moments.update(flatten(adam.nu, "opt/nu"))
+        if bf16_params:
+            leaves.update(flatten(state.opt.master, "opt/master"))
+        count = int(adam.count)
+    leaves.update(moments)
     m = cfg.model
     manifest = {"kind": kind, "orbax_step": int(orbax_step), "step": int(state.step),
                 "epoch": int(state.epoch), "count": count,
                 "param_dtype": "bfloat16" if bf16_params else "float32",
-                "opt_state_dtype": opt_dtype, "im_height": m.im_height,
-                "im_width": m.im_width, "use_da_conv": m.use_da_conv,
-                "da_kernel_size": m.da_kernel_size}
+                "opt_state_dtype": next(np.asarray(v).dtype.name for v in moments.values()),
+                "im_height": m.im_height, "im_width": m.im_width,
+                "use_da_conv": m.use_da_conv, "da_kernel_size": m.da_kernel_size}
     return manifest, leaves
 
 

@@ -24,18 +24,25 @@ seeded numpy inputs:
     optimizer moments drawn nonzero, a nonzero step and epoch, Adam's count
     > 0), fed the train golden's JAX-degraded inputs
       -> tests/fixtures/torch_golden_resume_16x64.npz
+  - the same resumed steps under the storage knobs (`KNOB_CONFIGS`: a
+    float32 control, bf16 moments, bf16 gradients, bf16 parameters with a
+    float32 master, all three), at float32 compute: metrics, update
+    digests, every stored leaf's dtype and seeded samples of the new
+    parameters, moments and master
+      -> tests/fixtures/torch_golden_train_knobs_16x64.npz
 
     python tools/make_torch_golden.py
 
 `tests/test_torch_slice.py`, `tests/test_torch_train.py`,
 `tests/test_torch_da_generic.py`, `tests/test_torch_convert.py` and
-`tests/test_torch_train_bf16.py`
+`tests/test_torch_train_bf16.py`, `tests/test_torch_train_knobs.py`
 regenerate them and check them against the files; `chip_smoke.py` holds the
 port's CUDA run to them.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import os
 import sys
 
@@ -51,6 +58,20 @@ DA5_TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
 RESUME_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_golden_resume_16x64.npz")
 BF16_TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                                   "torch_golden_train_bf16_16x64.npz")
+KNOBS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_golden_train_knobs_16x64.npz")
+# The knob golden's configurations: (opt_state_dtype, grad_dtype, param_dtype).
+KNOB_CONFIGS = {"f32": ("float32", "float32", "float32"),
+                "opt": ("bfloat16", "float32", "float32"),
+                "grad": ("float32", "bfloat16", "float32"),
+                "param": ("float32", "float32", "bfloat16"),
+                "all": ("bfloat16", "bfloat16", "bfloat16")}
+# Elements sampled a leaf (fewer in a smaller leaf).
+KNOB_SAMPLES = 32
+# The knob golden's float32 samples, from the port's own gap on the float32
+# control (the resume golden's states) on the CPU, times 4: a parameter or
+# master within 0.01 of its leaf's largest change in the step (measured
+# 0.0100, fused IN; 0.0015 unfused), a moment within 9.5e-4 of its value.
+KNOB_STEP_RTOL, KNOB_MOMENT_RTOL = 0.04, 4e-3
 H, W, BATCH = 16, 64, 2
 # (step, epoch) of the resumed checkpoints; Adam's count is the SUN step.
 RESUME_COUNTERS = {"SKY": (12, 2), "SUN": (7, 1)}
@@ -548,6 +569,307 @@ def make_resume_golden(seed: int = 0, states=None) -> dict:
     return out
 
 
+def knob_config(name: str, fused_instance_norm: bool = False):
+    """The port's Config of one `KNOB_CONFIGS` entry: the train golden's
+    model at float32 compute, the knobs in its TrainConfig."""
+    import dataclasses
+
+    opt, grad, param = KNOB_CONFIGS[name]
+    cfg = golden_config()
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, fused_instance_norm=fused_instance_norm),
+        train=dataclasses.replace(cfg.train, opt_state_dtype=opt, grad_dtype=grad,
+                                  param_dtype=param))
+
+
+def _master_path(kind: str, path: str) -> str:
+    """The export path of the master of the parameter at `path`."""
+    module, rest = path.split("/params/", 1)
+    if kind == "sun":
+        return f"opt/master/{rest}"
+    return {"gen_vars": "opt_gen/master/0", "sun_vars": "opt_gen/master/1",
+            "disc_vars": "opt_disc/master"}[module] + "/" + rest
+
+
+def knob_export(export, opt_state_dtype: str, param_dtype: str):
+    """One (manifest, leaves) of `resume_export` as `jax_state(export,
+    opt_state_dtype, param_dtype)` holds that state, in export form: the
+    moments rounded to bfloat16 under bfloat16 moments; under bfloat16
+    parameters the parameters rounded and their float32 values the master.
+    numpy and torch only (the card's machine has no JAX)."""
+    import torch
+
+    manifest, leaves = export
+    rnd = lambda v: torch.from_numpy(np.array(v, np.float32)).to(torch.bfloat16).float().numpy()
+    out = {}
+    for path, v in leaves.items():
+        if path.startswith("opt"):
+            out[path] = rnd(v) if opt_state_dtype == "bfloat16" else v
+        elif param_dtype == "bfloat16" and "/params/" in path:
+            out[path] = rnd(v)
+            out[_master_path(manifest["kind"], path)] = v
+        else:
+            out[path] = v
+    return dict(manifest, param_dtype=param_dtype, opt_state_dtype=opt_state_dtype), out
+
+
+def knob_samples(leaves: dict, dtypes: dict):
+    """(float32 samples, bfloat16 samples as their uint16 bits, layout) of
+    an export-form state (`leaves`: {path: array}, values exact in float32;
+    `dtypes`: {path: dtype name}): over every leaf but the BatchNorm
+    statistics, in path order, `KNOB_SAMPLES` elements each at positions
+    seeded by the path. `layout` lists (path, dtype, count) in that order."""
+    import zlib
+
+    f32, bf16, layout = [], [], []
+    for path in sorted(leaves):
+        if "/batch_stats/" in path:
+            continue
+        v = np.asarray(leaves[path], np.float32).ravel()
+        rng = np.random.default_rng(zlib.crc32(path.encode()))
+        idx = np.sort(rng.choice(v.size, min(KNOB_SAMPLES, v.size), replace=False))
+        if dtypes[path] == "bfloat16":
+            bf16.append((v[idx].view(np.uint32) >> 16).astype(np.uint16))
+        else:
+            f32.append(v[idx])
+        layout.append((path, dtypes[path], idx.size))
+    cat = lambda xs, dt: np.concatenate(xs) if xs else np.zeros(0, dt)
+    return cat(f32, np.float32), cat(bf16, np.uint16), layout
+
+
+def _digest_path(kind: str, path: str):
+    """The `update_digests` path ("gen/...", or the bare path of the sun
+    state) of the parameter an export path's parameter or master belongs
+    to; None for a moment."""
+    parts = path.split("/")
+    if parts[1] == "params":
+        module, rest = parts[0][:-len("_vars")], parts[2:]
+    elif parts[1] == "master":
+        if kind == "sun":
+            return "/".join(parts[2:])
+        module = {"opt_gen": ("gen", "sun")[int(parts[2]) if parts[0] == "opt_gen" else 0],
+                  "opt_disc": "disc"}[parts[0]]
+        rest = parts[3:] if parts[0] == "opt_gen" else parts[2:]
+    else:
+        return None
+    return "/".join(rest) if kind == "sun" else "/".join([module, *rest])
+
+
+def _dtype_entries(prefix: str, dtypes: dict) -> dict:
+    return {f"{prefix}_leaf_paths": np.array(sorted(dtypes)),
+            f"{prefix}_leaf_dtypes": np.array([dtypes[p] for p in sorted(dtypes)])}
+
+
+def make_train_golden_knobs(seed: int = 0) -> dict:
+    """`skyhdr`'s resumed GAN step and sun step (`make_resume_golden`'s, on
+    its batch, key and JAX-degraded inputs) from `jax_state(resume_export
+    (seed)[...], opt_state_dtype, param_dtype)` under each `KNOB_CONFIGS`
+    entry, at float32 compute on the XLA path. Per configuration c:
+    c_{gan,sun}_metrics, c_{gan,sun}_param_digests (the stored parameters'
+    update, as `update_digests`), c_gan_stat_digests, c_gan_stat_abs,
+    c_{gan,sun}_leaf_paths / _leaf_dtypes (every leaf of the new state in
+    export form, with its dtype) and c_{gan,sun}_samples_f32 /
+    _samples_bf16 (`knob_samples`)."""
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_platforms", "cpu")
+    from skyhdr.config import Config, DataConfig, ModelConfig, TrainConfig
+    from skyhdr.data.degradation import make_banks
+    from skyhdr.models.vgg16 import random_vgg16_weights
+    from skyhdr.train import engine
+    from skyhdr.utils.io import get_exposure_lists, make_synthetic_dorf
+
+    spec = importlib.util.spec_from_file_location(
+        "export_jax_checkpoint", os.path.join(ROOT, "tools", "export_jax_checkpoint.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+
+    export = resume_export(seed)
+    resume = np.load(RESUME_FIXTURE)
+    banks = make_banks(make_synthetic_dorf(175, 1024), get_exposure_lists()[0])
+    hdr, elevation = train_batch(seed)
+    batch = {"hdr": jnp.asarray(hdr), "elevation": jnp.asarray(elevation)}
+    key = jax.random.PRNGKey(seed + 1)
+    vgg = random_vgg16_weights()
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)
+    out = {"seed": np.int64(seed), "export_digest": np.float64(export_digest(export)),
+           **{k: resume[k] for k in ("gan_metric_names", "sun_metric_names",
+                                     "gan_param_paths", "sun_param_paths", "gan_stat_paths")}}
+    for c, (opt, grad, param) in KNOB_CONFIGS.items():
+        cfg = Config(model=ModelConfig(**vars(golden_config().model)),
+                     data=DataConfig(batch_size=BATCH),
+                     train=TrainConfig(opt_state_dtype=opt, grad_dtype=grad, param_dtype=param))
+        state, sun_state = jax_state(export["SKY"], opt, param), jax_state(export["SUN"], opt, param)
+        new, metrics = jax.jit(engine.make_gan_train_step(cfg, banks, vgg, jit=False))(
+            state, batch, key)
+        new_sun, sun_metrics = jax.jit(engine.make_sun_train_step(cfg, banks, jit=False))(
+            sun_state, batch, key)
+        out.update(_metric_entries(c + "_gan", metrics))
+        out.update(_metric_entries(c + "_sun", sun_metrics))
+        del out[f"{c}_gan_metric_names"], out[f"{c}_sun_metric_names"]
+        old = {"gen": state.gen_vars["params"], "sun": state.sun_vars["params"],
+               "disc": state.disc_vars["params"]}
+        params = {"gen": new.gen_vars["params"], "sun": new.sun_vars["params"],
+                  "disc": new.disc_vars["params"]}
+        _, out[f"{c}_gan_param_digests"] = update_digests(to_np(params), to_np(old))
+        _, out[f"{c}_sun_param_digests"] = update_digests(
+            to_np(new_sun.sun_vars["params"]), to_np(sun_state.sun_vars["params"]))
+        stats = {"gen": to_np(new.gen_vars["batch_stats"]),
+                 "disc": to_np(new.disc_vars["batch_stats"])}
+        _, out[f"{c}_gan_stat_digests"] = stat_digests(stats)
+        out[f"{c}_gan_stat_abs"] = stat_abs_sums(stats)
+        for kind, st in (("gan", new), ("sun", new_sun)):
+            _, leaves = tool.export_state(kind, 0, to_np(st), cfg)
+            dtypes = {p: np.asarray(v).dtype.name for p, v in leaves.items()}
+            out.update(_dtype_entries(f"{c}_{kind}", dtypes))
+            out[f"{c}_{kind}_samples_f32"], out[f"{c}_{kind}_samples_bf16"], _ = knob_samples(
+                {p: np.asarray(v, np.float32) for p, v in leaves.items()}, dtypes)
+    return out
+
+
+def port_knob_steps(name: str, device, fused_instance_norm: bool = False, seed: int = 0,
+                    fault=None, states=None) -> dict:
+    """The port's side of the knob golden for `KNOB_CONFIGS[name]`: the
+    states of `knob_export(resume_export(seed)[...])` imported by
+    `convert.state_from_export` (or `states`, (GanState, SunState) of that
+    configuration), `fault(gan, sun)` applied if given, then
+    `port_steps` on the resume golden's inputs, and the new states' leaf
+    dtypes and samples (the fixture's keys without the configuration's
+    prefix); "states" holds (GanState, SunState)."""
+    from skyhdr_torch.train.convert import export_from_state, leaf_dtypes, state_from_export
+
+    opt, _, param = KNOB_CONFIGS[name]
+    cfg = knob_config(name, fused_instance_norm)
+    if states is None:
+        export = resume_export(seed)
+        states = [state_from_export(knob_export(export[n], opt, param), cfg, device)
+                  for n in ("SKY", "SUN")]
+    gan, sun = states
+    if fault is not None:
+        fault(gan, sun)
+    old = {kind: export_from_state(state)[1] for kind, state in (("gan", gan), ("sun", sun))}
+    out = port_steps(np.load(RESUME_FIXTURE), cfg, gan, sun, device)
+    for kind, state in (("gan", gan), ("sun", sun)):
+        dtypes = leaf_dtypes(state)
+        out.update(_dtype_entries(kind, dtypes))
+        out[f"{kind}_samples_f32"], out[f"{kind}_samples_bf16"], out[f"{kind}_layout"] = (
+            knob_samples(export_from_state(state)[1], dtypes))
+        out[f"{kind}_old_samples_f32"], out[f"{kind}_old_samples_bf16"], _ = knob_samples(
+            old[kind], dtypes)
+    out["states"] = (gan, sun)
+    return out
+
+
+def _bf16_order(bits: np.ndarray) -> np.ndarray:
+    """bfloat16 bit patterns as integers in the order of their values (the
+    difference of two is their distance in ulps; -0 and +0 are both 0)."""
+    bits = bits.astype(np.int64)
+    return np.where(bits & 0x8000, -(bits & 0x7FFF), bits & 0x7FFF)
+
+
+def compare_knobs_golden(stored, port, name: str, step_rtol: float = KNOB_STEP_RTOL,
+                         moment_rtol: float = KNOB_MOMENT_RTOL, equal_share: float = 0.99):
+    """Failures (a list of strings) of `port_knob_steps(name)` against the
+    fixture, and the worst gaps:
+      - metrics within 1e-3, the stored parameters' update digests within
+        2e-2 and the BatchNorm sums within 1e-4 (`compare_train_golden`,
+        with the resume golden's gradient maxima for its zero-gradient
+        leaves);
+      - every stored leaf's dtype exactly `skyhdr`'s;
+      - the port's bfloat16 parameters its master rounded, bit for bit;
+      - the bfloat16 samples bit-equal to `skyhdr`'s on at least
+        `equal_share` of the elements and within one bfloat16 ulp on all, or, for a
+        parameter, within the float32 bound below where that is wider (a
+        bias that starts at 0 holds only its step, whose float32 gap a
+        bfloat16 ulp near 0 resolves);
+      - the float32 samples: a parameter or master within `step_rtol` of
+        its leaf's largest change in the step (among the samples; a value
+        that starts at 0 is all change, so a relative bound on it would
+        weigh the gradient's own rounding); a moment within `moment_rtol`
+        of its value, plus, where the gradients are bfloat16, 2^-6 of the
+        step's term new - decay * old (a gradient on either side of a
+        bfloat16 rounding moves g^2 by up to 2^-7; optax run eagerly rounds
+        g^2, (1 - decay) g^2 and (1 - b1) g in bfloat16, as the port does,
+        while jitted XLA:CPU keeps the products in float32).
+    The parameters and masters of the leaves whose gradient is zero in
+    exact arithmetic hold float noise in both packages and are held only
+    by the update digests' bound."""
+    resume = np.load(RESUME_FIXTURE)
+    view = {k: resume[k] for k in ("gan_metric_names", "sun_metric_names", "gan_param_paths",
+                                   "sun_param_paths", "gan_stat_paths", "gan_param_gmax",
+                                   "sun_param_gmax")}
+    view.update({k: stored[f"{name}_{k}"] for k in (
+        "gan_metrics", "sun_metrics", "gan_param_digests", "sun_param_digests",
+        "gan_stat_digests", "gan_stat_abs")})
+    fails, worst = compare_train_golden(view, port, 1e-3, 2e-2)
+    _, grad, param = KNOB_CONFIGS[name]
+    bf16_grads = "bfloat16" in (grad, param)
+    for kind in ("gan", "sun"):
+        want = dict(zip(stored[f"{name}_{kind}_leaf_paths"], stored[f"{name}_{kind}_leaf_dtypes"]))
+        got = dict(zip(port[f"{kind}_leaf_paths"], port[f"{kind}_leaf_dtypes"]))
+        if got != want:
+            diff = sorted(p for p in set(got) | set(want) if got.get(p) != want.get(p))
+            fails.append(f"{kind} dtypes: {len(diff)} leaves differ, e.g. "
+                         f"{[(p, got.get(p), want.get(p)) for p in diff[:3]]}")
+            continue
+        gmax = view[f"{kind}_param_gmax"]
+        noise = set(np.asarray(view[f"{kind}_param_paths"])[gmax <= 1e-5 * gmax.max()])
+        bits = [port[f"{kind}_samples_bf16"], stored[f"{name}_{kind}_samples_bf16"],
+                port[f"{kind}_old_samples_bf16"]]
+        ulps = np.abs(_bf16_order(bits[0]) - _bf16_order(bits[1]))
+        values = {"bfloat16": [(v.astype(np.uint32) << 16).view(np.float32).astype(np.float64)
+                               for v in bits],
+                  "float32": [port[f"{kind}_samples_f32"].astype(np.float64),
+                              stored[f"{name}_{kind}_samples_f32"].astype(np.float64),
+                              port[f"{kind}_old_samples_f32"].astype(np.float64)]}
+        at = {"bfloat16": 0, "float32": 0}
+        gaps = {"param": [0.0], "moment": [0.0]}
+        equal16, ok16 = [], []
+        for path, dtype, n in port[f"{kind}_layout"]:
+            sl = slice(at[dtype], at[dtype] + n)
+            at[dtype] += n
+            if _digest_path(kind, path) in noise:
+                continue
+            x, y, o = (v[sl] for v in values[dtype])
+            if "/params/" in path or "/master/" in path:
+                what = "param"
+                scale = max(float(np.abs(y - o).max()), 1e-30)
+                ratio = np.abs(x - y) / (step_rtol * scale)
+            else:
+                what = "moment"
+                decay = 0.999 if kind == "sun" and "/nu/" in path else 0.9
+                slack = 2.0 ** -6 * np.abs(y - decay * o) if bf16_grads else 0.0
+                ratio = np.maximum(np.abs(x - y) - slack, 0.0) / np.maximum(
+                    moment_rtol * np.abs(y), 1e-30)
+            if dtype == "bfloat16":
+                equal16.append(ulps[sl])
+                ok16.append((ulps[sl] <= 1) | (ratio <= 1.0))
+            else:
+                gaps[what].append(float(ratio.max()))
+        worst[f"{kind}_param_share_of_tol"] = max(gaps["param"])
+        worst[f"{kind}_moment_share_of_tol"] = max(gaps["moment"])
+        for what, g in gaps.items():
+            if not max(g) <= 1.0:
+                fails.append(f"{kind} float32 {what} samples: {max(g):.3g} of the tolerance")
+        if equal16:
+            kept, ok16 = np.concatenate(equal16), np.concatenate(ok16)
+            share = float((kept == 0).mean())
+            worst[f"{kind}_bf16_equal_share"] = share
+            worst[f"{kind}_bf16_max_ulps"] = int(kept.max())
+            if share < equal_share or not ok16.all():
+                fails.append(f"{kind} bfloat16 samples: {share:.4f} bit-equal, "
+                             f"{int((~ok16).sum())} beyond one ulp and the float32 bound")
+    import torch
+
+    for state in port["states"]:
+        for opt in state.optimizers().values():
+            if opt.master is not None and not all(
+                    torch.equal(p, m.to(p.dtype)) for p, m in zip(opt.params, opt.master)):
+                fails.append(f"{state.kind} parameters are not their master rounded")
+    return fails, worst
+
+
 def port_train_golden(stored, device, fused_instance_norm: bool = False,
                       da_kernel_size: int = 3) -> dict:
     """The port's GAN step and sun step from the same seeded weights on the
@@ -870,7 +1192,8 @@ def main():
                        (DA5_FIXTURE, lambda: make_golden(0, da_kernel_size=5)),
                        (DA5_TRAIN_FIXTURE, lambda: make_train_golden(0, da_kernel_size=5)),
                        (RESUME_FIXTURE, lambda: make_resume_golden(0)),
-                       (BF16_TRAIN_FIXTURE, lambda: make_train_golden_bf16(0))):
+                       (BF16_TRAIN_FIXTURE, lambda: make_train_golden_bf16(0)),
+                       (KNOBS_FIXTURE, lambda: make_train_golden_knobs(0))):
         np.savez_compressed(path, **make())
         print(f"wrote {path} ({os.path.getsize(path)} bytes)")
 
