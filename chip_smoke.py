@@ -60,7 +60,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     float32 master, all three), unfused and fused, against
                     torch_golden_train_knobs_16x64.npz: metrics, update
                     digests, every leaf's dtype, parameters equal to their
-                    master rounded, bf16 samples bit-equal on >= 99%.
+                    master rounded, bf16 samples bit-equal on >= 99%. Then
+                    the plain-conv goldens (`skyhdr`'s default convs): one
+                    GAN step and one sun step at 16x64 b2 in f32 against
+                    torch_golden_train_plain_16x64.npz, unfused and fused
+                    (the DA goldens' tolerances), and under bf16 compute
+                    the eval steps and the train steps against
+                    torch_golden_train_plain_bf16_16x64.npz, each quantity
+                    reported against the card's bounds (out of resolution
+                    there: the nets amplify one-ulp differences), and the
+                    bf16 layers (generator, sun-pose net, SunRadNet, VGG16)
+                    each within one ulp of the CPU port; no DA kernel.
   6. serving      — the inference CLI at 64x256 b32 (40 PNGs, 2 dispatches,
                     the second padded) and at 32x128 b1 (4 PNGs); every .hdr
                     read back finite; 20 K1 + 4 K2 launches per DA dispatch;
@@ -166,7 +176,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     deterministic algorithms; a SUN checkpoint with
                     bfloat16 moments imported and resumed the same way.
                     Export, import and read-back seconds and GB/s.
-  12. probes     — the DA-conv probe tools (skyhdr_torch/tools/) and their
+  12. parallel   — data parallelism (`skyhdr_torch.parallel`): the seeded
+                    DA 32x128 state drawn once and written for the ranks;
+                    two gloo ranks on the one card, 16 samples each, one GAN
+                    step and one sun step of `make_parallel_*_train_step`
+                    against the single-process b32 steps from the same
+                    weights and generator seed (the train golden's
+                    tolerances), K1-K3 counted on each rank (20/24/20 a GAN
+                    step, 4/4/4 a sun step), the ranks bit-equal after;
+                    each rank's step ms, the gloo collectives' share of it
+                    and its peak memory; then NCCL at world size 1 under
+                    deterministic algorithms, its steps bit-equal to the
+                    single-process steps. A failed or hung rank fails it.
+  13. probes     — the DA-conv probe tools (skyhdr_torch/tools/) and their
                     kernels, at the tools' default shape x (32,64,256,64) ->
                     F 64 and at the serving trunk layer (32,16,64,128) ->
                     128: every K10 instantiation against its plain version
@@ -214,7 +236,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 ITERS, WARMUP = 20, 3
 STEP_ITERS = 5
 PHASES = ("kernels", "golden", "train_golden", "serving", "training", "timing",
-          "train_cli", "cli", "convert", "probes")
+          "train_cli", "cli", "convert", "parallel", "probes")
 # (name, x shape at 32x128 [h, w, c], F, layers of that shape, in the
 # sun-pose net: Grad-CAM's pull differentiates through it)
 DA_LAYERS = [
@@ -761,6 +783,96 @@ def phase_train_golden(dc, report):
         report[key] = worst
     train_golden_bf16(dc, mod, report)
     train_golden_knobs(dc, mod, report)
+    train_golden_plain(dc, mod, report)
+
+
+def train_golden_plain(dc, mod, report):
+    """The plain-conv train goldens (`use_da_conv=False`, `skyhdr`'s
+    default): one GAN step and one sun step at 16x64 b2 from the seeded
+    weights on the fixtures' JAX-degraded inputs, in float32 against
+    tests/fixtures/torch_golden_train_plain_16x64.npz (unfused and fused
+    IN, the DA goldens' tolerances), and under compute_dtype=bfloat16 the
+    eval steps and the train steps against
+    torch_golden_train_plain_bf16_16x64.npz (`compare_train_golden_bf16`
+    with resolved=False, the GAN-step quantities at their class bound,
+    `PLAIN_BF16_AMPLIFIED`), reported: on the card they are out of the
+    golden's resolution; the gate is `bf16_layers` with plain convs, every
+    bf16 layer within one ulp of the CPU port. Every quantity's gap and
+    the layer rows go to chiprun_out/plain_bf16_golden.json. No DA kernel
+    runs; K8/K9 under fused IN."""
+    from skyhdr_torch.utils.transplant import init_gan_vars, tree_digest
+
+    stored = np.load(mod.PLAIN_TRAIN_FIXTURE)
+    gv, sv, dv = init_gan_vars(mod.golden_config(use_da_conv=False), int(stored["seed"]))
+    digest = tree_digest({"gen": gv, "sun": sv, "disc": dv})
+    check(abs(digest - float(stored["weights_digest"])) <= 1e-9 * digest,
+          f"seeded plain GAN weights differ from the fixture's ({digest} vs "
+          f"{float(stored['weights_digest'])})")
+    for fuse in (False, True):
+        name = "plain " + ("fused IN" if fuse else "unfused IN")
+        want = launches(**({k: FUSED_IN["gan"][k] + FUSED_IN["sun"][k] for k in ("K8", "K9")}
+                           if fuse else {}))
+        reset_counts(dc)
+        port = mod.port_train_golden(stored, "cuda", fused_instance_norm=fuse, use_da_conv=False)
+        launched = counts(dc)
+        fails, worst = mod.compare_train_golden(stored, port, GOLDEN_METRIC_RTOL,
+                                                GOLDEN_UPDATE_RTOL)
+        say("train_golden", f"16x64 b2 GAN step + sun step, {name}, vs JAX: worst relative "
+            f"{json.dumps(worst)} (metrics rtol {GOLDEN_METRIC_RTOL}, updates "
+            f"{GOLDEN_UPDATE_RTOL} of sum |update|, BN sums 1e-4); launches {launched}")
+        for line in fails:
+            say("train_golden", f"FAIL {name}: {line}")
+        check(not fails, f"train golden ({name}): {len(fails)} mismatches")
+        check(launched == want, f"train golden ({name}) launches {launched}, want {want}")
+        report[f"train_golden_plain{'_fused' if fuse else ''}_worst"] = worst
+    stored = np.load(mod.PLAIN_BF16_TRAIN_FIXTURE)
+    cfg = mod.bf16_config(use_da_conv=False)
+    state, sun_state = mod.bf16_states(stored, cfg, "cuda")
+    reset_counts(dc)
+    port = mod.port_eval_bf16(stored, cfg, state, sun_state, "cuda")
+    port.update(mod.port_steps(stored, cfg, state, sun_state, "cuda"))
+    launched = counts(dc)
+    # Reported, not gated: on the card every quantity is out of this
+    # golden's resolution (the sun-pose net amplifies the card's one-ulp
+    # layer differences, and the bf16 generator amplifies any);
+    # the card's gate is the layer check below, each bf16 layer within one
+    # ulp of the CPU port, which the CPU tests hold to `skyhdr` per quantity.
+    fails, worst = mod.compare_train_golden_bf16(stored, port, resolved=False,
+                                                 amplified=mod.PLAIN_BF16_AMPLIFIED)
+    cpu_fails, _ = mod.compare_train_golden_bf16(stored, port, amplified=mod.PLAIN_BF16_AMPLIFIED)
+    for kind in ("gan", "sun", "gan_eval", "sun_eval"):
+        for metric, a, b in zip(stored[f"{kind}_metric_names"], port[f"{kind}_metrics"],
+                                stored[f"{kind}_metrics"]):
+            say("train_golden", f"plain bf16 {kind} {metric}: card {a:.7g}, JAX {b:.7g} "
+                f"(relative {abs(a - b) / abs(b):.3e})")
+    say("train_golden", f"16x64 b2 plain bf16 eval steps + GAN step + sun step vs JAX: worst "
+        f"relative gap per class and as a share of its tolerance (each class's largest JAX "
+        f"gap, the GAN step's its own and perturbed gaps x{mod.PLAIN_BF16_SPREAD}), median "
+        f"gap / own gap of the sun steps {json.dumps(worst)}; {len(cpu_fails)} quantities "
+        f"outside the CPU's per-quantity tolerances: "
+        f"{[line.split(':')[0] for line in cpu_fails]}; launches {launched}")
+    for line in fails:
+        say("train_golden", f"plain bf16 outside the card bounds (reported): {line}")
+    report["train_golden_plain_bf16_worst"] = dict(worst, resolved_misses=len(cpu_fails),
+                                                   card_misses=len(fails))
+    report["train_golden_plain_bf16_gaps"] = mod.bf16_gaps(stored, port)
+    del state, sun_state
+    tables = bf16_layers(mod, stored, False, use_da_conv=False)
+    for net, rows in tables.items():
+        for row in rows:
+            if row[5] > 0:
+                say("train_golden", f"plain bf16 layers card vs CPU {net}.{row[0]} {row[1]} "
+                    f"({row[2]}, {row[4]} elements): share {row[5]:.3e}, gap {row[6]:.3e} "
+                    f"{row[3]}")
+        layer_rows = [r for r in rows if r[0] != "net"]
+        say("train_golden", f"plain bf16 layers card vs CPU {net}: {len(layer_rows)} tensors, "
+            f"{sum(r[5] > 0 for r in layer_rows)} differ; the whole run's loss "
+            f"{next(r[6] for r in rows if r[:2] == ('net', 'loss')):.3e} relative")
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "plain_bf16_golden.json"), "w") as f:
+        json.dump({"gaps": report["train_golden_plain_bf16_gaps"], "layers": tables}, f)
+    check_bf16_layers(tables, "plain bf16")
+    check(launched == launches(), f"train golden (plain bf16) launches {launched}")
 
 
 def train_golden_knobs(dc, mod, report):
@@ -965,11 +1077,11 @@ def layers_across_devices(nets, run):
     rows.append(("net", "loss", "float32/float32", "rel", 1, float(l1.cpu() != l0.cpu()),
                  abs(float(l1) - float(l0)) / abs(float(l0))))
     rows += [("net", f"d{n}", "float32/float32", *compare_layer_tensors(g0[n], g1[n]))
-             for n in g0]
+             for n in g0 if g0[n] is not None]
     return rows
 
 
-def bf16_layers(mod, stored, fuse, devices=("cpu", "cuda")):
+def bf16_layers(mod, stored, fuse, devices=("cpu", "cuda"), use_da_conv=True):
     """`layers_across_devices` for the layers that run in bf16 in the bf16
     train golden's steps (16x64 DA b2, its seeded weights, its degraded LDR
     input): the sun-pose net under the sun step's KL loss (sunlayer2-3 are
@@ -977,13 +1089,16 @@ def bf16_layers(mod, stored, fuse, devices=("cpu", "cuda")):
     on the CPU's Grad-CAM maps and sun-pose prediction, under the sum of
     the means of its three outputs, and VGG16's seven convs under the
     perceptual loss of the LDR input against the target clipped to [0, 1]
-    (`vgg_layers_across_devices`). {net: rows}."""
+    (`vgg_layers_across_devices`). With plain convs (`use_da_conv=False`,
+    the plain bf16 golden's) the sun-pose net has no DA conv, and the
+    generator's encoder and sky decoder, which then run in bf16, are held
+    too under the mean of the sky prediction. {net: rows}."""
     from skyhdr_torch.models.gradcam import sunpose_with_cams
     from skyhdr_torch.models.layers import compute_dtype
     from skyhdr_torch.ops.resize import resize_bilinear
     from skyhdr_torch.train.losses import kl_divergence
 
-    cfg = mod.bf16_config(fuse)
+    cfg = mod.bf16_config(fuse, use_da_conv)
     seed = int(stored["seed"])
     ports = [build_port(cfg, seed, dev) for dev in devices]
     x = torch.from_numpy(np.array(stored["ldr"]))
@@ -991,6 +1106,10 @@ def bf16_layers(mod, stored, fuse, devices=("cpu", "cuda")):
     out = {"sunpose": layers_across_devices(
         [sun.requires_grad_(True) for _, sun, _ in ports],
         lambda net, dev: kl_divergence(gt.to(dev), net(x.to(dev))[0]))}
+    if not use_da_conv:
+        out["generator"] = layers_across_devices(
+            [gen.requires_grad_(True) for gen, _, _ in ports],
+            lambda net, dev: net.sky_decode(net.encode(x.to(dev)), x.to(dev)).float().mean())
     # SunRadNet's inputs as `Generator.sun_rad_estimation` builds them.
     h, w = cfg.model.im_height, cfg.model.im_width
     sm, (cam1, cam2, cam3) = sunpose_with_cams(ports[0][1], x, compute_dtype(cfg.model))
@@ -1047,6 +1166,18 @@ def vgg_layers_across_devices(pred, target, devices):
     return rows
 
 
+def feeds_norm(layer):
+    """The InstanceNorm a conv layer's output goes into, by name
+    (`conv<s>` -> `norm<s>`, a resize-deconv's `conv<s>.conv` likewise), or
+    None."""
+    parts = layer.split(".")
+    if len(parts) > 1 and parts[-1] == "conv":
+        parts = parts[:-1]
+    if not parts[-1].startswith("conv"):
+        return None
+    return ".".join(parts[:-1] + ["norm" + parts[-1][4:]])
+
+
 def check_bf16_layers(tables, tag):
     """Every layer row of `bf16_layers` (not the "net" rows, which show how
     far one device's one-ulp differences carry and are reported only): the
@@ -1054,6 +1185,8 @@ def check_bf16_layers(tables, tag):
     eighth of the elements (or one element: a float32 sum on the other
     side of a rounding boundary); other values (float32 sums of bf16
     products, summed in other orders) within 1e-4 of the largest |value|.
+    A conv's bias gradient where the conv feeds an InstanceNorm is skipped
+    (exactly zero: float noise on both devices).
     SunRadNet's BatchNorms' bf16 numbers are held to the share alone: in
     training mode they normalise by the variance of 2x(2x8 .. 4x16)
     values, E[x^2] - E[x]^2 in float32 (as `skyhdr`), whose cancellation
@@ -1062,9 +1195,10 @@ def check_bf16_layers(tables, tag):
     where the other rounds it to bf16 differs in a large share of its
     elements."""
     for net, rows in tables.items():
+        layers = {row[0] for row in rows}
         for layer, tensor, dtypes, measure, n, share, gap in rows:
-            if layer == "net":
-                continue
+            if layer == "net" or (tensor == "dbias" and feeds_norm(layer) in layers):
+                continue  # an InstanceNorm cancels the bias: its gradient is float noise
             d0, d1 = dtypes.split("/")
             few = share <= max(0.125, 1.0 / n)
             if measure == "rel":
@@ -2725,6 +2859,128 @@ def phase_convert(dc, smi, report):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# The parallel phase: DA 32x128, full widths, a global batch of 32.
+DP_H, DP_W, DP_BATCH = 32, 128, 32
+
+
+def single_step_ms(mod, spec, trees):
+    """{"gan", "sun"}: the single-process step's ms on the parallel phase's
+    global batch (CUDA events, median of STEP_ITERS after 1 warm-up)."""
+    from skyhdr_torch.train.engine import make_gan_train_step, make_sun_train_step
+
+    cfg = mod.dp_config({}, spec["h"], spec["w"], spec["batch"])
+    banks, vgg, host = mod._dp_setup(spec)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    gan, sun = mod._dp_states(cfg, trees, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(spec["seed"] + 2)
+    out = {}
+    for kind, step, state in (("gan", make_gan_train_step(cfg, banks, vgg), gan),
+                              ("sun", make_sun_train_step(cfg, banks), sun)):
+        out[kind] = statistics.median(time_ms(lambda: step(state, batch, gen),
+                                              iters=STEP_ITERS, warmup=1))
+    return out
+
+
+def phase_parallel(dc, smi, report):
+    """Data parallelism on the card (`skyhdr_torch.parallel.dp`). The
+    seeded state is drawn once here and written to the run's temporary
+    directory; each rank process loads it.
+      - Two gloo ranks on the one H100 (NCCL refuses two ranks on one
+        device), 16 samples each: one GAN step and one sun step of
+        `make_parallel_*_train_step` against the single-process b32 steps
+        from the same weights and generator seed, run here first
+        (`compare_train_golden`'s tolerances: the card's default mode is
+        not bitwise repeatable), K1-K3 counted on each rank, every rank
+        bit-equal after the steps; then each step timed on each rank (the
+        two ranks share the card), the gloo collectives' share of it and
+        the peak memory.
+      - NCCL at world size 1 under deterministic algorithms: the DP steps
+        bit-equal to the single-process steps in the same process.
+    A rank that fails, or outlives its limit, fails the run."""
+    import pickle
+
+    from skyhdr_torch.utils.transplant import init_gan_vars
+
+    mod = golden_tool()
+    work = tempfile.mkdtemp(prefix="skyhdr_dp_")
+    out = report["parallel"] = {"device": smi}
+    try:
+        t0 = time.perf_counter()
+        spec = {"device": "cuda", "h": DP_H, "w": DP_W, "batch": DP_BATCH, "seed": 0,
+                "weights": os.path.join(work, "weights.pkl"), "threads": 4}
+        trees = init_gan_vars(mod.dp_config({}, DP_H, DP_W, DP_BATCH), 0)
+        with open(spec["weights"], "wb") as f:
+            pickle.dump(trees, f, protocol=pickle.HIGHEST_PROTOCOL)
+        say("parallel", f"DA {DP_H}x{DP_W}: seeded weights drawn and written once in "
+            f"{time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        reset_counts(dc)
+        ref = mod.dp_reference(spec, {}, trees)
+        say("parallel", f"single-process b{DP_BATCH} GAN step + sun step in "
+            f"{time.perf_counter() - t0:.3f} s (launches {counts(dc)})")
+        out["single_ms"] = single_step_ms(mod, spec, trees)
+        say("parallel", f"single-process b{DP_BATCH} steps, for scale: GAN "
+            f"{out['single_ms']['gan']:.3f} ms, sun {out['single_ms']['sun']:.3f} ms (CUDA "
+            f"events, median of {STEP_ITERS} after 1 warm-up); on {smi}")
+        free_cuda()
+        for world, backend, case, extra in (
+                (2, "gloo", "gloo2", {"timing": STEP_ITERS}),
+                (1, "nccl", "nccl1", {"deterministic": True, "single": True})):
+            t0 = time.perf_counter()
+            cwork = os.path.join(work, case)
+            os.makedirs(cwork)
+            results = mod.run_dp_ranks(dict(spec, world=world, backend=backend,
+                                            cases=[{"name": case, "path": "batch"}], **extra),
+                                       cwork, timeout_s=300)
+            say("parallel", f"{world} {backend} rank(s): run in "
+                f"{time.perf_counter() - t0:.3f} s wall")
+            per_rank = [r[case] for r in results]
+            got = per_rank[0]
+            for rank, r in enumerate(per_rank):
+                want = {"gan": {k: GAN_LAUNCHES[k] for k in ("K1", "K2", "K3")},
+                        "sun": {k: SUN_LAUNCHES[k] for k in ("K1", "K2", "K3")}}
+                say("parallel", f"{case} rank {rank}: launches {r['launches']} (want {want}); "
+                    f"states bit-equal across ranks: {r['agree']}")
+                check(r["launches"] == want, f"{case} rank {rank} launches {r['launches']}")
+                check(r["agree"], f"{case}: the ranks' states differ after the steps")
+            if case == "gloo2":
+                fails, worst = mod.compare_dp_steps(ref, got, mod.DP_RTOL["golden"])
+                for kind in ("gan", "sun"):
+                    for name, a, b in zip(ref[f"{kind}_metric_names"], got[f"{kind}_metrics"],
+                                          ref[f"{kind}_metrics"]):
+                        say("parallel", f"{case} {kind} {name}: 2 ranks {a:.7g}, single "
+                            f"process {b:.7g}")
+                say("parallel", f"{case}: DA {DP_H}x{DP_W} b{DP_BATCH} (16 a rank) GAN step + "
+                    f"sun step vs the single-process step: worst relative {json.dumps(worst)} "
+                    f"(metrics {GOLDEN_METRIC_RTOL}, updates {GOLDEN_UPDATE_RTOL}, BN sums "
+                    f"1e-4)")
+                for line in fails:
+                    say("parallel", f"FAIL {case}: {line}")
+                check(not fails, f"{case} vs the single-process step: {len(fails)} mismatches")
+                for rank, r in enumerate(per_rank):
+                    for kind in ("gan", "sun"):
+                        say("parallel", f"{case} rank {rank} {kind} step: "
+                            f"{r[f'{kind}_ms']:.3f} ms (median of {STEP_ITERS}, host clock, "
+                            f"both ranks stepping on the one card; all "
+                            f"{[round(t, 3) for t in r[f'{kind}_ms_all']]}), gloo "
+                            f"collectives {r[f'{kind}_comm_ms']:.3f} ms = "
+                            f"{100 * r[f'{kind}_comm_share']:.2f}% of a step timed with "
+                            f"each collective after the queued work, peak "
+                            f"{r[f'{kind}_peak_gib']:.3f} GiB; on {smi}")
+                out[case] = {"worst": worst, "ranks": [
+                    {k: r[k] for k in r if k.endswith(("_ms", "_ms_all", "_share", "_gib"))
+                     or k == "launches"} for r in per_rank]}
+            else:
+                say("parallel", f"{case}: NCCL at world size 1, deterministic algorithms: DP "
+                    f"steps bit-equal to the single-process steps in the same process: "
+                    f"{got['single_equal']}")
+                check(got["single_equal"], "nccl1: the DP steps differ from the single-process "
+                      "steps")
+                out[case] = {"single_equal": got["single_equal"], "launches": got["launches"]}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def probe_bound(n, c, f, x_bytes, mma, summing, k_bytes=4):
     """(ms, "bytes" or "operations") of one DA probe call over n = b*h*w
     output pixels: operations 2*n*9*c*f (the products; the sum modes n*9*c
@@ -3139,6 +3395,7 @@ def main(argv=None):
     timed("train_cli", phase_train_cli, dc, smi, report)
     timed("cli", phase_cli, dc, smi, report)
     timed("convert", phase_convert, dc, smi, report)
+    timed("parallel", phase_parallel, dc, smi, report)
     probes = timed("probes", phase_probes, dc, smi, report)
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

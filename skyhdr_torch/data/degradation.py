@@ -79,11 +79,19 @@ def draw_degradation(generator: torch.Generator, shape, banks: DegradationBanks)
     return Draws(t_idx, u_s, u_c, z_s, z_c, crf_idx)
 
 
+def shard_rows(draws: Draws, index: int, count: int) -> Draws:
+    """Shard `index` of `count` equal shards of a batch's draws."""
+    b = draws.t_idx.shape[0] // count
+    return Draws(*(t[index * b:(index + 1) * b] for t in draws))
+
+
 def degrade_with(hdr, banks: DegradationBanks, draws: Draws, *,
                  jpeg_lo: float = 90.0, jpeg_hi: float = 100.0,
                  sigma_s_scale: float = 0.08 / 6.0, sigma_c_scale: float = 0.005,
-                 chroma_subsample: bool = True):
-    """hdr [b, h, w, 3] -> (hdr_t, ldr) with the given draws."""
+                 chroma_subsample: bool = True, shard=(0, 1)):
+    """hdr [b, h, w, 3] -> (hdr_t, ldr) with the given draws. `shard`
+    (index, count): the samples are shard `index` of a batch `count` times
+    b, whose JPEG quality ramp they take their rows of."""
     b = hdr.shape[0]
     hdr_t = hdr * banks.exposures[draws.t_idx].reshape(b, 1, 1, 1)
     noise_s = draws.z_s * (sigma_s_scale * draws.u_s * hdr_t)
@@ -94,11 +102,19 @@ def degrade_with(hdr, banks: DegradationBanks, draws: Draws, *,
         ldr = apply_rf_chebyshev(clipped, banks.crf_coeffs[draws.crf_idx])
     else:
         ldr = apply_rf(clipped, banks.crfs[draws.crf_idx])
-    quality = jpeg_quality_ramp(b, jpeg_lo, jpeg_hi, hdr.device)
+    index, count = shard
+    quality = jpeg_quality_ramp(b * count, jpeg_lo, jpeg_hi, hdr.device)[index * b:(index + 1) * b]
     return hdr_t, jpeg_simulate(ldr, quality, chroma_subsample=chroma_subsample)
 
 
-def degrade_batch(generator: torch.Generator, hdr, banks: DegradationBanks, **kw):
+def degrade_batch(generator: torch.Generator, hdr, banks: DegradationBanks,
+                  shard=(0, 1), **kw):
     """Draw, then degrade: `skyhdr.data.degradation.degrade_batch` with a
-    torch.Generator in place of the key."""
-    return degrade_with(hdr, banks, draw_degradation(generator, hdr.shape, banks), **kw)
+    torch.Generator in place of the key. `shard` (index, count): `hdr` is
+    shard `index` of a batch `count` times its size (a data-parallel
+    rank's); the draws and the JPEG quality ramp are the whole batch's, of
+    which the shard takes its rows, so that each sample degrades as it
+    would in the whole batch."""
+    index, count = shard
+    draws = draw_degradation(generator, (hdr.shape[0] * count, *hdr.shape[1:]), banks)
+    return degrade_with(hdr, banks, shard_rows(draws, index, count), shard=shard, **kw)

@@ -9,7 +9,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from skyhdr_torch.models.layers import (Conv2D, InstanceNorm, ResizeDeconv,
+from skyhdr_torch.models.layers import (Conv2D, InstanceNorm, ResizeDeconv, batch_max,
                                         compute_dtype, leaky_relu_01)
 from skyhdr_torch.models.sunrad import SunRadNet
 from skyhdr_torch.ops.distortion import DAConv, DADeconv
@@ -118,10 +118,12 @@ class Generator(nn.Module):
                            sunpose_pred, train: bool = False):
         """Dirac-delta sun radiance from LDR + CAM attention. The PDF is
         normalised by its maximum over the whole batch, as in the JAX
-        model, so batch members are coupled. `train`: SunRadNet's BatchNorm
-        in training mode (its running buffers refreshed in place)."""
+        model, so batch members are coupled (across the ranks of a
+        data-parallel step, `layers.batch_max`). `train`: SunRadNet's
+        BatchNorm in training mode (its running buffers refreshed in
+        place)."""
         h, w = self.cfg.im_height, self.cfg.im_width
-        normed = sunpose_pred / torch.max(sunpose_pred)
+        normed = sunpose_pred / batch_max(sunpose_pred)
         cam2 = resize_bilinear(sun_cam2, (h, w))
         cam3 = resize_bilinear(sun_cam3, (h, w))
         feats = torch.cat([ldr, sun_cam1, cam2, cam3], dim=-1)

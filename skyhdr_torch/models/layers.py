@@ -10,6 +10,7 @@ explicit `dtype` casts operands and weights to it, None promotes them.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
@@ -19,6 +20,32 @@ from torch import nn
 
 from skyhdr_torch.ops.kernels.instnorm import instance_norm_act
 from skyhdr_torch.ops.resize import resize_bilinear
+
+
+# The batch of a data-parallel step spans processes: `skyhdr_torch.parallel.
+# dp` sets this, for the step's duration, to an object whose `sum(t)` is a
+# differentiable all-reduce over the ranks, `max(t)` the batch maximum whose
+# gradient reaches the rank holding it, and `world` the number of equal
+# shards. None: the batch is this process's own.
+_BATCH_REDUCE = None
+
+
+@contextlib.contextmanager
+def batch_across(reduce):
+    """Within: train-mode BatchNorm statistics and `batch_max` take the
+    whole batch through `reduce` (see `_BATCH_REDUCE`)."""
+    global _BATCH_REDUCE
+    outer, _BATCH_REDUCE = _BATCH_REDUCE, reduce
+    try:
+        yield
+    finally:
+        _BATCH_REDUCE = outer
+
+
+def batch_max(x: torch.Tensor) -> torch.Tensor:
+    """The maximum of `x` over the whole batch: its gradient split among the
+    elements that hold it, as `torch.max` and JAX's max do."""
+    return torch.max(x) if _BATCH_REDUCE is None else _BATCH_REDUCE.max(x)
 
 
 def compute_dtype(cfg) -> Optional[torch.dtype]:
@@ -114,7 +141,10 @@ class BatchNorm(nn.Module):
     as Flax computes it) over (b, h, w), and updates the running buffers IN
     PLACE, once per call: ra = 0.99 ra + 0.01 stat, with that same biased
     variance (`F.batch_norm` would use momentum 0.01 and an unbiased running
-    variance)."""
+    variance). The moments are sums over (b, h, w) divided by the count; in
+    a data-parallel step (`batch_across`) the sums and the count are the
+    whole batch's, the sums through a differentiable all-reduce, so every
+    rank normalises alike and its backward carries the other ranks' terms."""
 
     def __init__(self, features: int, epsilon: float = 1e-3, dtype=None,
                  device=None):
@@ -137,8 +167,12 @@ class BatchNorm(nn.Module):
         mean, var = self.mean, self.var
         if train:
             xf = x.float()
-            mean = xf.mean(dim=(0, 1, 2))
-            var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)
+            sums = torch.stack([xf.sum(dim=(0, 1, 2)), (xf * xf).sum(dim=(0, 1, 2))])
+            count = xf.numel() // xf.shape[-1]
+            if _BATCH_REDUCE is not None:
+                sums, count = _BATCH_REDUCE.sum(sums), count * _BATCH_REDUCE.world
+            mean = sums[0] / count
+            var = torch.clamp(sums[1] / count - mean * mean, min=0.0)
             with torch.no_grad():
                 self.mean.copy_(0.99 * self.mean + 0.01 * mean)
                 self.var.copy_(0.99 * self.var + 0.01 * var)
@@ -210,12 +244,22 @@ class Downsampling(nn.Module):
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x, train)
-        return F.leaky_relu(x, 0.3)
+        return leaky_relu(x, 0.3)
+
+
+def leaky_relu(x, slope: float):
+    """`F.leaky_relu` with the slope first rounded to x's dtype, as JAX
+    rounds a weakly typed Python scalar against an array (bfloat16: 0.1 ->
+    0.10009765625, 0.3 -> 0.30078125); forward and gradient then scale by
+    the same number as `flax.linen.leaky_relu`."""
+    if x.dtype != torch.float32:
+        slope = torch.tensor(slope, dtype=x.dtype).item()
+    return F.leaky_relu(x, slope)
 
 
 def leaky_relu_01(x):
     """The generator-side activation, slope 0.1."""
-    return F.leaky_relu(x, 0.1)
+    return leaky_relu(x, 0.1)
 
 
 def maxpool2(x):

@@ -1,0 +1,232 @@
+"""Data-parallel training (`skyhdr.parallel.dp`): the batch sharded over the
+`data` axis, the state replicated, over `torch.distributed`.
+
+`skyhdr`'s step is the single-device one under GSPMD: it sees the global
+batch, and XLA inserts the gradient all-reduce. Here each process runs the
+single-process step (`skyhdr_torch.train.engine`) on its shard, with the
+hand kernels (K1-K3, and K8/K9 under fused InstanceNorm) on its own rows:
+the DA conv and InstanceNorm work per sample, so that is exact. What couples
+the samples of a batch is taken over the whole batch:
+
+  C1  train-mode BatchNorm (the discriminator, SunRadNet): the sums and the
+      count over every rank, through a differentiable all-reduce
+      (`layers.batch_across`); the running statistics come out equal.
+  C2  the sun-pose PDF scaled by its batch maximum: the all-reduced MAX,
+      whose gradient (every rank's, summed) goes to the element(s) that
+      hold it, split among ties, as JAX's max VJP does.
+  C3  the degradation's draws: every rank draws the whole batch's from an
+      identically seeded `torch.Generator` and keeps its rows.
+  C4  the JPEG quality ramp over the sample index: the whole batch's ramp,
+      a rank's rows of it.
+
+The gradients are all-reduced in the place of `engine._grads`' list (the
+models are not wrapped in `DistributedDataParallel`, which reduces only
+`.grad`: the port takes `torch.autograd.grad`, and Grad-CAM differentiates
+inside the loss): flattened into buckets, in float32, averaged over the
+ranks (every loss is a batch mean), before the cast to `grad_dtype`, as
+`skyhdr`'s GSPMD step reduces inside `value_and_grad` and casts after. The
+metrics are reduced as the global step's: the loss means as means,
+`g_out`/`b_out` as the maximum. `skyhdr`'s `_mesh_cfg` routing and
+`ops/pallas/sharded.py` are TPU workarounds and have no counterpart.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import time
+
+import torch
+import torch.distributed as dist
+
+from skyhdr_torch.models.layers import batch_across
+from skyhdr_torch.parallel.mesh import (Mesh, all_reduce_, batch_sharding, broadcast_,
+                                        vector_sharding)
+from skyhdr_torch.train.engine import make_gan_train_step, make_sun_train_step, with_degradation
+
+# Elements a gradient bucket holds (float32: 64 MiB); a GAN state's 280
+# leaves go in a few.
+BUCKET = 1 << 24
+# The metrics that are batch maxima; every other metric is a batch mean.
+MAX_METRICS = ("g_out", "b_out")
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """y = the sum of x over the ranks; its gradient, the sum of the ranks'
+    cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, reduce):
+        ctx.reduce = reduce
+        return reduce.all_reduce(x.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.reduce.all_reduce(g.clone()), None
+
+
+class _BatchMax(torch.autograd.Function):
+    """m = the maximum of x over every rank's elements; the gradient, the
+    ranks' cotangents summed, split evenly over the elements (on any rank)
+    equal to m, as `torch.max` and JAX's reduce_max split it."""
+
+    @staticmethod
+    def forward(ctx, x, reduce):
+        m = reduce.all_reduce(x.max().reshape(1).clone(), dist.ReduceOp.MAX)
+        mask = x == m
+        n = reduce.all_reduce(mask.sum().to(x.dtype).reshape(1))
+        ctx.save_for_backward(mask, n)
+        ctx.reduce = reduce
+        return m.reshape(())
+
+    @staticmethod
+    def backward(ctx, g):
+        mask, n = ctx.saved_tensors
+        total = ctx.reduce.all_reduce(g.reshape(1).clone())
+        return mask * (total / n).reshape(()), None
+
+
+class BatchReduce:
+    """The reductions of one data-parallel step over `mesh`'s ranks: what
+    `layers.batch_across` asks of it (`sum`, `max`, `world`), the gradient
+    all-reduce (`grads`) and the metrics' (`metrics`). `comm_s` adds up the
+    host seconds spent in collectives (with `timed`, after the device's
+    queued work is finished, so that it is the collectives' share)."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.world = mesh.data
+        self.timed = False
+        self.comm_s = 0.0
+
+    def all_reduce(self, t, op=dist.ReduceOp.SUM):
+        if self.timed and t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        t0 = time.perf_counter()
+        all_reduce_(t, self.mesh, op)
+        self.comm_s += time.perf_counter() - t0
+        return t
+
+    def sum(self, x):
+        return _AllReduceSum.apply(x, self)
+
+    def max(self, x):
+        return _BatchMax.apply(x, self)
+
+    def grads(self, grads):
+        """The gradients averaged over the ranks, in float32 (a bfloat16
+        gradient, of a bfloat16-stored parameter, upcast for the sum and
+        rounded back), each in its own dtype."""
+        out = list(grads)
+        start = 0
+        while start < len(out):
+            stop, size = start, 0
+            while stop < len(out) and (stop == start or size + out[stop].numel() <= BUCKET):
+                size += out[stop].numel()
+                stop += 1
+            flat = torch.cat([g.reshape(-1).float() for g in out[start:stop]])
+            self.all_reduce(flat).div_(self.world)
+            at = start
+            for piece in flat.split([g.numel() for g in out[start:stop]]):
+                out[at] = piece.view(out[at].shape).to(out[at].dtype)
+                at += 1
+            start = stop
+        return out
+
+    def metrics(self, metrics: dict) -> dict:
+        """The step's metrics over the whole batch: the means averaged over
+        the ranks, the MAX_METRICS the largest."""
+        means = sorted(k for k in metrics if k not in MAX_METRICS)
+        maxima = sorted(k for k in metrics if k in MAX_METRICS)
+        out = {}
+        for names, op in ((means, dist.ReduceOp.SUM), (maxima, dist.ReduceOp.MAX)):
+            if names:
+                v = self.all_reduce(torch.stack([metrics[k].float() for k in names]), op)
+                if op == dist.ReduceOp.SUM:
+                    v = v / self.world
+                out.update({k: v[i].to(metrics[k].dtype) for i, k in enumerate(names)})
+        return out
+
+
+def _tensors(state):
+    """Every tensor of a train state, in a fixed order: the modules'
+    parameters and buffers, then the optimizers' moments (and master)."""
+    out = [t for m in state.modules().values() for t in m.state_dict().values()]
+    for opt in state.optimizers().values():
+        for name, tensors in sorted(opt.state().items()):
+            if name != "count":
+                out += list(tensors)
+    return out
+
+
+@torch.no_grad()
+def replicate_state(state, mesh: Mesh):
+    """Overwrite `state` with rank 0's: parameters, buffers, moments and the
+    float32 master, in place (the counts must already agree). Returns it."""
+    for t in _tensors(state):
+        broadcast_(t, mesh)
+    return state
+
+
+def state_digest(state) -> str:
+    """A hash of the bits of every tensor of `state` (`_tensors`) and its
+    step count: equal on two ranks exactly when their states are."""
+    h = hashlib.sha256(str(state.step).encode())
+    for t in _tensors(state):
+        h.update(t.detach().reshape(-1).contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def replicas_agree(state, mesh: Mesh) -> bool:
+    """Whether every rank's state is bit-equal to every other's (an
+    all-gather of `state_digest`)."""
+    digests = [None] * dist.get_world_size()
+    dist.all_gather_object(digests, state_digest(state))
+    return len(set(digests)) == 1
+
+
+def _shard_batch(mesh: Mesh, device):
+    rows, vec = batch_sharding(mesh), vector_sharding(mesh)
+
+    def shard_batch(batch):
+        """This rank's rows of a host batch {"hdr": [B, h, w, 3],
+        "elevation": [B]}, on the step's device."""
+        return {"hdr": torch.as_tensor(rows(batch["hdr"])).to(device),
+                "elevation": torch.as_tensor(vec(batch["elevation"])).to(device)}
+
+    return shard_batch
+
+
+def _parallel(cfg, banks, mesh, single, reduce):
+    core = single.train_on
+
+    def train_on(state, hdr_t, ldr, sunpose_gt):
+        with batch_across(reduce):
+            state, metrics = core(state, hdr_t, ldr, sunpose_gt)
+        return state, reduce.metrics(metrics)
+
+    step = with_degradation(cfg, banks, train_on, shard=(mesh.data_index, mesh.data))
+    step.reduce = reduce
+    return step, _shard_batch(mesh, banks.crfs.device)
+
+
+def make_parallel_gan_train_step(cfg, banks, vgg_weights, mesh: Mesh):
+    """The GAN train step (`engine.make_gan_train_step`) with the batch
+    sharded over `mesh`'s `data` axis. Returns (step, shard_batch): `step
+    (state, shard, generator)` takes this rank's rows (`shard_batch(host
+    batch)`) and a generator seeded as on every other rank, and returns
+    the state, updated alike on every rank, and the whole batch's metrics;
+    `step.train_on(state, hdr_t, ldr, sunpose_gt)` takes this rank's rows of
+    degraded inputs. The state must start replicated (`replicate_state`).
+    `step.reduce` is the step's `BatchReduce` (its `timed` and `comm_s`
+    time the collectives)."""
+    reduce = BatchReduce(mesh)
+    return _parallel(cfg, banks, mesh,
+                     make_gan_train_step(cfg, banks, vgg_weights, reduce.grads), reduce)
+
+
+def make_parallel_sun_train_step(cfg, banks, mesh: Mesh):
+    """The sun-pretrain step (`engine.make_sun_train_step`) with the batch
+    sharded over `data`: (step, shard_batch), as
+    `make_parallel_gan_train_step`."""
+    reduce = BatchReduce(mesh)
+    return _parallel(cfg, banks, mesh, make_sun_train_step(cfg, banks, reduce.grads), reduce)

@@ -294,33 +294,39 @@ def replace_sun_params(cfg, state: GanState, sun_params: dict) -> GanState:
     return state
 
 
-def _grads(cfg, total, params):
-    """The gradients of `total`, cast to `cfg.train.grad_dtype` unless that
-    is float32 (`skyhdr`'s `grad_store`)."""
+def _grads(cfg, total, params, reduce=None):
+    """The gradients of `total`, through `reduce` (a data-parallel step's
+    all-reduce) where given, then cast to `cfg.train.grad_dtype` unless that
+    is float32 (`skyhdr`'s `grad_store`, which casts after its GSPMD step's
+    reduction)."""
     grads = torch.autograd.grad(total, params)
+    if reduce is not None:
+        grads = reduce(grads)
     if storage_dtype(cfg.train.grad_dtype) == torch.float32:
         return grads
     return [g.to(storage_dtype(cfg.train.grad_dtype)) for g in grads]
 
 
-def degrade(cfg, banks, generator, hdr):
+def degrade(cfg, banks, generator, hdr, shard=(0, 1)):
     """`degrade_batch` with `cfg.data`'s JPEG and noise settings: the
-    degradation of the train and eval steps and of `cli.evaluate`."""
+    degradation of the train and eval steps and of `cli.evaluate`; `shard`
+    as there (a data-parallel rank's rows)."""
     d = cfg.data
-    return degrade_batch(generator, hdr, banks, jpeg_lo=d.jpeg_quality_lo,
+    return degrade_batch(generator, hdr, banks, shard, jpeg_lo=d.jpeg_quality_lo,
                          jpeg_hi=d.jpeg_quality_hi, sigma_s_scale=d.sigma_s_scale,
                          sigma_c_scale=d.sigma_c_scale,
                          chroma_subsample=d.jpeg_chroma_subsample)
 
 
-def _with_degradation(cfg, banks, core, name: str = "train_on"):
+def with_degradation(cfg, banks, core, name: str = "train_on", shard=(0, 1)):
     """`step(state, batch, generator)`: the vMF ground truth from the
-    batch's elevations, the degradation drawn from `generator`, then
-    `core` (kept as `step.train_on`, or as `step.<name>`)."""
+    batch's elevations, the degradation drawn from `generator` (`shard`: a
+    data-parallel rank's rows, as `degrade` takes them), then `core` (kept
+    as `step.train_on`, or as `step.<name>`)."""
 
     def step(state, batch, generator: torch.Generator):
         sunpose_gt = sunpose_gt_from_elevation(cfg.model, batch["elevation"])
-        hdr_t, ldr = degrade(cfg, banks, generator, batch["hdr"])
+        hdr_t, ldr = degrade(cfg, banks, generator, batch["hdr"], shard)
         return core(state, hdr_t, ldr, sunpose_gt)
 
     setattr(step, name, core)
@@ -388,16 +394,18 @@ def generator_forward(cfg, gen, sun, disc, ldr, hdr_t, sunpose_gt, vgg,
     return total, aux
 
 
-def make_gan_train_step(cfg, banks, vgg_weights):
+def make_gan_train_step(cfg, banks, vgg_weights, reduce_grads=None):
     """The GAN train step for states from `create_gan_state`, on the device
     of `banks` (from `data.degradation.make_banks`); `vgg_weights` is the
-    NumPy weight dict of `models.vgg16`."""
+    NumPy weight dict of `models.vgg16`. `reduce_grads`: applied to each
+    update's float32 gradients before the `grad_dtype` cast
+    (`parallel.dp`'s all-reduce)."""
     vgg = vgg_constants(vgg_weights, banks.crfs.device)
 
     def train_on(state: GanState, hdr_t, ldr, sunpose_gt):
         total, aux = generator_forward(cfg, state.gen, state.sun, state.disc,
                                        ldr, hdr_t, sunpose_gt, vgg, train=True)
-        grads = _grads(cfg, total, state.opt_gen.params)
+        grads = _grads(cfg, total, state.opt_gen.params, reduce_grads)
         state.opt_gen.step(grads)
         del grads
 
@@ -405,7 +413,7 @@ def make_gan_train_step(cfg, banks, vgg_weights):
         real = state.disc(ldr, hdr_t, train=True)
         generated = state.disc(ldr, y_final_lin, train=True)
         disc_total, real_l, gen_l = losses.lsgan_disc_loss(real, generated)
-        state.opt_disc.step(_grads(cfg, disc_total, state.opt_disc.params))
+        state.opt_disc.step(_grads(cfg, disc_total, state.opt_disc.params, reduce_grads))
         state.step += 1
 
         metrics = dict(aux["losses"], disc_total=disc_total, disc_real=real_l,
@@ -413,7 +421,7 @@ def make_gan_train_step(cfg, banks, vgg_weights):
                        b_out=aux["beta_max"])
         return state, {k: v.detach() for k, v in metrics.items()}
 
-    return _with_degradation(cfg, banks, train_on)
+    return with_degradation(cfg, banks, train_on)
 
 
 _GAN_OUTPUTS = ("y_final_lin", "sky_pred_lin", "sun_pred_lin", "alpha_c3",
@@ -439,14 +447,15 @@ def make_gan_eval_step(cfg, banks, vgg_weights):
                        b_out=aux["beta_max"])
         return metrics, {k: aux[k] for k in _GAN_OUTPUTS}
 
-    return _with_degradation(cfg, banks, eval_on, "eval_on")
+    return with_degradation(cfg, banks, eval_on, "eval_on")
 
 
-def make_sun_train_step(cfg, banks):
+def make_sun_train_step(cfg, banks, reduce_grads=None):
     """The sun-pretrain step for states from `create_sun_state`: KL + DoG of
     the sun-pose PDF against the vMF ground truth, one Adam update. Its
     Grad-CAM maps feed nothing in this step, so they are not computed (the
-    JAX step drops them as dead code)."""
+    JAX step drops them as dead code). `reduce_grads` as in
+    `make_gan_train_step`."""
     h, w = cfg.model.im_height, cfg.model.im_width
 
     def train_on(state: SunState, hdr_t, ldr, sunpose_gt):
@@ -454,12 +463,12 @@ def make_sun_train_step(cfg, banks):
         kl = losses.kl_divergence(sunpose_gt, sm)
         dog = dog_l1_loss(sm.reshape(-1, h, w, 1), sunpose_gt.reshape(-1, h, w, 1))
         total = kl + dog
-        state.opt.step(_grads(cfg, total, state.opt.params))
+        state.opt.step(_grads(cfg, total, state.opt.params, reduce_grads))
         state.step += 1
         return state, {"sun_total": total.detach(), "kl": kl.detach(),
                        "dog": dog.detach()}
 
-    return _with_degradation(cfg, banks, train_on)
+    return with_degradation(cfg, banks, train_on)
 
 
 def make_sun_eval_step(cfg, banks):
@@ -477,4 +486,4 @@ def make_sun_eval_step(cfg, banks):
         return ({"sun_total": kl + dog, "kl": kl, "dog": dog},
                 {"pred": pred_img, "gt": gt_img, "cams": cams})
 
-    return _with_degradation(cfg, banks, eval_on, "eval_on")
+    return with_degradation(cfg, banks, eval_on, "eval_on")

@@ -33,6 +33,9 @@ seeded numpy inputs:
 
     python tools/make_torch_golden.py
 
+and `python tools/make_torch_golden.py plain-bf16-adv` prints `plain_bf16_adv`
+(8 GAN steps of both packages at plain 32x128 b8 bf16 on the CPU).
+
 `tests/test_torch_slice.py`, `tests/test_torch_train.py`,
 `tests/test_torch_da_generic.py`, `tests/test_torch_convert.py` and
 `tests/test_torch_train_bf16.py`, `tests/test_torch_train_knobs.py`
@@ -59,6 +62,12 @@ RESUME_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_golden_resume_16
 BF16_TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                                   "torch_golden_train_bf16_16x64.npz")
 KNOBS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_golden_train_knobs_16x64.npz")
+# The train and bf16 train goldens with plain convs (`use_da_conv=False`,
+# `skyhdr`'s default), on the same inputs.
+PLAIN_TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                                   "torch_golden_train_plain_16x64.npz")
+PLAIN_BF16_TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                                        "torch_golden_train_plain_bf16_16x64.npz")
 # The knob golden's configurations: (opt_state_dtype, grad_dtype, param_dtype).
 KNOB_CONFIGS = {"f32": ("float32", "float32", "float32"),
                 "opt": ("bfloat16", "float32", "float32"),
@@ -77,16 +86,18 @@ H, W, BATCH = 16, 64, 2
 RESUME_COUNTERS = {"SKY": (12, 2), "SUN": (7, 1)}
 
 
-def golden_config(da_kernel_size: int = 3, compute_dtype: str = "float32"):
+def golden_config(da_kernel_size: int = 3, compute_dtype: str = "float32",
+                  use_da_conv: bool = True):
     """The port's Config of the fixtures. Under bfloat16 compute `skyhdr`'s
     DA layers take the Pallas path (run by the interpreter on the CPU): its
     XLA path promotes the bilinear samples to float32 against a bfloat16
     kernel, while the Pallas kernels, which the TPU runs and the port
-    follows, round samples and weights to bfloat16."""
+    follows, round samples and weights to bfloat16. `use_da_conv=False` is
+    the plain-conv goldens' configuration."""
     from skyhdr_torch.config import Config, DataConfig, ModelConfig
 
     backend = "xla" if compute_dtype == "float32" else "pallas"
-    return Config(model=ModelConfig(im_height=H, im_width=W, use_da_conv=True,
+    return Config(model=ModelConfig(im_height=H, im_width=W, use_da_conv=use_da_conv,
                                     da_kernel_size=da_kernel_size, da_backend=backend,
                                     compute_dtype=compute_dtype),
                   data=DataConfig(batch_size=BATCH))
@@ -173,12 +184,26 @@ def stat_abs_sums(tree):
     return np.array([np.abs(np.asarray(v, np.float64)).sum() for _, v in flat_leaves(tree)])
 
 
-def _jax_train_steps(tcfg, seed: int):
+def perturbed(tree, share: float, seed: int):
+    """`tree` with each leaf times (1 + share N(0, 1)), from
+    `default_rng(seed)` in path order: float32 noise of a given size."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        out[k] = (perturbed(v, share, int(rng.integers(2**31))) if isinstance(v, dict) else
+                  (np.asarray(v) * (1.0 + share * rng.standard_normal(np.shape(v))))
+                  .astype(np.asarray(v).dtype))
+    return out
+
+
+def _jax_train_steps(tcfg, seed: int, perturb: float = 0.0, draw: int = 0):
     """One GAN step and one sun step of `skyhdr` under `tcfg` (the port's
     Config, mirrored) from the port's seeded weights on `train_batch(seed)`
     and the key `seed + 1`: a namespace of the config, banks, batch, key,
     the initial trees (gv, sv, dv), the initial and stepped states, the
-    metrics and the JAX-degraded inputs."""
+    metrics and the JAX-degraded inputs. `perturb`: the weights first
+    `perturbed` by that share (seeds 7, 8, 9 plus 10 `draw`)."""
     from types import SimpleNamespace
 
     import jax
@@ -196,6 +221,9 @@ def _jax_train_steps(tcfg, seed: int):
                  data=DataConfig(batch_size=BATCH))
     lr = cfg.train.learning_rate
     gv, sv, dv = init_gan_vars(tcfg, seed)
+    if perturb:
+        gv, sv, dv = (perturbed(t, perturb, s + 10 * draw)
+                      for t, s in ((gv, 7), (sv, 8), (dv, 9)))
     banks = make_banks(make_synthetic_dorf(175, 1024), get_exposure_lists()[0])
     hdr, elevation = train_batch(seed)
     batch = {"hdr": jnp.asarray(hdr), "elevation": jnp.asarray(elevation)}
@@ -231,30 +259,39 @@ def _metric_entries(prefix: str, metrics) -> dict:
 
 
 def make_train_golden(seed: int = 0, full: bool = False,
-                      da_kernel_size: int = 3) -> dict:
+                      da_kernel_size: int = 3, use_da_conv: bool = True) -> dict:
     """One GAN step and one sun step of `skyhdr` from the port's seeded
     weights. With `full`, also the whole updated trees and optimizer states
     under "trees" (not stored)."""
-    import jax
-
     from skyhdr_torch.utils.transplant import tree_digest
 
-    r = _jax_train_steps(golden_config(da_kernel_size), seed)
-    gv, sv, dv, new, new_sun = r.gv, r.sv, r.dv, r.new, r.new_sun
-    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)
-    params = {"gen": to_np(new.gen_vars["params"]), "sun": to_np(new.sun_vars["params"]),
-              "disc": to_np(new.disc_vars["params"])}
-    stats = {"gen": to_np(new.gen_vars["batch_stats"]),
-             "disc": to_np(new.disc_vars["batch_stats"])}
-    sun_params = to_np(new_sun.sun_vars["params"])
+    r = _jax_train_steps(golden_config(da_kernel_size, use_da_conv=use_da_conv), seed)
+    gv, sv, dv = r.gv, r.sv, r.dv
     out = {
         "seed": np.int64(seed),
         "weights_digest": np.float64(tree_digest({"gen": gv, "sun": sv, "disc": dv})),
         "elevation": r.elevation,
         "hdr_t": np.asarray(r.hdr_t), "ldr": np.asarray(r.ldr),
         "sunpose_gt": np.asarray(r.sunpose_gt),
-        **_metric_entries("gan", r.metrics), **_metric_entries("sun", r.sun_metrics),
+        **_train_entries(gv, sv, dv, r.new, r.metrics, r.new_sun, r.sun_metrics, full),
     }
+    return out
+
+
+def _train_entries(gv, sv, dv, new, metrics, new_sun, sun_metrics, full: bool = False) -> dict:
+    """The train golden's reduction of `skyhdr`'s stepped GAN state `new`
+    (from the trees gv, sv, dv) and sun state `new_sun`, and their metrics:
+    metrics, per-leaf update digests, BatchNorm sums, max |g| per leaf;
+    with `full`, the whole trees under "trees"."""
+    import jax
+
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)
+    params = {"gen": to_np(new.gen_vars["params"]), "sun": to_np(new.sun_vars["params"]),
+              "disc": to_np(new.disc_vars["params"])}
+    stats = {"gen": to_np(new.gen_vars["batch_stats"]),
+             "disc": to_np(new.disc_vars["batch_stats"])}
+    sun_params = to_np(new_sun.sun_vars["params"])
+    out = {**_metric_entries("gan", metrics), **_metric_entries("sun", sun_metrics)}
     old = {"gen": gv["params"], "sun": sv["params"], "disc": dv["params"]}
     out["gan_param_paths"], out["gan_param_digests"] = update_digests(params, old)
     out["gan_stat_paths"], out["gan_stat_digests"] = stat_digests(stats)
@@ -327,12 +364,12 @@ def _bf16_golden_entries(r, eval_metrics, sun_eval_metrics) -> dict:
     return out
 
 
-def _jax_steps_and_evals(tcfg, seed: int):
+def _jax_steps_and_evals(tcfg, seed: int, perturb: float = 0.0, draw: int = 0):
     """`_jax_train_steps` under `tcfg`, then `skyhdr`'s GAN and sun eval
     steps from the same initial states on the same batch and key."""
     from skyhdr.train import engine
 
-    r = _jax_train_steps(tcfg, seed)
+    r = _jax_train_steps(tcfg, seed, perturb, draw)
     eval_metrics, _ = engine.make_gan_eval_step(r.cfg, r.banks, r.vgg)(
         r.state, r.batch, r.key)
     sun_eval_metrics, _ = engine.make_sun_eval_step(r.cfg, r.banks)(
@@ -340,7 +377,7 @@ def _jax_steps_and_evals(tcfg, seed: int):
     return _bf16_golden_entries(r, eval_metrics, sun_eval_metrics), r
 
 
-def make_train_golden_bf16(seed: int = 0) -> dict:
+def make_train_golden_bf16(seed: int = 0, use_da_conv: bool = True) -> dict:
     """`make_train_golden`'s GAN step and sun step under
     `compute_dtype="bfloat16"`, with `skyhdr`'s DA layers on the Pallas path
     run by the interpreter, and the GAN and sun eval steps from the seeded
@@ -351,14 +388,19 @@ def make_train_golden_bf16(seed: int = 0) -> dict:
     update digest counts sign flips of small gradients, which bf16 rounding
     flips. Under "f32_..." the same values of `skyhdr`'s float32 steps (the
     f32 train golden's configuration), from which `bf16_tolerances` takes
-    `skyhdr`'s own bf16-vs-f32 gap."""
+    `skyhdr`'s own bf16-vs-f32 gap. `use_da_conv=False`: the same with plain
+    convs (no Pallas kernel on that path), and under "pert<k>_..." the values
+    of `skyhdr`'s bf16 steps from the weights `perturbed` by
+    PLAIN_BF16_PERTURB, PLAIN_BF16_PERTURB_DRAWS draws: how far float32 noise
+    moves `skyhdr`'s own bf16 run."""
     from jax.experimental.pallas import tpu as pltpu
 
     from skyhdr_torch.utils.transplant import tree_digest
 
     with pltpu.force_tpu_interpret_mode():
-        entries, r = _jax_steps_and_evals(golden_config(compute_dtype="bfloat16"), seed)
-    f32, _ = _jax_steps_and_evals(golden_config(), seed)
+        entries, r = _jax_steps_and_evals(
+            golden_config(compute_dtype="bfloat16", use_da_conv=use_da_conv), seed)
+    f32, _ = _jax_steps_and_evals(golden_config(use_da_conv=use_da_conv), seed)
     out = {
         "seed": np.int64(seed),
         "weights_digest": np.float64(tree_digest({"gen": r.gv, "sun": r.sv, "disc": r.dv})),
@@ -366,11 +408,17 @@ def make_train_golden_bf16(seed: int = 0) -> dict:
         "hdr_t": np.asarray(r.hdr_t), "ldr": np.asarray(r.ldr),
         "sunpose_gt": np.asarray(r.sunpose_gt), **entries,
     }
-    for k, v in f32.items():
-        if k.endswith(("_names", "_paths")):
-            assert np.array_equal(v, entries[k]), k
-        else:
-            out[f"f32_{k}"] = v
+    runs = {"f32": f32}
+    for k in range(0 if use_da_conv else PLAIN_BF16_PERTURB_DRAWS):
+        runs[f"pert{k}"], _ = _jax_steps_and_evals(
+            golden_config(compute_dtype="bfloat16", use_da_conv=False), seed,
+            PLAIN_BF16_PERTURB, k)
+    for prefix, run in runs.items():
+        for k, v in run.items():
+            if k.endswith(("_names", "_paths")):
+                assert np.array_equal(v, entries[k]), k
+            else:
+                out[f"{prefix}_{k}"] = v
     return out
 
 
@@ -871,18 +919,18 @@ def compare_knobs_golden(stored, port, name: str, step_rtol: float = KNOB_STEP_R
 
 
 def port_train_golden(stored, device, fused_instance_norm: bool = False,
-                      da_kernel_size: int = 3) -> dict:
+                      da_kernel_size: int = 3, use_da_conv: bool = True) -> dict:
     """The port's GAN step and sun step from the same seeded weights on the
     stored JAX-degraded inputs, reduced to the fixture's metrics and
     digests (keys as in `make_train_golden`, with the port's values). With
     `fused_instance_norm` the port runs that configuration (the same
     function, so the same fixture holds); `da_kernel_size` must be the
-    fixture's."""
+    fixture's, and so must `use_da_conv`."""
     import dataclasses
 
     from skyhdr_torch.train.engine import create_gan_state, create_sun_state
 
-    cfg = golden_config(da_kernel_size)
+    cfg = golden_config(da_kernel_size, use_da_conv=use_da_conv)
     cfg = cfg.replace(model=dataclasses.replace(
         cfg.model, fused_instance_norm=fused_instance_norm))
     seed = int(stored["seed"])
@@ -900,9 +948,27 @@ def port_steps(stored, cfg, state, sun_state, device) -> dict:
     the bf16 golden's, valid only for a step from zero moments); and the
     BatchNorm sums."""
     from skyhdr_torch.train.engine import make_gan_train_step, make_sun_train_step
-    from skyhdr_torch.utils.transplant import export_model_vars
 
     banks, inputs, vgg = _port_setup(stored, device)
+    out = step_digests(state, sun_state,
+                       lambda s: make_gan_train_step(cfg, banks, vgg).train_on(s, *inputs),
+                       lambda s: make_sun_train_step(cfg, banks).train_on(s, *inputs))
+    for kind in ("gan", "sun"):
+        out[f"{kind}_metrics"] = np.array(
+            [out[f"{kind}_metric_dict"][k] for k in stored[f"{kind}_metric_names"]])
+    return out
+
+
+def step_digests(state, sun_state, gan_step, sun_step) -> dict:
+    """`gan_step(state)` and `sun_step(sun_state)` (each -> (state,
+    metrics)) run, and reduced as `port_steps` reduces them, with the keys a
+    stored side of `compare_train_golden` has (metric names, leaf paths,
+    max |g| per leaf from the second moments, the BatchNorm sums of |.|),
+    the metrics by name under "gan_metric_dict" / "sun_metric_dict", and
+    the moments flattened leaf after leaf in path order ("gan_nu" over the
+    generator, sun-pose net and discriminator; "sun_mu", "sun_nu") with
+    each leaf's size ("gan_sizes", "sun_sizes")."""
+    from skyhdr_torch.utils.transplant import export_model_vars
 
     def params(value_of=None, **modules):
         return {n: export_model_vars(m, value_of=value_of, collections=("params",))["params"]
@@ -910,42 +976,56 @@ def port_steps(stored, cfg, state, sun_state, device) -> dict:
 
     modules = {"gen": state.gen, "sun": state.sun, "disc": state.disc}
     old = params(**modules)
-    state, metrics = make_gan_train_step(cfg, banks, vgg).train_on(state, *inputs)
+    state, metrics = gan_step(state)
     new = params(**modules)
     sun_old = params(sun=sun_state.sun)["sun"]
-    sun_state, sun_metrics = make_sun_train_step(cfg, banks).train_on(sun_state, *inputs)
+    sun_state, sun_metrics = sun_step(sun_state)
     sun_new = params(sun=sun_state.sun)["sun"]
-    out = {"gan_metrics": _metric_values(stored, "gan", metrics),
-           "sun_metrics": _metric_values(stored, "sun", sun_metrics)}
-    _, out["gan_param_digests"] = update_digests(new, old)
-    _, out["sun_param_digests"] = update_digests(sun_new, sun_old)
+    out = {}
+    for kind, m in (("gan", metrics), ("sun", sun_metrics)):
+        out[f"{kind}_metric_dict"] = {k: float(v) for k, v in m.items()}
+        out.update(_metric_entries(kind, out[f"{kind}_metric_dict"]))
+    out["gan_param_paths"], out["gan_param_digests"] = update_digests(new, old)
+    out["sun_param_paths"], out["sun_param_digests"] = update_digests(sun_new, sun_old)
     nu = {**state.opt_gen.moments()["nu"], **state.opt_disc.moments()["nu"]}
-    _, out["gan_grad_digests"] = grad_digests(
-        rmsprop_grads(params(nu.__getitem__, **modules), new, old))
-    mu = sun_state.opt.moments()["mu"]
-    _, out["sun_grad_digests"] = grad_digests(
-        adam_grads(params(mu.__getitem__, sun=sun_state.sun)["sun"]))
-    _, out["gan_stat_digests"] = stat_digests(
-        {n: export_model_vars(m, collections=("batch_stats",))["batch_stats"]
-         for n, m in (("gen", state.gen), ("disc", state.disc))})
+    nu_tree = params(nu.__getitem__, **modules)
+    _, out["gan_grad_digests"] = grad_digests(rmsprop_grads(nu_tree, new, old))
+    moments = sun_state.opt.moments()
+    mu_tree = params(moments["mu"].__getitem__, sun=sun_state.sun)["sun"]
+    sun_nu_tree = params(moments["nu"].__getitem__, sun=sun_state.sun)["sun"]
+    _, out["sun_grad_digests"] = grad_digests(adam_grads(mu_tree))
+    stats = {n: export_model_vars(m, collections=("batch_stats",))["batch_stats"]
+             for n, m in (("gen", state.gen), ("disc", state.disc))}
+    out["gan_stat_paths"], out["gan_stat_digests"] = stat_digests(stats)
+    out["gan_stat_abs"] = stat_abs_sums(stats)
+    out["gan_param_gmax"] = leaf_max(nu_tree, 10.0)
+    out["sun_param_gmax"] = leaf_max(sun_nu_tree, 1000.0)
+    flat = lambda tree: [np.asarray(v, np.float32).ravel() for _, v in flat_leaves(tree)]
+    out["gan_nu"] = np.concatenate(flat(nu_tree))
+    out["gan_sizes"] = np.array([v.size for v in flat(nu_tree)])
+    out["sun_mu"], out["sun_nu"] = (np.concatenate(flat(t)) for t in (mu_tree, sun_nu_tree))
+    out["sun_sizes"] = np.array([v.size for v in flat(mu_tree)])
     return out
 
 
-def port_train_golden_bf16(stored, device, fused_instance_norm: bool = False) -> dict:
+def port_train_golden_bf16(stored, device, fused_instance_norm: bool = False,
+                           use_da_conv: bool = True) -> dict:
     """`port_eval_bf16` and then `port_steps` from the port's seeded
     weights under `compute_dtype="bfloat16"` (with `fused_instance_norm`,
-    that configuration: the same function, so the same fixture holds)."""
-    cfg = bf16_config(fused_instance_norm)
+    that configuration: the same function, so the same fixture holds;
+    `use_da_conv` must be the fixture's)."""
+    cfg = bf16_config(fused_instance_norm, use_da_conv)
     state, sun_state = bf16_states(stored, cfg, device)
     return {**port_eval_bf16(stored, cfg, state, sun_state, device),
             **port_steps(stored, cfg, state, sun_state, device)}
 
 
-def bf16_config(fused_instance_norm: bool = False):
-    """The port's Config of the bf16 train golden."""
+def bf16_config(fused_instance_norm: bool = False, use_da_conv: bool = True):
+    """The port's Config of the bf16 train golden (plain convs: of the plain
+    bf16 golden)."""
     import dataclasses
 
-    cfg = golden_config(compute_dtype="bfloat16")
+    cfg = golden_config(compute_dtype="bfloat16", use_da_conv=use_da_conv)
     return cfg.replace(model=dataclasses.replace(
         cfg.model, fused_instance_norm=fused_instance_norm))
 
@@ -989,7 +1069,8 @@ def port_eval_bf16(stored, cfg, state, sun_state, device) -> dict:
             "sun_eval_metrics": _metric_values(stored, "sun_eval", sun)}
 
 
-def compare_train_golden(stored, port, metric_rtol: float, update_rtol: float):
+def compare_train_golden(stored, port, metric_rtol: float, update_rtol: float,
+                         stat_rtol: float = 1e-4):
     """Failures (a list of strings) of the port's `port_train_golden`
     against the stored JAX values, and the largest relative errors.
 
@@ -1005,7 +1086,7 @@ def compare_train_golden(stored, port, metric_rtol: float, update_rtol: float):
     second). BatchNorm statistics: the sums within 1e-4 relative, where a sum
     that cancels (a running mean) is held relative to 1e-2 of its leaf's
     sum of |.| at least, since its terms' rounding weighs more than 100-fold
-    against it."""
+    against it (`stat_rtol`: 1e-4)."""
     fails, worst = [], {}
     for kind in ("gan", "sun"):
         got, want = port[f"{kind}_metrics"], stored[f"{kind}_metrics"]
@@ -1034,21 +1115,505 @@ def compare_train_golden(stored, port, metric_rtol: float, update_rtol: float):
     e = np.abs(got - want) / np.maximum(scale, 1e-30)
     worst["gan_stats"] = float(e.max())
     fails += [f"batch_stats {p}: {a} vs {b}" for p, a, b, x in
-              zip(stored["gan_stat_paths"], got, want, e) if not x <= 1e-4]
+              zip(stored["gan_stat_paths"], got, want, e) if not x <= stat_rtol]
+    return fails, worst
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism: `skyhdr.parallel.dp` against `skyhdr_torch.parallel.dp`
+# ---------------------------------------------------------------------------
+
+DP_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_golden_dp_16x64.npz")
+# The DP golden: 2 data shards of a global batch of 4 at 16x64 DA f32.
+DP_WORLD, DP_BATCH = 2, 4
+# A step of the port's data-parallel step against its single-process step
+# on the same global batch and generator seed (`compare_dp_steps`; 2 gloo
+# ranks at DA 16x64, b4, on the CPU). The two differ by the order of the
+# cross-rank sums (float32: metrics 5.7e-7, BatchNorm sums 1.1e-6, the
+# moments' per-leaf relative L1 3.7e-5), and, where a value is stored or
+# computed in bfloat16, by the roundings that order moves: bfloat16 moments
+# 3.6e-4 and bfloat16 gradients 1.0e-3 of a moment; bfloat16 parameters
+# 8.2e-3 (a bfloat16 leaf's gradient arrives rounded on each rank, through
+# the cast autograd takes back, and is summed after: one more rounding than
+# the single process's) and bfloat16 compute 4.8e-3 (a bf16 conv's weight
+# gradient is rounded per rank). Each class's moment tolerance sits above
+# those and below what a planted fault moves: a gradient reduced after its
+# bfloat16 cast moves the moments by 6.3e-3, every other fault by more than
+# 0.3 (`DP_FAULTS`). `None`: the moments are not compared (the card's run,
+# held to `compare_train_golden`'s tolerances).
+DP_RTOL = {
+    "float32": {"metrics": 1e-5, "updates": 2e-2, "stats": 1e-5, "moments": 2e-4},
+    "bf16_storage": {"metrics": 1e-5, "updates": 2e-2, "stats": 1e-5, "moments": 2e-3},
+    "bf16_rounding": {"metrics": 1e-5, "updates": 2e-2, "stats": 1e-5, "moments": 2e-2},
+    "golden": {"metrics": 1e-3, "updates": 2e-2, "stats": 1e-4, "moments": None},
+}
+
+
+def dp_rtol(case: dict) -> dict:
+    """The `DP_RTOL` class of a DP case (its knobs and compute dtype)."""
+    opt, grad, param = case.get("knobs", KNOB_CONFIGS["f32"])
+    if case.get("compute", "float32") == "bfloat16" or param == "bfloat16":
+        return DP_RTOL["bf16_rounding"]
+    return DP_RTOL["bf16_storage" if "bfloat16" in (opt, grad) else "float32"]
+
+
+# The faults a data-parallel step must not have; each fails the comparison
+# with the single-process step (tests/test_torch_parallel.py).
+DP_FAULTS = ("batchnorm_per_rank", "max_per_rank", "draws_per_rank", "jpeg_ramp_local",
+             "reduce_after_cast", "grads_summed")
+
+
+def dp_batch(seed: int, batch: int = DP_BATCH, h: int = H, w: int = W):
+    """The DP golden's global batch: hdr uniform [0, 2), elevations
+    linspace(4, 28)."""
+    hdr = np.random.default_rng(seed + 2).uniform(0.0, 2.0, (batch, h, w, 3)).astype(np.float32)
+    return {"hdr": hdr, "elevation": np.linspace(4, 28, batch).astype(np.float32)}
+
+
+def _jax_gan_state(engine, gv, sv, dv, lr):
+    import jax.numpy as jnp
+
+    return engine.GanState(gen_vars=gv, sun_vars=sv, disc_vars=dv,
+                           opt_gen=engine._rmsprop(lr).init((gv["params"], sv["params"])),
+                           opt_disc=engine._rmsprop(lr).init(dv["params"]),
+                           step=jnp.zeros((), jnp.int32), epoch=jnp.zeros((), jnp.int32))
+
+
+def _jax_sun_state(engine, sv, lr):
+    import jax.numpy as jnp
+
+    return engine.SunState(sun_vars={"params": sv["params"]},
+                           opt=engine._adam(lr).init(sv["params"]),
+                           step=jnp.zeros((), jnp.int32), epoch=jnp.zeros((), jnp.int32))
+
+
+def make_dp_golden(seed: int = 0) -> dict:
+    """One GAN step and one sun step of `skyhdr.parallel.dp`
+    (`make_parallel_{gan,sun}_train_step`) on `make_mesh(data=2)` of the CPU
+    devices (the tests' 8 virtual ones), global b4 at 16x64 DA f32 (the XLA
+    path), from the port's seeded weights on `dp_batch(seed)` and the key
+    `seed + 1`. Keys as `make_train_golden`'s, with the JAX-degraded global
+    `hdr_t` / `ldr` / `sunpose_gt` (each rank takes its rows), and under
+    "single_..." the metrics of `skyhdr`'s single-device steps on the same
+    batch and key, which the data-parallel ones equal."""
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_platforms", "cpu")
+    from skyhdr.config import Config, DataConfig, ModelConfig
+    from skyhdr.data.degradation import make_banks
+    from skyhdr.models.vgg16 import random_vgg16_weights
+    from skyhdr.parallel.dp import make_parallel_gan_train_step, make_parallel_sun_train_step
+    from skyhdr.parallel.mesh import make_mesh
+    from skyhdr.train import engine
+    from skyhdr.utils.io import get_exposure_lists, make_synthetic_dorf
+    from skyhdr_torch.utils.transplant import init_gan_vars, tree_digest
+
+    if len(jax.devices()) < DP_WORLD:
+        raise RuntimeError(f"the DP golden needs {DP_WORLD} JAX devices: set XLA_FLAGS="
+                           "--xla_force_host_platform_device_count=8 before JAX starts")
+    tcfg = golden_config()
+    cfg = Config(model=ModelConfig(**vars(tcfg.model)), data=DataConfig(batch_size=DP_BATCH))
+    lr = cfg.train.learning_rate
+    gv, sv, dv = init_gan_vars(tcfg, seed)
+    banks = make_banks(make_synthetic_dorf(175, 1024), get_exposure_lists()[0])
+    host = dp_batch(seed)
+    batch = {k: jnp.asarray(v) for k, v in host.items()}
+    key = jax.random.PRNGKey(seed + 1)
+    hdr_t, ldr = engine._degrade(cfg, banks, key, batch["hdr"])
+    sunpose_gt = engine._sunpose_gt_from_elevation(cfg, batch["elevation"])
+    vgg = random_vgg16_weights()
+    mesh = make_mesh(data=DP_WORLD)
+    gan_step, shard = make_parallel_gan_train_step(cfg, banks, vgg, mesh)
+    new, metrics = gan_step(_jax_gan_state(engine, gv, sv, dv, lr), shard(batch), key)
+    sun_step, shard = make_parallel_sun_train_step(cfg, banks, mesh)
+    new_sun, sun_metrics = sun_step(_jax_sun_state(engine, sv, lr), shard(batch), key)
+    _, single = jax.jit(engine.make_gan_train_step(cfg, banks, vgg, jit=False))(
+        _jax_gan_state(engine, gv, sv, dv, lr), batch, key)
+    _, single_sun = jax.jit(engine.make_sun_train_step(cfg, banks, jit=False))(
+        _jax_sun_state(engine, sv, lr), batch, key)
+    out = {"seed": np.int64(seed), "world": np.int64(DP_WORLD),
+           "weights_digest": np.float64(tree_digest({"gen": gv, "sun": sv, "disc": dv})),
+           **{k: np.asarray(v) for k, v in host.items()},
+           "hdr_t": np.asarray(hdr_t), "ldr": np.asarray(ldr),
+           "sunpose_gt": np.asarray(sunpose_gt),
+           **_train_entries(gv, sv, dv, new, metrics, new_sun, sun_metrics)}
+    out["single_gan_metrics"] = _metric_entries("gan", single)["gan_metrics"]
+    out["single_sun_metrics"] = _metric_entries("sun", single_sun)["sun_metrics"]
+    return out
+
+
+def apply_dp_fault(fault: str):
+    """Plant one of DP_FAULTS in this process (a rank's) by patching the
+    port's modules, and return the function that takes it out again:
+    BatchNorm's statistics over the rank's rows alone (C1); the sun-pose
+    maximum of the rank's rows (C2); the rank's own draws of its b rows from
+    the shared seed (C3); the JPEG ramp over the rank's b samples (C4); the
+    gradients cast to `grad_dtype` before the all-reduce; the gradients
+    summed over the ranks, not averaged."""
+    import torch
+
+    from skyhdr_torch.data import degradation
+    from skyhdr_torch.models import layers
+    from skyhdr_torch.parallel import dp
+    from skyhdr_torch.train import engine
+    from skyhdr_torch.train.optim import storage_dtype
+
+    if fault == "batchnorm_per_rank":
+        forward = layers.BatchNorm.forward
+
+        def local(self, x, train=False):
+            with layers.batch_across(None):
+                return forward(self, x, train)
+        target, name, value = layers.BatchNorm, "forward", local
+    elif fault == "max_per_rank":
+        target, name, value = dp.BatchReduce, "max", lambda self, x: torch.max(x)
+    elif fault in ("draws_per_rank", "jpeg_ramp_local"):
+        def degrade_batch(generator, hdr, banks, shard=(0, 1), **kw):
+            index, count = shard
+            if fault == "draws_per_rank":
+                draws = degradation.draw_degradation(generator, hdr.shape, banks)
+                return degradation.degrade_with(hdr, banks, draws, shard=shard, **kw)
+            draws = degradation.draw_degradation(
+                generator, (hdr.shape[0] * count, *hdr.shape[1:]), banks)
+            return degradation.degrade_with(hdr, banks, degradation.shard_rows(draws, index, count),
+                                            **kw)
+        target, name, value = engine, "degrade_batch", degrade_batch
+    elif fault == "reduce_after_cast":
+        def grads(cfg, total, params, reduce=None):
+            dtype = storage_dtype(cfg.train.grad_dtype)
+            out = [g.to(dtype) for g in torch.autograd.grad(total, params)]
+            return out if reduce is None else reduce(out)
+        target, name, value = engine, "_grads", grads
+    elif fault == "grads_summed":
+        average = dp.BatchReduce.grads
+        target, name, value = (dp.BatchReduce, "grads",
+                               lambda self, g: [x * self.world for x in average(self, g)])
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+    old = getattr(target, name)
+    setattr(target, name, value)
+    return lambda: setattr(target, name, old)
+
+
+def dp_config(case: dict, h: int = H, w: int = W, batch: int = DP_BATCH):
+    """The port's Config of one DP case: DA at h x w, the global `batch`,
+    the case's compute dtype, fused IN and storage knobs."""
+    import dataclasses
+
+    cfg = golden_config()
+    opt, grad, param = case.get("knobs", KNOB_CONFIGS["f32"])
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, im_height=h, im_width=w,
+                                  compute_dtype=case.get("compute", "float32"),
+                                  fused_instance_norm=case.get("fused", False)),
+        data=dataclasses.replace(cfg.data, batch_size=batch),
+        train=dataclasses.replace(cfg.train, opt_state_dtype=opt, grad_dtype=grad,
+                                  param_dtype=param))
+
+
+def _dp_states(cfg, trees, device):
+    from skyhdr_torch.train.engine import empty_gan_state, empty_sun_state, load_weights
+
+    gan, sun = empty_gan_state(cfg, device), empty_sun_state(cfg, device)
+    load_weights(gan, trees)
+    load_weights(sun, [trees[1]])
+    return gan, sun
+
+
+def _dp_trees(spec):
+    """The seeded weights of a DP run: the file the parent wrote once
+    (`spec["weights"]`, a pickle of `init_gan_vars`' trees), or a draw."""
+    import pickle
+
+    from skyhdr_torch.utils.transplant import init_gan_vars
+
+    if spec.get("weights"):
+        with open(spec["weights"], "rb") as f:
+            return pickle.load(f)
+    return init_gan_vars(dp_config({}, spec["h"], spec["w"], spec["batch"]), spec["seed"])
+
+
+def _dp_setup(spec):
+    from skyhdr_torch.data.degradation import make_banks
+    from skyhdr_torch.models.vgg16 import random_vgg16_weights
+    from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
+
+    banks = make_banks(make_synthetic_dorf(175, 1024), get_exposure_lists()[0],
+                       device=spec["device"])
+    host = dp_batch(spec["seed"], spec["batch"], spec["h"], spec["w"])
+    return banks, random_vgg16_weights(), host
+
+
+def dp_reference(spec: dict, case: dict, trees=None) -> dict:
+    """The port's single-process GAN and sun steps of a DP case on the whole
+    batch, with the generator seed the ranks use (`step_digests`)."""
+    import torch
+
+    from skyhdr_torch.train.engine import make_gan_train_step, make_sun_train_step
+
+    cfg = dp_config(case, spec["h"], spec["w"], spec["batch"])
+    banks, vgg, host = _dp_setup(spec)
+    device = spec["device"]
+    batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+    gan, sun = _dp_states(cfg, trees if trees is not None else _dp_trees(spec), device)
+    gen = lambda: torch.Generator(device=device).manual_seed(spec["seed"] + 1)
+    return step_digests(gan, sun,
+                        lambda s: make_gan_train_step(cfg, banks, vgg)(s, batch, gen()),
+                        lambda s: make_sun_train_step(cfg, banks)(s, batch, gen()))
+
+
+def dp_rank(spec: dict, rank: int) -> dict:
+    """One rank of a data-parallel run (a process of `run_dp_ranks`): joins
+    the group, then per case of `spec["cases"]` builds the GAN and sun
+    states from the run's seeded weights, replicates them from rank 0 and
+    takes one GAN step and one sun step of `make_parallel_*_train_step` on
+    its rows: of the stored JAX-degraded inputs of `spec["fixture"]`
+    (`step.train_on`; case "path": "fixture") or of `dp_batch` through the
+    degradation with the generator seeded seed + 1 on every rank ("path":
+    "batch"). Returns {case name: `step_digests` + "agree" (every rank's
+    states bit-equal after the steps) + on the card the DA kernels'
+    launches per step}, and under "imported" the top-level modules the
+    rank imported; with `spec["timing"]` also each step's ms, the
+    collectives' share of it and the peak device memory; with
+    `spec["single"]` whether the single-process steps in this process give
+    the same bits (a world of 1 under deterministic algorithms)."""
+    import statistics
+    import time
+
+    import torch
+
+    from skyhdr_torch.parallel import dp as pdp
+    from skyhdr_torch.parallel.mesh import initialize_distributed, make_mesh
+    from skyhdr_torch.train.engine import make_gan_train_step, make_sun_train_step
+
+    for case in spec["cases"]:
+        if case.get("fault") not in (None, *DP_FAULTS):
+            raise ValueError(f"unknown fault {case['fault']!r}")
+    torch.set_num_threads(spec.get("threads", 1))
+    device = spec["device"]
+    if device.startswith("cuda"):
+        torch.cuda.set_device(torch.device(device).index or 0)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if spec.get("deterministic"):
+        # cuBLAS reads this before its first handle; an operation with no
+        # deterministic form warns.
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    initialize_distributed(spec["init_method"], spec["world"], rank, device,
+                           backend=spec.get("backend"))
+    mesh = make_mesh()
+    trees = _dp_trees(spec)
+    banks, vgg, host = _dp_setup(spec)
+    dc = None
+    if device.startswith("cuda"):
+        from skyhdr_torch.ops.kernels import deform_conv as dc
+    out = {}
+    for case in spec["cases"]:
+        t_case = time.perf_counter()
+        undo = apply_dp_fault(case["fault"]) if case.get("fault") else None
+        cfg = dp_config(case, spec["h"], spec["w"], spec["batch"])
+        gan, sun = (pdp.replicate_state(s, mesh) for s in _dp_states(cfg, trees, device))
+        gan_step, shard = pdp.make_parallel_gan_train_step(cfg, banks, vgg, mesh)
+        sun_step, _ = pdp.make_parallel_sun_train_step(cfg, banks, mesh)
+        launches = {}
+
+        def run(kind, step, state):
+            if dc is not None:
+                for k in ("K1", "K2", "K3"):
+                    setattr(dc, f"{k}_LAUNCHES", 0)
+            if case.get("path") == "fixture":
+                with np.load(spec["fixture"]) as f:
+                    rows = [shard({"hdr": f[k], "elevation": f["elevation"]})["hdr"]
+                            for k in ("hdr_t", "ldr", "sunpose_gt")]
+                result = step.train_on(state, *rows)
+            else:
+                gen = torch.Generator(device=device).manual_seed(spec["seed"] + 1)
+                result = step(state, shard(host), gen)
+            if dc is not None:
+                launches[kind] = {k: getattr(dc, f"{k}_LAUNCHES") for k in ("K1", "K2", "K3")}
+            return result
+
+        res = step_digests(gan, sun, lambda s: run("gan", gan_step, s),
+                           lambda s: run("sun", sun_step, s))
+        res["agree"] = pdp.replicas_agree(gan, mesh) and pdp.replicas_agree(sun, mesh)
+        res["launches"] = launches
+        if spec.get("single"):
+            ref = dp_reference(spec, case, trees)
+            res["single_equal"] = all(np.array_equal(ref[k], res[k]) for k in (
+                "gan_metrics", "sun_metrics", "gan_param_digests", "sun_param_digests",
+                "gan_stat_digests", "gan_nu", "sun_mu", "sun_nu"))
+        for kind, step, state in (("gan", gan_step, gan), ("sun", sun_step, sun))[
+                :2 if spec.get("timing") else 0]:
+            # A warm-up step, then `timing` steps timed on the host clock
+            # (every rank steps together), then as many with each collective
+            # timed after the device's queued work: its share of the step.
+            gen = torch.Generator(device=device).manual_seed(spec["seed"] + 2)
+            batch = shard(host)
+            torch.cuda.reset_peak_memory_stats()
+            walls = {False: [], True: []}
+            shares = []
+            for timed in (None, False, True):
+                for _ in range(1 if timed is None else spec["timing"]):
+                    step.reduce.timed, step.reduce.comm_s = bool(timed), 0.0
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step(state, batch, gen)
+                    torch.cuda.synchronize()
+                    if timed is not None:
+                        walls[timed].append(time.perf_counter() - t0)
+                    if timed:
+                        shares.append(step.reduce.comm_s / walls[True][-1])
+            res[f"{kind}_ms"] = 1e3 * statistics.median(walls[False])
+            res[f"{kind}_ms_all"] = [1e3 * t for t in walls[False]]
+            res[f"{kind}_comm_share"] = statistics.median(shares)
+            res[f"{kind}_comm_ms"] = 1e3 * statistics.median(
+                sh * t for sh, t in zip(shares, walls[True]))
+            res[f"{kind}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        res["seconds"] = time.perf_counter() - t_case
+        out[case["name"]] = res
+        if undo is not None:
+            undo()
+        del gan, sun
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    out["imported"] = sorted({m.split(".")[0] for m in sys.modules})
+    return out
+
+
+class DPRanks:
+    """`spec["world"]` processes of `dp_rank` (this file's `dp-rank`
+    command), started together, their init through a file under `workdir`
+    unless `spec` names another `init_method`; the caller may work while
+    they run. `results(timeout_s)` waits: [each rank's results]; a rank
+    that fails or outlives the timeout stops every rank and raises. Leaving
+    the `with` block stops any rank still running."""
+
+    def __init__(self, spec: dict, workdir: str):
+        import json
+        import subprocess
+
+        spec = dict(spec)
+        spec.setdefault("init_method", "file://" + os.path.join(workdir, "dp_init"))
+        self.workdir, self.world = workdir, spec["world"]
+        path = os.path.join(workdir, "dp_spec.json")
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+        self.logs = [open(os.path.join(workdir, f"dp_rank{r}.log"), "w+")
+                     for r in range(self.world)]
+        self.procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "dp-rank", path, str(r)], cwd=ROOT,
+            env=env, stdout=self.logs[r], stderr=subprocess.STDOUT) for r in range(self.world)]
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    def stop(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in self.logs:
+            f.close()
+
+    def results(self, timeout_s: float = 300.0) -> list:
+        import pickle
+        import time
+
+        deadline = time.monotonic() + timeout_s
+        while any(p.poll() is None for p in self.procs):
+            if time.monotonic() > deadline or any(p.poll() not in (None, 0) for p in self.procs):
+                break
+            time.sleep(0.05)
+        alive = [r for r, p in enumerate(self.procs) if p.poll() is None]
+        failed = [r for r, p in enumerate(self.procs) if p.poll() not in (None, 0)]
+        if alive or failed:
+            tails = []
+            for r in failed or alive:
+                self.logs[r].flush()
+                self.logs[r].seek(0)
+                tails.append(f"rank {r} (exit {self.procs[r].poll()}):\n"
+                             + self.logs[r].read()[-3000:])
+            self.stop()
+            raise RuntimeError(f"data-parallel ranks {'timed out' if alive else 'failed'}:\n"
+                               + "\n".join(tails))
+        out = []
+        for r in range(self.world):
+            with open(os.path.join(self.workdir, f"dp_rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+
+def run_dp_ranks(spec: dict, workdir: str, timeout_s: float = 300.0) -> list:
+    """`DPRanks(spec, workdir).results(timeout_s)`, the ranks stopped after."""
+    with DPRanks(spec, workdir) as ranks:
+        return ranks.results(timeout_s)
+
+
+def _dp_rank_main(spec_path: str, rank: str) -> None:
+    import json
+    import pickle
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    out = dp_rank(spec, int(rank))
+    with open(os.path.join(os.path.dirname(spec_path), f"dp_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def compare_dp_steps(ref, got, rtol=None):
+    """Failures (a list of strings) of a data-parallel run's `step_digests`
+    against `ref` (the single-process run's, or a stored fixture's), and
+    the worst gaps: `compare_train_golden` (metrics, update digests,
+    BatchNorm sums at `rtol`'s "metrics", "updates", "stats"; `rtol` a
+    `DP_RTOL` entry, default its "float32") and, where
+    both hold the moments, per leaf the relative L1 gap of the second
+    moments (GAN) and of both of Adam's (sun) within "moments", but for the
+    leaves whose gradient is zero in exact arithmetic (float noise, held
+    by the update digests' bound)."""
+    rtol = DP_RTOL["float32"] if rtol is None else rtol
+    fails, worst = compare_train_golden(ref, got, rtol["metrics"], rtol["updates"],
+                                        rtol["stats"])
+    if "gan_nu" not in ref or rtol["moments"] is None:
+        return fails, worst
+    for kind, keys in (("gan", ("gan_nu",)), ("sun", ("sun_mu", "sun_nu"))):
+        paths, sizes = ref[f"{kind}_param_paths"], ref[f"{kind}_sizes"]
+        gmax = ref[f"{kind}_param_gmax"]
+        for key in keys:
+            at, gap = 0, 0.0
+            for path, n, g in zip(paths, sizes, gmax):
+                a, b = (v[key][at:at + n].astype(np.float64) for v in (got, ref))
+                at += n
+                if g <= 1e-5 * gmax.max():
+                    continue  # a zero-gradient leaf's float noise (`compare_train_golden`)
+                e = float(np.abs(a - b).sum() / max(np.abs(b).sum(), 1e-30))
+                gap = max(gap, e)
+                if not e <= rtol["moments"]:
+                    fails.append(f"{key} {path}: relative L1 gap {e:.3e}")
+            worst[key] = gap
     return fails, worst
 
 
 def in_fed_biases(paths) -> np.ndarray:
     """[n] bool: which leaves are the bias of a conv whose output goes
     straight into an InstanceNorm (`<prefix>/conv<s>/bias` beside a
-    `<prefix>/norm<s>`). The norm subtracts each channel's mean, so such a
-    bias has exactly zero gradient; in float arithmetic both packages carry
-    noise there, which bf16 makes large."""
+    `<prefix>/norm<s>`, or a plain resize-deconv's `<prefix>/conv<s>/conv/
+    bias`). The norm subtracts each channel's mean, so such a bias has
+    exactly zero gradient; in float arithmetic both packages carry noise
+    there, which bf16 makes large."""
     paths = [str(p) for p in paths]
     norms = {p.rsplit("/", 1)[0] for p in paths}
     out = []
     for p in paths:
         parts = p.split("/")
+        if len(parts) >= 3 and parts[-2] == "conv" and parts[-3].startswith("conv"):
+            parts = parts[:-2] + ["bias"]  # the resize-deconv's inner conv
         fed = (len(parts) >= 2 and parts[-1] == "bias" and parts[-2].startswith("conv")
                and "/".join(parts[:-2] + ["norm" + parts[-2][4:]]) in norms)
         out.append(fed)
@@ -1080,6 +1645,30 @@ BF16_UNRESOLVED = ("gan metric b_out", "gan metric g_out", "gan gradient gen/sun
                    "gan gradient gen/conv1_f/", "gan gradient gen/conv2_f/",
                    "gan gradient gen/conv3_f/", "gan gradient gen/norm2_f/",
                    "gan gradient gen/norm3_f/", "batch_stats gen/sun/")
+
+
+# The plain-conv bf16 golden (`use_da_conv=False`): its generator runs in
+# bf16 (at DA it stays float32), and twelve bf16 trunk convs between
+# InstanceNorms amplify a one-ulp rounding difference as far as bf16 itself
+# moves the values: `skyhdr`'s own bf16 generator, fed its input times
+# (1 + 2e-7 N(0, 1)), ends the trunk 1.2e-2 (of the max) from itself, its
+# float32 run 1.1e-2. Its bf16 steps from weights perturbed by
+# PLAIN_BF16_PERTURB (float32 noise: 2^-23 is 1.2e-7; the fixture's
+# "pert<k>_..." values, PLAIN_BF16_PERTURB_DRAWS draws) move each GAN-step
+# quantity a median 0.98 of its own bf16-vs-f32 gap
+# (test_torch_train_plain.py: test_plain_bf16_generator_amplifies_f32_noise).
+# So every GAN-step quantity (PLAIN_BF16_AMPLIFIED: the GAN train and eval
+# metrics, gradients and BatchNorm sums) is held to its class bound, the
+# largest of the class's own and perturbed gaps, times PLAIN_BF16_SPREAD,
+# and left out of the median check: each of `skyhdr`'s perturbed draws,
+# held to the bound of its own gap and the other draws, exceeds it by up to
+# 1.52x (the sky decoder's last kernel gradient), the port's run by 1.02x.
+# The sun step and the sun eval step, which run the sun-pose net alone,
+# are held per quantity. ROADMAP Queue 3 records it.
+PLAIN_BF16_AMPLIFIED = ("gan metric", "gan_eval metric", "gan gradient", "batch_stats")
+PLAIN_BF16_PERTURB = 2e-7
+PLAIN_BF16_PERTURB_DRAWS = 3
+PLAIN_BF16_SPREAD = 2.0
 
 
 def bf16_gaps(stored, values) -> list:
@@ -1124,12 +1713,28 @@ def bf16_own_gaps(stored) -> list:
                               if k.startswith("f32_")})
 
 
-def bf16_tolerances(stored, resolved: bool = True) -> dict:
+def bf16_pert_gaps(stored) -> list:
+    """`bf16_gaps` of `skyhdr`'s bf16 steps from perturbed weights (the
+    plain golden's "pert<k>_..." values), every draw's rows: how far float32
+    noise moves each quantity of `skyhdr`'s own bf16 run; [] where the
+    fixture has none."""
+    rows = []
+    for k in range(PLAIN_BF16_PERTURB_DRAWS):
+        pert = {key[len(f"pert{k}_"):]: v for key, v in stored.items()
+                if key.startswith(f"pert{k}_")}
+        rows += bf16_gaps(stored, pert) if pert else []
+    return rows
+
+
+def bf16_tolerances(stored, resolved: bool = True, unresolved=BF16_UNRESOLVED) -> dict:
     """{quantity: tolerance} of the bf16 golden (`bf16_gaps`' quantities):
     BF16_GAP_SHARE of the quantity's own gap (`bf16_own_gaps`), the own gap
-    taken at least BF16_FLOOR_SHARE of its class's median; a
-    BF16_UNRESOLVED quantity, or every quantity when not `resolved`, within
-    its class's largest own gap.
+    taken at least BF16_FLOOR_SHARE of its class's median; a quantity whose
+    name starts with one of `unresolved` (BF16_UNRESOLVED; the plain-conv
+    golden's PLAIN_BF16_AMPLIFIED), or every quantity when not `resolved`,
+    within its class's largest own gap (where the fixture holds perturbed
+    draws, `bf16_pert_gaps`: the largest own or perturbed gap times
+    PLAIN_BF16_SPREAD).
 
     `resolved=False` is the card's: there every layer rounds as on the CPU
     (chip_smoke.py: `bf16_layers`, one ulp), but the float32 sums run in
@@ -1140,16 +1745,19 @@ def bf16_tolerances(stored, resolved: bool = True) -> dict:
     The CPU run, which rounds as XLA:CPU nearly everywhere, is what resolves
     the bf16 step quantity by quantity."""
     own = bf16_own_gaps(stored)
+    pert = bf16_pert_gaps(stored)
     median, largest = {}, {}
     for cls in {c for c, _, _ in own}:
         gaps = [g for c, _, g in own if c == cls]
-        median[cls], largest[cls] = float(np.median(gaps)), max(gaps)
-    return {name: (largest[cls] if not resolved or name.startswith(BF16_UNRESOLVED)
+        median[cls] = float(np.median(gaps))
+        largest[cls] = (max(gaps + [g for c, _, g in pert if c == cls]) * PLAIN_BF16_SPREAD
+                        if pert else max(gaps))
+    return {name: (largest[cls] if not resolved or name.startswith(tuple(unresolved))
                    else BF16_GAP_SHARE * max(g, BF16_FLOOR_SHARE * median[cls]))
             for cls, name, g in own}
 
 
-def compare_train_golden_bf16(stored, port, resolved: bool = True):
+def compare_train_golden_bf16(stored, port, resolved: bool = True, amplified=()):
     """Failures (a list of strings) of the port's `port_eval_bf16` and
     `port_steps` values against the stored `skyhdr` bf16 values at
     `bf16_tolerances(stored, resolved)`, and per class the largest gap and
@@ -1160,14 +1768,20 @@ def compare_train_golden_bf16(stored, port, resolved: bool = True):
     Besides, the median over every quantity of its gap as a share of its own
     gap (`worst["median_of_own"]`) stays under BF16_GAP_SHARE in either
     mode: one-ulp differences carry a few quantities as far as their own
-    gap, a run that computes in float32 carries all of them there."""
-    tol = bf16_tolerances(stored, resolved)
+    gap, a run that computes in float32 carries all of them there.
+
+    `amplified` (the plain-conv golden's PLAIN_BF16_AMPLIFIED): prefixes of
+    the quantities that `skyhdr` itself moves as far as its own gap under
+    float32 noise; they are held to their class bound (`bf16_tolerances`)
+    in place of BF16_UNRESOLVED and left out of the median."""
+    amplified = tuple(amplified)
+    tol = bf16_tolerances(stored, resolved, amplified or BF16_UNRESOLVED)
     own = {name: g for _, name, g in bf16_own_gaps(stored)}
     fails, worst, shares = [], {}, []
     for cls, name, g in bf16_gaps(stored, port):
         worst[cls] = max(worst.get(cls, 0.0), g)
         worst[f"{cls}_of_tol"] = max(worst.get(f"{cls}_of_tol", 0.0), g / tol[name])
-        if own[name] > 0:
+        if own[name] > 0 and not (amplified and name.startswith(amplified)):
             shares.append(g / own[name])
         if not g <= tol[name]:
             fails.append(f"{name}: gap {g:.3e}, tolerance {tol[name]:.3e}")
@@ -1185,15 +1799,102 @@ def compare_train_golden_bf16(stored, port, resolved: bool = True):
     return fails, worst
 
 
+def plain_bf16_adv(steps: int = 8, batch: int = 8, h: int = 32, w: int = 128,
+                   seed: int = 0) -> dict:
+    """The adversarial loss of `skyhdr` and of the port over `steps` GAN
+    steps at plain convs, h x w, b`batch`, on the CPU, from the same seeded
+    weights (`init_gan_vars`) and the same JAX-degraded inputs (synthetic
+    skies, `tools/make_synth_dataset.synth_panorama`; step i's key is
+    seed + 1 + i): {run: {metric: [per step]}} for `skyhdr` in bfloat16 and
+    in float32 and the port in bfloat16. A record of whether `skyhdr`'s
+    adv grows as the port's does on the card, not a gate."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    jax.config.update("jax_platforms", "cpu")
+    from skyhdr.config import Config as JConfig, DataConfig as JData, ModelConfig as JModel
+    from skyhdr.data.degradation import make_banks as jax_banks
+    from skyhdr.models.vgg16 import random_vgg16_weights
+    from skyhdr.train import engine
+    from skyhdr.utils.io import get_exposure_lists, make_synthetic_dorf
+    from skyhdr_torch.config import Config, DataConfig, ModelConfig
+    from skyhdr_torch.data.degradation import make_banks as port_banks
+    from skyhdr_torch.train import engine as tengine
+    from skyhdr_torch.utils.transplant import init_gan_vars
+
+    spec = importlib.util.spec_from_file_location(
+        "make_synth_dataset", os.path.join(ROOT, "tools", "make_synth_dataset.py"))
+    synth = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synth)
+    rng = np.random.default_rng(seed)
+    batches = []
+    for _ in range(steps):
+        imgs, elev = zip(*(synth.synth_panorama(rng, h, w) for _ in range(batch)))
+        batches.append({"hdr": jnp.asarray(np.stack(imgs)),
+                        "elevation": jnp.asarray(np.array(elev, np.float32))})
+    dorf, exposures = make_synthetic_dorf(175, 1024), get_exposure_lists()[0]
+    banks = jax_banks(dorf, exposures)
+    vgg = random_vgg16_weights()
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        tcfg = Config(model=ModelConfig(im_height=h, im_width=w, compute_dtype=dtype),
+                      data=DataConfig(batch_size=batch))
+        cfg = JConfig(model=JModel(**vars(tcfg.model)), data=JData(batch_size=batch))
+        gv, sv, dv = init_gan_vars(tcfg, seed)
+        lr = cfg.train.learning_rate
+        state = engine.GanState(
+            gen_vars=gv, sun_vars=sv, disc_vars=dv,
+            opt_gen=engine._rmsprop(lr).init((gv["params"], sv["params"])),
+            opt_disc=engine._rmsprop(lr).init(dv["params"]),
+            step=jnp.zeros((), jnp.int32), epoch=jnp.zeros((), jnp.int32))
+        step = jax.jit(engine.make_gan_train_step(cfg, banks, vgg, jit=False))
+        runs = {f"skyhdr_{dtype}": []}
+        if dtype == "bfloat16":
+            pstate = tengine.create_gan_state(tcfg, seed, "cpu")
+            pstep = tengine.make_gan_train_step(
+                tcfg, port_banks(dorf, exposures, device="cpu"), vgg).train_on
+            runs["port_bfloat16"] = []
+        for i, b in enumerate(batches):
+            key = jax.random.PRNGKey(seed + 1 + i)
+            state, m = step(state, b, key)
+            runs[f"skyhdr_{dtype}"].append({k: float(v) for k, v in m.items()})
+            if dtype == "bfloat16":
+                hdr_t, ldr = engine._degrade(cfg, banks, key, b["hdr"])
+                gt = engine._sunpose_gt_from_elevation(cfg, b["elevation"])
+                inputs = (torch.from_numpy(np.array(t)) for t in (hdr_t, ldr, gt))
+                pstate, pm = pstep(pstate, *inputs)
+                runs["port_bfloat16"].append({k: float(v) for k, v in pm.items()})
+            print(f"{dtype} step {i}: " + "; ".join(
+                f"{r} adv {v[-1]['adv']:.6g} gen_total {v[-1]['gen_total']:.6g} "
+                f"disc_total {v[-1]['disc_total']:.6g}" for r, v in runs.items()), flush=True)
+        out.update({r: {k: [m[k] for m in v] for k in v[0]} for r, v in runs.items()})
+    return out
+
+
 def main():
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["dp-rank"]:
+        _dp_rank_main(*sys.argv[2:4])
+        return
+    if sys.argv[1:2] == ["plain-bf16-adv"]:
+        import json
+
+        print(json.dumps(plain_bf16_adv()))
+        return
+    # The DP golden runs on two of eight virtual CPU devices, as the tests do.
+    os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
     for path, make in ((FIXTURE, lambda: make_golden(0)),
                        (TRAIN_FIXTURE, lambda: make_train_golden(0)),
                        (DA5_FIXTURE, lambda: make_golden(0, da_kernel_size=5)),
                        (DA5_TRAIN_FIXTURE, lambda: make_train_golden(0, da_kernel_size=5)),
                        (RESUME_FIXTURE, lambda: make_resume_golden(0)),
                        (BF16_TRAIN_FIXTURE, lambda: make_train_golden_bf16(0)),
-                       (KNOBS_FIXTURE, lambda: make_train_golden_knobs(0))):
+                       (KNOBS_FIXTURE, lambda: make_train_golden_knobs(0)),
+                       (PLAIN_TRAIN_FIXTURE, lambda: make_train_golden(0, use_da_conv=False)),
+                       (PLAIN_BF16_TRAIN_FIXTURE,
+                        lambda: make_train_golden_bf16(0, use_da_conv=False)),
+                       (DP_FIXTURE, lambda: make_dp_golden(0))):
         np.savez_compressed(path, **make())
         print(f"wrote {path} ({os.path.getsize(path)} bytes)")
 
