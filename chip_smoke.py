@@ -188,7 +188,33 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     and its peak memory; then NCCL at world size 1 under
                     deterministic algorithms, its steps bit-equal to the
                     single-process steps. A failed or hung rank fails it.
-  13. probes     — the DA-conv probe tools (skyhdr_torch/tools/) and their
+  13. fsdp       — ZeRO-3 sharded training (`skyhdr_torch.parallel.fsdp`,
+                    min_bytes 1 MiB) on the parallel phase's DA 32x128
+                    state and b32 batch: two gloo ranks, 16 samples each,
+                    one GAN step and one sun step of `make_fsdp_*` (sharded,
+                    stepped, unsharded) against the single-process b32 steps
+                    (the train golden's tolerances), K1-K3 counted on each
+                    rank (20/24/20, 4/4/4), the ranks' unsharded states
+                    bit-equal; each step's ms, collectives' share, peak and
+                    at-rest bytes per rank; two GAN and two sun steps bit-equal
+                    to the DP steps under deterministic algorithms; a DA
+                    64x256 GanState and SunState filled on the card and
+                    sharded, each rank's at-rest bytes (and the allocator's)
+                    against the replicated state's; then NCCL at world size
+                    1, its FSDP steps bit-equal to the single-process steps.
+  14. spatial    — the width ring (`skyhdr_torch.parallel.spatial`) on rings
+                    of 2 and 4 gloo ranks and NCCL at world size 1, all on
+                    the one card: `ring_deformable_conv2d` at each distinct
+                    DA layer shape at 64x256 b8 (halo plan and force_gather,
+                    k=3 through K1 and the k=5 trunk through K5, the trunk
+                    in bf16 too), one K1/K5 launch a call on each rank, each
+                    block against its plain version (1e-4 f32, 2e-2 bf16)
+                    and checked bit for bit against K1/K5 on the whole
+                    panorama (recorded); `ring_conv2d` (cyclic and zero
+                    seams) against `F.conv2d` on the padded whole panorama;
+                    then K1/K5 on one 1/4 width shard at each shape at b32
+                    timed beside its plain version and the whole panorama.
+  15. probes     — the DA-conv probe tools (skyhdr_torch/tools/) and their
                     kernels, at the tools' default shape x (32,64,256,64) ->
                     F 64 and at the serving trunk layer (32,16,64,128) ->
                     128: every K10 instantiation against its plain version
@@ -236,7 +262,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 ITERS, WARMUP = 20, 3
 STEP_ITERS = 5
 PHASES = ("kernels", "golden", "train_golden", "serving", "training", "timing",
-          "train_cli", "cli", "convert", "parallel", "probes")
+          "train_cli", "cli", "convert", "parallel", "fsdp", "spatial", "probes")
 # (name, x shape at 32x128 [h, w, c], F, layers of that shape, in the
 # sun-pose net: Grad-CAM's pull differentiates through it)
 DA_LAYERS = [
@@ -2863,6 +2889,55 @@ def phase_convert(dc, smi, report):
 DP_H, DP_W, DP_BATCH = 32, 128, 32
 
 
+@functools.lru_cache(maxsize=None)
+def dp_trees():
+    """The seeded DA 32x128 weights of the parallel and fsdp phases, drawn
+    once: (trees, seconds the draw took)."""
+    from skyhdr_torch.utils.transplant import init_gan_vars
+
+    t0 = time.perf_counter()
+    trees = init_gan_vars(golden_tool().dp_config({}, DP_H, DP_W, DP_BATCH), 0)
+    return trees, time.perf_counter() - t0
+
+
+_DP_SINGLE = {}
+
+
+def dp_single(dc, mod, spec, trees):
+    """`dp_reference` (the single-process b32 GAN and sun steps) of the
+    parallel and fsdp phases, computed once and printed."""
+    if not _DP_SINGLE:
+        t0 = time.perf_counter()
+        reset_counts(dc)
+        _DP_SINGLE["ref"] = mod.dp_reference(spec, {}, trees)
+        say("parallel", f"single-process b{DP_BATCH} GAN step + sun step in "
+            f"{time.perf_counter() - t0:.3f} s (launches {counts(dc)})")
+    return _DP_SINGLE["ref"]
+
+
+def dp_spec(work, threads=4):
+    """The rank spec of the parallel and fsdp phases, the seeded weights
+    written to `work` for the ranks."""
+    import pickle
+
+    spec = {"device": "cuda", "h": DP_H, "w": DP_W, "batch": DP_BATCH, "seed": 0,
+            "weights": os.path.join(work, "weights.pkl"), "threads": threads}
+    with open(spec["weights"], "wb") as f:
+        pickle.dump(dp_trees()[0], f, protocol=pickle.HIGHEST_PROTOCOL)
+    return spec
+
+
+def rank_launches_ok(phase, case, per_rank):
+    """Each rank's K1-K3 launches of one GAN and one sun step, asserted."""
+    want = {"gan": {k: GAN_LAUNCHES[k] for k in ("K1", "K2", "K3")},
+            "sun": {k: SUN_LAUNCHES[k] for k in ("K1", "K2", "K3")}}
+    for rank, r in enumerate(per_rank):
+        say(phase, f"{case} rank {rank}: launches {r['launches']} (want {want}); "
+            f"states bit-equal across ranks: {r['agree']}")
+        check(r["launches"] == want, f"{case} rank {rank} launches {r['launches']}")
+        check(r["agree"], f"{case}: the ranks' states differ after the steps")
+
+
 def single_step_ms(mod, spec, trees):
     """{"gan", "sun"}: the single-process step's ms on the parallel phase's
     global batch (CUDA events, median of STEP_ITERS after 1 warm-up)."""
@@ -2897,27 +2972,14 @@ def phase_parallel(dc, smi, report):
       - NCCL at world size 1 under deterministic algorithms: the DP steps
         bit-equal to the single-process steps in the same process.
     A rank that fails, or outlives its limit, fails the run."""
-    import pickle
-
-    from skyhdr_torch.utils.transplant import init_gan_vars
-
     mod = golden_tool()
     work = tempfile.mkdtemp(prefix="skyhdr_dp_")
     out = report["parallel"] = {"device": smi}
     try:
-        t0 = time.perf_counter()
-        spec = {"device": "cuda", "h": DP_H, "w": DP_W, "batch": DP_BATCH, "seed": 0,
-                "weights": os.path.join(work, "weights.pkl"), "threads": 4}
-        trees = init_gan_vars(mod.dp_config({}, DP_H, DP_W, DP_BATCH), 0)
-        with open(spec["weights"], "wb") as f:
-            pickle.dump(trees, f, protocol=pickle.HIGHEST_PROTOCOL)
-        say("parallel", f"DA {DP_H}x{DP_W}: seeded weights drawn and written once in "
-            f"{time.perf_counter() - t0:.3f} s")
-        t0 = time.perf_counter()
-        reset_counts(dc)
-        ref = mod.dp_reference(spec, {}, trees)
-        say("parallel", f"single-process b{DP_BATCH} GAN step + sun step in "
-            f"{time.perf_counter() - t0:.3f} s (launches {counts(dc)})")
+        trees, draw_s = dp_trees()
+        spec = dp_spec(work)
+        say("parallel", f"DA {DP_H}x{DP_W}: seeded weights drawn once in {draw_s:.3f} s")
+        ref = dp_single(dc, mod, spec, trees)
         out["single_ms"] = single_step_ms(mod, spec, trees)
         say("parallel", f"single-process b{DP_BATCH} steps, for scale: GAN "
             f"{out['single_ms']['gan']:.3f} ms, sun {out['single_ms']['sun']:.3f} ms (CUDA "
@@ -2936,13 +2998,7 @@ def phase_parallel(dc, smi, report):
                 f"{time.perf_counter() - t0:.3f} s wall")
             per_rank = [r[case] for r in results]
             got = per_rank[0]
-            for rank, r in enumerate(per_rank):
-                want = {"gan": {k: GAN_LAUNCHES[k] for k in ("K1", "K2", "K3")},
-                        "sun": {k: SUN_LAUNCHES[k] for k in ("K1", "K2", "K3")}}
-                say("parallel", f"{case} rank {rank}: launches {r['launches']} (want {want}); "
-                    f"states bit-equal across ranks: {r['agree']}")
-                check(r["launches"] == want, f"{case} rank {rank} launches {r['launches']}")
-                check(r["agree"], f"{case}: the ranks' states differ after the steps")
+            rank_launches_ok("parallel", case, per_rank)
             if case == "gloo2":
                 fails, worst = mod.compare_dp_steps(ref, got, mod.DP_RTOL["golden"])
                 for kind in ("gan", "sun"):
@@ -2979,6 +3035,242 @@ def phase_parallel(dc, smi, report):
                 out[case] = {"single_equal": got["single_equal"], "launches": got["launches"]}
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+# The fsdp phase's min_bytes: `skyhdr`'s default (the sun-pose FCs and their
+# moments sharded).
+FSDP_MIN_BYTES = 1 << 20
+
+
+def phase_fsdp(dc, smi, report):
+    """ZeRO-3 sharded training on the card (`skyhdr_torch.parallel.fsdp`),
+    on the parallel phase's seeded DA 32x128 state and b32 batch. Two gloo
+    ranks on the one H100, 16 samples each, in one launch:
+      - one GAN step and one sun step of `make_fsdp_*_train_step` (sharded,
+        stepped, unsharded) against the single-process b32 steps
+        (`compare_train_golden`'s tolerances), K1-K3 counted on each rank,
+        the ranks' unsharded states bit-equal; then each step timed on each
+        rank (step ms, the collectives' share, peak memory) and the
+        sharded state's at-rest bytes;
+      - under deterministic algorithms, two consecutive GAN steps and two
+        sun steps of the FSDP step and of the DP step from the same state
+        and seeds: every tensor bit-equal after unsharding;
+      - DA 64x256 GanState and SunState filled on the card and sharded: each
+        rank's at-rest bytes (and the allocator's) against the replicated
+        state's.
+    Then NCCL at world size 1 under deterministic algorithms: the FSDP
+    steps bit-equal to the single-process steps in the same process."""
+    mod = golden_tool()
+    work = tempfile.mkdtemp(prefix="skyhdr_fsdp_")
+    out = report["fsdp"] = {"device": smi, "min_bytes": FSDP_MIN_BYTES}
+    mb = FSDP_MIN_BYTES
+    try:
+        trees, _ = dp_trees()
+        spec = dp_spec(work)
+        ref = dp_single(dc, mod, spec, trees)
+        cases = [{"name": "fsdp", "path": "batch", "fsdp": mb, "timing": STEP_ITERS},
+                 {"name": "fsdp_vs_dp", "path": "batch", "fsdp": mb, "vs_dp": True,
+                  "deterministic": True},
+                 {"name": "at_rest_64x256", "at_rest": [64, 256], "fsdp": mb}]
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(work, "gloo2"))
+        results = mod.run_dp_ranks(dict(spec, world=2, backend="gloo", cases=cases),
+                                   os.path.join(work, "gloo2"), timeout_s=400)
+        say("fsdp", f"2 gloo ranks: run in {time.perf_counter() - t0:.3f} s wall")
+        per_rank = [r["fsdp"] for r in results]
+        rank_launches_ok("fsdp", "fsdp", per_rank)
+        fails, worst = mod.compare_dp_steps(ref, per_rank[0], mod.DP_RTOL["golden"])
+        say("fsdp", f"DA {DP_H}x{DP_W} b{DP_BATCH} (16 a rank) FSDP GAN step + sun step at "
+            f"min_bytes {mb} vs the single-process step: worst relative {json.dumps(worst)} "
+            f"(metrics {GOLDEN_METRIC_RTOL}, updates {GOLDEN_UPDATE_RTOL}, BN sums 1e-4)")
+        for line in fails:
+            say("fsdp", f"FAIL fsdp: {line}")
+        check(not fails, f"fsdp vs the single-process step: {len(fails)} mismatches")
+        out["worst"] = worst
+        out["ranks"] = []
+        for rank, r in enumerate(results):
+            row = {k: r["fsdp"][k] for k in r["fsdp"] if k.endswith(
+                ("_ms", "_ms_all", "_share", "_gib", "_bytes"))}
+            vs, rest = r["fsdp_vs_dp"], r["at_rest_64x256"]
+            for kind in ("gan", "sun"):
+                say("fsdp", f"rank {rank} {kind} step: {r['fsdp'][f'{kind}_ms']:.3f} ms (median "
+                    f"of {STEP_ITERS}, host clock, both ranks stepping on the one card), "
+                    f"collectives {r['fsdp'][f'{kind}_comm_ms']:.3f} ms = "
+                    f"{100 * r['fsdp'][f'{kind}_comm_share']:.2f}%, peak "
+                    f"{r['fsdp'][f'{kind}_peak_gib']:.3f} GiB; at rest "
+                    f"{r['fsdp'][f'{kind}_resident_bytes']} B sharded of "
+                    f"{vs[f'{kind}_replicated_bytes']} B replicated (DA {DP_H}x{DP_W}); on {smi}")
+                say("fsdp", f"rank {rank} {kind}: two FSDP steps vs two DP steps under "
+                    f"deterministic algorithms, tensors whose bits differ: "
+                    f"{vs[f'{kind}_differ'] or 'none'}")
+                check(vs[f"{kind}_differ"] == [], f"rank {rank} {kind}: FSDP != DP")
+                say("fsdp", f"rank {rank} DA 64x256 {kind} state at rest: {rest[f'{kind}_bytes']}"
+                    f" B sharded ({rest[f'{kind}_allocated']} B allocated, plan "
+                    f"{rest[f'{kind}_plan_bytes']} B) of {rest[f'{kind}_replicated_bytes']} B "
+                    f"replicated = {rest[f'{kind}_bytes'] / rest[f'{kind}_replicated_bytes']:.4f};"
+                    f" peak while sharding {rest[f'{kind}_peak']} B; on {smi}")
+                check(rest[f"{kind}_bytes"] == rest[f"{kind}_plan_bytes"],
+                      f"rank {rank} {kind}: at-rest bytes off the plan")
+                row.update({f"{kind}_differ": vs[f"{kind}_differ"],
+                            f"{kind}_bytes_32x128": vs[f"{kind}_bytes"],
+                            f"{kind}_replicated_32x128": vs[f"{kind}_replicated_bytes"]},
+                           **{f"{kind}_{k}_64x256": rest[f"{kind}_{k}"] for k in (
+                               "bytes", "allocated", "plan_bytes", "replicated_bytes", "peak")})
+            check(vs["agree"], "fsdp_vs_dp: the ranks' unsharded states differ")
+            out["ranks"].append(row)
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(work, "nccl1"))
+        results = mod.run_dp_ranks(
+            dict(spec, world=1, backend="nccl", deterministic=True, single=True,
+                 cases=[{"name": "fsdp_nccl1", "path": "batch", "fsdp": mb}]),
+            os.path.join(work, "nccl1"), timeout_s=300)
+        got = results[0]["fsdp_nccl1"]
+        rank_launches_ok("fsdp", "fsdp_nccl1", [got])
+        say("fsdp", f"NCCL at world size 1, deterministic algorithms: FSDP steps bit-equal to "
+            f"the single-process steps in the same process: {got['single_equal']} (run in "
+            f"{time.perf_counter() - t0:.3f} s wall)")
+        check(got["single_equal"], "fsdp_nccl1: the FSDP steps differ from the single-process "
+              "steps")
+        out["nccl1_single_equal"] = got["single_equal"]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# The spatial phase: the DA layer shapes at 64x256 (the kernels phase's),
+# this batch.
+SPATIAL_BATCH = 8
+
+
+def spatial_cases():
+    """The spatial phase's cases (`make_torch_golden.spatial_rank`): each
+    distinct k=3 DA layer shape at 64x256 under the halo plan and
+    `force_gather` in f32, the trunk in bf16, the k=5 trunk (K5) under
+    both, and `ring_conv2d` with cyclic and zero seams (`spatial_inputs`)."""
+    cases, seen = [], set()
+    for i, (name, shape, f, _, _) in enumerate(DA_LAYERS + DA5_LAYERS):
+        h, w, c = scaled(shape, 2)
+        k = 5 if "k=5" in name else 3
+        if (h, w, c, f, k) in seen:
+            continue
+        seen.add((h, w, c, f, k))
+        for gather in (False, True):
+            cases.append({"name": f"{name} {'gather' if gather else 'halo'}", "op": "da",
+                          "k": k, "f": f, "shape": [SPATIAL_BATCH, h, w, c], "seed": i,
+                          "force_gather": gather})
+    trunk = next(c for c in cases if c["k"] == 3 and c["shape"][1:] == [16, 64, 128]
+                 and c["f"] == 128 and not c["force_gather"])
+    cases.append(dict(trunk, name="trunk 16x64x128 halo bf16", dtype="bfloat16"))
+    for padding in ("cyclic", "zeros"):
+        cases.append({"name": f"conv3 {padding}", "op": "conv", "padding": padding, "k": 3,
+                      "f": 32, "shape": [SPATIAL_BATCH, 64, 256, 32], "seed": 99})
+    return cases
+
+
+def ring_timing(dc, smi, width=4, batch=32):
+    """K1/K5 on one width shard of `width` (extended by its halo) at each
+    distinct DA layer shape at 64x256 b`batch` f32, in this process (no
+    ring: the extension is cut from the whole panorama): its ms and the
+    plain version's (paired, CUDA events), K1/K5 on the whole panorama for
+    scale, and the shard's bound."""
+    from skyhdr_torch.parallel.spatial import ring_da_plan
+
+    rows, seen = [], set()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for name, shape, f, _, _ in DA_LAYERS + DA5_LAYERS:
+        h, w, c = scaled(shape, 2)
+        k = 5 if "k=5" in name else 3
+        if (h, w, c, f, k) in seen:
+            continue
+        seen.add((h, w, c, f, k))
+        wl = w // width
+        _, halo = ring_da_plan(h, w, wl, k)
+        x, kern, bias, _ = operands((h, w, c), batch, f, torch.float32, gen, ksize=k)
+        xe = x[:, :, [(c0 - halo) % w for c0 in range(wl + 2 * halo)]].contiguous()
+        ring = lambda: dc.da_conv_forward_ring(xe, kern, bias, w=w, halo=halo, kernel_size=k)
+        plain = lambda: dc.da_conv_forward_ring_ref(xe, kern, bias, w=w, halo=halo,
+                                                    kernel_size=k)
+        whole = ((lambda: dc.da_conv_forward_k1(x, kern, bias)) if k == 3
+                 else (lambda: dc.da_conv_forward_k5(x, kern, bias, kernel_size=k)))
+        err, _ = rel_err(ring(), plain())
+        check(err <= TOL["K1" if k == 3 else "K5", torch.float32],
+              f"{name}: the ring kernel vs its plain version {err:.3e}")
+        same = torch.equal(ring(), whole()[:, :, :wl])
+        ms, plain_ms = paired_ms(ring, plain)
+        whole_ms = statistics.median(time_ms(whole))
+        bms, by = bound("K1" if k == 3 else "K5", batch, (h, wl, c), f, ksize=k)
+        rows.append({"layer": name, "k": k, "x": [batch, h, wl + 2 * halo, c], "f": f,
+                     "halo": halo, "ms": ms, "plain_ms": plain_ms, "whole_ms": whole_ms,
+                     "bound_ms": bms, "bound_by": by, "err": err, "whole_equal": same})
+        say("spatial", f"{name}: K{1 if k == 3 else 5} on a 1/{width} width shard "
+            f"x[{batch},{h},{wl}+2*{halo},{c}] -> {f}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+            f"the whole panorama {whole_ms:.4f} ms, the shard's bound {bms:.4f} ms by {by}); "
+            f"vs plain {err:.2e}, its columns bit-equal to the whole panorama's: {same}; "
+            f"on {smi}")
+    return rows
+
+
+def phase_spatial(dc, smi, report):
+    """Width-sharded spatial parallelism on the card (`skyhdr_torch.parallel.
+    spatial`): `spatial_cases` on width rings of 2 and of 4 gloo ranks (both
+    launches at once, all on the one H100), then on NCCL at world size 1
+    (the ring of one: its own opposite edge). Per rank and case: the DA
+    conv's K1/K5 launches (one a call, and no other), its block against
+    its plain version (1e-4 f32, 2e-2 bf16) and whether it equals K1/K5 on
+    the whole panorama bit for bit; `ring_conv2d` against `F.conv2d` on the
+    whole panorama padded the same way (1e-4). Then `ring_timing`. A rank
+    that fails or hangs fails the phase."""
+    mod = golden_tool()
+    work = tempfile.mkdtemp(prefix="skyhdr_ring_")
+    out = report["spatial"] = {"device": smi, "cases": {}}
+    cases = spatial_cases()
+    def ranks(name, width, backend):
+        cwork = os.path.join(work, name)
+        os.makedirs(cwork)
+        return mod.DPRanks({"job": "spatial", "world": width, "width": width, "device": "cuda",
+                            "backend": backend, "cases": cases, "threads": 2}, cwork)
+
+    try:
+        t0 = time.perf_counter()
+        runs, rings = {}, {}
+        try:  # the two gloo rings together, then NCCL alone
+            for name, width in (("w2", 2), ("w4", 4)):
+                rings[name] = ranks(name, width, "gloo")
+            for name, ring in rings.items():
+                runs[name] = ring.results(300)
+        finally:
+            for ring in rings.values():
+                ring.stop()
+        with ranks("nccl1", 1, "nccl") as ring:
+            runs["nccl1"] = ring.results(300)
+        say("spatial", f"rings of 2 and 4 gloo ranks, then NCCL at world size 1: "
+            f"{time.perf_counter() - t0:.3f} s wall")
+        for name, results in runs.items():
+            for case in cases:
+                n = case["name"]
+                tol = 2e-2 if case.get("dtype") == "bfloat16" else 1e-4
+                errs = [r[n]["err_plain"] for r in results]
+                row = {"err_plain": max(errs), "max_abs_err": max(r[n]["max_abs_err"]
+                                                                  for r in results)}
+                if case["op"] == "da":
+                    want = {"K1": int(case["k"] == 3), "K5": int(case["k"] != 3)}
+                    launches = [r[n]["launches"] for r in results]
+                    row.update(mode=results[0][n]["mode"], halo=results[0][n]["halo"],
+                               launches=launches,
+                               whole_equal=all(r[n]["whole_equal"] for r in results))
+                    check(all(x == want for x in launches),
+                          f"{name} {n}: launches {launches}, want {want} a rank")
+                say("spatial", f"{name} {n}: x {case['shape']} -> {case['f']} "
+                    f"{case.get('dtype', 'float32')}: worst rank vs plain {row['err_plain']:.2e}"
+                    f" (tol {tol})" + (f", plan {row['mode']} (halo {row['halo']}), launches a "
+                                       f"rank {row['launches']}, bit-equal to the whole "
+                                       f"panorama's K{1 if case['k'] == 3 else 5}: "
+                                       f"{row['whole_equal']}" if case["op"] == "da" else ""))
+                check(row["err_plain"] <= tol, f"{name} {n}: {row['err_plain']:.3e} > {tol}")
+                out["cases"][f"{name} {n}"] = row
+        out["timing"] = ring_timing(dc, smi)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
 
 
 def probe_bound(n, c, f, x_bytes, mma, summing, k_bytes=4):
@@ -3396,6 +3688,8 @@ def main(argv=None):
     timed("cli", phase_cli, dc, smi, report)
     timed("convert", phase_convert, dc, smi, report)
     timed("parallel", phase_parallel, dc, smi, report)
+    timed("fsdp", phase_fsdp, dc, smi, report)
+    spatial = timed("spatial", phase_spatial, dc, smi, report)
     probes = timed("probes", phase_probes, dc, smi, report)
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -3446,6 +3740,21 @@ def main(argv=None):
             "per": f"one GAN train step at DA 64x256 b64 f32{per[run]} (launches: the 3 "
                    f"steps of the training phase{per[run]})",
         })
+        if kern in ("K1", "K5"):
+            # The same kernel on width shards (parallel/spatial.py): one launch
+            # a ring call on each rank, over `ring_window_tables`.
+            k = 3 if kern == "K1" else 5
+            calls = {n: c["launches"] for n, c in spatial["cases"].items()
+                     if "launches" in c}
+            kernels[-1]["width_shards"] = {
+                "route": "cuda", "source": "skyhdr_torch/parallel/spatial.py",
+                "launches_per_call": sorted({r[kern] for n, c in calls.items() for r in c
+                                             if r[kern]}),
+                "calls": sum(1 for n, c in spatial["cases"].items()
+                             if c.get("launches") and c["launches"][0][kern]),
+                "timed": [{key: row[key] for key in ("layer", "x", "f", "ms", "plain_ms",
+                                                     "whole_ms", "bound_ms")}
+                          for row in spatial["timing"] if row["k"] == k]}
     probe_src = "skyhdr_torch/csrc/probes.cu"
     for kern, name, replaces, bound_by, per in (
             ("K10", "K10 probe_direct_kernel<T, VEC, FT> / probe_staged_kernel<T, TAPS, "

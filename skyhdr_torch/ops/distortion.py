@@ -337,6 +337,36 @@ def window_tables(h: int, w: int, kernel_size: int = 3, dilation_rate: int = 1,
         wx=t.wx, taps=n, span=int(span.max()), pad=t.pad)
 
 
+def signed_shifts(cx: np.ndarray, w: int) -> np.ndarray:
+    """Column shifts in [0, w) as signed shifts in [-w/2, w/2)."""
+    return ((cx + w // 2) % w) - w // 2
+
+
+@functools.lru_cache(maxsize=None)
+def ring_window_tables(h: int, w: int, halo: int, kernel_size: int = 3,
+                       dilation_rate: int = 1, skydome: bool = True) -> WindowTables:
+    """`window_tables` of the panorama of width `w` for a width shard
+    extended by `halo` columns on each side (`parallel.spatial`): each
+    group's `base` is its signed shift plus `halo`, so that output column j
+    of the extended shard reads extended column j + base + d, the full
+    panorama's sample for the shard's column j (j < the shard's width): no
+    read of a kept column wraps, since every |shift| (and the x1
+    neighbour's) is at most `halo`. Raises ValueError where a group's window
+    does not stay within that bound."""
+    t = window_tables(h, w, kernel_size, dilation_rate, skydome)
+    base = signed_shifts(t.base, w) + halo
+    group_base = np.repeat(base, t.taps, axis=1)  # [h, k2]
+    cx0 = gather_tables(h, w, kernel_size, 1, dilation_rate, skydome).cx0
+    if base.min() < 0 or not np.array_equal(group_base + t.d - halo,
+                                            signed_shifts(cx0, w)):
+        raise ValueError(f"a halo of {halo} columns does not hold the column shifts of a "
+                         f"{h}x{w} panorama at k={kernel_size}, dilation {dilation_rate}")
+    if (group_base + t.d).max() + 1 > 2 * halo:
+        raise ValueError(f"a halo of {halo} columns is narrower than the shifts of a "
+                         f"{h}x{w} panorama at k={kernel_size}, dilation {dilation_rate}")
+    return t._replace(base=base.astype(np.int32))
+
+
 def _on(device, arr) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
@@ -353,12 +383,15 @@ def gather_tables_on(device: torch.device, h: int, w: int,
 
 @functools.lru_cache(maxsize=None)
 def window_tables_on(device: torch.device, h: int, w: int, kernel_size: int = 3,
-                     dilation_rate: int = 1, skydome: bool = True, dedup: bool = True):
+                     dilation_rate: int = 1, skydome: bool = True, dedup: bool = True,
+                     halo: int = None):
     """`window_tables` packed for the forward kernels as device tensors:
     rows int32 [h, G, 4] (y0 - pad, y1 - pad, base, the bits of wy) and
     taps int32 [h, k2, 2] (d, the bits of wx); plus the taps per group and
-    the span."""
-    t = window_tables(h, w, kernel_size, dilation_rate, skydome, dedup)
+    the span. With `halo`, `ring_window_tables`' (an extended width
+    shard's)."""
+    t = (window_tables(h, w, kernel_size, dilation_rate, skydome, dedup) if halo is None
+         else ring_window_tables(h, w, halo, kernel_size, dilation_rate, skydome))
     rows = np.stack([t.y0 - t.pad, t.y1 - t.pad, t.base, t.wy.view(np.int32)], -1)
     taps = np.stack([t.d, t.wx.view(np.int32)], -1)
     return _on(device, rows), _on(device, taps), t.taps, t.span
@@ -400,7 +433,7 @@ def mm_dtype(x: torch.Tensor) -> torch.dtype:
 
 
 def deformable_conv2d(x, kernel, bias, *, kernel_size: int = 3,
-                      dilation_rate: int = 1, skydome: bool = True):
+                      dilation_rate: int = 1, skydome: bool = True, ring=None):
     """Plain DA conv (stride 1) of x [b, h, w, c] with kernel [k2*c, f],
     tap-major, and bias [f]; returns [b, h, w, f] in x.dtype.
 
@@ -409,29 +442,43 @@ def deformable_conv2d(x, kernel, bias, *, kernel_size: int = 3,
         sample = (1-wx)*rowY[(j+cx) mod w] + wx*rowY[(j+cx+1) mod w]
         out    = bias + sum_t sample_t @ K_t
     in float32, with the matmul operands rounded to bf16 when x is bf16
-    (the kernels' precision contract)."""
+    (the kernels' precision contract).
+
+    `ring=(w_full, halo)`: x is a width shard of a panorama of width w_full
+    extended by `halo` columns on each side (`parallel.spatial`); the
+    result is the shard's own w - 2 halo columns, column j sampled at
+    extended column j + halo + s with s the full panorama's signed shift
+    (no wrap)."""
     b, h, w, c = x.shape
     k2 = kernel_size * kernel_size
     pad = kernel_size // 2
     dev = x.device
-    y0, y1, cx0, wys, wxs = gather_tables_on(dev, h, w, kernel_size,
+    w_tab, halo = (w, 0) if ring is None else ring
+    y0, y1, cx0, wys, wxs = gather_tables_on(dev, h, w_tab, kernel_size,
                                              dilation_rate, skydome)
     mmdt = mm_dtype(x)
     f = kernel.shape[-1]
+    w_out = w - 2 * halo
 
     xp = nn.functional.pad(x.float(), (0, 0, 0, 0, pad, pad))
     kern = kernel.to(mmdt).float().reshape(k2, c, f)
-    jcols = torch.arange(w, device=dev)
-    out = torch.zeros((b, h, w, f), dtype=torch.float32, device=dev)
+    jcols = torch.arange(w_out, device=dev)
+    out = torch.zeros((b, h, w_out, f), dtype=torch.float32, device=dev)
     for tap in range(k2):
         wy = wys[:, tap][None, :, None, None]
         wx = wxs[:, tap][None, :, None, None]
         row0 = xp[:, y0[:, tap].long()]
         row1 = xp[:, y1[:, tap].long()]
         row_y = (1 - wy) * row0 + wy * row1  # [b, h, w, c]
-        xmat0 = (jcols[None, :] + cx0[:, tap].long()[:, None]) % w  # [h, w]
-        g0 = torch.gather(row_y, 2, xmat0[None, :, :, None].expand(b, h, w, c))
-        g1 = torch.roll(g0, -1, dims=2)
+        cx = cx0[:, tap].long()[:, None]
+        if ring is None:
+            xmat0 = (jcols[None, :] + cx) % w  # [h, w]
+            g0 = torch.gather(row_y, 2, xmat0[None, :, :, None].expand(b, h, w, c))
+            g1 = torch.roll(g0, -1, dims=2)
+        else:
+            xmat0 = jcols[None, :] + halo + ((cx + w_tab // 2) % w_tab - w_tab // 2)
+            g0, g1 = (torch.gather(row_y, 2, (xmat0 + e)[None, :, :, None].expand(
+                b, h, w_out, c)) for e in (0, 1))
         sample = (1 - wx) * g0 + wx * g1
         out = out + torch.einsum("bhwc,cf->bhwf",
                                  sample.to(mmdt).float(), kern[tap])

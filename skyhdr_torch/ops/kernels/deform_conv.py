@@ -22,6 +22,11 @@ k = 3 (skyhdr/ops/pallas/deform_conv.py's fast path):
 Any other odd k (the generic kernels of the same file):
   K5 `da_conv_forward_k5` — CUDA forward, replacing `_kernel_body`: K1's
      kernel at that k. Plain version: `da_conv_forward_ref` at that k.
+  `da_conv_forward_ring` — K1 (k = 3) or K5 on a width shard extended by
+     its ring halo (`parallel/spatial.py`): the same kernel over
+     `ring_window_tables` (the whole panorama's column shifts re-based by
+     the halo), the shard's columns kept; counted as a K1 / K5 launch.
+     Plain version: `da_conv_forward_ring_ref`.
   K6 `da_conv_dk_k6` — CUDA weight gradient, replacing `_dk_kernel`. Plain
      version: `da_conv_dk_ref` at that k.
   K7 `da_conv_dx_k7` — CUDA input gradient, replacing `_dx_kernel`: K2's
@@ -95,10 +100,14 @@ def _odd_other_than_3(k: int, name: str) -> None:
 
 
 def _forward(x, kernel, bias, k: int, dilation_rate: int, skydome: bool,
-             name: str) -> torch.Tensor:
+             name: str, ring=None) -> torch.Tensor:
     """Checks, then launches the forward kernel at kernel size k (K1 at
     k = 3, K5 otherwise) over the `window_tables` with the rows and
-    register tile `fwd_tiling` picks."""
+    register tile `fwd_tiling` picks. `ring=(w_full, halo)`: x is a width
+    shard extended by `halo` columns a side (`parallel.spatial`), the
+    kernel runs over its extended width with `ring_window_tables`, and the
+    shard's own columns (the first w - 2 halo of the launch's) are
+    returned."""
     from skyhdr_torch.ops.kernels.build import check, library
 
     f = kernel.shape[-1]
@@ -120,14 +129,16 @@ def _forward(x, kernel, bias, k: int, dilation_rate: int, skydome: bool,
         kk = torch.nn.functional.pad(kk.reshape(k * k, c, f), (0, 0, 0, cp - c))
     x, kk = x.contiguous(), kk.reshape(k * k * cp, f).contiguous()
     bias32 = bias.to(device=x.device, dtype=torch.float32).contiguous()
-    rows_t, taps_t, taps, span = window_tables_on(x.device, h, w, k, dilation_rate, skydome)
+    w_tab, halo = (w, None) if ring is None else ring
+    rows_t, taps_t, taps, span = window_tables_on(x.device, h, w_tab, k, dilation_rate, skydome,
+                                                  True, halo)
     rows, chans = fwd_launch_tiling(b, h, w, f, x.device.index)
     out = torch.empty((b, h, w, f), dtype=x.dtype, device=x.device)
     code = library().skyhdr_da_fwd(*_ptrs(x, kk, bias32, rows_t, taps_t, out), b, h, w, cp, f, k,
                              taps, span, rows, chans, int(x.dtype == torch.bfloat16),
                              x.device.index, _stream(x))
     check(code, f"{name} (DA forward, k={k})")
-    return out
+    return out if ring is None else out[:, :, :w - 2 * halo].contiguous()
 
 
 def da_conv_forward_k1(x, kernel, bias, *, dilation_rate: int = 1,
@@ -150,6 +161,33 @@ def da_conv_forward_k5(x, kernel, bias, *, kernel_size: int,
     out = _forward(x, kernel, bias, kernel_size, dilation_rate, skydome, "K5")
     K5_LAUNCHES += 1
     return out
+
+
+def da_conv_forward_ring(x, kernel, bias, *, w: int, halo: int, kernel_size: int = 3,
+                         dilation_rate: int = 1, skydome: bool = True) -> torch.Tensor:
+    """K1 (k = 3) or K5 on a width shard of a panorama of width `w`: x
+    [b, h, w_local + 2 halo, c] the shard with `halo` columns of each ring
+    neighbour, on the card; returns the shard's [b, h, w_local, f], each
+    column sampled at the full panorama's shifts (`ring_window_tables`).
+    Counts as a launch of the kernel it runs."""
+    global K1_LAUNCHES, K5_LAUNCHES
+    if kernel_size != 3:
+        _odd_other_than_3(kernel_size, "K5")
+    out = _forward(x, kernel, bias, kernel_size, dilation_rate, skydome,
+                   "K1" if kernel_size == 3 else "K5", ring=(w, halo))
+    if kernel_size == 3:
+        K1_LAUNCHES += 1
+    else:
+        K5_LAUNCHES += 1
+    return out
+
+
+def da_conv_forward_ring_ref(x, kernel, bias, *, w: int, halo: int, kernel_size: int = 3,
+                             dilation_rate: int = 1, skydome: bool = True) -> torch.Tensor:
+    """Plain version of `da_conv_forward_ring`: the gather form on the
+    extended shard (`deformable_conv2d(..., ring=(w, halo))`)."""
+    return deformable_conv2d(x, kernel, bias, kernel_size=kernel_size,
+                             dilation_rate=dilation_rate, skydome=skydome, ring=(w, halo))
 
 
 @functools.lru_cache(maxsize=None)

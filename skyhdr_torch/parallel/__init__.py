@@ -1,18 +1,26 @@
 """Parallel training of the port (`skyhdr.parallel`), over
 `torch.distributed`:
 
-  * mesh.py — process groups (NCCL on the card, gloo on the CPU or for
-              several ranks on one card), the (data, width) layout and the
-              batch placement: a rank's rows of a host batch, rank 0's copy
-              of a replicated tensor
-  * dp.py   — data-parallel GAN and sun train steps: the batch sharded over
-              `data`, the state replicated, the gradients all-reduced, and
-              the batch's couplings (train-mode BatchNorm, the sun-pose
-              maximum, the degradation's draws and JPEG ramp) taken over the
-              whole batch
+  * mesh.py    — process groups (NCCL on the card, gloo on the CPU or for
+                 several ranks on one card), the (data, width) layout, the
+                 batch placement (a rank's rows, and with `shard_width` its
+                 width columns), rank 0's copy of a replicated tensor, and
+                 the all-gather and reduce-scatter of `fsdp.py`
+  * dp.py      — data-parallel GAN and sun train steps: the batch sharded
+                 over `data`, the state replicated, the gradients
+                 all-reduced, and the batch's couplings (train-mode
+                 BatchNorm, the sun-pose maximum, the degradation's draws
+                 and JPEG ramp) taken over the whole batch
+  * fsdp.py    — ZeRO-3: `dp.py`'s steps with the big tensors of the state
+                 (parameters, moments, master) sharded over `data`
+                 (`skyhdr`'s plan), all-gathered for the step and their
+                 gradients reduce-scattered
+  * spatial.py — the width ring: `ring_conv2d` and the DA conv
+                 `ring_deformable_conv2d` (K1/K5 on each rank's width shard)
+                 over a cyclic halo exchange, forward only
 
-`skyhdr`'s `fsdp.py` (ZeRO-3) and `spatial.py` (the width-sharded ring halo)
-are not ported yet.
+The width-sharded train steps (`skyhdr`'s `shard_width=True` of `dp.py`
+and `fsdp.py`) are not ported.
 """
 
 from skyhdr_torch.parallel.mesh import (  # noqa: F401
@@ -27,4 +35,15 @@ from skyhdr_torch.parallel.dp import (  # noqa: F401
     make_parallel_sun_train_step,
     replicas_agree,
     replicate_state,
+)
+from skyhdr_torch.parallel.fsdp import (  # noqa: F401
+    fsdp_plan,
+    make_fsdp_gan_train_step,
+    make_fsdp_sun_train_step,
+    unshard_state,
+)
+from skyhdr_torch.parallel.spatial import (  # noqa: F401
+    ring_conv2d,
+    ring_da_plan,
+    ring_deformable_conv2d,
 )

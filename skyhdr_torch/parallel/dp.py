@@ -112,10 +112,11 @@ class BatchReduce:
     def max(self, x):
         return _BatchMax.apply(x, self)
 
-    def grads(self, grads):
+    def grads(self, grads, params=None):
         """The gradients averaged over the ranks, in float32 (a bfloat16
         gradient, of a bfloat16-stored parameter, upcast for the sum and
-        rounded back), each in its own dtype."""
+        rounded back), each in its own dtype; `params` (the parameters they
+        belong to) is not read here."""
         out = list(grads)
         start = 0
         while start < len(out):
@@ -197,6 +198,9 @@ def _shard_batch(mesh: Mesh, device):
 
 
 def _parallel(cfg, banks, mesh, single, reduce):
+    if mesh.width != 1:
+        raise NotImplementedError("a width-sharded train step (skyhdr's shard_width=True) "
+                                  "is not ported: the mesh's width must be 1")
     core = single.train_on
 
     def train_on(state, hdr_t, ldr, sunpose_gt):

@@ -3,16 +3,19 @@
 
 Axis conventions, as in `skyhdr`:
   * `data`  — the batch dimension: each process holds a shard of the batch
-    and a replica of the state;
-  * `width` — the panorama width (spatial parallelism); 1 until the ring
-    halo (`skyhdr.parallel.spatial`) is ported.
+    (and a replica of the state, or under `fsdp.py` a shard of it);
+  * `width` — the panorama width (spatial parallelism): the processes of
+    one data row form a ring over the width (`spatial.py`).
 
-Where `skyhdr` places arrays on a device mesh with a sharding, a process
-here takes its rows of a host batch (`batch_sharding`, `vector_sharding`)
-and receives rank 0's copy of a replicated tensor (`replicated`).
-Collectives on CUDA tensors under gloo go through host memory
-(`all_reduce_`, `broadcast_`): gloo is how two processes share one card,
-where NCCL refuses two ranks on one device.
+The process of rank r sits at (data_index, width_index) = divmod(r, width),
+as `skyhdr.parallel.mesh.make_mesh` lays its devices out row by row. Where
+`skyhdr` places arrays on a device mesh with a sharding, a process here
+takes its rows (and width columns) of a host batch (`batch_sharding`,
+`vector_sharding`) and receives rank 0's copy of a replicated tensor
+(`replicated`). Collectives on CUDA tensors under gloo go through host
+memory (`all_reduce_`, `broadcast_`, `all_gather_`, `reduce_scatter_`,
+`spatial.py`'s ring): gloo is how two processes share one card, where NCCL
+refuses two ranks on one device.
 """
 
 from __future__ import annotations
@@ -42,31 +45,48 @@ def initialize_distributed(init_method: str, world_size: int, rank: int,
 
 class Mesh(NamedTuple):
     """A (data, width) layout of the processes of the default group: this
-    process's rank, its coordinates and the group's backend."""
+    process's rank, its coordinates, the group's backend and, when there
+    are several data rows, the process group of this process's width ring
+    (None: every process)."""
 
     data: int
     width: int
     rank: int
     backend: str
+    width_group: object = None
 
     @property
     def data_index(self) -> int:
         return self.rank // self.width
 
+    @property
+    def width_index(self) -> int:
+        return self.rank % self.width
+
+    def width_peer(self, step: int) -> int:
+        """The rank `step` places along this process's width ring
+        ((width_index + step) mod width, in its data row)."""
+        return self.data_index * self.width + (self.width_index + step) % self.width
+
 
 def make_mesh(data: int = 0, width: int = 1) -> Mesh:
     """A (data, width) mesh over the initialised process group; data=0 means
-    every process. `width` must be 1 (spatial parallelism is not ported)."""
+    every process over `width`."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: call initialize_distributed first")
-    if width != 1:
-        raise NotImplementedError("width > 1 needs skyhdr.parallel.spatial, not ported")
     n = dist.get_world_size()
+    if width < 1 or n % width:
+        raise ValueError(f"a width of {width} over {n} processes")
     if data == 0:
         data = n // width
     if data * width != n:
         raise ValueError(f"a {data}x{width} mesh over {n} processes")
-    return Mesh(data, width, dist.get_rank(), dist.get_backend())
+    rank, group = dist.get_rank(), None
+    if data > 1 and width > 1:
+        # Every process creates every row's group, in the same order.
+        rows = [dist.new_group(list(range(d * width, (d + 1) * width))) for d in range(data)]
+        group = rows[rank // width]
+    return Mesh(data, width, rank, dist.get_backend(), group)
 
 
 def _rows(mesh: Mesh, t):
@@ -77,10 +97,20 @@ def _rows(mesh: Mesh, t):
     return t[mesh.data_index * n:(mesh.data_index + 1) * n]
 
 
-def batch_sharding(mesh: Mesh):
+def _cols(mesh: Mesh, t):
+    w = t.shape[2]
+    if w % mesh.width:
+        raise ValueError(f"a width of {w} over {mesh.width} width shards")
+    n = w // mesh.width
+    return t[:, :, mesh.width_index * n:(mesh.width_index + 1) * n]
+
+
+def batch_sharding(mesh: Mesh, shard_width: bool = False):
     """[b, h, w, c] batches: a function that takes this process's rows of a
-    host batch (the batch over `data`; `skyhdr`'s width sharding waits for
-    `spatial.py`)."""
+    host batch (the batch over `data`) and, with `shard_width`, its columns
+    of them (the width over `width`)."""
+    if shard_width:
+        return lambda t: _cols(mesh, _rows(mesh, t))
     return lambda t: _rows(mesh, t)
 
 
@@ -122,3 +152,38 @@ def broadcast_(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
         else:
             dist.broadcast(t, 0)
     return t
+
+
+def all_gather_(shard: torch.Tensor, mesh: Mesh, group=None) -> torch.Tensor:
+    """`dist.all_gather_into_tensor` over `group` (default every process):
+    the ranks' `shard`s stacked along dimension 0, in rank order, in the
+    shard's dtype (its bytes travel, as uint8: gloo takes no 2-byte types;
+    through host memory for a CUDA tensor under gloo)."""
+    shard = shard.contiguous()
+    out = shard.new_empty((shard.shape[0] * dist.get_world_size(group), *shard.shape[1:]))
+    src, dst = shard.view(torch.uint8), out.view(torch.uint8)
+    if _via_host(mesh, shard):
+        host = dst.new_empty(dst.shape, device="cpu")
+        dist.all_gather_into_tensor(host, src.cpu(), group=group)
+        dst.copy_(host)
+    else:
+        dist.all_gather_into_tensor(dst, src, group=group)
+    return out
+
+
+def reduce_scatter_(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """`dist.reduce_scatter_tensor` (SUM) over every process: this rank's
+    block of dimension 0 of the ranks' `t`s summed (through host memory for
+    a CUDA tensor under gloo)."""
+    t = t.contiguous()
+    n = dist.get_world_size()
+    if t.shape[0] % n:
+        raise ValueError(f"reduce_scatter_: {t.shape[0]} rows over {n} processes")
+    out = t.new_empty((t.shape[0] // n, *t.shape[1:]))
+    if _via_host(mesh, t):
+        host = out.new_empty(out.shape, device="cpu")
+        dist.reduce_scatter_tensor(host, t.cpu())
+        out.copy_(host)
+    else:
+        dist.reduce_scatter_tensor(out, t)
+    return out

@@ -46,23 +46,32 @@ _BOTH = ("params", "batch_stats")
 _SHAPE = ("im_height", "im_width", "use_da_conv", "da_kernel_size")
 
 
-def _layout(state):
-    """[(export prefix, module, collections, tensor_of)] of every leaf the
-    state holds: tensor_of maps a parameter to its moment or master (None
-    for the module's own leaves, whose collections are the prefix's first
-    level)."""
+def state_rows(state):
+    """[(export prefix, module, collections, optimizer, moment name)] of
+    every leaf the state holds: the module's own leaves (optimizer and name
+    None; the collections are the prefix's first level), then per optimizer
+    each moment ("nu", "mu") and the float32 "master" of the module's
+    parameters."""
     if state.kind == "gan":
-        rows = [("gen_vars", state.gen, _BOTH, None), ("sun_vars", state.sun, _BOTH, None),
-                ("disc_vars", state.disc, _BOTH, None)]
-        for name, tensors in state.opt_gen.moments().items():
-            rows += [(f"opt_gen/{name}/0", state.gen, ("params",), tensors.__getitem__),
-                     (f"opt_gen/{name}/1", state.sun, ("params",), tensors.__getitem__)]
-        rows += [(f"opt_disc/{name}", state.disc, ("params",), tensors.__getitem__)
-                 for name, tensors in state.opt_disc.moments().items()]
+        rows = [("gen_vars", state.gen, _BOTH, None, None),
+                ("sun_vars", state.sun, _BOTH, None, None),
+                ("disc_vars", state.disc, _BOTH, None, None)]
+        for name in state.opt_gen.moments():
+            rows += [(f"opt_gen/{name}/0", state.gen, ("params",), state.opt_gen, name),
+                     (f"opt_gen/{name}/1", state.sun, ("params",), state.opt_gen, name)]
+        rows += [(f"opt_disc/{name}", state.disc, ("params",), state.opt_disc, name)
+                 for name in state.opt_disc.moments()]
         return rows
-    return [("sun_vars", state.sun, _BOTH, None)] + [
-        (f"opt/{name}", state.sun, ("params",), tensors.__getitem__)
-        for name, tensors in state.opt.moments().items()]
+    return [("sun_vars", state.sun, _BOTH, None, None)] + [
+        (f"opt/{name}", state.sun, ("params",), state.opt, name) for name in state.opt.moments()]
+
+
+def _layout(state):
+    """[(export prefix, module, collections, tensor_of)] of `state_rows`:
+    tensor_of maps a parameter to its moment or master (None for the
+    module's own leaves)."""
+    return [(prefix, module, colls, None if opt is None else opt.moments()[name].__getitem__)
+            for prefix, module, colls, opt, name in state_rows(state)]
 
 
 def state_from_export(export, cfg, device="cuda"):

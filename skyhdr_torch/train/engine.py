@@ -295,13 +295,14 @@ def replace_sun_params(cfg, state: GanState, sun_params: dict) -> GanState:
 
 
 def _grads(cfg, total, params, reduce=None):
-    """The gradients of `total`, through `reduce` (a data-parallel step's
-    all-reduce) where given, then cast to `cfg.train.grad_dtype` unless that
-    is float32 (`skyhdr`'s `grad_store`, which casts after its GSPMD step's
+    """The gradients of `total`, through `reduce(grads, params)` (a
+    data-parallel step's all-reduce, an FSDP step's reduce-scatter) where
+    given, then cast to `cfg.train.grad_dtype` unless that is float32
+    (`skyhdr`'s `grad_store`, which casts after its GSPMD step's
     reduction)."""
     grads = torch.autograd.grad(total, params)
     if reduce is not None:
-        grads = reduce(grads)
+        grads = reduce(grads, params)
     if storage_dtype(cfg.train.grad_dtype) == torch.float32:
         return grads
     return [g.to(storage_dtype(cfg.train.grad_dtype)) for g in grads]
@@ -397,9 +398,9 @@ def generator_forward(cfg, gen, sun, disc, ldr, hdr_t, sunpose_gt, vgg,
 def make_gan_train_step(cfg, banks, vgg_weights, reduce_grads=None):
     """The GAN train step for states from `create_gan_state`, on the device
     of `banks` (from `data.degradation.make_banks`); `vgg_weights` is the
-    NumPy weight dict of `models.vgg16`. `reduce_grads`: applied to each
-    update's float32 gradients before the `grad_dtype` cast
-    (`parallel.dp`'s all-reduce)."""
+    NumPy weight dict of `models.vgg16`. `reduce_grads(grads, params)`:
+    applied to each update's float32 gradients before the `grad_dtype` cast
+    (`parallel.dp`'s all-reduce, `parallel.fsdp`'s reduce-scatter)."""
     vgg = vgg_constants(vgg_weights, banks.crfs.device)
 
     def train_on(state: GanState, hdr_t, ldr, sunpose_gt):

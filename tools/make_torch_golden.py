@@ -33,6 +33,9 @@ seeded numpy inputs:
 
     python tools/make_torch_golden.py
 
+With no argument it writes every fixture; `python tools/make_torch_golden.py
+fsdp` writes tests/fixtures/torch_golden_fsdp_16x64.npz alone (`make_fsdp_golden`:
+`skyhdr`'s FSDP steps on two virtual CPU devices at 1 MiB and 64 KiB),
 and `python tools/make_torch_golden.py plain-bf16-adv` prints `plain_bf16_adv`
 (8 GAN steps of both packages at plain 32x128 b8 bf16 on the CPU).
 
@@ -1124,6 +1127,11 @@ def compare_train_golden(stored, port, metric_rtol: float, update_rtol: float,
 # ---------------------------------------------------------------------------
 
 DP_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_golden_dp_16x64.npz")
+FSDP_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_golden_fsdp_16x64.npz")
+# The FSDP golden's min_bytes: `skyhdr`'s default (the sun-pose FCs and
+# their moments sharded), and 64 KiB, which shards conv kernels of every
+# layout as well.
+FSDP_MIN_BYTES = (1 << 20, 1 << 16)
 # The DP golden: 2 data shards of a global batch of 4 at 16x64 DA f32.
 DP_WORLD, DP_BATCH = 2, 4
 # A step of the port's data-parallel step against its single-process step
@@ -1161,6 +1169,9 @@ def dp_rtol(case: dict) -> dict:
 # with the single-process step (tests/test_torch_parallel.py).
 DP_FAULTS = ("batchnorm_per_rank", "max_per_rank", "draws_per_rank", "jpeg_ramp_local",
              "reduce_after_cast", "grads_summed")
+# The faults an FSDP step must not have (tests/test_torch_fsdp.py): the
+# first three fail the comparison with the DP step, the last the residency.
+FSDP_FAULTS = ("unreduced_grads", "scatter_summed", "stale_gather", "moment_whole")
 
 
 def dp_batch(seed: int, batch: int = DP_BATCH, h: int = H, w: int = W):
@@ -1196,6 +1207,21 @@ def make_dp_golden(seed: int = 0) -> dict:
     `hdr_t` / `ldr` / `sunpose_gt` (each rank takes its rows), and under
     "single_..." the metrics of `skyhdr`'s single-device steps on the same
     batch and key, which the data-parallel ones equal."""
+    return _parallel_golden(seed, {"": None})
+
+
+def make_fsdp_golden(seed: int = 0) -> dict:
+    """`make_dp_golden`'s steps through `skyhdr.parallel.fsdp`
+    (`make_fsdp_{gan,sun}_train_step` on `make_mesh(data=2)`) at each
+    `FSDP_MIN_BYTES`: the train entries of the steps at min_bytes `m` under
+    the prefix "mb<m>_"; the inputs and the single-device metrics as
+    `make_dp_golden`'s."""
+    return _parallel_golden(seed, {f"mb{m}_": m for m in FSDP_MIN_BYTES})
+
+
+def _parallel_golden(seed: int, runs: dict) -> dict:
+    """`make_dp_golden` (runs {"": None}) or `make_fsdp_golden` (runs
+    {prefix: min_bytes})."""
     import jax
     import jax.numpy as jnp
 
@@ -1203,6 +1229,7 @@ def make_dp_golden(seed: int = 0) -> dict:
     from skyhdr.config import Config, DataConfig, ModelConfig
     from skyhdr.data.degradation import make_banks
     from skyhdr.models.vgg16 import random_vgg16_weights
+    from skyhdr.parallel import fsdp
     from skyhdr.parallel.dp import make_parallel_gan_train_step, make_parallel_sun_train_step
     from skyhdr.parallel.mesh import make_mesh
     from skyhdr.train import engine
@@ -1224,20 +1251,31 @@ def make_dp_golden(seed: int = 0) -> dict:
     sunpose_gt = engine._sunpose_gt_from_elevation(cfg, batch["elevation"])
     vgg = random_vgg16_weights()
     mesh = make_mesh(data=DP_WORLD)
-    gan_step, shard = make_parallel_gan_train_step(cfg, banks, vgg, mesh)
-    new, metrics = gan_step(_jax_gan_state(engine, gv, sv, dv, lr), shard(batch), key)
-    sun_step, shard = make_parallel_sun_train_step(cfg, banks, mesh)
-    new_sun, sun_metrics = sun_step(_jax_sun_state(engine, sv, lr), shard(batch), key)
-    _, single = jax.jit(engine.make_gan_train_step(cfg, banks, vgg, jit=False))(
-        _jax_gan_state(engine, gv, sv, dv, lr), batch, key)
-    _, single_sun = jax.jit(engine.make_sun_train_step(cfg, banks, jit=False))(
-        _jax_sun_state(engine, sv, lr), batch, key)
     out = {"seed": np.int64(seed), "world": np.int64(DP_WORLD),
            "weights_digest": np.float64(tree_digest({"gen": gv, "sun": sv, "disc": dv})),
            **{k: np.asarray(v) for k, v in host.items()},
            "hdr_t": np.asarray(hdr_t), "ldr": np.asarray(ldr),
-           "sunpose_gt": np.asarray(sunpose_gt),
-           **_train_entries(gv, sv, dv, new, metrics, new_sun, sun_metrics)}
+           "sunpose_gt": np.asarray(sunpose_gt)}
+    for prefix, min_bytes in runs.items():
+        if min_bytes is None:
+            gan_step, shard = make_parallel_gan_train_step(cfg, banks, vgg, mesh)
+            sun_step, _ = make_parallel_sun_train_step(cfg, banks, mesh)
+            place_gan = place_sun = lambda s: s
+        else:
+            gan_step, place_gan, shard = fsdp.make_fsdp_gan_train_step(
+                cfg, banks, vgg, mesh, min_bytes=min_bytes)
+            sun_step, place_sun, _ = fsdp.make_fsdp_sun_train_step(cfg, banks, mesh,
+                                                                   min_bytes=min_bytes)
+        new, metrics = gan_step(place_gan(_jax_gan_state(engine, gv, sv, dv, lr)),
+                                shard(batch), key)
+        new_sun, sun_metrics = sun_step(place_sun(_jax_sun_state(engine, sv, lr)),
+                                        shard(batch), key)
+        out.update({prefix + k: v for k, v in _train_entries(
+            gv, sv, dv, new, metrics, new_sun, sun_metrics).items()})
+    _, single = jax.jit(engine.make_gan_train_step(cfg, banks, vgg, jit=False))(
+        _jax_gan_state(engine, gv, sv, dv, lr), batch, key)
+    _, single_sun = jax.jit(engine.make_sun_train_step(cfg, banks, jit=False))(
+        _jax_sun_state(engine, sv, lr), batch, key)
     out["single_gan_metrics"] = _metric_entries("gan", single)["gan_metrics"]
     out["single_sun_metrics"] = _metric_entries("sun", single_sun)["sun_metrics"]
     return out
@@ -1283,14 +1321,54 @@ def apply_dp_fault(fault: str):
         def grads(cfg, total, params, reduce=None):
             dtype = storage_dtype(cfg.train.grad_dtype)
             out = [g.to(dtype) for g in torch.autograd.grad(total, params)]
-            return out if reduce is None else reduce(out)
+            return out if reduce is None else reduce(out, params)
         target, name, value = engine, "_grads", grads
     elif fault == "grads_summed":
         average = dp.BatchReduce.grads
         target, name, value = (dp.BatchReduce, "grads",
-                               lambda self, g: [x * self.world for x in average(self, g)])
+                               lambda self, g, p=None: [x * self.world
+                                                        for x in average(self, g, p)])
+    elif fault in FSDP_FAULTS:
+        return _apply_fsdp_fault(fault)
     else:
         raise ValueError(f"unknown fault {fault!r}")
+    old = getattr(target, name)
+    setattr(target, name, value)
+    return lambda: setattr(target, name, old)
+
+
+def _apply_fsdp_fault(fault: str):
+    """Plant one of FSDP_FAULTS (see `apply_dp_fault`): a sharded group's
+    block updated from the rank's own unreduced gradient; the
+    reduce-scatter summed, not averaged; every step after the first run on
+    the parameters gathered for the first (a stale gather); the moments
+    planned but left whole on every rank."""
+    from skyhdr_torch.parallel import fsdp
+
+    if fault == "unreduced_grads":
+        target, name = fsdp.FsdpReduce, "scatter"
+        value = lambda self, g, dim: fsdp._block(g.float(), dim, self.mesh.data_index,
+                                                 self.world)
+    elif fault == "scatter_summed":
+        average = fsdp.FsdpReduce.scatter
+        target, name = fsdp.FsdpReduce, "scatter"
+        value = lambda self, g, dim: average(self, g, dim) * self.world
+    elif fault == "stale_gather":
+        gather = fsdp._Layout.gather
+
+        def value(self):
+            if not hasattr(self, "first"):
+                gather(self)
+                self.first = {k: g.param.data for k, g in self.sharded.items()
+                              if "params" in g.planned}
+            for k, t in self.first.items():
+                self.sharded[k].param.data = t
+        target, name = fsdp._Layout, "gather"
+    else:  # moment_whole
+        plan = fsdp.fsdp_plan
+        target, name = fsdp, "fsdp_plan"
+        value = lambda *a, **kw: {path: None if path.split("/")[1] in ("nu", "mu") else split
+                                  for path, split in plan(*a, **kw).items()}
     old = getattr(target, name)
     setattr(target, name, value)
     return lambda: setattr(target, name, old)
@@ -1374,21 +1452,24 @@ def dp_rank(spec: dict, rank: int) -> dict:
     "batch"). Returns {case name: `step_digests` + "agree" (every rank's
     states bit-equal after the steps) + on the card the DA kernels'
     launches per step}, and under "imported" the top-level modules the
-    rank imported; with `spec["timing"]` also each step's ms, the
-    collectives' share of it and the peak device memory; with
+    rank imported; with `spec["timing"]` (or the case's) also each step's
+    ms, the collectives' share of it and the peak device memory; with
     `spec["single"]` whether the single-process steps in this process give
-    the same bits (a world of 1 under deterministic algorithms)."""
+    the same bits (a world of 1 under deterministic algorithms; `spec` or a
+    case may ask for "deterministic" algorithms). A case with "fsdp":
+    min_bytes takes `parallel.fsdp`'s steps (sharded, stepped, unsharded),
+    with "vs_dp" instead `fsdp_vs_dp`, with "at_rest" `fsdp_at_rest`."""
     import statistics
     import time
 
     import torch
 
     from skyhdr_torch.parallel import dp as pdp
+    from skyhdr_torch.parallel import fsdp as pfsdp
     from skyhdr_torch.parallel.mesh import initialize_distributed, make_mesh
-    from skyhdr_torch.train.engine import make_gan_train_step, make_sun_train_step
 
     for case in spec["cases"]:
-        if case.get("fault") not in (None, *DP_FAULTS):
+        if case.get("fault") not in (None, *DP_FAULTS, *FSDP_FAULTS):
             raise ValueError(f"unknown fault {case['fault']!r}")
     torch.set_num_threads(spec.get("threads", 1))
     device = spec["device"]
@@ -1396,11 +1477,9 @@ def dp_rank(spec: dict, rank: int) -> dict:
         torch.cuda.set_device(torch.device(device).index or 0)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    if spec.get("deterministic"):
-        # cuBLAS reads this before its first handle; an operation with no
-        # deterministic form warns.
+    if spec.get("deterministic") or any(c.get("deterministic") for c in spec["cases"]):
+        # cuBLAS reads this before its first handle.
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-        torch.use_deterministic_algorithms(True, warn_only=True)
     initialize_distributed(spec["init_method"], spec["world"], rank, device,
                            backend=spec.get("backend"))
     mesh = make_mesh()
@@ -1410,13 +1489,27 @@ def dp_rank(spec: dict, rank: int) -> dict:
     if device.startswith("cuda"):
         from skyhdr_torch.ops.kernels import deform_conv as dc
     out = {}
+    dp_runs = {}  # the DP steps' bits of `fsdp_vs_dp`, by setting
     for case in spec["cases"]:
         t_case = time.perf_counter()
+        # An operation with no deterministic form warns.
+        torch.use_deterministic_algorithms(
+            bool(spec.get("deterministic") or case.get("deterministic")), warn_only=True)
+        if case.get("at_rest"):
+            out[case["name"]] = fsdp_at_rest(case, mesh, device)
+            continue
         undo = apply_dp_fault(case["fault"]) if case.get("fault") else None
         cfg = dp_config(case, spec["h"], spec["w"], spec["batch"])
         gan, sun = (pdp.replicate_state(s, mesh) for s in _dp_states(cfg, trees, device))
-        gan_step, shard = pdp.make_parallel_gan_train_step(cfg, banks, vgg, mesh)
-        sun_step, _ = pdp.make_parallel_sun_train_step(cfg, banks, mesh)
+        min_bytes = case.get("fsdp")
+        if min_bytes is None:
+            gan_step, shard = pdp.make_parallel_gan_train_step(cfg, banks, vgg, mesh)
+            sun_step, _ = pdp.make_parallel_sun_train_step(cfg, banks, mesh)
+            shard_gan = shard_sun = None
+        else:
+            gan_step, shard_gan, shard = pfsdp.make_fsdp_gan_train_step(cfg, banks, vgg, mesh,
+                                                                        min_bytes)
+            sun_step, shard_sun, _ = pfsdp.make_fsdp_sun_train_step(cfg, banks, mesh, min_bytes)
         launches = {}
 
         def run(kind, step, state):
@@ -1435,27 +1528,41 @@ def dp_rank(spec: dict, rank: int) -> dict:
                 launches[kind] = {k: getattr(dc, f"{k}_LAUNCHES") for k in ("K1", "K2", "K3")}
             return result
 
-        res = step_digests(gan, sun, lambda s: run("gan", gan_step, s),
-                           lambda s: run("sun", sun_step, s))
-        res["agree"] = pdp.replicas_agree(gan, mesh) and pdp.replicas_agree(sun, mesh)
+        def once(kind, step, shard_state):
+            """One step; an FSDP step from the state sharded, unsharded after."""
+            if shard_state is None:
+                return lambda s: run(kind, step, s)
+            return lambda s: (lambda r: (pfsdp.unshard_state(r[0]), r[1]))(
+                run(kind, step, shard_state(s)))
+
+        if case.get("vs_dp"):
+            res = fsdp_vs_dp(spec, case, cfg, mesh, trees, (banks, vgg, host), dp_runs)
+        else:
+            res = step_digests(gan, sun, once("gan", gan_step, shard_gan),
+                               once("sun", sun_step, shard_sun))
+            res["agree"] = pdp.replicas_agree(gan, mesh) and pdp.replicas_agree(sun, mesh)
         res["launches"] = launches
         if spec.get("single"):
             ref = dp_reference(spec, case, trees)
             res["single_equal"] = all(np.array_equal(ref[k], res[k]) for k in (
                 "gan_metrics", "sun_metrics", "gan_param_digests", "sun_param_digests",
                 "gan_stat_digests", "gan_nu", "sun_mu", "sun_nu"))
-        for kind, step, state in (("gan", gan_step, gan), ("sun", sun_step, sun))[
-                :2 if spec.get("timing") else 0]:
+        timing = case.get("timing", spec.get("timing"))
+        for kind, step, state, shard_state in (("gan", gan_step, gan, shard_gan),
+                                               ("sun", sun_step, sun, shard_sun))[
+                :2 if timing else 0]:
             # A warm-up step, then `timing` steps timed on the host clock
             # (every rank steps together), then as many with each collective
             # timed after the device's queued work: its share of the step.
             gen = torch.Generator(device=device).manual_seed(spec["seed"] + 2)
             batch = shard(host)
+            if shard_state is not None:
+                shard_state(state)
             torch.cuda.reset_peak_memory_stats()
             walls = {False: [], True: []}
             shares = []
             for timed in (None, False, True):
-                for _ in range(1 if timed is None else spec["timing"]):
+                for _ in range(1 if timed is None else timing):
                     step.reduce.timed, step.reduce.comm_s = bool(timed), 0.0
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
@@ -1471,6 +1578,9 @@ def dp_rank(spec: dict, rank: int) -> dict:
             res[f"{kind}_comm_ms"] = 1e3 * statistics.median(
                 sh * t for sh, t in zip(shares, walls[True]))
             res[f"{kind}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            if shard_state is not None:
+                res[f"{kind}_resident_bytes"] = state.fsdp.resident_bytes()
+                pfsdp.unshard_state(state)
         res["seconds"] = time.perf_counter() - t_case
         out[case["name"]] = res
         if undo is not None:
@@ -1482,9 +1592,129 @@ def dp_rank(spec: dict, rank: int) -> dict:
     return out
 
 
+def fsdp_at_rest(case: dict, mesh, device) -> dict:
+    """The at-rest bytes of a GAN and a sun state of DA case["at_rest"] =
+    [h, w] sharded at case["fsdp"] over `mesh`: each state allocated on
+    `device` and filled with normal draws (the bytes do not depend on the
+    values), then sharded; per kind "{kind}_bytes" (this rank's tensors),
+    "{kind}_replicated_bytes", "{kind}_plan_bytes" (`plan_bytes`' per rank)
+    and on the card "{kind}_allocated" (the allocator's bytes after the
+    sharding, the state alone) and "{kind}_peak" (with the whole state
+    before)."""
+    import gc
+
+    import torch
+
+    from skyhdr_torch.parallel import fsdp as pfsdp
+    from skyhdr_torch.train.engine import empty_gan_state, empty_sun_state
+
+    h, w = case["at_rest"]
+    cfg = dp_config(case, h, w)
+    out = {}
+    for kind, make in (("gan", empty_gan_state), ("sun", empty_sun_state)):
+        cuda = torch.device(device).type == "cuda"
+        gc.collect()  # what earlier cases left in reference cycles
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        state = make(cfg, device)
+        _fill_normal(state)
+        plan = pfsdp.fsdp_plan(state, mesh, case["fsdp"])
+        planned = pfsdp.plan_bytes(state, plan, mesh.data)
+        out[f"{kind}_plan_bytes"] = planned["per_rank"]
+        out[f"{kind}_replicated_bytes"] = planned["replicated"]
+        pfsdp.make_shard_state(mesh, case["fsdp"])(state)
+        out[f"{kind}_bytes"] = state.fsdp.resident_bytes()
+        if cuda:
+            out[f"{kind}_allocated"] = torch.cuda.memory_allocated() - base
+            out[f"{kind}_peak"] = torch.cuda.max_memory_allocated() - base
+        del state
+    return out
+
+
+def _fill_normal(state) -> None:
+    """Every tensor of `state` drawn N(0, 1) (no loop variable outlives the
+    call to keep a tensor alive)."""
+    import torch
+
+    from skyhdr_torch.parallel.fsdp import state_leaves
+
+    with torch.no_grad():
+        for _, _, t, _ in state_leaves(state):
+            t.normal_()
+
+
+def _state_bits(state) -> dict:
+    """{Flax path: the tensor's bytes} of a replicated state, with its step
+    (and Adam's count) under "step"."""
+    import torch
+
+    from skyhdr_torch.parallel.fsdp import state_leaves
+
+    out = {path: t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes()
+           for path, _, t, _ in state_leaves(state)}
+    out["step"] = (state.step, getattr(getattr(state, "opt", None), "count", None))
+    return out
+
+
+def fsdp_vs_dp(spec, case, cfg, mesh, trees, setup, dp_runs: dict, steps: int = 2) -> dict:
+    """`steps` GAN steps and as many sun steps (the case's "kinds", default
+    both) of the FSDP step (at the case's "fsdp" min_bytes) and of the DP
+    step, each from the run's replicated seeded state with the generators
+    seeded seed + 1, seed + 2, ...: under "{kind}_differ" the paths of the
+    tensors (parameters, buffers, moments, master; "step") whose bits
+    differ after unsharding, empty when the two are bit-equal; under
+    "{kind}_resident" the sharded state's `resident` shapes after the
+    steps, "{kind}_bytes" its at-rest bytes on this rank and
+    "{kind}_replicated_bytes" the whole state's; "agree": every rank's
+    unsharded states bit-equal. The DP runs are kept in `dp_runs` by
+    setting, for the next case of the same setting."""
+    import torch
+
+    from skyhdr_torch.parallel import dp as pdp
+    from skyhdr_torch.parallel import fsdp as pfsdp
+
+    banks, vgg, host = setup
+    device = spec["device"]
+    makers = {
+        "gan": (lambda: pdp.make_parallel_gan_train_step(cfg, banks, vgg, mesh),
+                lambda: pfsdp.make_fsdp_gan_train_step(cfg, banks, vgg, mesh, case["fsdp"])),
+        "sun": (lambda: pdp.make_parallel_sun_train_step(cfg, banks, mesh),
+                lambda: pfsdp.make_fsdp_sun_train_step(cfg, banks, mesh, case["fsdp"]))}
+    setting = repr((case.get("knobs"), case.get("compute")))
+
+    def steps_of(step, shard, state):
+        for i in range(steps):
+            gen = torch.Generator(device=device).manual_seed(spec["seed"] + 1 + i)
+            state, _ = step(state, shard(host), gen)
+        return state
+
+    out = {"agree": True}
+    for kind in case.get("kinds", ("gan", "sun")):
+        make_dp, make_fsdp = makers[kind]
+        fresh = lambda: pdp.replicate_state(
+            _dp_states(cfg, trees, device)[0 if kind == "gan" else 1], mesh)
+        if (setting, kind) not in dp_runs:
+            step, shard = make_dp()
+            dp_runs[setting, kind] = _state_bits(steps_of(step, shard, fresh()))
+        step, shard_state, shard = make_fsdp()
+        state = steps_of(step, shard, shard_state(fresh()))
+        out[f"{kind}_resident"] = state.fsdp.resident()
+        out[f"{kind}_bytes"] = state.fsdp.resident_bytes()
+        pfsdp.unshard_state(state)
+        out["agree"] = out["agree"] and pdp.replicas_agree(state, mesh)
+        bits = _state_bits(state)
+        out[f"{kind}_replicated_bytes"] = sum(len(v) for k, v in bits.items() if k != "step")
+        want = dp_runs[setting, kind]
+        out[f"{kind}_differ"] = sorted(k for k in set(bits) | set(want)
+                                       if bits.get(k) != want.get(k))
+    return out
+
+
 class DPRanks:
     """`spec["world"]` processes of `dp_rank` (this file's `dp-rank`
-    command), started together, their init through a file under `workdir`
+    command; `spatial_rank` for a spec with "job": "spatial"), started together, their init through a file under `workdir`
     unless `spec` names another `init_method`; the caller may work while
     they run. `results(timeout_s)` waits: [each rank's results]; a rank
     that fails or outlives the timeout stops every rank and raises. Leaving
@@ -1556,13 +1786,129 @@ def run_dp_ranks(spec: dict, workdir: str, timeout_s: float = 300.0) -> list:
         return ranks.results(timeout_s)
 
 
+def spatial_inputs(case: dict):
+    """The global inputs of a width-ring case, from numpy seeded
+    `case["seed"]`: x [b, h, w, c] N(0, 1) and, for "op": "conv", a kernel
+    [k, k, c, f] and a bias [f]; for "op": "da", a kernel [k*k*c, f] and a
+    bias [f] (N(0, 1) x 0.2 and N(0, 1))."""
+    rng = np.random.default_rng(case["seed"])
+    b, h, w, c = case["shape"]
+    k, f = case["k"], case["f"]
+    x = rng.normal(size=(b, h, w, c)).astype(np.float32)
+    kshape = (k, k, c, f) if case["op"] == "conv" else (k * k * c, f)
+    kernel = (rng.normal(size=kshape) * 0.2).astype(np.float32)
+    return x, kernel, rng.normal(size=(f,)).astype(np.float32)
+
+
+def spatial_rank(spec: dict, rank: int) -> dict:
+    """One rank of a width-ring run (`spec["job"] == "spatial"`; a process
+    of `DPRanks`): joins the group, makes the (spec["data"],
+    spec["width"]) mesh and per case of `spec["cases"]` runs
+    `ring_conv2d` ("op": "conv", its "padding") or `ring_deformable_conv2d`
+    ("op": "da", its "k", "dilation", "force_gather") on its rows and width
+    columns of `spatial_inputs(case)` (in `case["dtype"]`, default
+    float32). Returns {case name: {"out": its block as float32 numpy, "mode"
+    and "halo": `ring_da_plan`'s, "launches": the K1/K5 launches of the
+    call}; on the card also "plain" (the same op with the plain DA forward
+    on the extended shard) and "whole" (K1/K5 on the whole panorama, the
+    rank's columns)}, with "imported" and the mesh's coordinates."""
+    import torch
+    import torch.nn.functional as F
+
+    from skyhdr_torch.parallel import spatial
+    from skyhdr_torch.parallel.mesh import batch_sharding, initialize_distributed, make_mesh
+
+    torch.set_num_threads(spec.get("threads", 1))
+    device = spec["device"]
+    if device.startswith("cuda"):
+        torch.cuda.set_device(torch.device(device).index or 0)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed(spec["init_method"], spec["world"], rank, device,
+                           backend=spec.get("backend"))
+    mesh = make_mesh(spec.get("data", 1), spec["width"])
+    from skyhdr_torch.ops.kernels import deform_conv as dc
+
+    place = batch_sharding(mesh, shard_width=True)
+    out = {"coords": (mesh.data_index, mesh.width_index)}
+    for case in spec["cases"]:
+        dtype = getattr(torch, case.get("dtype", "float32"))
+        x, kernel, bias = (torch.from_numpy(a).to(device) for a in spatial_inputs(case))
+        xl = place(x).to(dtype).contiguous()
+        kernel, bias = kernel.to(dtype), bias.to(dtype)
+        res = {}
+        dc.K1_LAUNCHES = dc.K5_LAUNCHES = 0
+        if case["op"] == "conv":
+            padding = case.get("padding", "cyclic")
+            got = spatial.ring_conv2d(xl, kernel, bias, mesh=mesh, padding=padding)
+            if xl.is_cuda:
+                # F.conv2d on the whole panorama, its seam padded the same way.
+                full = spatial._gather_width(xl, mesh)
+                p = (kernel.shape[1] - 1) // 2
+                wrap = (torch.cat([full[:, :, -p:], full, full[:, :, :p]], dim=2)
+                        if padding == "cyclic" else F.pad(full, (0, 0, p, p)))
+                ph = (kernel.shape[0] - 1) // 2
+                want = F.conv2d(F.pad(wrap, (0, 0, 0, 0, ph, ph)).permute(0, 3, 1, 2),
+                                kernel.permute(3, 2, 0, 1), bias).permute(0, 2, 3, 1)
+                wl = xl.shape[2]
+                want = want[:, :, mesh.width_index * wl:(mesh.width_index + 1) * wl]
+                gap = (got - want).abs().max().item()
+                res.update(err_plain=gap / want.abs().max().item(), max_abs_err=gap)
+        else:
+            geom = dict(kernel_size=case["k"], dilation_rate=case.get("dilation", 1))
+            _, h, wl, _ = xl.shape
+            res["mode"], res["halo"] = spatial.ring_da_plan(h, wl * mesh.width, wl, **geom)
+            got = spatial.ring_deformable_conv2d(xl, kernel, bias, mesh=mesh,
+                                                 force_gather=case.get("force_gather", False),
+                                                 **geom)
+            res["launches"] = {"K1": dc.K1_LAUNCHES, "K5": dc.K5_LAUNCHES}
+            if xl.is_cuda:
+                res.update(_ring_checks(spatial, dc, xl, kernel, bias, got, mesh, res, geom,
+                                        case.get("force_gather", False)))
+        if not got.is_cuda:
+            res["out"] = got.float().numpy()
+        out[case["name"]] = res
+    dist = torch.distributed
+    dist.barrier()
+    dist.destroy_process_group()
+    out["imported"] = sorted({m.split(".")[0] for m in sys.modules})
+    return out
+
+
+def _ring_checks(spatial, dc, xl, kernel, bias, got, mesh, res, geom, force_gather) -> dict:
+    """On the card: a ring DA conv's block `got` against its plain version
+    (the gather form on the extended shard, or of the whole panorama where
+    the whole panorama was gathered) and against K1/K5 on the whole
+    panorama: the largest error relative to the plain version's largest
+    value ("err_plain"), the largest absolute one ("max_abs_err"), and
+    whether the block is the whole panorama's bit for bit
+    ("whole_equal")."""
+    import torch
+
+    wl = xl.shape[2]
+    w = wl * mesh.width
+    cols = slice(mesh.width_index * wl, (mesh.width_index + 1) * wl)
+    full = spatial._gather_width(xl, mesh)
+    if force_gather or res["mode"] == "gather":
+        plain = dc.da_conv_forward_ref(full, kernel, bias, **geom)[:, :, cols]
+    else:
+        left, right = spatial._exchange_halos(xl, res["halo"], mesh)
+        plain = dc.da_conv_forward_ring_ref(torch.cat([left, xl, right], dim=2), kernel, bias,
+                                            w=w, halo=res["halo"], **geom)
+    whole = (dc.da_conv_forward_k1(full, kernel, bias, dilation_rate=geom["dilation_rate"])
+             if geom["kernel_size"] == 3 else dc.da_conv_forward_k5(full, kernel, bias, **geom))
+    gap = (got.float() - plain.float()).abs().max().item()
+    return {"err_plain": gap / plain.float().abs().max().item(), "max_abs_err": gap,
+            "whole_equal": bool(torch.equal(got, whole[:, :, cols]))}
+
+
 def _dp_rank_main(spec_path: str, rank: str) -> None:
     import json
     import pickle
 
     with open(spec_path) as f:
         spec = json.load(f)
-    out = dp_rank(spec, int(rank))
+    out = (spatial_rank if spec.get("job") == "spatial" else dp_rank)(spec, int(rank))
     with open(os.path.join(os.path.dirname(spec_path), f"dp_rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
 
@@ -1877,6 +2223,11 @@ def main():
     if sys.argv[1:2] == ["dp-rank"]:
         _dp_rank_main(*sys.argv[2:4])
         return
+    if sys.argv[1:2] == ["fsdp"]:
+        os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
+        np.savez_compressed(FSDP_FIXTURE, **make_fsdp_golden(0))
+        print(f"wrote {FSDP_FIXTURE} ({os.path.getsize(FSDP_FIXTURE)} bytes)")
+        return
     if sys.argv[1:2] == ["plain-bf16-adv"]:
         import json
 
@@ -1894,7 +2245,8 @@ def main():
                        (PLAIN_TRAIN_FIXTURE, lambda: make_train_golden(0, use_da_conv=False)),
                        (PLAIN_BF16_TRAIN_FIXTURE,
                         lambda: make_train_golden_bf16(0, use_da_conv=False)),
-                       (DP_FIXTURE, lambda: make_dp_golden(0))):
+                       (DP_FIXTURE, lambda: make_dp_golden(0)),
+                       (FSDP_FIXTURE, lambda: make_fsdp_golden(0))):
         np.savez_compressed(path, **make())
         print(f"wrote {path} ({os.path.getsize(path)} bytes)")
 
