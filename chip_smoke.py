@@ -72,7 +72,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     bf16 layers (generator, sun-pose net, SunRadNet, VGG16)
                     each within one ulp of the CPU port; no DA kernel.
   6. serving      — the inference CLI at 64x256 b32 (40 PNGs, 2 dispatches,
-                    the second padded) and at 32x128 b1 (4 PNGs); every .hdr
+                    the second padded; from a SKY checkpoint of the seeded
+                    k=3 weights, drawn once for serving, training and cli)
+                    and at 32x128 b1 (4 PNGs, its seeded fallback); every .hdr
                     read back finite; 20 K1 + 4 K2 launches per DA dispatch;
                     the plain-conv config launches none; `make_inference_fn`
                     at da_kernel_size=5, 64x256 b32, two dispatches, 12 K5
@@ -202,9 +204,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     sharded, each rank's at-rest bytes (and the allocator's)
                     against the replicated state's; then NCCL at world size
                     1, its FSDP steps bit-equal to the single-process steps.
-  14. spatial    — the width ring (`skyhdr_torch.parallel.spatial`) on rings
-                    of 2 and 4 gloo ranks and NCCL at world size 1, all on
-                    the one card: `ring_deformable_conv2d` at each distinct
+  14. spatial    — the width ring (`skyhdr_torch.parallel.spatial`) on
+                    rings of 2 and 4 gloo ranks and NCCL at world size 1,
+                    all on the one card: `ring_deformable_conv2d` at each distinct
                     DA layer shape at 64x256 b8 (halo plan and force_gather,
                     k=3 through K1 and the k=5 trunk through K5, the trunk
                     in bf16 too), one K1/K5 launch a call on each rank, each
@@ -214,7 +216,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     seams) against `F.conv2d` on the padded whole panorama;
                     then K1/K5 on one 1/4 width shard at each shape at b32
                     timed beside its plain version and the whole panorama.
-  15. probes     — the DA-conv probe tools (skyhdr_torch/tools/) and their
+  15. width_step — the width-sharded GAN step (`shard_width=True`) at DA
+                    32x128 b32: two gloo ranks on a (1, 2) mesh and four on
+                    a (2, 2) FSDP mesh at once, against the single b32 step
+                    (the train golden's tolerances), K1/K2/K3 20/24/20 a
+                    rank, the ranks bit-equal, the ring K2/K3 (K7/K6 at the
+                    k=5 trunk) on each rank's shard against their plain
+                    versions and the whole panorama's kernels, each rank's
+                    step ms, collectives' share and activation peak against
+                    the single step's (below WIDTH_PEAK_RATIO); NCCL at
+                    world size 1: `shard_width` on a width-1 mesh bit-equal
+                    (the data-parallel step, as `skyhdr`'s) and the width
+                    context on a ring of one (`ring_of_one`) against the
+                    single step; the ring K2/K3/K6/K7 timed on a 1/2 shard.
+  16. probes     — the DA-conv probe tools (skyhdr_torch/tools/) and their
                     kernels, at the tools' default shape x (32,64,256,64) ->
                     F 64 and at the serving trunk layer (32,16,64,128) ->
                     128: every K10 instantiation against its plain version
@@ -261,8 +276,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ITERS, WARMUP = 20, 3
 STEP_ITERS = 5
+# Steps timed on each gloo rank of the parallel, fsdp and width_step phases
+# (host clock: the ranks share the card and the host).
+RANK_ITERS = 3
 PHASES = ("kernels", "golden", "train_golden", "serving", "training", "timing",
-          "train_cli", "cli", "convert", "parallel", "fsdp", "spatial", "probes")
+          "train_cli", "cli", "convert", "parallel", "fsdp", "spatial", "width_step", "probes")
 # (name, x shape at 32x128 [h, w, c], F, layers of that shape, in the
 # sun-pose net: Grad-CAM's pull differentiates through it)
 DA_LAYERS = [
@@ -705,6 +723,40 @@ def in_launch_check(gen, calls=5):
             del x, gamma, beta, dy, mean, rstd
             free_cuda()
     return out
+
+
+@functools.lru_cache(maxsize=1)
+def k3_trees():
+    """The seeded k=3 DA 64x256 weights (gen, sun, disc trees, seed 0),
+    drawn once on the host for the serving, training and cli phases
+    (released after the cli phase): `init_gan_vars`, whose first two trees
+    are `init_model_vars`'."""
+    from skyhdr_torch.config import Config, ModelConfig
+    from skyhdr_torch.utils.transplant import init_gan_vars
+
+    t0 = time.perf_counter()
+    trees = init_gan_vars(Config(model=ModelConfig(im_height=64, im_width=256,
+                                                   use_da_conv=True)), 0)
+    say("k3", f"k=3 DA 64x256: seeded weights drawn on the host in "
+        f"{time.perf_counter() - t0:.3f} s (one draw for serving, training and cli)")
+    return trees
+
+
+def serving_checkpoint(workdir, cfg, trees):
+    """<workdir>/checkpoints/SKY/1/state.pt holding the serving modules of
+    `cfg` filled from `trees` (gen, sun): what the CLIs restore as "Latest
+    SKY checkpoint"."""
+    from skyhdr_torch.train.engine import build_models
+    from skyhdr_torch.utils.transplant import load_model_vars
+
+    gen, sun = build_models(cfg, "cpu")
+    load_model_vars(gen, trees[0])
+    load_model_vars(sun, trees[1])
+    path = os.path.join(workdir, "checkpoints", "SKY", "1")
+    os.makedirs(path)
+    torch.save({"kind": "gan", "step": 0, "epoch": 1,
+                "modules": {"gen": gen.state_dict(), "sun": sun.state_dict()},
+                "optimizers": {}}, os.path.join(path, "state.pt"))
 
 
 def build_port(cfg, seed, device="cuda"):
@@ -1252,7 +1304,9 @@ def write_pngs(folder, n, h, w, seed):
                   (img * 255).round().astype(np.uint8))
 
 
-def serve(dc, work, tag, h, w, n, batch):
+def serve(dc, work, tag, h, w, n, batch, workdir=None):
+    """The inference CLI on n PNGs at DA h x w, `batch` a dispatch: its
+    seeded weights, or with `workdir` the SKY checkpoint there."""
     from skyhdr_torch.cli import inference
     from skyhdr_torch.utils.io import read_hdr
 
@@ -1263,14 +1317,16 @@ def serve(dc, work, tag, h, w, n, batch):
     t0 = time.perf_counter()
     inference.main(["--indir", indir, "--outdir", outdir, "--da-conv", "true",
                     "--imheight", str(h), "--imwidth", str(w),
-                    "--batch", str(batch), "--device", "cuda"])
+                    "--batch", str(batch), "--device", "cuda"]
+                   + ([] if workdir is None else ["--workdir", workdir]))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     got = counts(dc)
     want = {k: v * dispatches for k, v in SERVING_LAUNCHES.items()}
     want["K3"] = 0
     say("serving", f"CLI {h}x{w} DA b{batch}: {n} images, {dispatches} dispatches, "
-        f"{secs:.3f} s wall (weights drawn and loaded included); launches {got} "
+        f"{secs:.3f} s wall (weights {'restored' if workdir else 'drawn'} and loaded "
+        f"included); launches {got} "
         f"(want {want})")
     check(got == want, f"launch counts at {tag}")
     for i in range(n):
@@ -1319,8 +1375,15 @@ def phase_serving(dc, report):
     from skyhdr_torch.train.engine import make_inference_fn
 
     work = tempfile.mkdtemp(prefix="skyhdr_smoke_")
-    # The serving path: the CLI at the DA model's full width, 64x256, b32.
-    report["serving_launches"] = serve(dc, work, "64x256_b32", 64, 256, 40, 32)
+    # The serving path: the CLI at the DA model's full width, 64x256, b32,
+    # from a SKY checkpoint of the shared seeded draw (`k3_trees`); its
+    # seeded fallback at 32x128 b1.
+    from skyhdr_torch.config import Config, ModelConfig
+
+    sky = os.path.join(work, "sky_64x256")
+    serving_checkpoint(sky, Config(model=ModelConfig(im_height=64, im_width=256,
+                                                     use_da_conv=True)), k3_trees())
+    report["serving_launches"] = serve(dc, work, "64x256_b32", 64, 256, 40, 32, sky)
     serve(dc, work, "32x128_b1", 32, 128, 4, 1)
     # The default plain-conv config has no DA layer: it launches no kernel.
     cfg = Config(model=ModelConfig())
@@ -1398,7 +1461,6 @@ def phase_training(dc, smi, report):
                                            load_weights, make_gan_train_step,
                                            make_sun_train_step)
     from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
-    from skyhdr_torch.utils.transplant import init_gan_vars
 
     h, w = 64, 256
     banks = make_banks(make_synthetic_dorf(175, 1024), get_exposure_lists()[0], device="cuda")
@@ -1410,10 +1472,7 @@ def phase_training(dc, smi, report):
                       data=DataConfig(batch_size=b),
                       train=TrainConfig(opt_state_dtype=opt, grad_dtype=grad, param_dtype=param))
 
-    t0 = time.perf_counter()
-    trees = init_gan_vars(cfg_of(64), 0)
-    say("training", f"GAN DA {h}x{w}: seeded weights drawn on the host in "
-        f"{time.perf_counter() - t0:.3f} s (one draw for every k=3 GAN state)")
+    trees = k3_trees()  # one draw for every k=3 GAN state
     out = {}
     bf16 = ("bfloat16",) * 3
     # (kind, batch, steps, fused IN, compute dtype, (opt_state, grad, param)
@@ -2142,19 +2201,6 @@ class VisRecorder:
             setattr(self.vis, n, f)
 
 
-def write_serving_checkpoint(workdir, cfg, seed):
-    """<workdir>/checkpoints/SKY/1/state.pt holding the serving modules'
-    weights, `init_model_vars(cfg, seed)` (drawn once on the host, for every
-    evaluate run at this shape; the CLIs restore it as "Latest SKY
-    checkpoint")."""
-    gen, sun, _ = build_port(cfg, seed, "cpu")
-    path = os.path.join(workdir, "checkpoints", "SKY", "1")
-    os.makedirs(path)
-    torch.save({"kind": "gan", "step": 0, "epoch": 1,
-                "modules": {"gen": gen.state_dict(), "sun": sun.state_dict()},
-                "optimizers": {}}, os.path.join(path, "state.pt"))
-
-
 def last_json(text):
     return json.loads(text.strip().splitlines()[-1])
 
@@ -2296,9 +2342,10 @@ def phase_cli(dc, smi, report):
     da_cfg = Config(model=ModelConfig(im_height=eh, im_width=ew, use_da_conv=True),
                     data=DataConfig(batch_size=b))
     t0 = time.perf_counter()
-    write_serving_checkpoint(eval_work, da_cfg, 0)
-    say("cli", f"DA {eh}x{ew}: seeded serving weights drawn and saved as a SKY checkpoint in "
-        f"{time.perf_counter() - t0:.3f} s (one draw for every evaluate run at this shape)")
+    serving_checkpoint(eval_work, da_cfg, k3_trees())
+    say("cli", f"DA {eh}x{ew}: the seeded serving weights (`k3_trees`) saved as a SKY "
+        f"checkpoint in {time.perf_counter() - t0:.3f} s (for every evaluate run at this "
+        f"shape)")
     eflags = ["--imheight", str(eh), "--imwidth", str(ew), "--da-conv", "true",
               "--device", "cuda", "--dorf", "", "--workdir", eval_work]
     results = []
@@ -2986,7 +3033,7 @@ def phase_parallel(dc, smi, report):
             f"events, median of {STEP_ITERS} after 1 warm-up); on {smi}")
         free_cuda()
         for world, backend, case, extra in (
-                (2, "gloo", "gloo2", {"timing": STEP_ITERS}),
+                (2, "gloo", "gloo2", {"timing": RANK_ITERS}),
                 (1, "nccl", "nccl1", {"deterministic": True, "single": True})):
             t0 = time.perf_counter()
             cwork = os.path.join(work, case)
@@ -3016,7 +3063,7 @@ def phase_parallel(dc, smi, report):
                 for rank, r in enumerate(per_rank):
                     for kind in ("gan", "sun"):
                         say("parallel", f"{case} rank {rank} {kind} step: "
-                            f"{r[f'{kind}_ms']:.3f} ms (median of {STEP_ITERS}, host clock, "
+                            f"{r[f'{kind}_ms']:.3f} ms (median of {RANK_ITERS}, host clock, "
                             f"both ranks stepping on the one card; all "
                             f"{[round(t, 3) for t in r[f'{kind}_ms_all']]}), gloo "
                             f"collectives {r[f'{kind}_comm_ms']:.3f} ms = "
@@ -3068,7 +3115,7 @@ def phase_fsdp(dc, smi, report):
         trees, _ = dp_trees()
         spec = dp_spec(work)
         ref = dp_single(dc, mod, spec, trees)
-        cases = [{"name": "fsdp", "path": "batch", "fsdp": mb, "timing": STEP_ITERS},
+        cases = [{"name": "fsdp", "path": "batch", "fsdp": mb, "timing": RANK_ITERS},
                  {"name": "fsdp_vs_dp", "path": "batch", "fsdp": mb, "vs_dp": True,
                   "deterministic": True},
                  {"name": "at_rest_64x256", "at_rest": [64, 256], "fsdp": mb}]
@@ -3094,7 +3141,7 @@ def phase_fsdp(dc, smi, report):
             vs, rest = r["fsdp_vs_dp"], r["at_rest_64x256"]
             for kind in ("gan", "sun"):
                 say("fsdp", f"rank {rank} {kind} step: {r['fsdp'][f'{kind}_ms']:.3f} ms (median "
-                    f"of {STEP_ITERS}, host clock, both ranks stepping on the one card), "
+                    f"of {RANK_ITERS}, host clock, both ranks stepping on the one card), "
                     f"collectives {r['fsdp'][f'{kind}_comm_ms']:.3f} ms = "
                     f"{100 * r['fsdp'][f'{kind}_comm_share']:.2f}%, peak "
                     f"{r['fsdp'][f'{kind}_peak_gib']:.3f} GiB; at rest "
@@ -3268,6 +3315,264 @@ def phase_spatial(dc, smi, report):
                 check(row["err_plain"] <= tol, f"{name} {n}: {row['err_plain']:.3e} > {tol}")
                 out["cases"][f"{name} {n}"] = row
         out["timing"] = ring_timing(dc, smi)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+# The width_step phase: the steps timed on each rank, and the FSDP min_bytes.
+WIDTH_TIMING = 2
+WIDTH_MIN_BYTES = 1 << 20
+# The largest activation peak of a rank, as a share of the single-process
+# step's at the same global batch: a (1, 2) rank holds half of every map
+# (a step that gathered its activations would read 1.0 or more), a (2, 2)
+# rank a quarter (0.4754 on the H100).
+WIDTH_PEAK_RATIO = {"w1x2": 0.8, "w2x2_fsdp": 0.6}
+
+
+def width_ring_cases():
+    """Each distinct DA layer shape at 32x128 b32 (k=3, and the k=5 trunk):
+    the ring backward kernels' cases (`make_torch_golden.ring_kernel_checks`,
+    `width_ring_timing`)."""
+    cases, seen = [], set()
+    for i, (name, shape, f, _, _) in enumerate(DA_LAYERS + DA5_LAYERS):
+        k = 5 if "k=5" in name else 3
+        if (*shape, f, k) in seen:
+            continue
+        seen.add((*shape, f, k))
+        cases.append({"name": name, "shape": [DP_BATCH, *shape], "f": f, "k": k,
+                      "seed": 100 + i})
+    return cases
+
+
+def single_act_peak(mod, spec, trees):
+    """The single-process GAN step's activation peak at the phase's global
+    batch, in this process: a warm-up step, then the largest of two steps'
+    `max_memory_allocated` above `memory_allocated` just before the step
+    (bytes)."""
+    from skyhdr_torch.train.engine import make_gan_train_step
+
+    cfg = mod.dp_config({}, spec["h"], spec["w"], spec["batch"])
+    banks, vgg, host = mod._dp_setup(spec)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    gan = mod._gan_state(cfg, trees, "cuda")
+    step = make_gan_train_step(cfg, banks, vgg)
+    gen = torch.Generator(device="cuda").manual_seed(spec["seed"] + 2)
+    peaks = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(gan, batch, gen)
+        torch.cuda.synchronize()
+        if i:
+            peaks.append(torch.cuda.max_memory_allocated() - base)
+    del gan
+    free_cuda()
+    return max(peaks)
+
+
+def width_ring_timing(dc, smi, width=2):
+    """The ring backward kernels on one 1/`width` shard (extended by its
+    halo, cut from the whole panorama: no ring) at each `width_ring_cases`
+    shape, f32, in this process: K2/K7 and K3/K6 against their plain
+    versions (paired, CUDA events), the whole-panorama kernel for scale,
+    and the shard's bound (`bound` of the shard's own columns); each also
+    held to its plain version (the kernel's tolerance)."""
+    from skyhdr_torch.parallel.spatial import ring_da_plan
+
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for case in width_ring_cases():
+        b, h, w, c = case["shape"]
+        k, f = case["k"], case["f"]
+        wl = w // width
+        _, halo = ring_da_plan(h, w, wl, k)
+        x, kern, _, g = operands((h, w, c), b, f, torch.float32, gen, ksize=k)
+        xe = x[:, :, [(c0 - halo) % w for c0 in range(wl + 2 * halo)]].contiguous()
+        gl = g[:, :, :wl].contiguous()
+        geom = dict(w=w, halo=halo, kernel_size=k)
+        kx, kd = ("K2", "K3") if k == 3 else ("K7", "K6")
+        calls = {
+            kx: (lambda: dc.da_conv_dx_ring(gl, kern, x_shape=tuple(xe.shape), **geom),
+                 lambda: dc.da_conv_dx_ring_ref(gl, kern, x_shape=tuple(xe.shape), **geom),
+                 (lambda: dc.da_conv_dx_k2(g, kern, x_shape=tuple(x.shape))) if k == 3 else
+                 (lambda: dc.da_conv_dx_k7(g, kern, x_shape=tuple(x.shape), kernel_size=k))),
+            kd: (lambda: dc.da_conv_dk_ring(xe, gl, **geom),
+                 lambda: dc.da_conv_dk_ring_ref(xe, gl, **geom),
+                 (lambda: dc.da_conv_dk_k3(x, g)) if k == 3 else
+                 (lambda: dc.da_conv_dk_k6(x, g, kernel_size=k)))}
+        for kern_name, (ring, plain, whole) in calls.items():
+            err, gap = rel_err(ring(), plain())
+            check(err <= TOL[kern_name, torch.float32],
+                  f"{case['name']}: {kern_name} on a width shard vs its plain version {err:.3e}")
+            ms, plain_ms = paired_ms(ring, plain)
+            whole_ms = statistics.median(time_ms(whole))
+            bms, by = bound(kern_name, b, (h, wl, c), f, ksize=k)
+            rows.append({"kernel": kern_name, "layer": case["name"], "k": k,
+                         "x": [b, h, wl + 2 * halo, c], "f": f, "halo": halo, "ms": ms,
+                         "plain_ms": plain_ms, "whole_ms": whole_ms, "bound_ms": bms,
+                         "bound_by": by, "err": err, "max_abs_err": gap})
+            say("width_step", f"{case['name']}: {kern_name} on a 1/{width} width shard "
+                f"x[{b},{h},{wl}+2*{halo},{c}] -> {f}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+                f"the whole panorama {whole_ms:.4f} ms, the shard's bound {bms:.4f} ms by "
+                f"{by}); vs plain {err:.2e} (max abs {gap:.3e}); on {smi}")
+    return rows
+
+
+def phase_width_step(dc, smi, report):
+    """The width-sharded GAN step on the card (`make_parallel_gan_train_step`
+    and `make_fsdp_gan_train_step` with `shard_width=True`), on the parallel
+    phase's seeded DA 32x128 state and b32 batch, the ranks all on the one
+    H100 over gloo:
+      - two ranks on a (1, 2) mesh (each all 32 rows and 64 of the 128
+        columns) and, at the same time, four on a (2, 2) mesh under FSDP
+        (min_bytes 1 MiB; each 16 rows and 64 columns): one GAN step against the
+        single-process b32 step from the same weights and generator seed
+        (the train golden's tolerances), K1/K2/K3 counted on each rank
+        (20/24/20: the ring forms of K2 and K3 run the backward), every
+        rank bit-equal after; then WIDTH_TIMING steps timed per rank (host
+        clock; the collectives' share) and each rank's activation peak
+        (`max_memory_allocated` during a step above `memory_allocated` just
+        before it) against the single-process step's at b32;
+      - on each rank of the (1, 2) ring, the ring backward kernels (K2/K3,
+        and K7/K6 at the k=5 trunk) at each DA layer shape at 32x128 b32 on
+        its shard, extended through the real halo exchange, against their
+        plain versions and the whole-panorama kernels' columns;
+      - NCCL at world size 1 under deterministic algorithms: with
+        shard_width=True on the width-1 mesh (the data-parallel step, no
+        width code, as `skyhdr`'s) bit-equal to the single-process step;
+        with `ring_of_one` too (the width context on a ring of one: the
+        width ops' halos from the shard's own opposite edge, their sums and
+        the step's all-reduces through NCCL) against it at the train
+        golden's tolerances;
+      - each rank's activation peak below WIDTH_PEAK_RATIO of the single
+        step's;
+      - the ring backward kernels timed on a 1/2 shard (`width_ring_timing`).
+    A rank that fails or hangs fails the phase."""
+    mod = golden_tool()
+    work = tempfile.mkdtemp(prefix="skyhdr_width_")
+    out = report["width_step"] = {"device": smi}
+    try:
+        trees, _ = dp_trees()
+        spec = dict(dp_spec(work), job="width")
+        ref = dp_single(dc, mod, spec, trees)
+        single_peak = single_act_peak(mod, spec, trees)
+        out["single_act_peak_gib"] = single_peak / 2**30
+        say("width_step", f"single-process b{DP_BATCH} GAN step: activation peak "
+            f"{single_peak / 2**30:.3f} GiB (max_memory_allocated during the step above "
+            f"memory_allocated before it); on {smi}")
+        want = {k: GAN_LAUNCHES[k] for k in ("K1", "K2", "K3")}
+        meshes = (("w1x2", 1, 2, {"ring_kernels": width_ring_cases()}), ("w2x2_fsdp", 2, 2, {}))
+        t0 = time.perf_counter()
+        launched, runs = {}, {}
+        try:  # the two meshes' ranks at once (six processes on the one card)
+            for name, data, width, extra in meshes:
+                cwork = os.path.join(work, name)
+                os.makedirs(cwork)
+                case = {"name": name, "path": "batch", "timing": WIDTH_TIMING}
+                if name.endswith("fsdp"):
+                    case["fsdp"] = WIDTH_MIN_BYTES
+                launched[name] = mod.DPRanks(dict(spec, world=data * width, data=data,
+                                                  width=width, backend="gloo", cases=[case],
+                                                  **extra), cwork)
+            for name, ranks in launched.items():
+                runs[name] = ranks.results(400)
+        finally:
+            for ranks in launched.values():
+                ranks.stop()
+        say("width_step", f"2 gloo ranks on a (1, 2) mesh and 4 on a (2, 2) mesh, at once: "
+            f"run in {time.perf_counter() - t0:.3f} s wall")
+        for name, data, width, _ in meshes:
+            results = runs[name]
+            per_rank = [r[name] for r in results]
+            got = per_rank[0]
+            fails, worst = mod.compare_dp_steps(ref, got, mod.DP_RTOL["golden"],
+                                                kinds=("gan",))
+            for metric, a, b in zip(ref["gan_metric_names"], got["gan_metrics"],
+                                    ref["gan_metrics"]):
+                say("width_step", f"{name} gan {metric}: width-sharded {a:.7g}, single "
+                    f"process {b:.7g}")
+            say("width_step", f"{name}: DA {DP_H}x{DP_W} b{DP_BATCH} width-sharded GAN step vs "
+                f"the single-process step: worst relative {json.dumps(worst)} (metrics "
+                f"{GOLDEN_METRIC_RTOL}, updates {GOLDEN_UPDATE_RTOL}, BN sums 1e-4)")
+            for line in fails:
+                say("width_step", f"FAIL {name}: {line}")
+            check(not fails, f"{name} vs the single-process step: {len(fails)} mismatches")
+            rows = []
+            for rank, r in enumerate(per_rank):
+                ratio = r["act_peak_gib"] * 2**30 / single_peak
+                say("width_step", f"{name} rank {rank} {results[rank]['coords']}: launches "
+                    f"{r['launches']} (want {want}); states bit-equal across ranks: "
+                    f"{r['agree']}; step {r['gan_ms']:.3f} ms (median of {WIDTH_TIMING}, host "
+                    f"clock, the 6 ranks of both meshes stepping on the one card; all "
+                    f"{[round(t, 3) for t in r['gan_ms_all']]}), collectives "
+                    f"{r['gan_comm_ms']:.3f} ms = {100 * r['gan_comm_share']:.2f}% of a step "
+                    f"timed with each collective after the queued work; activation peak "
+                    f"{r['act_peak_gib']:.3f} GiB = {ratio:.4f} of the single-process "
+                    f"step's; on {smi}")
+                check(r["launches"] == want, f"{name} rank {rank} launches {r['launches']}")
+                check(r["agree"], f"{name}: the ranks' states differ after the step")
+                check(r["width_context"], f"{name} rank {rank}: no width context")
+                check(ratio < WIDTH_PEAK_RATIO[name], f"{name} rank {rank}: activation peak "
+                      f"{ratio:.4f} of the single step's, not below {WIDTH_PEAK_RATIO[name]}")
+                rows.append({k: r[k] for k in ("launches", "gan_ms", "gan_ms_all",
+                                               "gan_comm_share", "gan_comm_ms",
+                                               "act_peak_gib")} | {"act_peak_ratio": ratio})
+            out[name] = {"worst": worst, "ranks": rows}
+            for rank, res in enumerate(results):
+                for row in res.get("ring_kernels", []):
+                    k = row["name"]
+                    tol = TOL["K2" if "k=5" not in k else "K7", torch.float32]
+                    tol_k = TOL["K3" if "k=5" not in k else "K6", torch.float32]
+                    say("width_step", f"{name} rank {rank} {k} (halo {row['halo']}): ring "
+                        f"launches {row['launches']}; dx vs plain {row['dx_vs_plain']:.2e} "
+                        f"(tol {tol}), vs the whole panorama's columns "
+                        f"{row['dx_vs_whole']:.2e}; dK vs plain {row['dk_vs_plain']:.2e} (tol "
+                        f"{tol_k}), vs the whole panorama's (g zero outside the shard) "
+                        f"{row['dk_vs_whole']:.2e}")
+                    for key, t in (("dx_vs_plain", tol), ("dx_vs_whole", tol),
+                                   ("dk_vs_plain", tol_k), ("dk_vs_whole", tol_k)):
+                        check(row[key] <= t, f"{name} rank {rank} {k}: {key} {row[key]:.3e}")
+                    check(sum(row["launches"].values()) == 2,
+                          f"{name} rank {rank} {k}: launches {row['launches']}")
+                out.setdefault("ring_kernels", []).append(res.get("ring_kernels", []))
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(work, "nccl1"))
+        results = mod.run_dp_ranks(
+            dict(spec, world=1, data=1, width=1, backend="nccl", deterministic=True,
+                 single=True, cases=[{"name": "nccl1", "path": "batch"},
+                                     {"name": "nccl1_ring", "path": "batch",
+                                      "ring_of_one": True}]),
+            os.path.join(work, "nccl1"), timeout_s=300)
+        got = results[0]["nccl1"]
+        say("width_step", f"NCCL at world size 1, shard_width=True on a width-1 mesh (the "
+            f"data-parallel step, no width context: {not got['width_context']}), "
+            f"deterministic algorithms: the step bit-equal to the single-process step in the "
+            f"same process: {got['single_equal']}; launches {got['launches']} (both cases run "
+            f"in {time.perf_counter() - t0:.3f} s wall)")
+        check(got["single_equal"], "nccl1: the width-sharded step differs from the "
+              "single-process step")
+        check(not got["width_context"], "nccl1: a width context on a width-1 mesh")
+        check(got["launches"] == want, f"nccl1 launches {got['launches']}")
+        out["nccl1_single_equal"] = got["single_equal"]
+        # The width code under NCCL: the ring of one takes its halos from its
+        # own opposite edge (no p2p); BatchNorm's sums, the batch maximum,
+        # the gradients and the metrics go through NCCL's all-reduce.
+        ring1 = results[0]["nccl1_ring"]
+        fails, worst = mod.compare_dp_steps(ref, ring1, mod.DP_RTOL["golden"], kinds=("gan",))
+        say("width_step", f"NCCL at world size 1, the width context on a ring of one "
+            f"(ring_of_one; width context {ring1['width_context']}): launches "
+            f"{ring1['launches']} (want {want}); vs the single-process step: worst relative "
+            f"{json.dumps(worst)} (the train golden's tolerances); bit-equal to it: "
+            f"{ring1['single_equal']} (not required)")
+        for line in fails:
+            say("width_step", f"FAIL nccl1_ring: {line}")
+        check(not fails, f"nccl1_ring vs the single-process step: {len(fails)} mismatches")
+        check(ring1["width_context"], "nccl1_ring: no width context")
+        check(ring1["launches"] == want, f"nccl1_ring launches {ring1['launches']}")
+        out["nccl1_ring"] = {"worst": worst, "launches": ring1["launches"]}
+        out["timing"] = width_ring_timing(dc, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return out
@@ -3686,10 +3991,12 @@ def main(argv=None):
     da5_trees.cache_clear()
     timed("train_cli", phase_train_cli, dc, smi, report)
     timed("cli", phase_cli, dc, smi, report)
+    k3_trees.cache_clear()
     timed("convert", phase_convert, dc, smi, report)
     timed("parallel", phase_parallel, dc, smi, report)
     timed("fsdp", phase_fsdp, dc, smi, report)
     spatial = timed("spatial", phase_spatial, dc, smi, report)
+    width = timed("width_step", phase_width_step, dc, smi, report)
     probes = timed("probes", phase_probes, dc, smi, report)
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -3755,6 +4062,24 @@ def main(argv=None):
                 "timed": [{key: row[key] for key in ("layer", "x", "f", "ms", "plain_ms",
                                                      "whole_ms", "bound_ms")}
                           for row in spatial["timing"] if row["k"] == k]}
+        if kern in ("K2", "K3", "K6", "K7"):
+            # Its ring form (`da_conv_dx_ring` / `da_conv_dk_ring`): the
+            # width-sharded GAN step's backward on each rank's extended
+            # shard (K2/K3; K7/K6 checked and timed at the k=5 trunk).
+            kernels[-1]["width_shards"] = {
+                "route": "cuda", "source": "skyhdr_torch/ops/kernels/deform_conv.py",
+                "launches_per_rank_step": sorted({r["launches"].get(kern, 0)
+                                                  for name in ("w1x2", "w2x2_fsdp")
+                                                  for r in width[name]["ranks"]}),
+                "max_err_vs_plain": max(row[key] for rows in width["ring_kernels"]
+                                        for row in rows
+                                        for key in (("dx_vs_plain",) if kern in ("K2", "K7")
+                                                    else ("dk_vs_plain",))
+                                        if (row["name"].endswith("k=5")) == (kern in ("K6",
+                                                                                      "K7"))),
+                "timed": [{key: row[key] for key in ("layer", "x", "f", "ms", "plain_ms",
+                                                     "whole_ms", "bound_ms", "bound_by")}
+                          for row in width["timing"] if row["kernel"] == kern]}
     probe_src = "skyhdr_torch/csrc/probes.cu"
     for kern, name, replaces, bound_by, per in (
             ("K10", "K10 probe_direct_kernel<T, VEC, FT> / probe_staged_kernel<T, TAPS, "

@@ -15,6 +15,13 @@ takes them from a `torch.Generator` in the order the JAX package takes them
 (exposure index, sigma_s, sigma_c, both noises, CRF index), and
 `degrade_with` applies given draws. `jax.random` streams cannot be
 reproduced in torch, so the tests feed JAX's draws to `degrade_with`.
+
+In a width context (`ops.width`, the width-sharded train step) `hdr` is a
+width shard: the draws are the whole panorama's (the per-pixel noise drawn
+at its whole width), of which the shard keeps its columns, and the JPEG
+model runs on the shard where its blocks (16 columns under chroma
+subsampling, else 8) lie within it, else on the whole 3-channel image
+gathered over the ring, of which the shard keeps its columns.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from skyhdr_torch.ops import width
 from skyhdr_torch.ops.crf import apply_rf, apply_rf_chebyshev, chebyshev_fit
 from skyhdr_torch.ops.jpeg import jpeg_simulate
 
@@ -85,6 +93,21 @@ def shard_rows(draws: Draws, index: int, count: int) -> Draws:
     return Draws(*(t[index * b:(index + 1) * b] for t in draws))
 
 
+def shard_cols(draws: Draws, cols: slice) -> Draws:
+    """The draws of a width shard: the noises' columns `cols`."""
+    return draws._replace(z_s=draws.z_s[:, :, cols], z_c=draws.z_c[:, :, cols])
+
+
+def _jpeg(ldr, quality, chroma_subsample: bool):
+    """`jpeg_simulate` of ldr, a width shard in a width context: on the
+    shard where whole JPEG blocks tile it, else on the gathered image."""
+    ring = width.current()
+    if ring is None or ldr.shape[2] % (16 if chroma_subsample else 8) == 0:
+        return jpeg_simulate(ldr, quality, chroma_subsample=chroma_subsample)
+    full = jpeg_simulate(ring.gather(ldr), quality, chroma_subsample=chroma_subsample)
+    return full[:, :, ring.cols(full.shape[2])].contiguous()
+
+
 def degrade_with(hdr, banks: DegradationBanks, draws: Draws, *,
                  jpeg_lo: float = 90.0, jpeg_hi: float = 100.0,
                  sigma_s_scale: float = 0.08 / 6.0, sigma_c_scale: float = 0.005,
@@ -104,7 +127,7 @@ def degrade_with(hdr, banks: DegradationBanks, draws: Draws, *,
         ldr = apply_rf(clipped, banks.crfs[draws.crf_idx])
     index, count = shard
     quality = jpeg_quality_ramp(b * count, jpeg_lo, jpeg_hi, hdr.device)[index * b:(index + 1) * b]
-    return hdr_t, jpeg_simulate(ldr, quality, chroma_subsample=chroma_subsample)
+    return hdr_t, _jpeg(ldr, quality, chroma_subsample)
 
 
 def degrade_batch(generator: torch.Generator, hdr, banks: DegradationBanks,
@@ -114,7 +137,14 @@ def degrade_batch(generator: torch.Generator, hdr, banks: DegradationBanks,
     shard `index` of a batch `count` times its size (a data-parallel
     rank's); the draws and the JPEG quality ramp are the whole batch's, of
     which the shard takes its rows, so that each sample degrades as it
-    would in the whole batch."""
+    would in the whole batch. In a width context `hdr` is a width shard and
+    the draws are the whole panorama's, of which it keeps its columns."""
     index, count = shard
-    draws = draw_degradation(generator, (hdr.shape[0] * count, *hdr.shape[1:]), banks)
-    return degrade_with(hdr, banks, shard_rows(draws, index, count), shard=shard, **kw)
+    ring = width.current()
+    b, h, w, c = hdr.shape
+    w_full = w if ring is None else w * ring.n
+    draws = shard_rows(draw_degradation(generator, (b * count, h, w_full, c), banks), index,
+                       count)
+    if ring is not None:
+        draws = shard_cols(draws, ring.cols(w_full))
+    return degrade_with(hdr, banks, draws, shard=shard, **kw)

@@ -8,6 +8,12 @@ activation). cam = relu(sum_c mean_hw(grad)_c * A_c), one channel. The
 pull asks for the activations' gradients only, so the DA layers' backward
 runs dx alone there (`input_grads_only`), even when the weights require
 gradients.
+
+On a width shard (`ops.width`) the activations are the shard's and the
+softmax whole on every process of the ring: the seed is split evenly over
+the ring (each process's share, which fc1's all-reduce sums back in the
+pull), and the channel weights are means over the whole (h, w), their sums
+taken over the ring.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from skyhdr_torch.ops import width
 from skyhdr_torch.ops.kernels.deform_conv import input_grads_only
 
 
@@ -28,7 +35,12 @@ def yc_seed(sm: torch.Tensor, sunpose_gt=None) -> torch.Tensor:
 
 def cam_from_grad(grad: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
     """relu(einsum('bc,bhwc->bhw')) with GAP channel weights -> [b, h, w, 1]."""
-    weights = grad.mean(dim=(1, 2))
+    ring = width.current()
+    if ring is None:
+        weights = grad.mean(dim=(1, 2))
+    else:
+        weights = (ring.sum(grad.float().sum(dim=(1, 2)))
+                   / (grad.shape[1] * grad.shape[2] * ring.n)).to(grad.dtype)
     cam = torch.einsum("bc,bhwc->bhw", weights, act)
     return F.relu(cam)[..., None]
 
@@ -48,8 +60,11 @@ def sunpose_with_cams(sun, x: torch.Tensor, act_dtype: torch.dtype,
                                 requires_grad=True)
                     for s in sun.activation_shapes(x.shape[0]))
         sm, acts = sun(x, eps)
+        seed = yc_seed(sm.detach(), sunpose_gt)
+        ring = width.current()
+        if ring is not None:
+            seed = seed / ring.n
         with input_grads_only():
-            deps = torch.autograd.grad(sm, eps, retain_graph=keep_graph,
-                                       grad_outputs=yc_seed(sm.detach(), sunpose_gt))
+            deps = torch.autograd.grad(sm, eps, retain_graph=keep_graph, grad_outputs=seed)
     cams = tuple(cam_from_grad(g, a.detach()) for g, a in zip(deps, acts))
     return (sm if keep_graph else sm.detach()), cams

@@ -1,7 +1,11 @@
 """Building blocks of `skyhdr.models.layers`, in PyTorch.
 
 Activations are NHWC at every module boundary, as in the JAX package;
-convolutions permute to NCHW views around `F.conv2d`. Parameters are
+convolutions permute to NCHW views around `F.conv2d`. In a width context
+(`ops.width`, the width-sharded train step) each layer holds a width shard
+of its map and takes what it needs of the rest through the ring: a conv
+its halos, InstanceNorm its sums, a Dense over a flattened map a partial
+contraction summed over the ring. Parameters are
 allocated empty on the requested device and filled from a Flax-layout tree
 by `skyhdr_torch.utils.transplant` (each module's `flax_leaves` names its
 leaves, their layout and their initializer). Dtype rules follow Flax: an
@@ -18,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from skyhdr_torch.ops import width
 from skyhdr_torch.ops.kernels.instnorm import instance_norm_act
 from skyhdr_torch.ops.resize import resize_bilinear
 
@@ -60,13 +65,35 @@ def same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def width_halo(ring, x, k: int, s: int, padding: str = "SAME", dim: int = 2):
+    """A width shard x extended along `dim` by the columns that a conv of
+    kernel k and stride s reads beyond it, with a gradient: under "SAME"
+    the whole panorama's pads, `same_pads(W, k, s)` = (lo, k - s - lo) for
+    a width W that s divides, as lo columns of the left neighbour and
+    k - s - lo of the right one, zero at the panorama's ends (output column
+    j of the shard then reads its input columns j s - lo ...); under
+    "VALID" (stride 1) the right neighbour's first k - 1 columns and none
+    at the right end, so that each shard keeps the outputs of its own
+    input columns and the last shard's end where the panorama's do (its
+    shard k - 1 narrower)."""
+    wl = x.shape[dim]
+    if padding == "SAME":
+        if wl % s:
+            raise ValueError(f"a stride of {s} over a width shard of {wl}")
+        lo, _ = same_pads(wl * ring.n, k, s)
+        return ring.halo(x, lo, k - s - lo, "zeros", dim)
+    if s != 1:
+        raise ValueError(f"a VALID conv of stride {s} on width shards")
+    return ring.halo(x, 0, k - 1, "drop", dim)
+
+
 def _param(*shape, device=None) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape, device=device))
 
 
 class Conv2D(nn.Module):
     """SAME-padded conv with Flax `nn.Conv` semantics; kernel stored OIHW
-    (Flax HWIO)."""
+    (Flax HWIO). On a width shard its width pads are `width_halo`'s."""
 
     def __init__(self, in_features: int, features: int, kernel: int,
                  strides: int = 1, *, use_bias: bool = True,
@@ -85,10 +112,14 @@ class Conv2D(nn.Module):
 
     def forward(self, x, padding: str = "SAME"):
         ct = self.dtype or torch.promote_types(x.dtype, self.kernel.dtype)
+        ring = width.current()
         ph = pw = (0, 0)
         if padding == "SAME":
             ph = same_pads(x.shape[1], self.k, self.s)
-            pw = same_pads(x.shape[2], self.k, self.s)
+            if ring is None:
+                pw = same_pads(x.shape[2], self.k, self.s)
+        if ring is not None:
+            x = width_halo(ring, x, self.k, self.s, padding)
         xn = F.pad(x.to(ct).permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]))
         y = F.conv2d(xn, self.kernel.to(ct), stride=self.s).permute(0, 2, 3, 1)
         return y if self.bias is None else y + self.bias.to(y.dtype)
@@ -103,7 +134,11 @@ class InstanceNorm(nn.Module):
     follower activation: 'relu', 'lrelu01' or 'none'. With `fuse`
     (ModelConfig.fused_instance_norm) the normalisation and the activation
     run as one op, `ops.kernels.instnorm.instance_norm_act` (K8 forward, K9
-    backward on the card); otherwise as the composition below."""
+    backward on the card); otherwise as the composition below. On a width
+    shard the mean and variance are the whole (h, w)'s, their sums taken
+    over the ring in float32, and the composition runs whatever `fuse` says
+    (K8/K9 take their statistics over one process's (sample, channel), as
+    `skyhdr`'s `_mesh_cfg` routes its fused InstanceNorm off on a mesh)."""
 
     def __init__(self, features: int, epsilon: float = 1e-3, fuse: bool = False,
                  device=None):
@@ -117,13 +152,20 @@ class InstanceNorm(nn.Module):
                 ("params", "bias", self.bias, "same", "zeros")]
 
     def forward(self, x, act: str = "none"):
-        if self.fuse:
+        ring = width.current()
+        if self.fuse and ring is None:
             return instance_norm_act(x, self.scale, self.bias, eps=self.epsilon,
                                      alpha=_ACT_ALPHA[act])
         xf = x.float()
-        mean = xf.mean(dim=(1, 2), keepdim=True)
-        var = xf.var(dim=(1, 2), keepdim=True, unbiased=False)
-        y = (xf - mean) * torch.rsqrt(var + self.epsilon)
+        if ring is None:
+            mean = xf.mean(dim=(1, 2), keepdim=True)
+            var = xf.var(dim=(1, 2), keepdim=True, unbiased=False)
+            d = xf - mean
+        else:
+            n = x.shape[1] * x.shape[2] * ring.n
+            d = xf - ring.sum(xf.sum(dim=(1, 2), keepdim=True)) / n
+            var = ring.sum((d * d).sum(dim=(1, 2), keepdim=True)) / n
+        y = d * torch.rsqrt(var + self.epsilon)
         y = (y * self.scale + self.bias).to(x.dtype)
         if act == "relu":
             return F.relu(y)
@@ -202,15 +244,37 @@ class Dense(nn.Module):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+def map_dense(dense: Dense, x):
+    """`dense` over the map x [b, h, w, c] flattened in NHWC order (its
+    weight's rows ordered (h, w, c)). On a width shard: the partial
+    contraction of the shard with its columns' rows of the weight, summed
+    over the ring in float32 (a differentiable all-reduce), then the bias;
+    the result is whole on every process of the ring, and the weight's
+    gradient this process's partial."""
+    ring = width.current()
+    if ring is None:
+        return Dense.forward(dense, x.reshape(x.shape[0], -1))
+    b, h, wl, c = x.shape
+    dt = dense._dtype(x)
+    # The shard placed in a zero map of the whole width: the product with
+    # the whole weight is the shard's rows' (no copy of the weight, and its
+    # gradient is the whole weight's, zero outside the shard's rows).
+    cols = ring.cols(wl * ring.n)
+    xz = F.pad(x, (0, 0, cols.start, wl * ring.n - cols.stop))
+    part = F.linear(xz.reshape(b, -1).to(dt), dense.weight.to(dt))
+    return ring.sum(part.float()).to(dt) + dense.bias.to(dt)
+
+
 class SpatialDense(Dense):
     """`skyhdr.models.sunpose.SpatialDense`: a Dense over [b, h, w, c]
-    flattened in NHWC order, computed in `dtype` or float32."""
+    flattened in NHWC order, computed in `dtype` or float32 (`map_dense`:
+    on a width shard, a partial contraction summed over the ring)."""
 
     def _dtype(self, x):
         return self.dtype or torch.float32
 
     def forward(self, x):
-        return super().forward(x.reshape(x.shape[0], -1))
+        return map_dense(self, x)
 
 
 class ResizeDeconv(nn.Module):
@@ -263,6 +327,10 @@ def leaky_relu_01(x):
 
 
 def maxpool2(x):
-    """2x2 max pool, stride 2, SAME, on NHWC."""
+    """2x2 max pool, stride 2, SAME, on NHWC. A width shard must hold an
+    even number of columns (then its pools are the whole panorama's)."""
+    ring = width.current()
+    if ring is not None and x.shape[2] % 2:
+        raise ValueError(f"a 2x2 pool over a width shard of {x.shape[2]} columns")
     y = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2, ceil_mode=True)
     return y.permute(0, 2, 3, 1)

@@ -12,6 +12,7 @@ from torch import nn
 
 from skyhdr_torch.models.layers import (Conv2D, Dense, InstanceNorm,
                                         SpatialDense, compute_dtype, maxpool2)
+from skyhdr_torch.ops import width
 from skyhdr_torch.ops.distortion import DAConv
 
 
@@ -58,14 +59,18 @@ class SunPoseNet(nn.Module):
         self.fc2 = Dense(bins, bins, dtype=dt, device=device)
 
     def activation_shapes(self, batch: int):
-        h, w = self.cfg.im_height, self.cfg.im_width
+        """The three activations' shapes (on a width shard, the shard's)."""
+        ring = width.current()
+        h, w = self.cfg.im_height, self.cfg.im_width // (1 if ring is None else ring.n)
         return ((batch, h, w, 32), (batch, h // 2, w // 2, 64),
                 (batch, h // 4, w // 4, 128))
 
     def forward(self, x, eps: Optional[Sequence[torch.Tensor]] = None):
         """Returns (softmax over h*w bins [b, h*w] in float32, (a1, a2, a3)).
         `eps` are additive perturbations of the three activations: the
-        gradient w.r.t. them at zero is the Grad-CAM gradient."""
+        gradient w.r.t. them at zero is the Grad-CAM gradient. On a width
+        shard x and the activations are the shard's, and the softmax is
+        whole on every process of the ring (fc1 is `layers.map_dense`)."""
         a1 = self.sunlayer1(x)
         if eps is not None:
             a1 = a1 + eps[0]

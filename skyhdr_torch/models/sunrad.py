@@ -9,7 +9,7 @@ import math
 import torch
 from torch import nn
 
-from skyhdr_torch.models.layers import Dense, Downsampling
+from skyhdr_torch.models.layers import Dense, Downsampling, map_dense
 
 
 class SunRadNet(nn.Module):
@@ -32,14 +32,15 @@ class SunRadNet(nn.Module):
         """x: normalised sun-pose PDF [b, h, w, 1]; actv_map: LDR ++ CAMs
         [b, h, w, 6]. Returns (radiance [b, h, w, 1], gamma, beta). With
         `train` the BatchNorm layers use batch statistics and refresh their
-        running buffers in place."""
+        running buffers in place. On a width shard x and actv_map are the
+        shard's, and gamma and beta (`layers.map_dense` of the shard's part
+        of the flattened map) are whole on every process of the ring."""
         d = actv_map
         for layer in (self.d1, self.d2, self.d3, self.d4):
             d = layer(d, train)
-        d = d.float()
-        flat = d.reshape(d.shape[0], -1)  # NHWC flatten, as the Dense rows are
-        gamma_in = torch.sigmoid(self.gamma(flat)).reshape(-1, 1, 1, 1).float()
-        beta_in = torch.sigmoid(self.beta(flat)).reshape(-1, 1, 1, 1).float()
+        d = d.float()  # flattened in NHWC order, as the Dense rows are
+        gamma_in = torch.sigmoid(map_dense(self.gamma, d)).reshape(-1, 1, 1, 1).float()
+        beta_in = torch.sigmoid(map_dense(self.beta, d)).reshape(-1, 1, 1, 1).float()
 
         x = x.float()
         rad = -torch.square(1.0 - x)

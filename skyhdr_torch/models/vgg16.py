@@ -5,7 +5,11 @@ NumPy arrays, as the JAX package holds them: `load_vgg16_npy` reads the
 SingleHDR `vgg16.npy` (conv1_1's input channels flipped from BGR to RGB),
 `random_vgg16_weights` draws the same He-normal stand-in from the same numpy
 stream. `vgg_constants` moves them to the device once as frozen OIHW
-tensors (no gradient); the features run in the compute dtype.
+tensors (no gradient); the features run in the compute dtype. On a width
+shard (`ops.width`) each conv reads one column of each ring neighbour
+(zero at the panorama's ends, `layers.width_halo`), each pool the shard's
+even number of columns, and the loss's means are the whole panorama's
+(`WidthRing.mean`).
 """
 
 from __future__ import annotations
@@ -16,6 +20,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from skyhdr_torch.models.layers import width_halo
+from skyhdr_torch.ops import width
+
 VGG_MEAN_RGB = (123.68, 116.779, 103.939)
 
 _LAYERS = (
@@ -24,6 +31,8 @@ _LAYERS = (
     ("conv3_1", 128, 256), ("conv3_2", 256, 256), ("conv3_3", 256, 256),
 )
 _POOL_AFTER = {"conv1_2", "conv2_2", "conv3_3"}
+# The samples a width shard's conv takes in one cuDNN call (`vgg16_layer`).
+WIDTH_CONV_BATCH = 8
 
 
 def load_vgg16_npy(path: str) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
@@ -70,7 +79,22 @@ def vgg16_layer(consts, name, x):
     `name`, ReLU, and the SAME 2x2 stride-2 max pool after conv1_2, conv2_2
     and conv3_3."""
     w, b = consts[name]
-    x = F.relu(F.conv2d(x, w.to(x.dtype), b.to(x.dtype), padding=1))
+    ring = width.current()
+    if ring is None:
+        x = F.relu(F.conv2d(x, w.to(x.dtype), b.to(x.dtype), padding=1))
+    else:
+        # The halo columns added in NHWC, so that the conv reads the
+        # channels-last layout the whole panorama's does, and the batch in
+        # chunks of WIDTH_CONV_BATCH: at a shard's narrower shapes cuDNN may
+        # pick an algorithm whose workspace outweighs the shard's
+        # activations (conv1_2 of a 1/2 shard at 32x128 b32 on an H100:
+        # `tools/probe_torch_conv_workspace.py`, PERF.md).
+        xe = width_halo(ring, x.permute(0, 2, 3, 1), 3, 1).permute(0, 3, 1, 2)
+        wt, bias = w.to(x.dtype), b.to(x.dtype)
+        x = F.relu(torch.cat([F.conv2d(t, wt, bias, padding=(1, 0))
+                              for t in xe.split(WIDTH_CONV_BATCH)]))
+        if name in _POOL_AFTER and x.shape[3] % 2:
+            raise ValueError(f"a 2x2 pool over a width shard of {x.shape[3]} columns")
     return F.max_pool2d(x, 2, 2, ceil_mode=True) if name in _POOL_AFTER else x
 
 
@@ -89,8 +113,10 @@ def vgg16_features(consts, rgb01, dtype=torch.float32):
 def perceptual_l1(consts, pred_gamma, target_gamma, dtype=torch.float32):
     """Sum over pool1-3 of mean |features(pred) - features(target)|, each
     mean in float32."""
+    ring = width.current()
+    mean = torch.mean if ring is None else ring.mean
     loss = 0.0
     for a, b in zip(vgg16_features(consts, pred_gamma, dtype),
                     vgg16_features(consts, target_gamma, dtype)):
-        loss = loss + torch.mean(torch.abs(a - b).float())
+        loss = loss + mean(torch.abs(a - b).float())
     return loss

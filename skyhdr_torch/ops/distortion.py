@@ -28,6 +28,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from skyhdr_torch.ops import width
+
 PI = np.pi
 
 
@@ -367,6 +369,29 @@ def ring_window_tables(h: int, w: int, halo: int, kernel_size: int = 3,
     return t._replace(base=base.astype(np.int32))
 
 
+@functools.lru_cache(maxsize=None)
+def ring_strip_tables(h: int, w: int, halo: int, kernel_size: int = 3, rows: int = 4,
+                      dilation_rate: int = 1, skydome: bool = True) -> StripTables:
+    """`strip_tables` of the panorama of width `w` for a width shard
+    extended by `halo` columns on each side (`parallel.spatial`): each
+    pair's column shift re-based to halo + its signed shift, in
+    [0, 2 halo). The input-gradient walk over the extended shard, its
+    cotangent zero outside the shard's own columns [0, w_local) and read
+    modulo the extended width w_local + 2 halo, then forms dx of every
+    extended column, the two halos' included (they go back to the
+    neighbours that sent them): a read (j - cx) or (j - cx - 1) that wraps
+    lands in the 2 halo zero columns. Raises ValueError where a shift (or
+    its x1 neighbour) exceeds the halo."""
+    t = strip_tables(h, w, kernel_size, rows, dilation_rate, skydome)
+    cx = signed_shifts(t.pint[:, 2], w) + halo
+    if cx.size and (cx.min() < 0 or cx.max() > 2 * halo - 1):
+        raise ValueError(f"a halo of {halo} columns does not hold the column shifts of a "
+                         f"{h}x{w} panorama at k={kernel_size}, dilation {dilation_rate}")
+    pint = t.pint.copy()
+    pint[:, 2] = cx
+    return t._replace(pint=pint)
+
+
 def _on(device, arr) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
@@ -419,9 +444,12 @@ def scatter_tables_on(device: torch.device, h: int, w: int, kernel_size: int,
 
 @functools.lru_cache(maxsize=None)
 def strip_tables_on(device: torch.device, h: int, w: int, kernel_size: int,
-                    rows: int, dilation_rate: int = 1, skydome: bool = True):
-    """`strip_tables` (stride 1) as device tensors (pint, pflt, start)."""
-    st = strip_tables(h, w, kernel_size, rows, dilation_rate, skydome)
+                    rows: int, dilation_rate: int = 1, skydome: bool = True,
+                    halo: int = None):
+    """`strip_tables` (stride 1) as device tensors (pint, pflt, start); with
+    `halo`, `ring_strip_tables`' (an extended width shard's)."""
+    st = (strip_tables(h, w, kernel_size, rows, dilation_rate, skydome) if halo is None
+          else ring_strip_tables(h, w, halo, kernel_size, rows, dilation_rate, skydome))
     return tuple(_on(device, a) for a in (st.pint, st.pflt, st.start))
 
 
@@ -504,10 +532,18 @@ class DAConv(nn.Module):
                 ("params", "bias", self.bias, "same", "zeros")]
 
     def forward(self, x):
+        """On a width shard (`ops.width`), `parallel.spatial.
+        ring_deformable_conv2d` over the ring."""
         from skyhdr_torch.ops.kernels.deform_conv import da_conv
 
-        return da_conv(x, self.kernel, self.bias, kernel_size=self.kernel_size,
-                       dilation_rate=self.dilation_rate, skydome=self.skydome)
+        geom = dict(kernel_size=self.kernel_size, dilation_rate=self.dilation_rate,
+                    skydome=self.skydome)
+        ring = width.current()
+        if ring is not None:
+            from skyhdr_torch.parallel.spatial import ring_deformable_conv2d
+
+            return ring_deformable_conv2d(x, self.kernel, self.bias, mesh=ring.mesh, **geom)
+        return da_conv(x, self.kernel, self.bias, **geom)
 
 
 class DADeconv(DAConv):

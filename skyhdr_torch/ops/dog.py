@@ -8,6 +8,12 @@ along each axis, so it composes into one [2n, n] base operator and eight
 DoG(pred - target). The operator builders are NumPy copies of the JAX
 package's (`_dog_axis_operators` and the `_interp_matrix` it reads); the
 products are plain einsums, as the JAX package leaves them to XLA.
+
+In a width context (`ops.width`) the bands mix the whole width, so the
+difference (3 channels) is gathered over the ring, the loss computed whole
+on every process, and each process's share is the loss over the ring's
+size (the gather's gradient, summed over the ring, gives each its
+columns').
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ import functools
 
 import numpy as np
 import torch
+
+from skyhdr_torch.ops import width
 
 BASE_SIGMA = 1.2489996
 SIGMAS_1 = (1.2262735, 1.5450078, 1.9465878, 2.452547)
@@ -76,6 +84,13 @@ def _operators_on(n: int, ksize: int, device: torch.device):
 def dog_l1_loss(pred, target, ksize: int = 3):
     """Sum over the four DoG bands of mean |DoG(pred) - DoG(target)|."""
     d = pred - target
+    ring = width.current()
+    if ring is not None:
+        return _dog_l1(ring.gather(d), ksize) / ring.n
+    return _dog_l1(d, ksize)
+
+
+def _dog_l1(d, ksize: int):
     A0h, Sh = _operators_on(d.shape[1], ksize, d.device)
     A0w, Sw = _operators_on(d.shape[2], ksize, d.device)
     y = torch.einsum("Hh,bhwc->bHwc", A0h, d)

@@ -27,6 +27,15 @@ Any other odd k (the generic kernels of the same file):
      `ring_window_tables` (the whole panorama's column shifts re-based by
      the halo), the shard's columns kept; counted as a K1 / K5 launch.
      Plain version: `da_conv_forward_ring_ref`.
+  `da_conv_dx_ring`, `da_conv_dk_ring` — K2/K7 and K3/K6 on such an
+     extended shard (the width-sharded train step's backward): the input
+     gradient of every extended column, the cotangent read as zero outside
+     the shard's own columns, over `ring_strip_tables` (K2/K7's pair lists
+     with the column shifts re-based by the halo), and the shard's partial
+     weight gradient over `ring_window_tables`; the halo columns' dx goes
+     back to the neighbours (`spatial.halo_pad`), and the step sums dK over
+     the ring. Counted as launches of the kernel each runs. Plain versions:
+     `da_conv_dx_ring_ref`, `da_conv_dk_ring_ref`.
   K6 `da_conv_dk_k6` — CUDA weight gradient, replacing `_dk_kernel`. Plain
      version: `da_conv_dk_ref` at that k.
   K7 `da_conv_dx_k7` — CUDA input gradient, replacing `_dx_kernel`: K2's
@@ -35,7 +44,8 @@ Any other odd k (the generic kernels of the same file):
 K4 `DAConvFunction` — the custom-VJP wiring (`_da_conv_core` / `_da_fwd` /
   `_da_bwd`): the forward kernel of the kernel size; the input gradient
   when the input needs one, the weight gradient and a plain sum for db
-  when the weights do.
+  when the weights do. `RingDAConvFunction` is its form on an extended
+  width shard (`da_conv_ring`), with the ring kernels above.
 
 Dispatch is by device only: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernel or raises. `K1_LAUNCHES` ... `K7_LAUNCHES` count
@@ -52,7 +62,7 @@ import torch
 
 from skyhdr_torch.ops.distortion import (deformable_conv2d, gather_tables_on,
                                          mm_dtype, scatter_tables_k3_on,
-                                         scatter_tables_on, strip_tables_on,
+                                         scatter_tables_on, signed_shifts, strip_tables_on,
                                          window_tables_on)
 
 K1_LAUNCHES = 0
@@ -234,20 +244,25 @@ def dx_strip_rows(b: int, h: int, tiles: int, sms: int) -> int:
 
 
 def _dx(g, kernel, x_shape, k: int, dilation_rate: int, skydome: bool,
-        name: str) -> torch.Tensor:
+        name: str, ring=None) -> torch.Tensor:
     """Checks, then launches the input-gradient kernel at kernel size k
     (K2 at k = 3, K7 otherwise) over the `strip_tables` of the strip height
-    `dx_strip_rows` picks."""
+    `dx_strip_rows` picks. `ring=(w_full, halo)`: x is a width shard
+    extended by `halo` columns a side and g the shard's own columns; g is
+    zero-padded to the extended width and the kernel walks
+    `ring_strip_tables`, forming dx of every extended column."""
     from skyhdr_torch.ops.kernels.build import check, library
 
     b, h, w, c = x_shape
     f = kernel.shape[-1]
+    w_tab, halo = (w, None) if ring is None else ring
+    w_own = w if ring is None else w - 2 * halo
     _require(g.is_cuda and kernel.device == g.device,
              "DA kernels take CUDA tensors on one device")
     _require(tuple(kernel.shape) == (k * k * c, f),
              f"kernel must be [{k * k * c}, {f}], got {tuple(kernel.shape)}")
-    _require(tuple(g.shape) == (b, h, w, f),
-             f"g must be [{b},{h},{w},{f}], got {tuple(g.shape)}")
+    _require(tuple(g.shape) == (b, h, w_own, f),
+             f"g must be [{b},{h},{w_own},{f}], got {tuple(g.shape)}")
     # The kernel stages F and tiles C in 16-byte vectors: zero channels pad
     # both to a multiple of 4 (never at the model's shapes); the padded
     # channels of dx are not stored.
@@ -255,8 +270,8 @@ def _dx(g, kernel, x_shape, k: int, dilation_rate: int, skydome: bool,
     _require(k != 3 or cp == c, f"{name} takes C % 4 == 0, got C={c}")
     g32 = g.float()
     kt = kernel.float().reshape(k * k, c, f).transpose(1, 2)  # [k2, f, c]
-    if fp != f:
-        g32 = torch.nn.functional.pad(g32, (0, fp - f))
+    if fp != f or w_own != w:
+        g32 = torch.nn.functional.pad(g32, (0, fp - f, 0, w - w_own))
     if (cp, fp) != (c, f):
         kt = torch.nn.functional.pad(kt, (0, cp - c, 0, fp - f))
     g32, kt = g32.contiguous(), kt.contiguous()
@@ -264,7 +279,8 @@ def _dx(g, kernel, x_shape, k: int, dilation_rate: int, skydome: bool,
     tiles = lib.skyhdr_da_dx_tiles(w, cp, fp)
     _require(tiles > 0, f"{name} does not tile W={w}, C={c}, F={f}")
     rows = dx_strip_rows(b, h, tiles, _sm_count(g.device.index))
-    pint, pflt, start = strip_tables_on(g.device, h, w, k, rows, dilation_rate, skydome)
+    pint, pflt, start = strip_tables_on(g.device, h, w_tab, k, rows, dilation_rate, skydome,
+                                        halo)
     dx = torch.empty((b, h, w, c), dtype=torch.float32, device=g.device)
     code = lib.skyhdr_da_dx(
         *_ptrs(g32, kt, pint, pflt, start), start.numel() - 1, rows, *_ptrs(dx),
@@ -332,14 +348,23 @@ def dk_launch_tiling(b: int, h: int, w: int, cp: int, f: int, k: int, taps: int,
     return dk_tiling(b * h * chunks, tiles, resident, _sm_count(index)), tiles, threads, resident
 
 
-def _dk(x, g, k: int, dilation_rate: int, skydome: bool, name: str) -> torch.Tensor:
+def _dk(x, g, k: int, dilation_rate: int, skydome: bool, name: str,
+        ring=None) -> torch.Tensor:
     """Checks, then launches K3 (k = 3) or K6 (any other odd k) over the
     `window_tables` with the splits `dk_tiling` picks, and its fixed-order
-    reduction."""
+    reduction. `ring=(w_full, halo)`: x is a width shard extended by `halo`
+    columns a side and g the shard's own columns; g is zero-padded to the
+    extended width and the kernel reads `ring_window_tables`, so that only
+    the shard's own output columns add to dK."""
     from skyhdr_torch.ops.kernels.build import check, library
 
     _require(x.is_cuda and g.device == x.device,
              "DA kernels take CUDA tensors on one device")
+    w_tab, halo = (x.shape[2], None) if ring is None else ring
+    if ring is not None and x.dim() == 4 and g.dim() == 4:
+        _require(g.shape[2] == x.shape[2] - 2 * halo,
+                 f"g must hold the {x.shape[2] - 2 * halo} columns of the shard, got {g.shape[2]}")
+        g = torch.nn.functional.pad(g.float(), (0, 0, 0, 2 * halo))
     _require(x.dim() == 4 and g.dim() == 4 and g.shape[:3] == x.shape[:3],
              f"x [b,h,w,c] and g [b,h,w,f] expected, got {tuple(x.shape)} "
              f"and {tuple(g.shape)}")
@@ -355,7 +380,8 @@ def _dk(x, g, k: int, dilation_rate: int, skydome: bool, name: str) -> torch.Ten
     x = x.contiguous()
     g32 = g.float().contiguous()
     bf16 = x.dtype == torch.bfloat16
-    rows_t, taps_t, taps, span = window_tables_on(x.device, h, w, k, dilation_rate, skydome)
+    rows_t, taps_t, taps, span = window_tables_on(x.device, h, w_tab, k, dilation_rate, skydome,
+                                                  True, halo)
     nsplit = dk_launch_tiling(b, h, w, c, f, k, taps, span, bf16, x.device.index)[0]
     ws = torch.empty((nsplit, k * k * c, f), dtype=torch.float32, device=x.device)
     dk = torch.empty((k * k * c, f), dtype=torch.float32, device=x.device)
@@ -385,6 +411,102 @@ def da_conv_dk_k6(x, g, *, kernel_size: int, dilation_rate: int = 1,
     dk = _dk(x, g, kernel_size, dilation_rate, skydome, "K6")
     K6_LAUNCHES += 1
     return dk
+
+
+def da_conv_dx_ring(g, kernel, *, x_shape, w: int, halo: int, kernel_size: int = 3,
+                    dilation_rate: int = 1, skydome: bool = True) -> torch.Tensor:
+    """K2 (k = 3) or K7 on a width shard of a panorama of width `w`
+    extended by `halo` columns a side (`x_shape` [b, h, w_local + 2 halo,
+    c], the forward's x): g [b, h, w_local, f], the cotangent of the
+    shard's own columns; returns dx [b, h, w_local + 2 halo, c] float32 of
+    every extended column (`ring_strip_tables`). Counts as a launch of the
+    kernel it runs."""
+    global K2_LAUNCHES, K7_LAUNCHES
+    if kernel_size != 3:
+        _odd_other_than_3(kernel_size, "K7")
+    dx = _dx(g, kernel, tuple(x_shape), kernel_size, dilation_rate, skydome,
+             "K2" if kernel_size == 3 else "K7", ring=(w, halo))
+    if kernel_size == 3:
+        K2_LAUNCHES += 1
+    else:
+        K7_LAUNCHES += 1
+    return dx
+
+
+def da_conv_dk_ring(x, g, *, w: int, halo: int, kernel_size: int = 3, dilation_rate: int = 1,
+                    skydome: bool = True) -> torch.Tensor:
+    """K3 (k = 3) or K6 on a width shard extended by `halo` columns a side:
+    x [b, h, w_local + 2 halo, c], g [b, h, w_local, f]; returns the
+    shard's partial dK [k*k*c, f] float32 (its own output columns' terms).
+    Counts as a launch of the kernel it runs."""
+    global K3_LAUNCHES, K6_LAUNCHES
+    if kernel_size != 3:
+        _odd_other_than_3(kernel_size, "K6")
+    dk = _dk(x, g, kernel_size, dilation_rate, skydome, "K3" if kernel_size == 3 else "K6",
+             ring=(w, halo))
+    if kernel_size == 3:
+        K3_LAUNCHES += 1
+    else:
+        K6_LAUNCHES += 1
+    return dk
+
+
+def da_conv_dx_ring_ref(g, kernel, *, x_shape, w: int, halo: int, kernel_size: int = 3,
+                        dilation_rate: int = 1, skydome: bool = True) -> torch.Tensor:
+    """Plain version of `da_conv_dx_ring`: over the `scatter_tables`
+    references of the panorama of width `w`, their column shifts re-based
+    (cx' = halo + the signed shift),
+        dx[y,j] = sum_r rw ((1-rwx) g[ri][(j-cx') mod we]
+                            + rwx g[ri][(j-cx'-1) mod we]) @ K_rt^T
+    for every column j of the extended shard (width we), g zero outside the
+    shard's own columns; float32."""
+    b, h, we, c = x_shape
+    k2 = kernel_size * kernel_size
+    f = kernel.shape[-1]
+    dev = g.device
+    (ri, rt, rw, rcx, rwx), nrefs = scatter_tables_on(
+        dev, h, w, kernel_size, dilation_rate, skydome)
+    g = torch.nn.functional.pad(g.float(), (0, 0, 0, we - g.shape[2]))
+    kt = kernel.float().reshape(k2, c, f).transpose(1, 2)  # [k2, f, c]
+    jcols = torch.arange(we, device=dev)[None, :]
+    dx = torch.zeros((b, h, we, c), dtype=torch.float32, device=dev)
+    for r in range(nrefs):
+        rows = g[:, ri[:, r].long()]  # [b, h, we, f]: cotangent row per input row
+        cx = (signed_shifts(rcx[:, r].long(), w) + halo)[:, None]
+        i0 = ((jcols - cx) % we)[None, :, :, None].expand(b, h, we, f)
+        i1 = ((jcols - cx - 1) % we)[None, :, :, None].expand(b, h, we, f)
+        wx = rwx[:, r][None, :, None, None]
+        u = rw[:, r][None, :, None, None] * (
+            (1 - wx) * torch.gather(rows, 2, i0) + wx * torch.gather(rows, 2, i1))
+        dx = dx + torch.einsum("bhwf,hfc->bhwc", u, kt[rt[:, r].long()])
+    return dx
+
+
+def da_conv_dk_ring_ref(x, g, *, w: int, halo: int, kernel_size: int = 3,
+                        dilation_rate: int = 1, skydome: bool = True) -> torch.Tensor:
+    """Plain version of `da_conv_dk_ring`: dK[t*c+ci, f] = sum over the
+    shard's own columns j of sample_t[b,i,j,ci] g[b,i,j,f], the sample read
+    at extended column j + halo + the signed shift (and its x1 neighbour),
+    as `da_conv_forward_ring_ref`; float32."""
+    b, h, we, c = x.shape
+    wl = g.shape[2]
+    dev = x.device
+    pad = kernel_size // 2
+    y0, y1, cx0, wys, wxs = gather_tables_on(dev, h, w, kernel_size, dilation_rate, skydome)
+    xp = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, pad, pad))
+    g = g.float()
+    jcols = torch.arange(wl, device=dev)
+    taps = []
+    for tap in range(kernel_size * kernel_size):
+        wy = wys[:, tap][None, :, None, None]
+        wx = wxs[:, tap][None, :, None, None]
+        row_y = (1 - wy) * xp[:, y0[:, tap].long()] + wy * xp[:, y1[:, tap].long()]
+        cols = jcols[None, :] + (signed_shifts(cx0[:, tap].long(), w) + halo)[:, None]  # [h, wl]
+        s0, s1 = (torch.gather(row_y, 2, (cols + e)[None, :, :, None].expand(b, h, wl, c))
+                  for e in (0, 1))
+        sample = (1 - wx) * s0 + wx * s1
+        taps.append(torch.einsum("bhwc,bhwf->cf", sample, g))
+    return torch.cat(taps, dim=0)
 
 
 def da_conv_forward_ref(x, kernel, bias, *, kernel_size: int = 3,
@@ -553,3 +675,51 @@ def da_conv(x, kernel, bias, *, kernel_size: int = 3, dilation_rate: int = 1,
     kernel [k2*c, f], bias [f], k odd)."""
     _require(kernel_size % 2 == 1, f"the DA conv takes an odd kernel size, got {kernel_size}")
     return DAConvFunction.apply(x, kernel, bias, kernel_size, dilation_rate, skydome)
+
+
+class RingDAConvFunction(torch.autograd.Function):
+    """`DAConvFunction` on a width shard x with `halo` columns of each ring
+    neighbour, `left` and `right` (`parallel.spatial`): the forward kernel
+    over the extended shard (`da_conv_forward_ring`), the backward's input
+    gradient of every extended column (`da_conv_dx_ring`), split back into
+    x's and the two halos', and the shard's partial weight gradient
+    (`da_conv_dk_ring`) and db; the plain versions on the CPU. It keeps x
+    and the halos for the backward, not the extended copy."""
+
+    @staticmethod
+    def forward(ctx, x, left, right, kernel, bias, w: int, halo: int, kernel_size: int,
+                dilation_rate: int, skydome: bool):
+        ctx.save_for_backward(x, left, right, kernel, bias)
+        ctx.geom = dict(w=w, halo=halo, kernel_size=kernel_size, dilation_rate=dilation_rate,
+                        skydome=skydome)
+        fwd = da_conv_forward_ring if x.is_cuda else da_conv_forward_ring_ref
+        return fwd(torch.cat([left, x, right], dim=2), kernel, bias, **ctx.geom)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, left, right, kernel, bias = ctx.saved_tensors
+        halo = ctx.geom["halo"]
+        dx = dl = dr = dk = db = None
+        if ctx.needs_input_grad[3] and _WEIGHT_GRADS:
+            dk = (da_conv_dk_ring if g.is_cuda else da_conv_dk_ring_ref)(
+                torch.cat([left, x, right], dim=2), g, **ctx.geom).to(kernel.dtype)
+        if ctx.needs_input_grad[4] and _WEIGHT_GRADS:
+            db = g.float().sum((0, 1, 2)).to(bias.dtype)
+        if any(ctx.needs_input_grad[:3]):
+            b, h, wl, c = x.shape
+            dxe = (da_conv_dx_ring if g.is_cuda else da_conv_dx_ring_ref)(
+                g, kernel, x_shape=(b, h, wl + 2 * halo, c), **ctx.geom).to(x.dtype)
+            dl, dx, dr = dxe.split([halo, wl, halo], dim=2)
+        return dx, dl, dr, dk, db, None, None, None, None, None
+
+
+def da_conv_ring(x, left, right, kernel, bias, *, w: int, halo: int, kernel_size: int = 3,
+                 dilation_rate: int = 1, skydome: bool = True) -> torch.Tensor:
+    """The DA conv of a width shard x [b, h, w_local, c] of a panorama of
+    width `w`, with `halo` columns of its left and right ring neighbours
+    (`left`, `right` [b, h, halo, c]): returns the shard's [b, h, w_local,
+    f] with a gradient (`RingDAConvFunction`; the halos' gradients are the
+    neighbours' to add)."""
+    _require(kernel_size % 2 == 1, f"the DA conv takes an odd kernel size, got {kernel_size}")
+    return RingDAConvFunction.apply(x, left, right, kernel, bias, w, halo, kernel_size,
+                                    dilation_rate, skydome)

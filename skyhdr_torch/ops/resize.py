@@ -18,6 +18,11 @@ each rounds in its own places, which the port follows:
 
 A bfloat16 resize rounded per axis instead of once moved 28% of a
 resize-deconv's outputs by one ulp (ROADMAP Queue 3, F3).
+
+In a width context (`ops.width`) the image is a width shard and `size` the
+whole panorama's: an integer upscale reads one column of each ring
+neighbour where it reads past the shard, and the edge pad stays at the
+panorama's two ends (`WidthRing.halo`, "edge").
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from skyhdr_torch.ops import width
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,23 +72,26 @@ def _interleave(phases, axis: int) -> torch.Tensor:
     return torch.stack(phases, dim=axis + 1).flatten(axis, axis + 1)
 
 
-def _edge_pad(x: torch.Tensor, axis: int) -> torch.Tensor:
+def _edge_pad(x: torch.Tensor, axis: int, ring=None) -> torch.Tensor:
     """x with its first and last slice along `axis` repeated once outside,
     by concatenation (`jnp.pad(mode="edge")`: its gradient adds the pad's
-    into the edge in x's dtype)."""
+    into the edge in x's dtype); with `ring` (x a width shard along
+    `axis`), the neighbours' columns, the edge at the panorama's ends."""
+    if ring is not None:
+        return ring.halo(x, 1, 1, "edge", axis)
     n = x.shape[axis]
     return torch.cat([x.narrow(axis, 0, 1), x, x.narrow(axis, n - 1, 1)], dim=axis)
 
 
-def _upsample_2d(x: torch.Tensor, sh: int, sw: int) -> torch.Tensor:
+def _upsample_2d(x: torch.Tensor, sh: int, sw: int, ring=None) -> torch.Tensor:
     """[b, h, w, c] -> [b, sh h, sw w, c] as `skyhdr`'s dilated depthwise
     conv: the input edge-padded by one along each upscaled axis (in its
     dtype), the two-tap blends in float32 (exact for bfloat16 inputs), one
-    rounding to x's dtype."""
+    rounding to x's dtype. `ring`: x is a width shard (`_edge_pad`)."""
     out = x
     for axis, s in ((1, sh), (2, sw)):
         if s > 1:
-            out = _edge_pad(out, axis)
+            out = _edge_pad(out, axis, ring if axis == 2 else None)
     out = out.float()
     for axis, s in ((1, sh), (2, sw)):
         if s > 1:
@@ -92,32 +102,43 @@ def _upsample_2d(x: torch.Tensor, sh: int, sw: int) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def _upsample_axis_int(x: torch.Tensor, axis: int, s: int) -> torch.Tensor:
+def _upsample_axis_int(x: torch.Tensor, axis: int, s: int, ring=None) -> torch.Tensor:
     """An integer upscale by s along `axis` in x's dtype, each phase (1 - t)
-    x[clip(i + lo)] + t x[clip(i + lo + 1)] (`skyhdr`'s phase interleave)."""
+    x[clip(i + lo)] + t x[clip(i + lo + 1)] (`skyhdr`'s phase interleave).
+    `ring`: x is a width shard along `axis` (`_edge_pad`)."""
     n = x.shape[axis]
-    shifted = {-1: torch.cat([x.narrow(axis, 0, 1), x.narrow(axis, 0, n - 1)], dim=axis),
-               0: x,
-               1: torch.cat([x.narrow(axis, 1, n - 1), x.narrow(axis, n - 1, 1)], dim=axis)}
+    if ring is None:
+        shifted = {-1: torch.cat([x.narrow(axis, 0, 1), x.narrow(axis, 0, n - 1)], dim=axis),
+                   0: x,
+                   1: torch.cat([x.narrow(axis, 1, n - 1), x.narrow(axis, n - 1, 1)], dim=axis)}
+    else:
+        xe = _edge_pad(x, axis, ring)
+        shifted = {-1: xe.narrow(axis, 0, n), 0: x, 1: xe.narrow(axis, 2, n)}
     return _interleave([(1.0 - t) * shifted[lo] + t * shifted[lo + 1]
                         for lo, t in _phase_taps(s)], axis)
 
 
 def resize_bilinear(img: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
-    """Resize [..., h, w, c] -> [..., H, W, c]."""
+    """Resize [..., h, w, c] -> [..., H, W, c]; in a width context img is a
+    width shard [b, h, w_local, c] of a panorama of width w_local * n and
+    (H, W) the whole result's size (an integer upscale)."""
     H, W = int(size[0]), int(size[1])
-    h, w = img.shape[-3], img.shape[-2]
+    ring = width.current()
+    h, w = img.shape[-3], img.shape[-2] * (1 if ring is None else ring.n)
     if (h, w) == (H, W):
         return img
     if H % h == 0 and W % w == 0 and H >= h and W >= w:
         if img.dim() == 4 and img.shape[-1] >= 8:
-            return _upsample_2d(img, H // h, W // w)
+            return _upsample_2d(img, H // h, W // w, ring)
         out = img
         if H > h:
             out = _upsample_axis_int(out, out.dim() - 3, H // h)
         if W > w:
-            out = _upsample_axis_int(out, out.dim() - 2, W // w)
+            out = _upsample_axis_int(out, out.dim() - 2, W // w, ring)
         return out
+    if ring is not None:
+        raise ValueError(f"a resize of a width shard from {(h, w)} to {(H, W)}: an integer "
+                         "upscale only")
     out = img
     if out.shape[-3] != H:
         out = _resize_axis(out, out.dim() - 3, H)

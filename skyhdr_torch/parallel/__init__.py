@@ -10,17 +10,22 @@
                  over `data`, the state replicated, the gradients
                  all-reduced, and the batch's couplings (train-mode
                  BatchNorm, the sun-pose maximum, the degradation's draws
-                 and JPEG ramp) taken over the whole batch
+                 and JPEG ramp) taken over the whole batch; the GAN step
+                 with `shard_width=True` also shards the panorama's width
+                 over `width`, every layer on the width ring
   * fsdp.py    — ZeRO-3: `dp.py`'s steps with the big tensors of the state
                  (parameters, moments, master) sharded over `data`
                  (`skyhdr`'s plan), all-gathered for the step and their
-                 gradients reduce-scattered
-  * spatial.py — the width ring: `ring_conv2d` and the DA conv
-                 `ring_deformable_conv2d` (K1/K5 on each rank's width shard)
-                 over a cyclic halo exchange, forward only
+                 gradients reduce-scattered (the GAN step with
+                 `shard_width=True` as `dp.py`'s, its gradients summed over
+                 the width ring first)
+  * spatial.py — the width ring: a cyclic halo exchange with a backward,
+                 `ring_conv2d`, the DA conv `ring_deformable_conv2d` (K1-K3,
+                 or K5-K7, on each rank's width shard), and the width
+                 context (`WidthRing`, `width_across`) of the width-sharded
+                 step
 
-The width-sharded train steps (`skyhdr`'s `shard_width=True` of `dp.py`
-and `fsdp.py`) are not ported.
+The sun-pretrain step has no width-sharded form, as in `skyhdr`.
 """
 
 from skyhdr_torch.parallel.mesh import (  # noqa: F401
@@ -43,7 +48,9 @@ from skyhdr_torch.parallel.fsdp import (  # noqa: F401
     unshard_state,
 )
 from skyhdr_torch.parallel.spatial import (  # noqa: F401
+    WidthRing,
     ring_conv2d,
     ring_da_plan,
     ring_deformable_conv2d,
+    width_across,
 )

@@ -38,8 +38,13 @@ update on the whole tensor, and at two ranks the mean of a reduce-scatter
 is the all-reduce's (a sum of two numbers is the same in either order):
 the steps are bit-equal to `dp.py`'s.
 
-The width axis must be 1: the width-sharded step (`skyhdr`'s
-`shard_width=True`) is not ported.
+On a mesh of width > 1 the state is sharded over `data` only and
+replicated over `width`, as `skyhdr`'s `fsdp_state_sharding` reads
+`mesh.shape["data"]`: the all-gathers and reduce-scatters run over the
+data column (`Mesh.data_group`). With `shard_width=True` (the GAN step) the
+step is `dp.py`'s width-sharded one, each process's gradients its columns'
+share: they are summed over the width ring and then reduce-scattered (the
+sharded groups) or all-reduced (the rest) over `data`.
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from skyhdr_torch.parallel.dp import BatchReduce, _parallel
-from skyhdr_torch.parallel.mesh import Mesh, all_gather_, reduce_scatter_
+from skyhdr_torch.parallel.mesh import Mesh, all_gather_, all_reduce_, reduce_scatter_
 from skyhdr_torch.train.convert import state_rows
 from skyhdr_torch.train.engine import make_gan_train_step, make_sun_train_step
 from skyhdr_torch.utils.transplant import _flax_shape, _leaf_modules
@@ -147,39 +152,45 @@ class _Group:
 
 class FsdpReduce(BatchReduce):
     """`BatchReduce` of an FSDP step: the gradients of a sharded group
-    reduce-scattered (the rank's block of the mean, in float32), the rest
-    all-reduced in buckets; and the all-gathers, timed as the other
-    collectives. `layout` is the sharded state's, set for the step."""
+    reduce-scattered over the data column (the rank's block of the mean, in
+    float32; under `shard_width` summed over the width ring first), the
+    rest all-reduced in buckets; and the all-gathers over the data column,
+    timed as the other collectives. `layout` is the sharded state's, set
+    for the step."""
 
     layout = None
 
-    def _timed(self, fn, t):
+    def _timed(self, fn, t, group="data"):
         if self.timed and t.is_cuda:
             torch.cuda.synchronize(t.device)
         t0 = time.perf_counter()
-        out = fn(t, self.mesh)
+        out = fn(t, self.mesh, group=self.mesh.data_group if group == "data" else group)
         self.comm_s += time.perf_counter() - t0
         return out
 
     def gather(self, block: torch.Tensor, dim: int) -> torch.Tensor:
-        """The full tensor of the ranks' blocks along `dim`."""
+        """The full tensor of the data column's blocks along `dim`."""
         return self._timed(all_gather_, block).movedim(0, dim).contiguous()
 
     def scatter(self, g: torch.Tensor, dim: int) -> torch.Tensor:
-        """This rank's block along `dim` of `g` averaged over the ranks, in
+        """This rank's block along `dim` of `g` averaged over the data
+        shards (summed over the width ring first under `shard_width`), in
         float32, the dimension moved to the front."""
-        return self._timed(reduce_scatter_, g.float().movedim(dim, 0)).div_(self.world)
+        g = g.float().movedim(dim, 0)
+        if self.shard_width and self.mesh.width > 1:
+            g = self._timed(all_reduce_, g.contiguous(), self.mesh.width_group)
+        return self._timed(reduce_scatter_, g).div_(self.data)
 
     def grads(self, grads, params=None):
         sharded = self.layout.sharded
-        out = list(grads)
+        out = grads if isinstance(grads, list) else list(grads)
         whole = [i for i, p in enumerate(params) if id(p) not in sharded]
-        for i, g in zip(whole, super().grads([grads[i] for i in whole])):
+        for i, g in zip(whole, super().grads([out[i] for i in whole])):
             out[i] = g
         for i, p in enumerate(params):
             group = sharded.get(id(p))
             if group is not None:
-                out[i] = self.scatter(grads[i], group.dim).to(grads[i].dtype)
+                out[i] = self.scatter(out[i], group.dim).to(out[i].dtype)
         return out
 
 
@@ -318,6 +329,8 @@ class ShardedOptimizer:
 
 
 def _fsdp(cfg, banks, mesh: Mesh, make, reduce: FsdpReduce, min_bytes: int):
+    """(step, shard_state, shard_batch) of the single-process step `make(
+    reduce.grads)` with the state sharded over `mesh`'s data axis."""
     single = make(reduce.grads)
     core = single.train_on
 
@@ -372,14 +385,16 @@ def unshard_state(state):
 
 
 def make_fsdp_gan_train_step(cfg, banks, vgg_weights, mesh: Mesh,
-                             min_bytes: int = DEFAULT_MIN_BYTES):
+                             shard_width: bool = False,
+                             min_bytes: int = DEFAULT_MIN_BYTES, *, ring_of_one: bool = False):
     """The GAN train step with the state sharded over `mesh`'s data axis
-    (ZeRO-3) and the batch as `dp.make_parallel_gan_train_step`'s. Returns
-    (step, shard_state, shard_batch): `step(state, shard, generator)` and
+    (ZeRO-3) and the batch as `dp.make_parallel_gan_train_step`'s (with
+    `shard_width`, its columns over the width axis too). Returns (step,
+    shard_state, shard_batch): `step(state, shard, generator)` and
     `step.train_on(...)` as the DP step's, on a state from `shard_state`;
     `step.reduce` its `FsdpReduce` (`timed`, `comm_s`, the all-gathers
-    included)."""
-    reduce = FsdpReduce(mesh)
+    included); `ring_of_one` as the DP step's."""
+    reduce = FsdpReduce(mesh, shard_width, ring_of_one)
     return _fsdp(cfg, banks, mesh, lambda r: make_gan_train_step(cfg, banks, vgg_weights, r),
                  reduce, min_bytes)
 

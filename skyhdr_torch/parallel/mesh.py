@@ -45,15 +45,19 @@ def initialize_distributed(init_method: str, world_size: int, rank: int,
 
 class Mesh(NamedTuple):
     """A (data, width) layout of the processes of the default group: this
-    process's rank, its coordinates, the group's backend and, when there
-    are several data rows, the process group of this process's width ring
-    (None: every process)."""
+    process's rank, its coordinates, the group's backend, the process group
+    of this process's width ring (its data row; None: every process) and
+    that of its data column (the processes of its width index; None: every
+    process). A width-sharded step reduces over the width ring (a
+    panorama's columns), the data column (`fsdp.py`'s blocks) and every
+    process (BatchNorm, the batch maximum, the losses, the gradients)."""
 
     data: int
     width: int
     rank: int
     backend: str
     width_group: object = None
+    data_group: object = None
 
     @property
     def data_index(self) -> int:
@@ -81,12 +85,16 @@ def make_mesh(data: int = 0, width: int = 1) -> Mesh:
         data = n // width
     if data * width != n:
         raise ValueError(f"a {data}x{width} mesh over {n} processes")
-    rank, group = dist.get_rank(), None
+    rank, row, column = dist.get_rank(), None, None
+    # Every process creates every row's and column's group, in the same
+    # order (a column of one process where data == 1).
     if data > 1 and width > 1:
-        # Every process creates every row's group, in the same order.
         rows = [dist.new_group(list(range(d * width, (d + 1) * width))) for d in range(data)]
-        group = rows[rank // width]
-    return Mesh(data, width, rank, dist.get_backend(), group)
+        row = rows[rank // width]
+    if width > 1:
+        columns = [dist.new_group(list(range(i, n, width))) for i in range(width)]
+        column = columns[rank % width]
+    return Mesh(data, width, rank, dist.get_backend(), row, column)
 
 
 def _rows(mesh: Mesh, t):
@@ -129,15 +137,16 @@ def _via_host(mesh: Mesh, t: torch.Tensor) -> bool:
     return mesh.backend == "gloo" and t.is_cuda
 
 
-def all_reduce_(t: torch.Tensor, mesh: Mesh, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """`dist.all_reduce` in place (through host memory for a CUDA tensor
-    under gloo); every rank ends with the same bits."""
+def all_reduce_(t: torch.Tensor, mesh: Mesh, op=dist.ReduceOp.SUM, group=None) -> torch.Tensor:
+    """`dist.all_reduce` over `group` (default every process) in place
+    (through host memory for a CUDA tensor under gloo); every rank of the
+    group ends with the same bits."""
     if _via_host(mesh, t):
         host = t.cpu()
-        dist.all_reduce(host, op=op)
+        dist.all_reduce(host, op=op, group=group)
         t.copy_(host)
     else:
-        dist.all_reduce(t, op=op)
+        dist.all_reduce(t, op=op, group=group)
     return t
 
 
@@ -171,19 +180,19 @@ def all_gather_(shard: torch.Tensor, mesh: Mesh, group=None) -> torch.Tensor:
     return out
 
 
-def reduce_scatter_(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """`dist.reduce_scatter_tensor` (SUM) over every process: this rank's
-    block of dimension 0 of the ranks' `t`s summed (through host memory for
-    a CUDA tensor under gloo)."""
+def reduce_scatter_(t: torch.Tensor, mesh: Mesh, group=None) -> torch.Tensor:
+    """`dist.reduce_scatter_tensor` (SUM) over `group` (default every
+    process): this rank's block of dimension 0 of the ranks' `t`s summed
+    (through host memory for a CUDA tensor under gloo)."""
     t = t.contiguous()
-    n = dist.get_world_size()
+    n = dist.get_world_size(group)
     if t.shape[0] % n:
         raise ValueError(f"reduce_scatter_: {t.shape[0]} rows over {n} processes")
     out = t.new_empty((t.shape[0] // n, *t.shape[1:]))
     if _via_host(mesh, t):
         host = out.new_empty(out.shape, device="cpu")
-        dist.reduce_scatter_tensor(host, t.cpu())
+        dist.reduce_scatter_tensor(host, t.cpu(), group=group)
         out.copy_(host)
     else:
-        dist.reduce_scatter_tensor(out, t)
+        dist.reduce_scatter_tensor(out, t, group=group)
     return out

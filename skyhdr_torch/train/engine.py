@@ -45,6 +45,7 @@ from skyhdr_torch.models.generator import Generator
 from skyhdr_torch.models.gradcam import sunpose_with_cams
 from skyhdr_torch.models.sunpose import SunPoseNet
 from skyhdr_torch.models.vgg16 import perceptual_l1, vgg_constants
+from skyhdr_torch.ops import width
 from skyhdr_torch.ops.dog import dog_l1_loss
 from skyhdr_torch.ops.geometry import sunpose_gt_from_elevation
 from skyhdr_torch.ops.hdr import hdr_log_compression, hdr_log_decompression
@@ -299,8 +300,10 @@ def _grads(cfg, total, params, reduce=None):
     data-parallel step's all-reduce, an FSDP step's reduce-scatter) where
     given, then cast to `cfg.train.grad_dtype` unless that is float32
     (`skyhdr`'s `grad_store`, which casts after its GSPMD step's
-    reduction)."""
-    grads = torch.autograd.grad(total, params)
+    reduction). `reduce` gets the gradients as a list it may overwrite
+    entry by entry, so that each unreduced gradient is freed once its
+    reduced one exists."""
+    grads = list(torch.autograd.grad(total, params))
     if reduce is not None:
         grads = reduce(grads, params)
     if storage_dtype(cfg.train.grad_dtype) == torch.float32:
@@ -340,7 +343,16 @@ def generator_forward(cfg, gen, sun, disc, ldr, hdr_t, sunpose_gt, vgg,
     generator_forward`); `vgg` from `vgg_constants`. Returns (total, aux).
     With `train` SunRadNet's BatchNorm uses batch statistics and refreshes
     its buffers in place; the discriminator always runs with its frozen
-    statistics here."""
+    statistics here.
+
+    In a width context (`ops.width`) ldr and hdr_t are width shards, and
+    every map of the graph is too, but the sun-pose softmax, whole on every
+    process of the ring, of which `sunpose_pred` keeps the shard's columns.
+    Each loss is this process's share of the whole batch's (the shares sum
+    to it over the ring): the means of the shards' sums over the whole
+    count, the KL (of whole tensors) over the ring's size. The
+    backward of each rank is then its share of the gradient, which the
+    step sums over the ring."""
     m = cfg.model
     thr, vdr = m.alpha_threshold, m.valid_dr
     hdr_t_gamma = hdr_log_compression(hdr_t, vdr)
@@ -355,6 +367,9 @@ def generator_forward(cfg, gen, sun, disc, ldr, hdr_t, sunpose_gt, vgg,
     sm, (cam1, cam2, cam3) = sunpose_with_cams(sun, ldr, _act_dtype(cfg), sunpose_gt,
                                                keep_graph=torch.is_grad_enabled())
     sunpose_pred = sm.reshape(-1, m.im_height, m.im_width, 1)
+    ring = width.current()
+    if ring is not None:
+        sunpose_pred = sunpose_pred[:, :, ring.cols(m.im_width)]
 
     alpha = torch.amax(sky_pred_lin, dim=3)
     alpha = torch.clamp(torch.clamp(alpha - 1.0 + thr, min=0.0) / thr, max=1.0)
@@ -373,10 +388,12 @@ def generator_forward(cfg, gen, sun, disc, ldr, hdr_t, sunpose_gt, vgg,
 
     t = cfg.train
     sun_loss = losses.kl_divergence(sunpose_gt, sm)
+    if ring is not None:
+        sun_loss = sun_loss / ring.n
     perceptual = perceptual_l1(vgg, y_final_gamma, hdr_t_gamma, dtype=_act_dtype(cfg))
     dog = dog_l1_loss(y_final_lin, hdr_t)
     l1 = losses.l1_loss(y_final_lin, hdr_t)
-    adv = losses.lsgan_gen_loss(disc_generated)
+    adv = losses.lsgan_gen_loss(disc_generated, _logits_width(ldr))
     total = (t.w_sun * sun_loss + t.w_dog * dog + t.w_adv * adv + t.w_l1 * l1
              + t.w_perceptual * perceptual)
     aux = {
@@ -393,6 +410,14 @@ def generator_forward(cfg, gen, sun, disc, ldr, hdr_t, sunpose_gt, vgg,
                    "adv": adv, "perceptual": perceptual},
     }
     return total, aux
+
+
+def _logits_width(ldr):
+    """On width shards the whole width of the discriminator's logits of
+    ldr's panorama, else None."""
+    ring = width.current()
+    return None if ring is None else Discriminator.logits_width(ldr.shape[1],
+                                                               ldr.shape[2] * ring.n)
 
 
 def make_gan_train_step(cfg, banks, vgg_weights, reduce_grads=None):
@@ -413,7 +438,8 @@ def make_gan_train_step(cfg, banks, vgg_weights, reduce_grads=None):
         y_final_lin = aux["y_final_lin"].detach()
         real = state.disc(ldr, hdr_t, train=True)
         generated = state.disc(ldr, y_final_lin, train=True)
-        disc_total, real_l, gen_l = losses.lsgan_disc_loss(real, generated)
+        disc_total, real_l, gen_l = losses.lsgan_disc_loss(real, generated,
+                                                           _logits_width(ldr))
         state.opt_disc.step(_grads(cfg, disc_total, state.opt_disc.params, reduce_grads))
         state.step += 1
 

@@ -331,14 +331,24 @@ def test_ranks_import_no_jax(runs):
 
 
 def test_width_sharded_mesh_is_refused():
-    """FSDP over a width-sharded mesh is not ported: the step refuses it."""
+    """The sun-pretrain step has no width-sharded form, as `skyhdr`'s
+    `make_fsdp_sun_train_step` has none: it refuses `shard_width`, and on a
+    width mesh it shards the batch over `data` alone (the width-sharded GAN
+    step is tests/test_torch_width_step.py's)."""
+    import inspect
+
     from skyhdr_torch.data.degradation import make_banks
     from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
 
     banks = make_banks(make_synthetic_dorf(4, 64), get_exposure_lists()[0], device="cpu")
-    with pytest.raises(NotImplementedError, match="width"):
-        fsdp.make_fsdp_sun_train_step(port_config(16, 64, KNOBS["f32"]), banks,
-                                      Mesh(1, 2, 0, "gloo"))
+    cfg = port_config(16, 64, KNOBS["f32"])
+    with pytest.raises(TypeError, match="shard_width"):
+        fsdp.make_fsdp_sun_train_step(cfg, banks, Mesh(1, 2, 0, "gloo"), shard_width=True)
+    assert "shard_width" in inspect.signature(fsdp.make_fsdp_gan_train_step).parameters
+    step, _, shard_batch = fsdp.make_fsdp_sun_train_step(cfg, banks, Mesh(1, 2, 1, "gloo"))
+    hdr = np.arange(2 * 4 * 8 * 3, dtype=np.float32).reshape(2, 4, 8, 3)
+    placed = shard_batch({"hdr": hdr, "elevation": np.zeros(2, np.float32)})
+    np.testing.assert_array_equal(placed["hdr"].numpy(), hdr)
 
 
 @pytest.mark.slow

@@ -257,16 +257,35 @@ def test_world_size_one_ring(case):
 
 
 def test_a_gradient_through_the_ring_raises():
-    """Forward only: a backward through either op raises, rather than
-    running without the neighbours' halo gradients."""
+    """The ring ops have a gradient now (the width-sharded train step's
+    backward): on a ring of one process (the halo is the shard's own
+    opposite edge, its gradient added back there) the gradients of x, the
+    kernel and the bias equal those of the whole-panorama op (`F.conv2d`
+    on the cyclically padded panorama; the port's DA conv), within 1e-5 of
+    the largest; the multi-rank gradients are tests/test_torch_width_ops.py's."""
+    import torch.nn.functional as F
+
+    from skyhdr_torch.ops.kernels.deform_conv import da_conv
+
     mesh = Mesh(1, 1, 0, "gloo")
     for case in (CASES[0], CASES[3]):
         x, kernel, bias = (torch.from_numpy(a).requires_grad_() for a in
                            G.spatial_inputs(case))
-        op = spatial.ring_conv2d if case["op"] == "conv" else spatial.ring_deformable_conv2d
-        out = op(x, kernel, bias, mesh=mesh)
-        with pytest.raises(NotImplementedError, match="width ring"):
-            out.sum().backward()
+        g = torch.from_numpy(np.random.default_rng(7).normal(
+            size=(*case["shape"][:3], case["f"])).astype(np.float32))
+        if case["op"] == "conv":
+            out = spatial.ring_conv2d(x, kernel, bias, mesh=mesh)
+            p = (case["k"] - 1) // 2
+            wrap = F.pad(torch.cat([x[:, :, -p:], x, x[:, :, :p]], dim=2), (0, 0, 0, 0, p, p))
+            want = F.conv2d(wrap.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1),
+                            bias).permute(0, 2, 3, 1)
+        else:
+            out = spatial.ring_deformable_conv2d(x, kernel, bias, mesh=mesh)
+            want = da_conv(x, kernel, bias)
+        got = torch.autograd.grad(out, (x, kernel, bias), g)
+        ref = torch.autograd.grad(want, (x, kernel, bias), g)
+        for a, b in zip(got, ref):
+            assert _gap(a.numpy(), b.numpy()) <= RTOL
 
 
 def test_mesh_places_ranks_and_rows_as_skyhdr():

@@ -289,23 +289,14 @@ def _train_entries(gv, sv, dv, new, metrics, new_sun, sun_metrics, full: bool = 
     import jax
 
     to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)
-    params = {"gen": to_np(new.gen_vars["params"]), "sun": to_np(new.sun_vars["params"]),
-              "disc": to_np(new.disc_vars["params"])}
-    stats = {"gen": to_np(new.gen_vars["batch_stats"]),
-             "disc": to_np(new.disc_vars["batch_stats"])}
+    params, stats, out = _gan_entries(gv, sv, dv, new, metrics)
+    del out["nu"]
     sun_params = to_np(new_sun.sun_vars["params"])
-    out = {**_metric_entries("gan", metrics), **_metric_entries("sun", sun_metrics)}
-    old = {"gen": gv["params"], "sun": sv["params"], "disc": dv["params"]}
-    out["gan_param_paths"], out["gan_param_digests"] = update_digests(params, old)
-    out["gan_stat_paths"], out["gan_stat_digests"] = stat_digests(stats)
-    out["gan_stat_abs"] = stat_abs_sums(stats)
+    out.update(_metric_entries("sun", sun_metrics))
     out["sun_param_paths"], out["sun_param_digests"] = update_digests(sun_params,
                                                                       sv["params"])
-    # max |g| per leaf, from the second moments (RMSprop: 0.1 g^2; Adam:
-    # (1 - 0.999) g^2 after one step).
-    nu_gan = {"gen": to_np(new.opt_gen[0].nu[0]), "sun": to_np(new.opt_gen[0].nu[1]),
-              "disc": to_np(new.opt_disc[0].nu)}
-    out["gan_param_gmax"] = leaf_max(nu_gan, 10.0)
+    # max |g| per leaf, from the second moments (Adam: (1 - 0.999) g^2
+    # after one step).
     out["sun_param_gmax"] = leaf_max(to_np(new_sun.opt[0].nu), 1000.0)
     if full:
         out["trees"] = {
@@ -315,6 +306,31 @@ def _train_entries(gv, sv, dv, new, metrics, new_sun, sun_metrics, full: bool = 
             "sun_mu": to_np(new_sun.opt[0].mu), "sun_nu": to_np(new_sun.opt[0].nu),
         }
     return out
+
+
+def _gan_entries(gv, sv, dv, new, metrics):
+    """(params, stats, entries) of `skyhdr`'s stepped GAN state `new` (from
+    the trees gv, sv, dv): the new parameters and BatchNorm statistics as
+    numpy trees, and `_train_entries`' GAN keys (metrics, update digests,
+    BatchNorm sums, max |g| per leaf from the second moments: RMSprop's
+    0.1 g^2), and under "nu" the second moments' tree."""
+    import jax
+
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)
+    params = {"gen": to_np(new.gen_vars["params"]), "sun": to_np(new.sun_vars["params"]),
+              "disc": to_np(new.disc_vars["params"])}
+    stats = {"gen": to_np(new.gen_vars["batch_stats"]),
+             "disc": to_np(new.disc_vars["batch_stats"])}
+    out = _metric_entries("gan", metrics)
+    old = {"gen": gv["params"], "sun": sv["params"], "disc": dv["params"]}
+    out["gan_param_paths"], out["gan_param_digests"] = update_digests(params, old)
+    out["gan_stat_paths"], out["gan_stat_digests"] = stat_digests(stats)
+    out["gan_stat_abs"] = stat_abs_sums(stats)
+    nu_gan = {"gen": to_np(new.opt_gen[0].nu[0]), "sun": to_np(new.opt_gen[0].nu[1]),
+              "disc": to_np(new.opt_disc[0].nu)}
+    out["gan_param_gmax"] = leaf_max(nu_gan, 10.0)
+    out["nu"] = nu_gan
+    return params, stats, out
 
 
 def rmsprop_grads(nu_tree, new_tree, old_tree):
@@ -971,43 +987,61 @@ def step_digests(state, sun_state, gan_step, sun_step) -> dict:
     the moments flattened leaf after leaf in path order ("gan_nu" over the
     generator, sun-pose net and discriminator; "sun_mu", "sun_nu") with
     each leaf's size ("gan_sizes", "sun_sizes")."""
+    out = gan_step_digests(state, gan_step)
+    out.update(sun_step_digests(sun_state, sun_step))
+    return out
+
+
+def _params(value_of=None, **modules):
     from skyhdr_torch.utils.transplant import export_model_vars
 
-    def params(value_of=None, **modules):
-        return {n: export_model_vars(m, value_of=value_of, collections=("params",))["params"]
-                for n, m in modules.items()}
+    return {n: export_model_vars(m, value_of=value_of, collections=("params",))["params"]
+            for n, m in modules.items()}
+
+
+def _flat32(tree):
+    return [np.asarray(v, np.float32).ravel() for _, v in flat_leaves(tree)]
+
+
+def gan_step_digests(state, gan_step) -> dict:
+    """The GAN half of `step_digests` (the keys prefixed "gan_")."""
+    from skyhdr_torch.utils.transplant import export_model_vars
 
     modules = {"gen": state.gen, "sun": state.sun, "disc": state.disc}
-    old = params(**modules)
+    old = _params(**modules)
     state, metrics = gan_step(state)
-    new = params(**modules)
-    sun_old = params(sun=sun_state.sun)["sun"]
-    sun_state, sun_metrics = sun_step(sun_state)
-    sun_new = params(sun=sun_state.sun)["sun"]
-    out = {}
-    for kind, m in (("gan", metrics), ("sun", sun_metrics)):
-        out[f"{kind}_metric_dict"] = {k: float(v) for k, v in m.items()}
-        out.update(_metric_entries(kind, out[f"{kind}_metric_dict"]))
+    new = _params(**modules)
+    out = {"gan_metric_dict": {k: float(v) for k, v in metrics.items()}}
+    out.update(_metric_entries("gan", out["gan_metric_dict"]))
     out["gan_param_paths"], out["gan_param_digests"] = update_digests(new, old)
-    out["sun_param_paths"], out["sun_param_digests"] = update_digests(sun_new, sun_old)
     nu = {**state.opt_gen.moments()["nu"], **state.opt_disc.moments()["nu"]}
-    nu_tree = params(nu.__getitem__, **modules)
+    nu_tree = _params(nu.__getitem__, **modules)
     _, out["gan_grad_digests"] = grad_digests(rmsprop_grads(nu_tree, new, old))
-    moments = sun_state.opt.moments()
-    mu_tree = params(moments["mu"].__getitem__, sun=sun_state.sun)["sun"]
-    sun_nu_tree = params(moments["nu"].__getitem__, sun=sun_state.sun)["sun"]
-    _, out["sun_grad_digests"] = grad_digests(adam_grads(mu_tree))
     stats = {n: export_model_vars(m, collections=("batch_stats",))["batch_stats"]
              for n, m in (("gen", state.gen), ("disc", state.disc))}
     out["gan_stat_paths"], out["gan_stat_digests"] = stat_digests(stats)
     out["gan_stat_abs"] = stat_abs_sums(stats)
     out["gan_param_gmax"] = leaf_max(nu_tree, 10.0)
+    out["gan_nu"] = np.concatenate(_flat32(nu_tree))
+    out["gan_sizes"] = np.array([v.size for v in _flat32(nu_tree)])
+    return out
+
+
+def sun_step_digests(sun_state, sun_step) -> dict:
+    """The sun half of `step_digests` (the keys prefixed "sun_")."""
+    sun_old = _params(sun=sun_state.sun)["sun"]
+    sun_state, sun_metrics = sun_step(sun_state)
+    sun_new = _params(sun=sun_state.sun)["sun"]
+    out = {"sun_metric_dict": {k: float(v) for k, v in sun_metrics.items()}}
+    out.update(_metric_entries("sun", out["sun_metric_dict"]))
+    out["sun_param_paths"], out["sun_param_digests"] = update_digests(sun_new, sun_old)
+    moments = sun_state.opt.moments()
+    mu_tree = _params(moments["mu"].__getitem__, sun=sun_state.sun)["sun"]
+    sun_nu_tree = _params(moments["nu"].__getitem__, sun=sun_state.sun)["sun"]
+    _, out["sun_grad_digests"] = grad_digests(adam_grads(mu_tree))
     out["sun_param_gmax"] = leaf_max(sun_nu_tree, 1000.0)
-    flat = lambda tree: [np.asarray(v, np.float32).ravel() for _, v in flat_leaves(tree)]
-    out["gan_nu"] = np.concatenate(flat(nu_tree))
-    out["gan_sizes"] = np.array([v.size for v in flat(nu_tree)])
-    out["sun_mu"], out["sun_nu"] = (np.concatenate(flat(t)) for t in (mu_tree, sun_nu_tree))
-    out["sun_sizes"] = np.array([v.size for v in flat(mu_tree)])
+    out["sun_mu"], out["sun_nu"] = (np.concatenate(_flat32(t)) for t in (mu_tree, sun_nu_tree))
+    out["sun_sizes"] = np.array([v.size for v in _flat32(mu_tree)])
     return out
 
 
@@ -1073,7 +1107,7 @@ def port_eval_bf16(stored, cfg, state, sun_state, device) -> dict:
 
 
 def compare_train_golden(stored, port, metric_rtol: float, update_rtol: float,
-                         stat_rtol: float = 1e-4):
+                         stat_rtol: float = 1e-4, kinds=("gan", "sun")):
     """Failures (a list of strings) of the port's `port_train_golden`
     against the stored JAX values, and the largest relative errors.
 
@@ -1089,9 +1123,10 @@ def compare_train_golden(stored, port, metric_rtol: float, update_rtol: float,
     second). BatchNorm statistics: the sums within 1e-4 relative, where a sum
     that cancels (a running mean) is held relative to 1e-2 of its leaf's
     sum of |.| at least, since its terms' rounding weighs more than 100-fold
-    against it (`stat_rtol`: 1e-4)."""
+    against it (`stat_rtol`: 1e-4). `kinds`: the steps compared (the
+    width-sharded runs have a GAN step alone)."""
     fails, worst = [], {}
-    for kind in ("gan", "sun"):
+    for kind in kinds:
         got, want = port[f"{kind}_metrics"], stored[f"{kind}_metrics"]
         for name, a, b in zip(stored[f"{kind}_metric_names"], got, want):
             if not abs(a - b) <= metric_rtol * abs(b) + 1e-6:
@@ -1466,23 +1501,12 @@ def dp_rank(spec: dict, rank: int) -> dict:
 
     from skyhdr_torch.parallel import dp as pdp
     from skyhdr_torch.parallel import fsdp as pfsdp
-    from skyhdr_torch.parallel.mesh import initialize_distributed, make_mesh
 
     for case in spec["cases"]:
         if case.get("fault") not in (None, *DP_FAULTS, *FSDP_FAULTS):
             raise ValueError(f"unknown fault {case['fault']!r}")
-    torch.set_num_threads(spec.get("threads", 1))
+    mesh = _rank_setup(spec, rank)
     device = spec["device"]
-    if device.startswith("cuda"):
-        torch.cuda.set_device(torch.device(device).index or 0)
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-    if spec.get("deterministic") or any(c.get("deterministic") for c in spec["cases"]):
-        # cuBLAS reads this before its first handle.
-        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    initialize_distributed(spec["init_method"], spec["world"], rank, device,
-                           backend=spec.get("backend"))
-    mesh = make_mesh()
     trees = _dp_trees(spec)
     banks, vgg, host = _dp_setup(spec)
     dc = None
@@ -1507,8 +1531,8 @@ def dp_rank(spec: dict, rank: int) -> dict:
             sun_step, _ = pdp.make_parallel_sun_train_step(cfg, banks, mesh)
             shard_gan = shard_sun = None
         else:
-            gan_step, shard_gan, shard = pfsdp.make_fsdp_gan_train_step(cfg, banks, vgg, mesh,
-                                                                        min_bytes)
+            gan_step, shard_gan, shard = pfsdp.make_fsdp_gan_train_step(
+                cfg, banks, vgg, mesh, min_bytes=min_bytes)
             sun_step, shard_sun, _ = pfsdp.make_fsdp_sun_train_step(cfg, banks, mesh, min_bytes)
         launches = {}
 
@@ -1679,7 +1703,8 @@ def fsdp_vs_dp(spec, case, cfg, mesh, trees, setup, dp_runs: dict, steps: int = 
     device = spec["device"]
     makers = {
         "gan": (lambda: pdp.make_parallel_gan_train_step(cfg, banks, vgg, mesh),
-                lambda: pfsdp.make_fsdp_gan_train_step(cfg, banks, vgg, mesh, case["fsdp"])),
+                lambda: pfsdp.make_fsdp_gan_train_step(cfg, banks, vgg, mesh,
+                                                       min_bytes=case["fsdp"])),
         "sun": (lambda: pdp.make_parallel_sun_train_step(cfg, banks, mesh),
                 lambda: pfsdp.make_fsdp_sun_train_step(cfg, banks, mesh, case["fsdp"]))}
     setting = repr((case.get("knobs"), case.get("compute")))
@@ -1816,17 +1841,10 @@ def spatial_rank(spec: dict, rank: int) -> dict:
     import torch.nn.functional as F
 
     from skyhdr_torch.parallel import spatial
-    from skyhdr_torch.parallel.mesh import batch_sharding, initialize_distributed, make_mesh
+    from skyhdr_torch.parallel.mesh import batch_sharding
 
-    torch.set_num_threads(spec.get("threads", 1))
+    mesh = _rank_setup(spec, rank)
     device = spec["device"]
-    if device.startswith("cuda"):
-        torch.cuda.set_device(torch.device(device).index or 0)
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-    initialize_distributed(spec["init_method"], spec["world"], rank, device,
-                           backend=spec.get("backend"))
-    mesh = make_mesh(spec.get("data", 1), spec["width"])
     from skyhdr_torch.ops.kernels import deform_conv as dc
 
     place = batch_sharding(mesh, shard_width=True)
@@ -1902,18 +1920,696 @@ def _ring_checks(spatial, dc, xl, kernel, bias, got, mesh, res, geom, force_gath
             "whole_equal": bool(torch.equal(got, whole[:, :, cols]))}
 
 
+# ---------------------------------------------------------------------------
+# The width-sharded GAN step: `skyhdr`'s shard_width=True against the port's
+# ---------------------------------------------------------------------------
+
+WIDTH_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_golden_width_16x64.npz")
+# `skyhdr`'s runs of the width golden at 16x64 b4 f32: (key prefix, (data,
+# width) mesh, use_da_conv, FSDP min_bytes or None for the DP step).
+WIDTH_RUNS = (("da_", (1, 2), True, None), ("plain_", (1, 2), False, None),
+              ("fsdp_", (2, 2), True, 1 << 20))
+WIDTH_BATCH = 4
+# The faults of a width-sharded step (`apply_width_fault`): the DA convs'
+# weight gradients left per rank (not summed over the width ring).
+WIDTH_FAULTS = ("dk_not_width_summed",)
+# A width-sharded step against the port's single-process step on the same
+# batch and generator seed (2 gloo ranks at 16x64 b4 f32, and 4 under
+# FSDP): `DP_RTOL`'s float32 class, but the moments, whose per-leaf
+# relative L1 gaps reach 2.6e-4 at DA and with plain convs (the sums over
+# the ring reorder more of the step than the data-parallel all-reduce
+# does: every InstanceNorm, Dense over a map and loss); a DA kernel's
+# gradient left unsummed moves its moments by more than 0.3.
+WIDTH_RTOL = dict(DP_RTOL["float32"], moments=1e-3)
+# The width step on a ring of one process (`ring_of_one`) against the
+# single-process step: its metrics differ by rounding alone (in float64
+# the generator's losses agree to 1e-15), 1.3e-5 at worst (the adversarial
+# loss) at 16x64 b4 on the CPU.
+WIDTH_ONE_RTOL = dict(WIDTH_RTOL, metrics=3e-5)
+# The faults of the width-aware ops (`width_ops_rank`), each on the op it
+# breaks: InstanceNorm's statistics over the shard, the halos' gradients
+# not sent back, the sun-pose fc1 not summed over the ring, the VALID conv
+# without its right halo, the degradation's noise drawn at the shard's
+# width.
+WIDTH_OP_FAULTS = {"in_local_stats": "in", "halo_grad_dropped": "conv_k3s1",
+                   "fc1_not_reduced": "spatial_dense", "valid_no_right_halo": "valid_k4",
+                   "noise_per_shard": "degrade"}
+
+
+def width_config(case: dict, h: int = H, w: int = W, batch: int = WIDTH_BATCH):
+    """The port's Config of a width case: `dp_config`'s, with the case's
+    `use_da_conv` (default True)."""
+    import dataclasses
+
+    cfg = dp_config(case, h, w, batch)
+    return cfg.replace(model=dataclasses.replace(cfg.model,
+                                                 use_da_conv=case.get("use_da_conv", True)))
+
+
+def make_width_golden(seed: int = 0) -> dict:
+    """One GAN step of `skyhdr`'s width-sharded steps (`shard_width=True`)
+    on the virtual CPU devices at 16x64 b4 f32 (`WIDTH_RUNS`: the DP step
+    on a (1, 2) mesh at DA k=3 (the XLA path) and with plain convs, the
+    FSDP step on a (2, 2) mesh at DA k=3, min_bytes 1 MiB), from the port's
+    seeded weights on `dp_batch(seed, 4)` and the key seed + 1. Keys: the
+    batch, the JAX-degraded global `hdr_t` / `ldr` / `sunpose_gt`, and per
+    run under its prefix `_train_entries`' GAN keys, the gradients
+    recovered from the RMSprop moments (`rmsprop_grads`, "gan_grad_digests")
+    and the metrics of `skyhdr`'s single-device step on the same batch and
+    key ("single_gan_metrics")."""
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_platforms", "cpu")
+    from skyhdr.config import Config, DataConfig, ModelConfig
+    from skyhdr.data.degradation import make_banks
+    from skyhdr.models.vgg16 import random_vgg16_weights
+    from skyhdr.parallel import fsdp
+    from skyhdr.parallel.dp import make_parallel_gan_train_step
+    from skyhdr.parallel.mesh import make_mesh
+    from skyhdr.train import engine
+    from skyhdr.utils.io import get_exposure_lists, make_synthetic_dorf
+    from skyhdr_torch.utils.transplant import init_gan_vars, tree_digest
+
+    if len(jax.devices()) < 4:
+        raise RuntimeError("the width golden needs 4 JAX devices: set XLA_FLAGS="
+                           "--xla_force_host_platform_device_count=8 before JAX starts")
+    banks = make_banks(make_synthetic_dorf(175, 1024), get_exposure_lists()[0])
+    host = dp_batch(seed, WIDTH_BATCH)
+    batch = {k: jnp.asarray(v) for k, v in host.items()}
+    key = jax.random.PRNGKey(seed + 1)
+    vgg = random_vgg16_weights()
+    out = {"seed": np.int64(seed), **{k: np.asarray(v) for k, v in host.items()}}
+    for prefix, (data, width), use_da, min_bytes in WIDTH_RUNS:
+        tcfg = golden_config(use_da_conv=use_da)
+        cfg = Config(model=ModelConfig(**vars(tcfg.model)),
+                     data=DataConfig(batch_size=WIDTH_BATCH))
+        lr = cfg.train.learning_rate
+        gv, sv, dv = init_gan_vars(tcfg, seed)
+        if "hdr_t" not in out:
+            hdr_t, ldr = engine._degrade(cfg, banks, key, batch["hdr"])
+            out.update(hdr_t=np.asarray(hdr_t), ldr=np.asarray(ldr), sunpose_gt=np.asarray(
+                engine._sunpose_gt_from_elevation(cfg, batch["elevation"])))
+        mesh = make_mesh(data=data, width=width)
+        if min_bytes is None:
+            step, shard = make_parallel_gan_train_step(cfg, banks, vgg, mesh, shard_width=True)
+            place = lambda s: s
+        else:
+            step, place, shard = fsdp.make_fsdp_gan_train_step(
+                cfg, banks, vgg, mesh, shard_width=True, min_bytes=min_bytes)
+        new, metrics = step(place(_jax_gan_state(engine, gv, sv, dv, lr)), shard(batch), key)
+        params, _, entries = _gan_entries(gv, sv, dv, new, metrics)
+        old = {"gen": gv["params"], "sun": sv["params"], "disc": dv["params"]}
+        _, entries["gan_grad_digests"] = grad_digests(rmsprop_grads(entries.pop("nu"), params,
+                                                                    old))
+        _, single = jax.jit(engine.make_gan_train_step(cfg, banks, vgg, jit=False))(
+            _jax_gan_state(engine, gv, sv, dv, lr), batch, key)
+        entries["single_gan_metrics"] = _metric_entries("gan", single)["gan_metrics"]
+        entries["weights_digest"] = np.float64(tree_digest({"gen": gv, "sun": sv, "disc": dv}))
+        out.update({prefix + k: v for k, v in entries.items()})
+    return out
+
+
+def width_fixture_run(stored, prefix: str) -> dict:
+    """The stored run of `prefix` ("da_", "plain_", "fsdp_") under the train
+    golden's key names (with the batch's)."""
+    n = len(prefix)
+    return {**{k[n:]: v for k, v in stored.items() if k.startswith(prefix)},
+            **{k: stored[k] for k in ("hdr_t", "ldr", "sunpose_gt")}}
+
+
+# A step's gradient digests (sum g, sum |g| per leaf, recovered from the
+# moments) against `skyhdr`'s: relative to the leaf's sum |g|, as the update
+# digests; leaves of zero gradient in exact arithmetic (float noise) are
+# skipped, as `compare_train_golden` skips them. The port's width-sharded
+# steps on the CPU reach 6.3e-5 (DA), 8.4e-5 (FSDP) and 8.8e-4 (plain
+# convs) of it.
+WIDTH_GRAD_RTOL = 2e-3
+
+
+def compare_grad_digests(stored, got, rtol: float = WIDTH_GRAD_RTOL):
+    """(failures, worst) of the GAN gradient digests of `got` against
+    `stored`'s (`make_width_golden`)."""
+    gmax = stored["gan_param_gmax"]
+    fails, worst = [], 0.0
+    for path, g, w, m in zip(stored["gan_param_paths"], got["gan_grad_digests"],
+                             stored["gan_grad_digests"], gmax):
+        if m <= 1e-5 * gmax.max():
+            continue
+        e = float(np.max(np.abs(g - w)) / max(w[1], 1e-30))
+        worst = max(worst, e)
+        if not e <= rtol:
+            fails.append(f"gradient {path}: digests {g} vs {w}")
+    return fails, worst
+
+
+def apply_width_fault(fault: str):
+    """Plant one of WIDTH_FAULTS in this process (a rank's) and return the
+    function that takes it out: every DA conv's kernel gradient taken as
+    the rank's own partial (its columns' terms), not summed over the width
+    ring with the other gradients."""
+    from skyhdr_torch.ops import distortion
+    from skyhdr_torch.parallel import dp
+
+    if fault != "dk_not_width_summed":
+        raise ValueError(f"unknown fault {fault!r}")
+    init, grads = distortion.DAConv.__init__, dp.BatchReduce.grads
+    kernels = set()
+
+    def da_init(self, *a, **kw):
+        init(self, *a, **kw)
+        kernels.add(id(self.kernel))
+
+    def partial_dk(self, gs, params=None):
+        local = list(gs)
+        reduced = grads(self, gs, params)
+        return [g if id(p) in kernels else r for g, r, p in zip(local, reduced, params)]
+
+    distortion.DAConv.__init__, dp.BatchReduce.grads = da_init, partial_dk
+
+    def undo():
+        distortion.DAConv.__init__, dp.BatchReduce.grads = init, grads
+    return undo
+
+
+def _width_trees(spec, use_da_conv: bool):
+    """The seeded weights of a width run's config: the file the parent wrote
+    (`spec["weights"]` at DA, `spec["weights_plain"]` with plain convs), or
+    a draw."""
+    import pickle
+
+    from skyhdr_torch.utils.transplant import init_gan_vars
+
+    path = spec.get("weights" if use_da_conv else "weights_plain")
+    if path:
+        with open(path, "rb") as f:
+            return pickle.load(f)
+    return init_gan_vars(width_config({"use_da_conv": use_da_conv}, spec["h"], spec["w"],
+                                      spec["batch"]), spec["seed"])
+
+
+def _gan_state(cfg, trees, device):
+    from skyhdr_torch.train.engine import empty_gan_state, load_weights
+
+    gan = empty_gan_state(cfg, device)
+    load_weights(gan, trees)
+    return gan
+
+
+def width_reference(spec: dict, case: dict, trees=None, fixture=None) -> dict:
+    """The port's single-process GAN step of a width case on the whole batch
+    (`gan_step_digests`): through the degradation with the generator seed
+    the ranks use, or on `fixture`'s stored JAX-degraded inputs."""
+    import torch
+
+    from skyhdr_torch.train.engine import make_gan_train_step
+
+    cfg = width_config(case, spec["h"], spec["w"], spec["batch"])
+    banks, vgg, host = _dp_setup(spec)
+    device = spec["device"]
+    if trees is None:
+        trees = _width_trees(spec, case.get("use_da_conv", True))
+    step = make_gan_train_step(cfg, banks, vgg)
+    if fixture is not None:
+        rows = [torch.from_numpy(np.asarray(fixture[k])).to(device)
+                for k in ("hdr_t", "ldr", "sunpose_gt")]
+        return gan_step_digests(_gan_state(cfg, trees, device), lambda s: step.train_on(s, *rows))
+    batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+    gen = torch.Generator(device=device).manual_seed(spec["seed"] + 1)
+    return gan_step_digests(_gan_state(cfg, trees, device), lambda s: step(s, batch, gen))
+
+
+def _rank_setup(spec, rank):
+    """A rank process's setup: its threads, the card's TF32 off, cuBLAS
+    ready for deterministic algorithms where the spec or a case asks for
+    them, the process group; returns the (spec["data"], spec["width"])
+    mesh (default: every process over `data`)."""
+    import torch
+
+    from skyhdr_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    torch.set_num_threads(spec.get("threads", 1))
+    device = spec["device"]
+    if device.startswith("cuda"):
+        torch.cuda.set_device(torch.device(device).index or 0)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if spec.get("deterministic") or any(c.get("deterministic") for c in spec["cases"]):
+        # cuBLAS reads this before its first handle.
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    initialize_distributed(spec["init_method"], spec["world"], rank, device,
+                           backend=spec.get("backend"))
+    return make_mesh(spec.get("data", 0), spec.get("width", 1))
+
+
+def width_rank(spec: dict, rank: int) -> dict:
+    """One rank of a width-sharded run (`spec["job"] == "width"`, a process
+    of `DPRanks`) on the (spec["data"], spec["width"]) mesh: per case of
+    `spec["cases"]` the GAN state from the run's seeded weights (the case's
+    "use_da_conv"), replicated from rank 0, and one step of
+    `make_parallel_gan_train_step(..., shard_width=True)` (or with "fsdp":
+    min_bytes `make_fsdp_gan_train_step`'s: sharded, stepped, unsharded;
+    with "shard_width": False the batch over `data` alone; with
+    "ring_of_one" on a mesh of width 1, the width context on a ring of
+    one) on its block: of `spec["fixture"]`'s stored JAX-degraded inputs ("path":
+    "fixture"; its rows and columns of hdr_t and ldr, its rows of
+    sunpose_gt) or of `dp_batch` through the degradation, the generator
+    seeded seed + 1 ("path": "batch"); a case's "fault" is one of
+    WIDTH_FAULTS. Returns {case: `gan_step_digests` + "agree" (every rank's
+    state bit-equal after the step) + "launches" (K1-K3 of the step, on the
+    card) + "width_context" (whether the step ran on width shards)}; with "timing" (a number of steps, on the card) also the step's
+    ms, the collectives' share and "act_peak_gib", the step's peak device
+    memory above what was allocated before it; with `spec["single"]`
+    whether the single-process step in this process gives the same bits
+    (NCCL at world size 1 under deterministic algorithms). With
+    `spec["ring_kernels"]` (on the card) also `ring_kernel_checks`. Under
+    "imported" the top-level modules the rank imported."""
+    import statistics
+    import time
+
+    import torch
+
+    from skyhdr_torch.parallel import dp as pdp
+    from skyhdr_torch.parallel import fsdp as pfsdp
+    from skyhdr_torch.parallel.mesh import batch_sharding, vector_sharding
+
+    mesh = _rank_setup(spec, rank)
+    torch.use_deterministic_algorithms(bool(spec.get("deterministic")), warn_only=True)
+    device = spec["device"]
+    banks, vgg, host = _dp_setup(spec)
+    dc = None
+    if device.startswith("cuda"):
+        from skyhdr_torch.ops.kernels import deform_conv as dc
+    out = {"coords": (mesh.data_index, mesh.width_index)}
+    rows = vector_sharding(mesh)
+    for case in spec["cases"]:
+        t_case = time.perf_counter()
+        shard_width = case.get("shard_width", True)
+        cols = batch_sharding(mesh, shard_width)
+        undo = apply_width_fault(case["fault"]) if case.get("fault") else None
+        cfg = width_config(case, spec["h"], spec["w"], spec["batch"])
+        trees = _width_trees(spec, case.get("use_da_conv", True))
+        gan = pdp.replicate_state(_gan_state(cfg, trees, device), mesh)
+        min_bytes = case.get("fsdp")
+        one = bool(case.get("ring_of_one"))
+        if min_bytes is None:
+            step, shard = pdp.make_parallel_gan_train_step(cfg, banks, vgg, mesh,
+                                                           shard_width=shard_width,
+                                                           ring_of_one=one)
+            shard_state = None
+        else:
+            step, shard_state, shard = pfsdp.make_fsdp_gan_train_step(
+                cfg, banks, vgg, mesh, shard_width=shard_width, min_bytes=min_bytes,
+                ring_of_one=one)
+        launches = {}
+
+        def run(state):
+            if dc is not None:
+                for k in ("K1", "K2", "K3"):
+                    setattr(dc, f"{k}_LAUNCHES", 0)
+            if shard_state is not None:
+                state = shard_state(state)
+            if case.get("path") == "fixture":
+                with np.load(spec["fixture"]) as f:
+                    block = [torch.from_numpy(cols(f[k])).to(device) for k in ("hdr_t", "ldr")]
+                    block.append(torch.from_numpy(rows(f["sunpose_gt"])).to(device))
+                state, metrics = step.train_on(state, *block)
+            else:
+                gen = torch.Generator(device=device).manual_seed(spec["seed"] + 1)
+                state, metrics = step(state, shard(host), gen)
+            if dc is not None:
+                launches.update({k: getattr(dc, f"{k}_LAUNCHES") for k in ("K1", "K2", "K3")})
+            if shard_state is not None:
+                pfsdp.unshard_state(state)
+            return state, metrics
+
+        res = gan_step_digests(gan, run)
+        res["agree"] = pdp.replicas_agree(gan, mesh)
+        res["launches"] = launches
+        res["width_context"] = bool(step.reduce.ring)
+        if spec.get("single"):
+            ref = width_reference(spec, case, trees)
+            res["single_equal"] = all(np.array_equal(ref[k], res[k]) for k in (
+                "gan_metrics", "gan_param_digests", "gan_stat_digests", "gan_nu"))
+        if case.get("timing"):
+            # A warm-up step, then `timing` steps timed on the host clock
+            # (every rank steps together), then as many with each collective
+            # timed after the device's queued work: its share of the step.
+            gen = torch.Generator(device=device).manual_seed(spec["seed"] + 2)
+            batch = shard(host)
+            if shard_state is not None:
+                shard_state(gan)
+            walls, shares, peaks = {False: [], True: []}, [], []
+            for timed in (None, False, True):
+                for _ in range(1 if timed is None else case["timing"]):
+                    step.reduce.timed, step.reduce.comm_s = bool(timed), 0.0
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.perf_counter()
+                    step(gan, batch, gen)
+                    torch.cuda.synchronize()
+                    peaks.append(torch.cuda.max_memory_allocated() - base)
+                    if timed is not None:
+                        walls[timed].append(time.perf_counter() - t0)
+                    if timed:
+                        shares.append(step.reduce.comm_s / walls[True][-1])
+            res["gan_ms"] = 1e3 * statistics.median(walls[False])
+            res["gan_ms_all"] = [1e3 * t for t in walls[False]]
+            res["gan_comm_share"] = statistics.median(shares)
+            res["gan_comm_ms"] = 1e3 * statistics.median(
+                sh * t for sh, t in zip(shares, walls[True]))
+            res["act_peak_gib"] = max(peaks) / 2**30
+            if shard_state is not None:
+                res["resident_bytes"] = gan.fsdp.resident_bytes()
+                pfsdp.unshard_state(gan)
+        res["seconds"] = time.perf_counter() - t_case
+        out[case["name"]] = res
+        if undo is not None:
+            undo()
+        del gan
+    if spec.get("ring_kernels"):
+        out["ring_kernels"] = ring_kernel_checks(spec["ring_kernels"], mesh, device)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    out["imported"] = sorted({m.split(".")[0] for m in sys.modules})
+    return out
+
+
+def ring_kernel_checks(cases, mesh, device) -> list:
+    """On the card, per case {"name", "shape": [b, h, w, c] of the whole
+    panorama, "f", "k", "seed"}: the rank's width shard of seeded inputs,
+    extended by its ring halo through the real exchange, and its cotangent
+    block: the ring backward kernels (K2/K3 at k = 3, K7/K6 otherwise)
+    against their plain versions and against the whole-panorama kernels run
+    with the cotangent zero outside this rank's columns (whose dx at the
+    extended columns and whose dK are the ring kernels' own work): the
+    largest error relative to the reference's largest value of each, and
+    the launches of the ring kernels."""
+    import torch
+
+    from skyhdr_torch.ops.kernels import deform_conv as dc
+    from skyhdr_torch.parallel import spatial
+
+    rows = []
+    for case in cases:
+        b, h, w, c = case["shape"]
+        k, f = case["k"], case["f"]
+        rng = np.random.default_rng(case["seed"])
+        x = torch.from_numpy(rng.normal(size=(b, h, w, c)).astype(np.float32)).to(device)
+        kern = torch.from_numpy((rng.normal(size=(k * k * c, f)) * 0.2).astype(
+            np.float32)).to(device)
+        g = torch.from_numpy(rng.normal(size=(b, h, w, f)).astype(np.float32)).to(device)
+        wl = w // mesh.width
+        own = slice(mesh.width_index * wl, (mesh.width_index + 1) * wl)
+        _, halo = spatial.ring_da_plan(h, w, wl, k)
+        left, right = spatial._exchange_halos(x[:, :, own].contiguous(), halo, mesh)
+        xe = torch.cat([left, x[:, :, own], right], dim=2).contiguous()
+        gl = g[:, :, own].contiguous()
+        geom = dict(w=w, halo=halo, kernel_size=k)
+        for name in ("K1", "K2", "K3", "K5", "K6", "K7"):
+            setattr(dc, f"{name}_LAUNCHES", 0)
+        dx = dc.da_conv_dx_ring(gl, kern, x_shape=tuple(xe.shape), **geom)
+        dk = dc.da_conv_dk_ring(xe, gl, **geom)
+        launched = {n: getattr(dc, f"{n}_LAUNCHES") for n in ("K2", "K3", "K6", "K7")}
+        dx_plain = dc.da_conv_dx_ring_ref(gl, kern, x_shape=tuple(xe.shape), **geom)
+        dk_plain = dc.da_conv_dk_ring_ref(xe, gl, **geom)
+        g_own = torch.zeros_like(g)
+        g_own[:, :, own] = gl
+        if k == 3:
+            dx_whole = dc.da_conv_dx_k2(g_own, kern, x_shape=tuple(x.shape))
+            dk_whole = dc.da_conv_dk_k3(x, g_own)
+        else:
+            dx_whole = dc.da_conv_dx_k7(g_own, kern, x_shape=tuple(x.shape), kernel_size=k)
+            dk_whole = dc.da_conv_dk_k6(x, g_own, kernel_size=k)
+        ext = [(mesh.width_index * wl - halo + j) % w for j in range(wl + 2 * halo)]
+        dx_whole = dx_whole[:, :, ext]
+        rel = lambda a, r: ((a - r).abs().max() / r.abs().max()).item()
+        rows.append({"name": case["name"], "halo": halo, "launches": launched,
+                     "dx_vs_plain": rel(dx, dx_plain), "dk_vs_plain": rel(dk, dk_plain),
+                     "dx_vs_whole": rel(dx, dx_whole), "dk_vs_whole": rel(dk, dk_whole),
+                     "dx_max_abs": (dx - dx_plain).abs().max().item(),
+                     "dk_max_abs": (dk - dk_plain).abs().max().item()})
+    return rows
+
+
+def _width_op_case(case):
+    """The module and global inputs of a width op case: (fn, x, params,
+    cotangent kind) with fn(x) the op on whole or shard inputs, x the global
+    input [b, h, w, c] and params the module's parameters (seeded)."""
+    import torch
+
+    from skyhdr_torch.models import layers
+    from skyhdr_torch.models.vgg16 import perceptual_l1, random_vgg16_weights, vgg_constants
+    from skyhdr_torch.ops.distortion import DAConv
+    from skyhdr_torch.ops.dog import dog_l1_loss
+    from skyhdr_torch.ops.resize import resize_bilinear
+    from skyhdr_torch.train import losses
+
+    rng = np.random.default_rng(case["seed"])
+    b, h, w, c = case["shape"]
+    x = torch.from_numpy(rng.normal(size=(b, h, w, c)).astype(np.float32))
+    op, f = case["op"], case.get("f", 4)
+    module, kind = None, "sharded"
+    if op == "conv":
+        module = layers.Conv2D(c, f, case["k"], case["s"])
+        fn = lambda t: module(t, case.get("padding", "SAME"))
+    elif op == "in":
+        module = layers.InstanceNorm(c, fuse=case.get("fuse", False))
+        fn = lambda t: module(t, act="lrelu01")
+    elif op == "bn":
+        module = layers.BatchNorm(c)
+        fn = lambda t: module(t, train=True)
+    elif op == "spatial_dense":
+        module = layers.SpatialDense(h * w * c, f)
+        fn, kind = module, "whole"
+    elif op == "map_dense":
+        module = layers.Dense(h * w * c, 1)
+        fn, kind = (lambda t: layers.map_dense(module, t)), "whole"
+    elif op == "resize":
+        fn = lambda t: resize_bilinear(t, (h * case["scale"], w * case["scale"]))
+    elif op == "pool":
+        fn = layers.maxpool2
+    elif op == "da":
+        module = DAConv(c, f, case["k"])
+        fn = module
+        if case.get("force_gather"):
+            from skyhdr_torch.ops import width as wctx
+            from skyhdr_torch.parallel.spatial import ring_deformable_conv2d
+
+            def fn(t):
+                ring = wctx.current()
+                if ring is None:
+                    return module(t)
+                return ring_deformable_conv2d(t, module.kernel, module.bias, mesh=ring.mesh,
+                                              kernel_size=case["k"], force_gather=True)
+    elif op == "perceptual":
+        consts = vgg_constants(random_vgg16_weights(), "cpu")
+        target = torch.from_numpy(rng.uniform(size=(b, h, w, 3)).astype(np.float32))
+        x = torch.from_numpy(rng.uniform(size=(b, h, w, 3)).astype(np.float32))
+        fn, kind = (lambda t, y=target: perceptual_l1(consts, t, _cols_like(y, t))), "share"
+    elif op == "dog":
+        target = torch.from_numpy(rng.uniform(size=(b, h, w, 3)).astype(np.float32))
+        fn, kind = (lambda t, y=target: dog_l1_loss(t, _cols_like(y, t))), "share"
+    elif op == "l1":
+        target = torch.from_numpy(rng.normal(size=(b, h, w, c)).astype(np.float32))
+        fn, kind = (lambda t, y=target: losses.l1_loss(t, _cols_like(y, t))), "share"
+    elif op == "lsgan":
+        fn, kind = (lambda t: losses.lsgan_gen_loss(t)), "share"
+    elif op == "disc_lsgan":
+        # The discriminator on concat(ldr, hdr) = x's two halves, its logits
+        # through the LSGAN loss over the whole logits' width.
+        from skyhdr_torch.models.discriminator import Discriminator
+
+        module = Discriminator(c // 2)
+        fn = lambda t: losses.lsgan_gen_loss(module(t[..., :c // 2], t[..., c // 2:], train=True),
+                                             module.logits_width(h, w))
+        kind = "share"
+    else:
+        raise ValueError(f"unknown op {op!r}")
+    params = []
+    if module is not None:
+        with torch.no_grad():
+            for p in module.parameters():
+                p.copy_(torch.from_numpy(rng.normal(size=tuple(p.shape)).astype(np.float32)
+                                         * case.get("scale_w", 0.2)))
+            for name, buf in module.named_buffers():
+                buf.copy_(torch.from_numpy(np.abs(rng.normal(size=tuple(buf.shape))).astype(
+                    np.float32)))
+        params = list(module.parameters())
+    return fn, x, params, kind, module
+
+
+def _cols_like(y, t):
+    """y's columns that match the width shard t (the whole y outside a width
+    context)."""
+    from skyhdr_torch.ops import width as wctx
+
+    ring = wctx.current()
+    return y if ring is None else y[:, :, ring.cols(y.shape[2])]
+
+
+def width_op_whole(case) -> dict:
+    """The whole-panorama op of a width op case in this process: {"out",
+    "dx", "dparams"} as float64 numpy (the cotangent of `_op_cotangent`)."""
+    import torch
+
+    fn, x, params, kind, _ = _width_op_case(case)
+    x = x.requires_grad_()
+    out = fn(x)
+    g = _op_cotangent(case, out, 1)
+    grads = torch.autograd.grad(out, [x, *params], g, allow_unused=True)
+    return {"out": out.detach().double().numpy(),
+            "dx": None if grads[0] is None else grads[0].double().numpy(),
+            "dparams": [None if d is None else d.double().numpy() for d in grads[1:]]}
+
+
+def _op_cotangent(case, out, n: int, cols=None):
+    """The seeded cotangent of an op's whole output (a width shard's block
+    with `cols`; an output whole on every process split over the `n`
+    processes; a loss share's cotangent 1)."""
+    import torch
+
+    if out.dim() == 0:
+        return torch.ones_like(out)
+    rng = np.random.default_rng(case["seed"] + 1000)
+    shape = list(out.shape)
+    if cols is not None:
+        shape[2] = case["out_w"]
+    g = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    if cols is not None:
+        g = g[:, :, cols]
+    return g / n
+
+
+def width_ops_rank(spec: dict, rank: int) -> dict:
+    """One rank of a width-op run (`spec["job"] == "width-ops"`) on a width
+    ring of spec["width"]: per case of `spec["cases"]` the op on this
+    rank's width shard of the global input, in the width context (and
+    BatchNorm's batch reduction over every rank), and its gradients for
+    the seeded cotangent's block. Returns {case: {"out" (the block, or the
+    whole output of rank 0's, or the loss share), "dx" (the block's
+    gradient), "dparams" (this rank's partial parameter gradients)} as
+    float64 numpy}. A case with "fault" runs with one of
+    WIDTH_OP_FAULTS planted."""
+    import torch
+
+    from skyhdr_torch.models.layers import batch_across
+    from skyhdr_torch.parallel import dp as pdp
+    from skyhdr_torch.parallel.spatial import WidthRing, width_across
+
+    mesh = _rank_setup(spec, rank)
+    ring = WidthRing(mesh)
+    out = {}
+    for case in spec["cases"]:
+        undo = _apply_width_op_fault(case["fault"]) if case.get("fault") else None
+        try:
+            if case["op"] == "degrade":
+                out[case["name"]] = _degrade_block(case, ring)
+                continue
+            fn, x, params, kind, _ = _width_op_case(case)
+            xl = x[:, :, ring.cols(x.shape[2])].contiguous().requires_grad_()
+            with width_across(ring), batch_across(pdp.BatchReduce(mesh, shard_width=True)):
+                y = fn(xl)
+                if kind == "sharded":
+                    # The output columns of this rank: the shards' widths
+                    # summed over the ring (the VALID conv's differ).
+                    widths = [torch.zeros(1) for _ in range(mesh.width)]
+                    torch.distributed.all_gather(widths, torch.tensor([float(y.shape[2])]))
+                    starts = np.cumsum([0] + [int(v.item()) for v in widths])
+                    case = dict(case, out_w=int(starts[-1]))
+                    g = _op_cotangent(case, y, 1, slice(int(starts[mesh.width_index]),
+                                                        int(starts[mesh.width_index + 1])))
+                else:
+                    g = _op_cotangent(case, y, mesh.width if kind == "whole" else 1)
+                grads = torch.autograd.grad(y, [xl, *params], g, allow_unused=True)
+            out[case["name"]] = {
+                "out": y.detach().double().numpy(), "kind": kind,
+                "dx": None if grads[0] is None else grads[0].double().numpy(),
+                "dparams": [None if d is None else d.double().numpy() for d in grads[1:]]}
+        finally:
+            if undo is not None:
+                undo()
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    out["imported"] = sorted({m.split(".")[0] for m in sys.modules})
+    return out
+
+
+def _degrade_block(case, ring) -> dict:
+    """The degradation of this rank's width shard of a seeded HDR batch
+    (`degrade_batch` in the width context, the generator seeded
+    case["seed"]): {"out": [hdr_t, ldr] blocks}."""
+    import torch
+
+    from skyhdr_torch.data.degradation import degrade_batch, make_banks
+    from skyhdr_torch.ops.width import width_across
+    from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
+
+    banks = make_banks(make_synthetic_dorf(16, 256), get_exposure_lists()[0], device="cpu")
+    rng = np.random.default_rng(case["seed"])
+    hdr = torch.from_numpy(rng.uniform(0, 2, size=case["shape"]).astype(np.float32))
+    gen = torch.Generator().manual_seed(case["seed"])
+    if ring is None:
+        return {"out": [t.double().numpy() for t in degrade_batch(gen, hdr, banks)]}
+    with width_across(ring):
+        block = hdr[:, :, ring.cols(hdr.shape[2])]
+        return {"out": [t.double().numpy() for t in degrade_batch(gen, block, banks)],
+                "kind": "degrade"}
+
+
+def _apply_width_op_fault(fault: str):
+    """Plant one of WIDTH_OP_FAULTS in this process; returns its undo."""
+    from skyhdr_torch.data import degradation
+    from skyhdr_torch.models import layers
+    from skyhdr_torch.ops import width
+    from skyhdr_torch.parallel import spatial
+
+    patches = []
+    if fault == "in_local_stats":
+        # The sums of the shard alone, scaled as the ring's: local moments.
+        patches.append((spatial.WidthRing, "sum", lambda self, t: t * self.n))
+    elif fault == "fc1_not_reduced":
+        patches.append((spatial.WidthRing, "sum", lambda self, t: t))
+    elif fault == "halo_grad_dropped":
+        def backward(ctx, g):
+            lo, hi, ends, mesh, dim, w, nl, nr = ctx.args
+            return g.narrow(dim, nl, w).clone(), None, None, None, None, None
+        patches.append((spatial._Halo, "backward", staticmethod(backward)))
+    elif fault == "valid_no_right_halo":
+        halo = layers.width_halo
+        patches.append((layers, "width_halo", lambda ring, x, k, s, padding="SAME", dim=2:
+                        x if padding == "VALID" else halo(ring, x, k, s, padding, dim)))
+    elif fault == "noise_per_shard":
+        draw = degradation.draw_degradation
+        patches += [(degradation, "shard_cols", lambda draws, cols: draws),
+                    (degradation, "draw_degradation", lambda gen, shape, banks: draw(
+                        gen, (*shape[:2], shape[2] // width.current().n, shape[3]), banks))]
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+    old = [(t, n, t.__dict__[n] if isinstance(t, type) else getattr(t, n)) for t, n, _ in patches]
+    for t, n, v in patches:
+        setattr(t, n, v)
+
+    def undo():
+        for t, n, v in old:
+            setattr(t, n, v)
+    return undo
+
+
 def _dp_rank_main(spec_path: str, rank: str) -> None:
     import json
     import pickle
 
     with open(spec_path) as f:
         spec = json.load(f)
-    out = (spatial_rank if spec.get("job") == "spatial" else dp_rank)(spec, int(rank))
+    job = {"spatial": spatial_rank, "width": width_rank, "width-ops": width_ops_rank}
+    out = job.get(spec.get("job"), dp_rank)(spec, int(rank))
     with open(os.path.join(os.path.dirname(spec_path), f"dp_rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
 
 
-def compare_dp_steps(ref, got, rtol=None):
+def compare_dp_steps(ref, got, rtol=None, kinds=("gan", "sun")):
     """Failures (a list of strings) of a data-parallel run's `step_digests`
     against `ref` (the single-process run's, or a stored fixture's), and
     the worst gaps: `compare_train_golden` (metrics, update digests,
@@ -1925,10 +2621,12 @@ def compare_dp_steps(ref, got, rtol=None):
     by the update digests' bound)."""
     rtol = DP_RTOL["float32"] if rtol is None else rtol
     fails, worst = compare_train_golden(ref, got, rtol["metrics"], rtol["updates"],
-                                        rtol["stats"])
+                                        rtol["stats"], kinds)
     if "gan_nu" not in ref or rtol["moments"] is None:
         return fails, worst
     for kind, keys in (("gan", ("gan_nu",)), ("sun", ("sun_mu", "sun_nu"))):
+        if kind not in kinds:
+            continue
         paths, sizes = ref[f"{kind}_param_paths"], ref[f"{kind}_sizes"]
         gmax = ref[f"{kind}_param_gmax"]
         for key in keys:
@@ -2227,6 +2925,11 @@ def main():
         os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
         np.savez_compressed(FSDP_FIXTURE, **make_fsdp_golden(0))
         print(f"wrote {FSDP_FIXTURE} ({os.path.getsize(FSDP_FIXTURE)} bytes)")
+        return
+    if sys.argv[1:2] == ["width"]:
+        os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
+        np.savez_compressed(WIDTH_FIXTURE, **make_width_golden(0))
+        print(f"wrote {WIDTH_FIXTURE} ({os.path.getsize(WIDTH_FIXTURE)} bytes)")
         return
     if sys.argv[1:2] == ["plain-bf16-adv"]:
         import json
