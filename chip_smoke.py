@@ -248,6 +248,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     plain versions and the library with device work queued
                     ahead, so that the events bracket device time, not the
                     wrapper's host time; K10's default run also without).
+  17. library    — the op-library helpers that no step calls, on the card
+                    against the port's own CPU results on the same inputs
+                    (f32, 1e-5 of the max; TF32 off): rgb2gray and the
+                    channel flips (bitwise), positional_encoding, vmf_pdf
+                    with a precomputed table, gaussian_filter2d in its three
+                    paddings, dog_pyramid (value and gradient),
+                    dog_l1_loss_conv (and against dog_l1_loss), instance_moments,
+                    conv, avgpool2 at an odd size, FC2D / DFC2D with their
+                    weights carried through `utils.transplant` both ways,
+                    cast_floating on a module's state_dict and inverse_rf;
+                    a stride-1 DAConv at conv2_f's shape (32x128 b32)
+                    launches K1 once and meets the plain DA conv, a stride
+                    of 2 raises; the synthetic-sky writer
+                    (`skyhdr_torch.tools.make_synth_dataset`) writes a set
+                    that the pipeline reads back equal to its draws.
 The line before the last is the nvidia-smi line, the one before it the
 kernels' JSON summary; the last line is the run's JSON result. Details go to
 chiprun_out/chip_smoke.json, the phases' lines to chiprun_out/chip_smoke.log. The train golden's comparison lives in
@@ -280,7 +295,8 @@ STEP_ITERS = 5
 # (host clock: the ranks share the card and the host).
 RANK_ITERS = 3
 PHASES = ("kernels", "golden", "train_golden", "serving", "training", "timing",
-          "train_cli", "cli", "convert", "parallel", "fsdp", "spatial", "width_step", "probes")
+          "train_cli", "cli", "convert", "parallel", "fsdp", "spatial", "width_step", "probes",
+          "library")
 # (name, x shape at 32x128 [h, w, c], F, layers of that shape, in the
 # sun-pose net: Grad-CAM's pull differentiates through it)
 DA_LAYERS = [
@@ -1843,34 +1859,11 @@ def in_timing(smi, gen, dtypes=(torch.float32, torch.bfloat16)):
 
 
 def synth_panorama(rng, h, w):
-    """One HDR sky dome and its sun row, drawn as
-    `tools/make_synth_dataset.synth_panorama` draws them (that tool imports
-    the JAX package, so this script keeps its own copy)."""
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    zenith = rng.uniform(0.2, 0.7, size=3).astype(np.float32)
-    horizon = zenith * rng.uniform(1.2, 2.5, size=3).astype(np.float32)
-    g = (yy / (h - 1))[..., None]
-    sky = (1 - g) * zenith + g * horizon
-    cloud = np.zeros((h, w), np.float32)
-    for _ in range(rng.integers(2, 5)):
-        kx = rng.integers(1, 4)
-        ky = rng.uniform(0.5, 2.0)
-        phase = rng.uniform(0, 2 * np.pi)
-        amp = rng.uniform(0.05, 0.25)
-        cloud += amp * np.sin(2 * np.pi * kx * xx / w + phase) * np.cos(np.pi * ky * yy / h)
-    sky = sky * (1.0 + cloud[..., None]).clip(0.3, 2.0)
-    sun_y = float(rng.uniform(2.0, h - 3.0))
-    sun_x = w * 0.5 - 1.0
-    width = rng.uniform(1.0, 2.5)
-    intensity = rng.uniform(80.0, 600.0)
-    dx = np.minimum(np.abs(xx - sun_x), w - np.abs(xx - sun_x))
-    d2 = (yy - sun_y) ** 2 + dx ** 2
-    warm = np.array([1.0, 0.9, 0.75], np.float32)
-    sun = intensity * np.exp(-d2 / (2 * width ** 2))[..., None] * warm
-    glow = 0.15 * intensity * np.exp(-d2 / (2 * (4 * width) ** 2))[..., None]
-    img = sky + sun + glow
-    img += rng.normal(0, 0.01, size=img.shape).astype(np.float32)
-    return np.maximum(img, 1e-4).astype(np.float32), sun_y
+    """One HDR sky dome and its sun row, drawn by the port's copy of
+    `tools/make_synth_dataset.py`."""
+    from skyhdr_torch.tools.make_synth_dataset import synth_panorama as draw
+
+    return draw(rng, h, w)
 
 
 def write_dataset(root, h, w, counts, per_file=32, seed=0):
@@ -3932,6 +3925,154 @@ def phase_probes(dc, smi, report):
     return numbers
 
 
+LIBRARY_RTOL = 1e-5
+
+
+def phase_library(dc, report):
+    """`skyhdr`'s op-library helpers on the card against the port's CPU
+    results (see the module docstring, phase 17)."""
+    from skyhdr_torch.models import layers
+    from skyhdr_torch.ops import dog, geometry, hdr
+    from skyhdr_torch.ops.distortion import DAConv, deformable_conv2d
+    from skyhdr_torch.tools import make_synth_dataset
+    from skyhdr_torch.utils import io, params, transplant
+
+    rng = np.random.default_rng(19)
+    rows = {}
+
+    def held(name, fn, *arrays, grad=False, bitwise=False):
+        """fn on the card and on the CPU from the same arrays: every output
+        (and with `grad` the gradient of the outputs' sum of squares w.r.t.
+        each input) within LIBRARY_RTOL of the max, or bitwise."""
+        def run(dev):
+            ins = [torch.from_numpy(a).to(dev).requires_grad_(grad) for a in arrays]
+            out = fn(*ins)
+            outs = list(out) if isinstance(out, (tuple, list)) else [out]
+            if grad:
+                gs = torch.autograd.grad(sum((o.float() ** 2).sum() for o in outs), ins)
+                outs += list(gs)
+            return [o.detach().cpu() for o in outs]
+
+        got, want = run("cuda"), run("cpu")
+        err = max(rel_err(g, w)[0] for g, w in zip(got, want))
+        ok = (all(torch.equal(g, w) for g, w in zip(got, want)) if bitwise
+              else err <= LIBRARY_RTOL)
+        check(ok, f"library {name}: card vs CPU {err:.3e} of the max")
+        rows[name] = err
+        say("library", f"{name}: card vs CPU {err:.3e} of the max"
+            f"{' (bitwise)' if bitwise else ''}")
+
+    img = rng.uniform(0, 2, (32, 32, 128, 3)).astype(np.float32)
+    tgt = rng.uniform(0, 2, (32, 32, 128, 3)).astype(np.float32)
+    held("rgb2gray", hdr.rgb2gray, img)
+    held("rgb2bgr / bgr2rgb", lambda x: (hdr.rgb2bgr(x), hdr.bgr2rgb(x)), img, bitwise=True)
+    feat = rng.standard_normal((32, 32, 128, 64)).astype(np.float32)
+    held("positional_encoding", lambda x: (geometry.positional_encoding(x),
+                                           geometry.positional_encoding(x, with_r=True)), feat)
+    bins = geometry.sunpose_bins(32, 128)
+    sun_y = rng.uniform(2, 29, 32).astype(np.float32)
+    held("vmf_pdf(bins=)", lambda y: geometry.vmf_pdf(63.0, y, 32, 128, bins=bins), sun_y)
+    yc = torch.from_numpy(sun_y).cuda()
+    check(torch.equal(geometry.vmf_pdf(63.0, yc, 32, 128, bins=bins),
+                      geometry.vmf_pdf(63.0, yc, 32, 128)),
+          "vmf_pdf with a precomputed table differs from its own")
+    for mode in ("REFLECT", "SYMMETRIC", "CONSTANT"):
+        held(f"gaussian_filter2d {mode}",
+             lambda x, m=mode: dog.gaussian_filter2d(x, 3, 1.6, m), img, grad=True)
+    # The pyramid's gradient; the loss's adds |.|'s sign, which flips where a
+    # band difference rounds across zero on one device.
+    held("dog_pyramid", dog.dog_pyramid, img, grad=True)
+    held("dog_l1_loss_conv", dog.dog_l1_loss_conv, img, tgt)
+    pc, tc = torch.from_numpy(img).cuda(), torch.from_numpy(tgt).cuda()
+    e = rel_err(dog.dog_l1_loss_conv(pc, tc), dog.dog_l1_loss(pc, tc))[0]
+    check(e <= LIBRARY_RTOL, f"dog_l1_loss_conv vs dog_l1_loss on the card: {e:.3e}")
+    say("library", f"dog_l1_loss_conv vs dog_l1_loss on the card: {e:.3e} of the value")
+    held("instance_moments", layers.instance_moments, feat)
+
+    def module_held(name, make, x):
+        """A module built on each device from one seeded Flax-layout tree,
+        which the card's module exports back equal (weights carried both
+        ways)."""
+        tree = transplant.init_tree(make("meta"), np.random.default_rng(7))
+        mods = {dev: transplant.load_model_vars(make(dev), tree) for dev in ("cpu", "cuda")}
+        back = transplant.export_model_vars(mods["cuda"])
+        flat = lambda t, p="": ([(p, t)] if not isinstance(t, dict) else
+                                [kv for k in sorted(t) for kv in flat(t[k], f"{p}/{k}")])
+        check([(k, v.tobytes()) for k, v in flat(back)] ==
+              [(k, v.tobytes()) for k, v in flat(tree)], f"library {name}: export != import")
+        held(name, lambda xx: mods[xx.device.type](xx), x, grad=True)
+
+    module_held("conv (k3 s2)", lambda d: layers.conv(64, 32, 3, 2, device=d), feat)
+    held("avgpool2 (odd 31x127)", layers.avgpool2, feat[:, :31, :127], grad=True)
+    small = feat[:, :8, :32]
+    module_held("FC2D", lambda d: layers.FC2D(8 * 32 * 64, 64, device=d), small)
+    module_held("DFC2D", lambda d: layers.DFC2D(64, 8, 32, 3, device=d),
+                rng.standard_normal((32, 1, 1, 64)).astype(np.float32))
+
+    sd = {k: v.cuda() for k, v in layers.BatchNorm(64).state_dict().items()}
+    sd["step"] = torch.tensor(3, device="cuda")
+    cast = params.cast_floating({"modules": sd, "n": [torch.ones(2, device="cuda")]},
+                                "bfloat16")
+    check(cast["modules"]["step"].dtype == torch.int64
+          and all(v.dtype == torch.bfloat16 for k, v in cast["modules"].items() if k != "step")
+          and cast["n"][0].dtype == torch.bfloat16, "cast_floating dtypes")
+    crf = io.make_synthetic_dorf(8, 1024)
+    inv = np.stack([io.inverse_rf(c) for c in crf])
+    grid = np.linspace(0, 1, 1024)
+    e = max(np.abs(np.interp(np.interp(grid, grid, c), grid, i) - grid).max()
+            for c, i in zip(crf, inv))
+    check(e < 5e-2, f"inverse_rf does not invert its curves: {e:.3e}")
+    say("library", f"cast_floating on a state_dict: dtypes held; inverse_rf(c)(c(x)) - x "
+        f"at most {e:.3e} over 8 curves")
+
+    # The DA conv at stride 1 (K1 once), and the stride that raises.
+    x = torch.from_numpy(rng.standard_normal((32, 32, 128, 64)).astype(np.float32)).cuda()
+    da = DAConv(64, 32, device="cuda")
+    transplant.load_model_vars(da, transplant.init_tree(da, np.random.default_rng(3)))
+    reset_counts(dc)
+    with torch.no_grad():
+        y = da(x)
+    got = counts(dc)
+    check(got == launches(K1=1), f"a stride-1 DAConv launched {got}")
+    with torch.no_grad():
+        e = rel_err(y, deformable_conv2d(x, da.kernel, da.bias))[0]
+    check(e <= TOL["K1", torch.float32], f"DAConv vs the plain DA conv: {e:.3e}")
+    for make in (lambda: DAConv(64, 32, strides=2, device="cuda"),
+                 lambda: deformable_conv2d(x, da.kernel, da.bias, stride=2)):
+        try:
+            make()
+        except ValueError as err:
+            check("stride" in str(err) and "skyhdr" in str(err), f"stride error: {err}")
+        else:
+            check(False, "a DA conv at stride 2 did not raise")
+    say("library", f"DAConv stride 1 at 32x128x64 b32 -> 32: K1 x1, {e:.3e} of the max vs "
+        f"plain; stride 2 raises ValueError")
+
+    # The synthetic-sky writer, read back by the pipeline.
+    from skyhdr_torch.data.pipeline import PanoramaDataset
+    from skyhdr_torch.data.records import read_tfrecord_examples
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        make_synth_dataset.main(["--out", tmp, "--n-train", "64", "--n-test", "16"])
+        write_s = time.perf_counter() - t
+        draw = np.random.default_rng(0)
+        for ex in read_tfrecord_examples(os.path.join(tmp, "train")):
+            want, sun_y = make_synth_dataset.synth_panorama(draw, 32, 128)
+            check(ex["image"] == want[:, :, ::-1].tobytes()
+                  and float(np.asarray(ex["elevation"]).reshape(-1)[0]) == np.float32(sun_y),
+                  "a written record differs from its draw")
+        ds = PanoramaDataset(os.path.join(tmp, "train"), imshape=(32, 128, 3), batch_size=32,
+                             shuffle=False)
+        batches = list(ds)
+        check(len(batches) == 2 and all(b["hdr"].shape == (32, 32, 128, 3)
+                                        and np.isfinite(b["hdr"]).all() for b in batches),
+              "the pipeline did not read the synthetic set back")
+    say("library", f"make_synth_dataset: 64 + 16 panoramas at 32x128 written in {write_s:.2f} s, "
+        f"read back equal to their draws, 2 batches of 32 from the pipeline")
+    report["library"] = rows
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--only", default=",".join(PHASES),
@@ -3998,6 +4139,7 @@ def main(argv=None):
     spatial = timed("spatial", phase_spatial, dc, smi, report)
     width = timed("width_step", phase_width_step, dc, smi, report)
     probes = timed("probes", phase_probes, dc, smi, report)
+    timed("library", phase_library, dc, report)
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     report["device"] = smi

@@ -10,6 +10,8 @@ allocated empty on the requested device and filled from a Flax-layout tree
 by `skyhdr_torch.utils.transplant` (each module's `flax_leaves` names its
 leaves, their layout and their initializer). Dtype rules follow Flax: an
 explicit `dtype` casts operands and weights to it, None promotes them.
+`conv`, `avgpool2`, `FC2D` and `DFC2D` complete `skyhdr`'s op library: no
+model uses them, and they take no width context.
 """
 
 from __future__ import annotations
@@ -125,6 +127,23 @@ class Conv2D(nn.Module):
         return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
+def conv(in_features: int, features: int, kernel: int, strides: int = 1, *,
+         use_bias: bool = True, init_scale: str = "glorot", dtype=None,
+         device=None) -> Conv2D:
+    """A SAME conv with the reference's initialisers (glorot, or "gan":
+    normal(0.02)), `skyhdr.models.layers.conv`: the port's `Conv2D`."""
+    return Conv2D(in_features, features, kernel, strides, use_bias=use_bias,
+                  init_scale=init_scale, dtype=dtype, device=device)
+
+
+def instance_moments(xf: torch.Tensor):
+    """Per-(sample, channel) mean and biased variance of xf [..., h, w, c]
+    over (h, w), kept as [..., 1, 1, c]."""
+    mean = xf.mean(dim=(-3, -2), keepdim=True)
+    var = xf.var(dim=(-3, -2), keepdim=True, unbiased=False)
+    return mean, var
+
+
 _ACT_ALPHA = {"none": 1.0, "relu": 0.0, "lrelu01": 0.1}
 
 
@@ -158,8 +177,7 @@ class InstanceNorm(nn.Module):
                                      alpha=_ACT_ALPHA[act])
         xf = x.float()
         if ring is None:
-            mean = xf.mean(dim=(1, 2), keepdim=True)
-            var = xf.var(dim=(1, 2), keepdim=True, unbiased=False)
+            mean, var = instance_moments(xf)
             d = xf - mean
         else:
             n = x.shape[1] * x.shape[2] * ring.n
@@ -277,6 +295,34 @@ class SpatialDense(Dense):
         return map_dense(self, x)
 
 
+class FC2D(nn.Module):
+    """Flatten (NHWC order) -> Dense(glorot) -> [b, 1, 1, fc_dim]
+    (`skyhdr.models.layers.FC2D`; its Dense carries Flax's `Dense_0`)."""
+
+    def __init__(self, in_features: int, fc_dim: int, device=None):
+        super().__init__()
+        self.fc_dim = fc_dim
+        self.Dense_0 = Dense(in_features, fc_dim, init="glorot", device=device)
+
+    def forward(self, x):
+        return self.Dense_0(x.reshape(x.shape[0], -1)).reshape(-1, 1, 1, self.fc_dim)
+
+
+class DFC2D(nn.Module):
+    """De-fully-connected: flatten -> Dense(glorot) -> [b, out_height,
+    out_width, out_channels] (`skyhdr.models.layers.DFC2D`; `Dense_0`)."""
+
+    def __init__(self, in_features: int, out_height: int, out_width: int,
+                 out_channels: int, device=None):
+        super().__init__()
+        self.out_shape = (out_height, out_width, out_channels)
+        self.Dense_0 = Dense(in_features, out_height * out_width * out_channels,
+                             init="glorot", device=device)
+
+    def forward(self, x):
+        return self.Dense_0(x.reshape(x.shape[0], -1)).reshape(-1, *self.out_shape)
+
+
 class ResizeDeconv(nn.Module):
     """Bilinear resize to `out_hw`, then a SAME conv named `conv`."""
 
@@ -334,3 +380,13 @@ def maxpool2(x):
         raise ValueError(f"a 2x2 pool over a width shard of {x.shape[2]} columns")
     y = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2, ceil_mode=True)
     return y.permute(0, 2, 3, 1)
+
+
+def avgpool2(x, kernel: int = 2):
+    """kernel x kernel average pool, stride kernel, SAME, on NHWC, as Flax's
+    `avg_pool`: XLA's SAME pads (on an odd size, one zero at the bottom or
+    right) count in the mean."""
+    ph = same_pads(x.shape[1], kernel, kernel)
+    pw = same_pads(x.shape[2], kernel, kernel)
+    xn = F.pad(x.permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]))
+    return F.avg_pool2d(xn, kernel, kernel).permute(0, 2, 3, 1)

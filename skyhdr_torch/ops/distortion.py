@@ -460,10 +460,25 @@ def mm_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
 
 
-def deformable_conv2d(x, kernel, bias, *, kernel_size: int = 3,
+STRIDE_DEFECT = (
+    "the DA conv runs at stride 1 only: skyhdr's strided form "
+    "(skyhdr/ops/distortion.py:deformable_conv2d, DAConv.strides) keeps the "
+    "full width, reads column j*stride, and takes a different +1 neighbour in "
+    "its roll and column-restricted forms, so there is no stride semantics to "
+    "port")
+
+
+def check_stride(stride: int) -> None:
+    """Raise ValueError for a stride other than 1 (`STRIDE_DEFECT`)."""
+    if stride != 1:
+        raise ValueError(f"stride {stride}: {STRIDE_DEFECT}")
+
+
+def deformable_conv2d(x, kernel, bias, *, kernel_size: int = 3, stride: int = 1,
                       dilation_rate: int = 1, skydome: bool = True, ring=None):
     """Plain DA conv (stride 1) of x [b, h, w, c] with kernel [k2*c, f],
-    tap-major, and bias [f]; returns [b, h, w, f] in x.dtype.
+    tap-major, and bias [f]; returns [b, h, w, f] in x.dtype. Another
+    `stride` raises ValueError (`STRIDE_DEFECT`).
 
     The gather form of `skyhdr.ops.distortion.deformable_conv2d`:
         rowY   = (1-wy)*xpad[y0] + wy*xpad[y1]
@@ -477,6 +492,7 @@ def deformable_conv2d(x, kernel, bias, *, kernel_size: int = 3,
     result is the shard's own w - 2 halo columns, column j sampled at
     extended column j + halo + s with s the full panorama's signed shift
     (no wrap)."""
+    check_stride(stride)
     b, h, w, c = x.shape
     k2 = kernel_size * kernel_size
     pad = kernel_size // 2
@@ -514,12 +530,15 @@ def deformable_conv2d(x, kernel, bias, *, kernel_size: int = 3,
 
 
 class DAConv(nn.Module):
-    """Distortion-aware conv layer, stride 1, parameters `kernel` [k2*c, f]
-    and `bias` [f] as in `skyhdr.ops.distortion.DAConv`."""
+    """Distortion-aware conv layer, parameters `kernel` [k2*c, f] and `bias`
+    [f] as in `skyhdr.ops.distortion.DAConv`. `strides` other than 1 raise
+    ValueError (`STRIDE_DEFECT`)."""
 
     def __init__(self, in_features: int, filters: int, kernel_size: int = 3,
-                 dilation_rate: int = 1, skydome: bool = True, device=None):
+                 strides: int = 1, dilation_rate: int = 1, skydome: bool = True,
+                 device=None):
         super().__init__()
+        check_stride(strides)
         k2 = kernel_size * kernel_size
         self.kernel_size = kernel_size
         self.dilation_rate = dilation_rate
@@ -553,8 +572,8 @@ class DADeconv(DAConv):
     def __init__(self, in_features: int, filters: int,
                  out_hw: Tuple[int, int], kernel_size: int = 3,
                  dilation_rate: int = 1, skydome: bool = True, device=None):
-        super().__init__(in_features, filters, kernel_size, dilation_rate,
-                         skydome, device=device)
+        super().__init__(in_features, filters, kernel_size,
+                         dilation_rate=dilation_rate, skydome=skydome, device=device)
         self.out_hw = tuple(out_hw)
 
     def forward(self, x):

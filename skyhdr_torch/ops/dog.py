@@ -1,5 +1,9 @@
 """Difference-of-Gaussian L1 loss (`skyhdr.ops.dog.dog_l1_loss`, the
-band-matrix form the train step runs).
+band-matrix form the train step runs), and the depthwise-conv forms of the
+same pyramid (`gaussian_filter2d`, `dog_pyramid`, `dog_l1_loss_conv`,
+which no step calls: the JAX package keeps them as the cross-check of the
+matrix form, and runs them as XLA convs outside any Pallas kernel, so here
+they are `F.conv2d(groups=c)`).
 
 The DoG pyramid (2x half-pixel upsample, a base 3x3 Gaussian blur, then four
 bands blur(sigma2) - blur(sigma1), every blur with REFLECT padding) is linear
@@ -22,8 +26,10 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from skyhdr_torch.ops import width
+from skyhdr_torch.ops.resize import resize_bilinear
 
 BASE_SIGMA = 1.2489996
 SIGMAS_1 = (1.2262735, 1.5450078, 1.9465878, 2.452547)
@@ -50,6 +56,76 @@ def _gaussian_1d(ksize: int, sigma: float) -> np.ndarray:
     x = np.arange(ksize, dtype=np.float64) - (ksize - 1) / 2.0
     g = np.exp(-(x ** 2) / (2.0 * sigma ** 2))
     return g / g.sum()
+
+
+@functools.lru_cache(maxsize=None)
+def _gaussian_kernel_2d(ksize: int, sigma: float) -> np.ndarray:
+    """The normalised 2-D Gaussian [k, k] float32 (tfa.image.gaussian_filter2d's
+    truncated-and-normalised construction)."""
+    g = _gaussian_1d(ksize, sigma)
+    k = np.outer(g, g)
+    return (k / k.sum()).astype(np.float32)
+
+
+_PAD_MODES = {"REFLECT": "reflect", "SYMMETRIC": "symmetric", "CONSTANT": "constant"}
+
+
+def _pad_hw(img: torch.Tensor, pad: int, padding: str) -> torch.Tensor:
+    """img [b, h, w, c] padded by `pad` on both sides of h and w: REFLECT
+    and SYMMETRIC (NumPy's modes; F.pad has no symmetric one) by index,
+    CONSTANT with zeros."""
+    mode = _PAD_MODES[padding]
+    if mode == "constant":
+        return F.pad(img, (0, 0, pad, pad, pad, pad))
+    for dim in (1, 2):
+        idx = np.pad(np.arange(img.shape[dim]), (pad, pad), mode=mode)
+        img = img.index_select(dim, torch.from_numpy(idx).to(img.device))
+    return img
+
+
+def _depthwise(x: torch.Tensor, kernels, pad: int, padding: str) -> torch.Tensor:
+    """Each channel of x [b, h, w, c] blurred by every [k, k] kernel of
+    `kernels` [m, k, k] after padding: [b, h, w, c * m], channel ci * m + j
+    the j-th kernel's blur of channel ci (a channel multiplier m)."""
+    c = x.shape[-1]
+    m, k, _ = kernels.shape
+    weight = torch.from_numpy(np.ascontiguousarray(np.tile(kernels, (c, 1, 1))))
+    weight = weight.reshape(c * m, 1, k, k).to(x.device, x.dtype)
+    xp = _pad_hw(x, pad, padding).permute(0, 3, 1, 2)
+    return F.conv2d(xp, weight, groups=c).permute(0, 2, 3, 1)
+
+
+def gaussian_filter2d(img: torch.Tensor, ksize: int = 3, sigma: float = 1.0,
+                      padding: str = "REFLECT") -> torch.Tensor:
+    """Depthwise Gaussian blur of img [b, h, w, c] with a static kernel,
+    padded by ksize // 2 (`padding`: REFLECT, SYMMETRIC or CONSTANT)."""
+    kern = _gaussian_kernel_2d(ksize, float(sigma))[None]
+    return _depthwise(img, kern, ksize // 2, padding)
+
+
+def dog_pyramid(img: torch.Tensor, ksize: int = 3):
+    """The four DoG bands of img [b, h, w, c]: a 2x upsample, the base blur,
+    then blur(sigma2_i) - blur(sigma1_i); a tuple of four [b, 2h, 2w, c]."""
+    h, w = img.shape[1], img.shape[2]
+    base = gaussian_filter2d(resize_bilinear(img, (2 * h, 2 * w)), ksize, BASE_SIGMA)
+    return tuple(gaussian_filter2d(base, ksize, s2) - gaussian_filter2d(base, ksize, s1)
+                 for s1, s2 in zip(SIGMAS_1, SIGMAS_2))
+
+
+def dog_l1_loss_conv(pred: torch.Tensor, target: torch.Tensor, ksize: int = 3):
+    """`dog_l1_loss` by depthwise convs: pred and target batched together,
+    upsampled, base-blurred, then all eight band blurs as ONE depthwise conv
+    with channel multiplier 8 (channel ci * 8 + j: blur j of channel ci,
+    SIGMAS_1 then SIGMAS_2); the sum over the bands of mean |DoG(pred) -
+    DoG(target)|."""
+    b = pred.shape[0]
+    both = torch.cat([pred, target], dim=0)
+    h, w, c = both.shape[1:]
+    base = gaussian_filter2d(resize_bilinear(both, (2 * h, 2 * w)), ksize, BASE_SIGMA)
+    bands = np.stack([_gaussian_kernel_2d(ksize, float(s)) for s in SIGMAS_1 + SIGMAS_2])
+    blurred = _depthwise(base, bands, ksize // 2, "REFLECT").reshape(2 * b, 2 * h, 2 * w, c, 8)
+    dog = blurred[..., 4:] - blurred[..., :4]
+    return torch.abs(dog[:b] - dog[b:]).mean(dim=(0, 1, 2, 3)).sum()
 
 
 @functools.lru_cache(maxsize=None)

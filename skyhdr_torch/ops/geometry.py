@@ -1,5 +1,6 @@
 """Sky-dome geometry and the von Mises-Fisher sun-pose ground truth
-(`skyhdr.ops.geometry`: `sphere2world`, `sunpose_bins`, `vmf_pdf`).
+(`skyhdr.ops.geometry`: `sphere2world`, `sunpose_bins`,
+`positional_encoding`, `vmf_pdf`).
 
 The panorama is an equirectangular sky dome: elevation 0-90 degrees top
 down over `h` rows, azimuth 0-360 degrees over `w` columns; unit vectors
@@ -46,12 +47,31 @@ def _bins_on(h: int, w: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(sunpose_bins(h, w)).to(device)
 
 
-def vmf_pdf(x, y, h: int, w: int, kappa: float = 80.0) -> torch.Tensor:
+def positional_encoding(x: torch.Tensor, with_r: bool = False) -> torch.Tensor:
+    """x [b, h, w, c] with coord-conv channels appended: the column and row
+    grids on [-1, 1] and, with `with_r`, sqrt((gx - w/2)^2 + (gy - h/2)^2)
+    of those [-1, 1] grids, as the JAX package builds it."""
+    b, h, w, _ = x.shape
+    gy, gx = torch.meshgrid(torch.linspace(-1.0, 1.0, h, device=x.device),
+                            torch.linspace(-1.0, 1.0, w, device=x.device), indexing="ij")
+    coords = [gx, gy]
+    if with_r:
+        coords.append(torch.sqrt((gx - w * 0.5) ** 2 + (gy - h * 0.5) ** 2))
+    grid = torch.stack(coords, dim=-1).to(x.dtype)
+    return torch.cat([x, grid.expand(b, h, w, len(coords))], dim=-1)
+
+
+def vmf_pdf(x, y, h: int, w: int, kappa: float = 80.0, bins=None) -> torch.Tensor:
     """Discrete vMF PDF over the h*w bins for a sun at pixel (x, y); batched
-    (x, y) broadcast to [..., h*w]. The max is subtracted before exp, as in
-    the JAX package."""
+    (x, y) broadcast to [..., h*w]. `bins` may be a precomputed
+    `sunpose_bins(h, w)` table (NumPy or tensor). The max is subtracted
+    before exp, as in the JAX package."""
     sp = sphere2world(x, y, h, w, skydome=True)
-    dots = kappa * (sp @ _bins_on(h, w, sp.device).T)
+    if bins is None:
+        bins = _bins_on(h, w, sp.device)
+    else:
+        bins = torch.as_tensor(bins, dtype=torch.float32, device=sp.device)
+    dots = kappa * (sp @ bins.T)
     pdf = torch.exp(dots - dots.amax(dim=-1, keepdim=True))
     return pdf / pdf.sum(dim=-1, keepdim=True)
 

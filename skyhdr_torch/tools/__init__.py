@@ -1,9 +1,15 @@
-"""The DA-conv probe tools on the card: `exp_daconv` (the k=3 DA forward
-in design variants, K10), `exp_pack` (sample packing, K11) and
-`exp_mmshape` (what a dot of a given shape costs inside a kernel, K12).
-Each runs as `python -m skyhdr_torch.tools.<name> [flags]`, on the card by
+"""The port's counterparts of `skyhdr`'s tools, each run as `python -m
+skyhdr_torch.tools.<name> [flags]`.
+
+The DA-conv probe tools on the card: `exp_daconv` (the k=3 DA forward in
+design variants, K10), `exp_pack` (sample packing, K11) and `exp_mmshape`
+(what a dot of a given shape costs inside a kernel, K12); on the card by
 default (`--device cuda`) and on the CPU with `--device cpu` (the kernels'
-plain versions; host-clock times, not device times)."""
+plain versions; host-clock times, not device times). The helpers below
+serve them.
+
+The quality tools: `make_synth_dataset` (the synthetic sky set) and
+`quality_run` (`skyhdr`'s tools/quality_run*.sh as presets)."""
 
 from __future__ import annotations
 

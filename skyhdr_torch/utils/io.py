@@ -1,7 +1,7 @@
 """Host I/O in NumPy, copied from `skyhdr.utils.io` so the port runs
 without the JAX package: the exposure sweep and the DoRF camera-response
-curves (`get_exposure_lists`, `load_dorf_curves`, `make_synthetic_dorf`)
-and the Radiance .hdr (RGBE) codec (`write_hdr`, `read_hdr`).
+curves (`get_exposure_lists`, `load_dorf_curves`, `make_synthetic_dorf`,
+`inverse_rf`) and the Radiance .hdr (RGBE) codec (`write_hdr`, `read_hdr`).
 `tests/test_torch_slice.py` and `tests/test_torch_train_ops.py` hold the
 copies equal to the originals."""
 
@@ -41,6 +41,13 @@ def make_synthetic_dorf(n_curves: int = 201, k: int = 1024, seed: int = 0) -> np
         c = (1 - a) * np.power(x, g) + a * s
         curves.append((c - c[0]) / (c[-1] - c[0]))
     return np.asarray(curves, np.float32)
+
+
+def inverse_rf(rf: np.ndarray) -> np.ndarray:
+    """The inverse of a monotone CRF sampled on linspace(0, 1), sampled on
+    the same grid (linear interpolation)."""
+    grid = np.linspace(0.0, 1.0, len(rf))
+    return np.interp(grid, rf, grid).astype(np.float32)
 
 
 def write_hdr(path: str, img: np.ndarray) -> None:
