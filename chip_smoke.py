@@ -161,13 +161,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     by `skyhdr_torch.cli.import_checkpoint`, then one GAN
                     step and one sun step on the fixture's JAX-degraded
                     inputs against JAX's metrics and update digests. (b) DA
-                    64x256: a GanState (6.5 GB) and a SunState (9.7 GB)
+                    32x128 (`CONVERT_SIZE`): a GanState and a SunState
                     with every tensor drawn on the card, written by
                     `export_from_state` + `write_export` and imported by the
                     CLI, one at a time; every tensor and counter read back
                     bit-equal; the inference CLI (40 PNGs, b32) from the
                     imports bit-equal to serving the source modules, 20 K1 +
-                    4 K2 per dispatch; one resumed GAN step at b64 from the
+                    4 K2 per dispatch; one resumed GAN step at b32 from the
                     import and from the source bit-equal under torch's
                     deterministic algorithms (and, for the record, how far
                     apart in the default mode); a SKY checkpoint with
@@ -2632,11 +2632,19 @@ def convert_golden(dc, work, report):
     report["convert"]["golden_worst"] = worst
 
 
+# The size of the convert phase's full-width states. At DA 64x256 its four
+# states (SKY 6.5 GB, SUN 9.7 GB, bf16-parameter SKY 8.1 GB, bf16-moment SUN
+# 6.4 GB), each exported and imported, write ~61 GB, past the 45 GiB of
+# disk writes (deleted files count) that the card's machine allows a run:
+# at 32x128 the sun-pose FCs, which are (h w)-wide, are 1/16 the size.
+CONVERT_SIZE = (32, 128)
+
+
 def convert_full_width(dc, smi, work, report):
-    """(b) DA 64x256: a GanState and a SunState with every tensor drawn,
+    """(b) DA `CONVERT_SIZE`: a GanState and a SunState with every tensor drawn,
     exported by `export_from_state` and imported by the CLI one at a time
     (an export deleted once imported), checked bit-equal; served from the
-    import and from the source modules; one resumed GAN step at b64 from
+    import and from the source modules; one resumed GAN step at b32 from
     each; a bfloat16-parameter SKY checkpoint (with its master) and a SUN
     checkpoint with bfloat16 moments imported, bit-equal, and resumed
     bit-equal to their sources; the bf16 SKY one served and refused by a
@@ -2653,7 +2661,7 @@ def convert_full_width(dc, smi, work, report):
     from skyhdr_torch.utils.flax_export import write_export
     from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
 
-    h, w, b, serve_b = 64, 256, 64, 32
+    (h, w), b, serve_b = CONVERT_SIZE, 32, 32
     cfg = Config(model=ModelConfig(im_height=h, im_width=w, use_da_conv=True),
                  data=DataConfig(batch_size=b))
     flags = ["--imheight", str(h), "--imwidth", str(w), "--da-conv", "true"]
@@ -2718,7 +2726,7 @@ def convert_full_width(dc, smi, work, report):
     del src["SUN"], ref
     free_cuda()
 
-    # One resumed GAN step at b64 from the import and one from the source,
+    # One resumed GAN step at b32 from the import and one from the source,
     # under torch's deterministic algorithms; then one more of each in the
     # default mode, which is not bitwise repeatable (cuDNN's algorithms, and
     # the atomic index_add_ of the resize's index_select backward).

@@ -19,10 +19,16 @@ skipped when its result file names the same checkpoints (`checkpoints`:
 the newest SKY / SUN epoch it read). `--ckpt-every` must
 divide every stage's epochs, so that a finished stage ends on a
 checkpoint. Every stage's output goes to `<work>/<stage>.log`; its epoch
-lines and results are printed. Then `tools/quality_report.py` (standard
-library only, run as a command) tabulates each workdir's loss
-trajectories from its TensorBoard event files into `<work>/report.md`.
-The last line printed is one JSON object of the evaluations.
+lines and results are printed, and after each training stage its seconds:
+the stage's wall time, the first epoch's, the median of the others' and
+the checkpoint saves' (host clock; an epoch line's `elapsed` holds its
+save). Then `tools/quality_report.py` (standard library only, run as a
+command) tabulates each workdir's loss trajectories from its TensorBoard
+event files into `<work>/report.md`, and `health` reads the same files
+(`train.metrics.load_scalars`): every GAN loss term finite in every
+epoch, no metric NaN, the SUN val KL lower at the end than at the start.
+The last line printed is one JSON object of the evaluations, the stages'
+seconds and the health check.
 
 Usage:
   python -m skyhdr_torch.tools.quality_run --preset plain32            # the card
@@ -35,13 +41,18 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
+import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
 import time
 from typing import NamedTuple, Optional, Tuple
+
+from skyhdr_torch.train.metrics import load_scalars
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -151,7 +162,30 @@ def _run(cmd, log_path: str, echo) -> str:
 
 
 def _epoch_line(line: str) -> bool:
-    return line.startswith(("Epoch ", "Latest ", "Pretrained ")) or "Error" in line
+    return line.startswith(("Epoch ", "Latest ", "Pretrained ", "Saved ")) or "Error" in line
+
+
+_ELAPSED = re.compile(r"^Epoch (\d+): .* elapsed=([\d.]+)s$", re.M)
+_SAVED = re.compile(r"^Saved \w+ checkpoint for epoch \d+ in ([\d.]+)s$", re.M)
+
+
+def stage_seconds(text: str, wall: float) -> dict:
+    """A training stage's seconds from its CLI's output: its wall time, its
+    epochs' `elapsed` (each holding that epoch's checkpoint save), the
+    first epoch's, the median of the later ones' and the saves'."""
+    epochs = [(int(e), float(t)) for e, t in _ELAPSED.findall(text)]
+    later = [t for _, t in epochs[1:]]
+    return {"wall": round(wall, 1), "epochs": [e for e, _ in epochs],
+            "epoch_s": [t for _, t in epochs],
+            "first": epochs[0][1] if epochs else None,
+            "median_later": statistics.median(later) if later else None,
+            "saves_s": [float(t) for t in _SAVED.findall(text)]}
+
+
+# The GAN step's metrics (`train/engine.py:make_gan_train_step`), each an
+# epoch's train and val scalar.
+GAN_TERMS = ("adv", "b_out", "disc_generated", "disc_real", "disc_total", "dog",
+             "g_out", "gen_total", "kl", "l1", "perceptual")
 
 
 def write_dataset(data: str, size, n_train: int, n_test: int, log_path: str) -> bool:
@@ -171,9 +205,10 @@ def write_dataset(data: str, size, n_train: int, n_test: int, log_path: str) -> 
 
 
 def run_preset(preset: Preset, work: str, *, size, n_train: int, n_test: int,
-               epochs, ckpt_every: int, flags, stages=None) -> dict:
+               epochs, ckpt_every: int, flags, stages=None) -> Tuple[dict, dict]:
     """Every stage of `preset` (or those named in `stages`), in order;
-    returns {stage: the evaluate CLI's JSON} of the evaluations."""
+    returns ({stage: the evaluate CLI's JSON} of the evaluations,
+    {stage: `stage_seconds`} of the training stages run, with "dataset")."""
     for stage in preset.stages:
         n = epochs.get(stage.kind)
         if n is not None and n % ckpt_every:
@@ -181,9 +216,11 @@ def run_preset(preset: Preset, work: str, *, size, n_train: int, n_test: int,
                              f"{stage.name}'s {n} epochs")
     os.makedirs(work, exist_ok=True)
     data = os.path.join(work, f"dataset_{size[1]}_{size[0]}", "tfrecord")
+    seconds = {}
     t0 = time.perf_counter()
     if write_dataset(data, size, n_train, n_test, os.path.join(work, "dataset.log")):
-        print(f"[quality_run] dataset written in {time.perf_counter() - t0:.1f} s: {data}",
+        seconds["dataset"] = round(time.perf_counter() - t0, 1)
+        print(f"[quality_run] dataset written in {seconds['dataset']:.1f} s: {data}",
               flush=True)
     common = [*flags, "--imheight", str(size[0]), "--imwidth", str(size[1])]
     results = {}
@@ -237,8 +274,53 @@ def run_preset(preset: Preset, work: str, *, size, n_train: int, n_test: int,
             with open(out, "w") as f:
                 json.dump(results[stage.name], f)
             print(f"  {results[stage.name]}", flush=True)
-        print(f"[quality_run] {stage.name}: {time.perf_counter() - t:.1f} s", flush=True)
-    return results
+        wall = time.perf_counter() - t
+        print(f"[quality_run] {stage.name}: {wall:.1f} s", flush=True)
+        if stage.kind == "eval":
+            seconds[stage.name] = round(wall, 1)
+        else:
+            sec = seconds[stage.name] = stage_seconds(text, wall)
+            print(f"[quality_run] {stage.name}: {len(sec['epochs'])} epochs, first "
+                  f"{sec['first']} s, median of the later {sec['median_later']} s, "
+                  f"saves {sum(sec['saves_s']):.1f} s", flush=True)
+    return results, seconds
+
+
+def _training_workdirs(preset: Preset, work: str):
+    return sorted({os.path.join(work, s.workdir) for s in preset.stages if s.kind != "eval"})
+
+
+def health(preset: Preset, work: str) -> dict:
+    """The loss trajectories' health in each training workdir, from its
+    TensorBoard files: {"ok", "faults": [...], workdir: {SUN / SKY epochs
+    and the SUN val KL's first and last}}. A fault is a GAN term missing
+    or not finite in an epoch's train or val scalars, any metric NaN, or a
+    SUN val KL whose last epoch is not below its first (of two or more)."""
+    faults, rows = [], {}
+    for wd in _training_workdirs(preset, work):
+        curves = load_scalars(wd)
+        row = rows[os.path.basename(wd)] = {}
+        for (stage, split), tags in sorted(curves.items()):
+            steps = sorted({s for c in tags.values() for s in c})
+            row[f"{stage}/{split}"] = len(steps)
+            for tag, curve in tags.items():
+                bad = [s for s, v in curve.items() if math.isnan(v)]
+                if bad:
+                    faults.append(f"{wd} {stage}/{split} {tag} NaN at epochs {bad[:5]}")
+            if stage == "SKY":
+                for tag in GAN_TERMS:
+                    curve = tags.get(tag, {})
+                    bad = [s for s in steps if not math.isfinite(curve.get(s, math.nan))]
+                    if bad:
+                        faults.append(f"{wd} SKY/{split} {tag} missing or not finite at "
+                                      f"epochs {bad[:5]}")
+        kl = curves.get(("SUN", "val"), {}).get("kl")
+        if kl:
+            first, last = kl[min(kl)], kl[max(kl)]
+            row["SUN/val kl"] = [first, last]
+            if len(kl) > 1 and not last < first:
+                faults.append(f"{wd} SUN/val kl did not fall: {first} -> {last}")
+    return {"ok": not faults, "faults": faults, **rows}
 
 
 def report(preset: Preset, work: str) -> Optional[str]:
@@ -247,8 +329,8 @@ def report(preset: Preset, work: str) -> Optional[str]:
     tool = os.path.join(ROOT, "tools", "quality_report.py")
     if not os.path.isfile(tool):
         return None
-    wds = sorted({os.path.join(work, s.workdir) for s in preset.stages if s.kind != "eval"})
-    wds = [wd for wd in wds if os.path.isdir(os.path.join(wd, "tensorboard"))]
+    wds = [wd for wd in _training_workdirs(preset, work)
+           if os.path.isdir(os.path.join(wd, "tensorboard"))]
     text = subprocess.run([sys.executable, tool, *wds], check=True, capture_output=True,
                           text=True).stdout
     path = os.path.join(work, "report.md")
@@ -294,13 +376,17 @@ def main(argv=None):
     print(f"[quality_run] preset {args.preset} ({preset.script}) in {work}: {size[0]}x"
           f"{size[1]}, {args.n_train}/{args.n_test} panoramas, {epochs['sun']} SUN + "
           f"{epochs['gan']} GAN epochs, flags {' '.join(flags)}", flush=True)
-    results = run_preset(preset, work, size=size, n_train=args.n_train, n_test=args.n_test,
-                         epochs=epochs, ckpt_every=args.ckpt_every or preset.ckpt_every,
-                         flags=flags, stages=stages)
+    results, seconds = run_preset(
+        preset, work, size=size, n_train=args.n_train, n_test=args.n_test, epochs=epochs,
+        ckpt_every=args.ckpt_every or preset.ckpt_every, flags=flags, stages=stages)
     path = report(preset, work)
     if path is not None:
         print(f"[quality_run] loss trajectories: {path}", flush=True)
-    print(json.dumps({"preset": args.preset, "work": work, "results": results}))
+    checked = health(preset, work)
+    print(f"[quality_run] health: {'ok' if checked['ok'] else 'FAULTS'} "
+          f"{checked['faults']}", flush=True)
+    print(json.dumps({"preset": args.preset, "work": work, "results": results,
+                      "seconds": seconds, "health": checked}))
 
 
 if __name__ == "__main__":

@@ -102,8 +102,10 @@ class TrainLoop:
             self.tb_test.scalars(te, epoch)
 
             if epoch % self.cfg.train.ckpt_every_epochs == 0:
+                t_save = time.perf_counter()
                 self.ckpt.save(epoch, self.state)
-                self.log(f"Saved {self.name} checkpoint for epoch {epoch}")
+                self.log(f"Saved {self.name} checkpoint for epoch {epoch} "
+                         f"in {time.perf_counter() - t_save:.1f}s")
 
             self.log(f"Epoch {epoch}: train={_fmt(tr)} test={_fmt(te)} "
                      f"elapsed={time.perf_counter() - t0:.1f}s")

@@ -5,19 +5,24 @@
   * EventWriter  — a TensorBoard-compatible scalar writer on the port's own
     TFRecord framing (TB event files are TFRecord streams of Event protos);
     no TensorFlow needed, readable by stock TensorBoard.
+  * read_scalars / load_scalars — the scalars of such files read back
+    (what `tools/quality_report.py` reads, in the port's own code).
 """
 
 from __future__ import annotations
 
+import glob
 import os
 import socket
 import struct
 import time
+from collections import defaultdict
 from typing import Dict
 
 import torch
 
-from skyhdr_torch.data.records import _frame_record, _len_delim, _tag, _varint
+from skyhdr_torch.data.records import (_frame_record, _len_delim, _read_varint, _tag,
+                                       _varint, iter_tfrecord)
 
 
 class MeanMetrics:
@@ -98,3 +103,54 @@ class EventWriter:
 
     def close(self) -> None:
         self._f.close()
+
+
+def _fields(buf: bytes):
+    """(field, value) over a proto message: an int for a varint, bytes for
+    the other wire types (fixed64, length-delimited, fixed32)."""
+    pos = 0
+    while pos < len(buf):
+        key, pos = _read_varint(buf, pos)
+        field, wire = key >> 3, key & 7
+        if wire == 0:
+            value, pos = _read_varint(buf, pos)
+        elif wire == 2:
+            n, pos = _read_varint(buf, pos)
+            value, pos = buf[pos:pos + n], pos + n
+        elif wire in (1, 5):
+            n = 8 if wire == 1 else 4
+            value, pos = buf[pos:pos + n], pos + n
+        else:
+            raise ValueError(f"unsupported wire type {wire}")
+        yield field, value
+
+
+def read_scalars(path: str):
+    """[(step, tag, value)] of one event file, in file order."""
+    out = []
+    for record in iter_tfrecord(path, compression=None):
+        step, summary = 0, None
+        for field, value in _fields(record):
+            if field == 2:
+                step = value
+            elif field == 5:
+                summary = value
+        for field, sval in _fields(summary or b""):
+            if field == 1:
+                parts = dict(_fields(sval))
+                if 1 in parts and 2 in parts:
+                    out.append((step, parts[1].decode(), struct.unpack("<f", parts[2])[0]))
+    return out
+
+
+def load_scalars(workdir: str):
+    """{(stage, split): {tag: {step: value}}} over every event file under
+    workdir/tensorboard/<stage>/<run>/<split>/ (a later run's value of a
+    step wins, as on a resume)."""
+    curves = defaultdict(lambda: defaultdict(dict))
+    for path in sorted(glob.glob(os.path.join(workdir, "tensorboard", "*", "*", "*",
+                                              "events*"))):
+        stage, _, split = path.split(os.sep)[-4:-1]
+        for step, tag, value in read_scalars(path):
+            curves[stage, split][tag][step] = value
+    return curves

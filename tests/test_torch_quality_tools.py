@@ -156,3 +156,204 @@ def test_quality_report_reads_the_port_event_files(run):
                 assert curves[stage, split][k][1] == pytest.approx(v, rel=5e-4), (stage, k)
     report = (work / "report.md").read_text()
     assert "### SUN / train" in report and "### SKY / val" in report
+
+
+def test_port_scalar_reader_agrees_with_quality_report(run, da_run):
+    """`train.metrics.load_scalars` (the port's reader, which `health`
+    uses) against `tools/quality_report.py`'s on the same event files:
+    every stage, split, tag, epoch and value."""
+    from skyhdr_torch.train.metrics import load_scalars
+
+    tool = _tool("quality_report")
+    for wd in (run[0] / "f32", da_run[1] / "da"):
+        got, want = load_scalars(str(wd)), tool.load_workdir(str(wd))
+        assert got and {k: {t: dict(c) for t, c in v.items()} for k, v in got.items()} == \
+            {k: {t: dict(c) for t, c in v.items()} for k, v in want.items()}
+
+
+# ---------------------------------------------------------------------------
+# The DA presets: each driven at 16x64 on the CPU, and held to its script
+# ---------------------------------------------------------------------------
+
+def script_settings(script: str) -> dict:
+    """What a `tools/quality_run*.sh` sets, read from its text: epochs
+    (None where it trains no such stage), batch, checkpoint cadence, the DA
+    flag, the size and whether it evaluates an untrained floor. Unset, the
+    batch and size are `skyhdr`'s CLI defaults."""
+    from skyhdr.config import DataConfig, ModelConfig
+
+    text = (ROOT / script).read_text()
+
+    def default(name):
+        m = re.search(rf"{name}=\$\{{{name}:-(\d+)\}}", text)
+        return int(m.group(1)) if m else None
+
+    def flag(name, fallback):
+        found = set(re.findall(rf"--{name} (\d+)", text))
+        assert len(found) <= 1, (script, name, found)
+        return int(found.pop()) if found else fallback
+
+    cadence = set(re.findall(r"--ckpt-every (\d+)", text))
+    assert len(cadence) == 1, (script, cadence)
+    batch = default("BATCH")
+    return {"sun_epochs": default("SUN_EPOCHS"), "gan_epochs": default("GAN_EPOCHS"),
+            "batch": DataConfig().batch_size if batch is None else batch,
+            "ckpt_every": int(cadence.pop()), "da_conv": "--da-conv true" in text,
+            "size": (flag("imheight", ModelConfig().im_height),
+                     flag("imwidth", ModelConfig().im_width)),
+            "floor": bool(re.search(r"evaluate .*--workdir \"\$WORK/(untrained|floor)\"",
+                                    text.replace("\\\n", " ")))}
+
+
+def preset_settings(preset) -> dict:
+    """The same settings as `quality_run` runs a preset (the port's CLI
+    defaults where its flags set none)."""
+    from skyhdr_torch.config import DataConfig
+
+    def last(name, fallback):  # the CLIs' argparse takes a flag's last value
+        flags = list(preset.flags)
+        return flags[len(flags) - flags[::-1].index(name)] if name in flags else fallback
+
+    trained = {s.workdir for s in preset.stages if s.kind != "eval"}
+    kinds = {s.kind for s in preset.stages}
+    return {"sun_epochs": preset.sun_epochs if "sun" in kinds else None,
+            "gan_epochs": preset.gan_epochs,
+            "batch": int(last("--batchsize", DataConfig().batch_size)),
+            "ckpt_every": preset.ckpt_every,
+            "da_conv": last("--da-conv", "false") == "true",
+            "size": preset.size,
+            "floor": any(s.kind == "eval" and s.workdir not in trained for s in preset.stages)}
+
+
+@pytest.mark.parametrize("name", sorted(quality_run.PRESETS))
+def test_preset_runs_what_its_script_sets(name):
+    preset = quality_run.PRESETS[name]
+    assert preset_settings(preset) == script_settings(preset.script)
+
+
+# A planted edit of each setting the table reads, on each DA preset of one call.
+PLANTED = {
+    "sun_epochs": lambda p: p._replace(sun_epochs=p.sun_epochs - 1),
+    "gan_epochs": lambda p: p._replace(gan_epochs=p.gan_epochs * 2),
+    "ckpt_every": lambda p: p._replace(ckpt_every=p.ckpt_every // 2),
+    "batch": lambda p: p._replace(flags=(*p.flags, "--batchsize", "16")),
+    "da_conv": lambda p: p._replace(flags=tuple(f for f in p.flags
+                                                if f not in ("--da-conv", "true"))),
+    "floor": lambda p: p._replace(stages=_toggle_floor(p.stages)),
+}
+
+
+def _toggle_floor(stages):
+    """The stages without their floor, or with one where they have none."""
+    kept = tuple(s for s in stages if s.name != "floor")
+    return kept if kept != stages else (quality_run.Stage("floor", "eval", "untrained"),
+                                        *stages)
+
+
+@pytest.mark.parametrize("name", ["da32", "da64"])
+@pytest.mark.parametrize("edit", sorted(PLANTED))
+def test_planted_preset_edit_fails_the_table(name, edit):
+    preset = quality_run.PRESETS[name]
+    edited = PLANTED[edit](preset)
+    got, want = preset_settings(edited), script_settings(preset.script)
+    assert got != want and got[edit] != want[edit]
+
+
+def _small(name):
+    return ["--preset", name, "--device", "cpu", "--imheight", "16", "--imwidth", "64",
+            "--n-train", "4", "--n-test", "2", "--batchsize", "2", "--sun-epochs", "1",
+            "--gan-epochs", "1", "--ckpt-every", "1"]
+
+
+@pytest.fixture(scope="module", params=["da32", "da64"])
+def da_run(request, tmp_path_factory):
+    """A DA preset at 16x64 b2 on the CPU, one epoch a stage, through the
+    plain versions: (preset name, work dir, its output)."""
+    work = tmp_path_factory.mktemp(f"qrun_{request.param}")
+    mp = pytest.MonkeyPatch()
+    mp.setenv("OMP_NUM_THREADS", "1")
+    out = StringIO()
+    with redirect_stdout(out):
+        quality_run.main([*_small(request.param), "--work", str(work)])
+    mp.undo()
+    return request.param, work, out.getvalue()
+
+
+def test_da_preset_drives_every_stage(da_run):
+    name, work, text = da_run
+    preset = quality_run.PRESETS[name]
+    result = _last_json(text)
+    evals = [s.name for s in preset.stages if s.kind == "eval"]
+    assert result["preset"] == name and sorted(result["results"]) == sorted(evals)
+    for stage in preset.stages:
+        log = (work / f"{stage.name}.log").read_text()
+        assert "--da-conv true" in log.splitlines()[0], stage.name
+        if stage.kind != "eval":
+            sec = result["seconds"][stage.name]
+            assert sec["epochs"] == [1] and sec["first"] > 0 and len(sec["saves_s"]) == 1
+            assert f"Saved {'SUN' if stage.kind == 'sun' else 'SKY'} checkpoint for epoch 1 in" \
+                in log
+    for row in result["results"].values():
+        assert row["images"] == 2
+        assert all(math.isfinite(row[k]) for k in ("psnr", "si_rmse", "emd"))
+    assert result["results"]["eval"]["checkpoints"] == {"SUN": 1, "SKY": 1}
+    assert quality_run.latest_epoch(str(work / "da" / "checkpoints" / "SKY")) == 1
+    assert "Pretrained SUN checkpoint restored for fine-tuning" in text
+    health = result["health"]
+    assert health["ok"], health["faults"]
+    assert health["da"]["SKY/train"] == health["da"]["SUN/val"] == 1
+
+
+def test_stage_seconds_reads_the_epoch_lines():
+    text = "\n".join(["tensorboard --logdir=x",
+                      "Epoch 1: train={a=1} test={a=2} elapsed=30.5s",
+                      "Epoch 2: train={a=1} test={a=2} elapsed=12.0s",
+                      "Saved SKY checkpoint for epoch 3 in 4.5s",
+                      "Epoch 3: train={a=1} test={a=2} elapsed=16.5s",
+                      "Epoch 4: train={a=1} test={a=2} elapsed=13.0s"])
+    sec = quality_run.stage_seconds(text, 80.04)
+    assert sec == {"wall": 80.0, "epochs": [1, 2, 3, 4], "epoch_s": [30.5, 12.0, 16.5, 13.0],
+                   "first": 30.5, "median_later": 13.0, "saves_s": [4.5]}
+    assert quality_run.stage_seconds("", 1.0)["median_later"] is None
+
+
+def _events(wd, stage, split, rows):
+    from skyhdr_torch.train.metrics import EventWriter
+
+    writer = EventWriter(str(wd / "tensorboard" / stage / "0" / split))
+    for epoch, values in enumerate(rows, 1):
+        writer.scalars(values, epoch)
+    writer.close()
+
+
+HEALTHY_GAN = {t: 1.0 for t in quality_run.GAN_TERMS}
+
+
+@pytest.mark.parametrize("fault", ["none", "nan_term", "missing_term", "inf_term",
+                                   "kl_not_falling", "nan_sun"])
+def test_health_reports_each_fault(fault, tmp_path):
+    """`health` on event files written by the port's EventWriter: healthy
+    trajectories pass, each planted fault is named."""
+    wd = tmp_path / "da"
+    gan = [dict(HEALTHY_GAN), dict(HEALTHY_GAN)]
+    kl = [{"kl": 1.0, "dog": 0.1}, {"kl": 0.5, "dog": 0.1}]
+    if fault == "nan_term":
+        gan[1]["l1"] = math.nan
+    elif fault == "missing_term":
+        del gan[1]["perceptual"]
+    elif fault == "inf_term":
+        gan[0]["adv"] = math.inf
+    elif fault == "kl_not_falling":
+        kl[1]["kl"] = 1.0
+    elif fault == "nan_sun":
+        kl[0]["dog"] = math.nan
+    for split in ("train", "val"):
+        _events(wd, "SKY", split, gan)
+        _events(wd, "SUN", split, kl)
+    checked = quality_run.health(quality_run.PRESETS["da32"], str(tmp_path))
+    assert checked["ok"] == (fault == "none"), checked["faults"]
+    assert checked["da"]["SUN/val kl"] == [1.0, kl[1]["kl"]]
+    words = {"nan_term": "l1", "missing_term": "perceptual", "inf_term": "adv",
+             "kl_not_falling": "did not fall", "nan_sun": "dog NaN"}
+    if fault != "none":
+        assert any(words[fault] in f for f in checked["faults"]), checked["faults"]

@@ -36,8 +36,14 @@ seeded numpy inputs:
 With no argument it writes every fixture; `python tools/make_torch_golden.py
 fsdp` writes tests/fixtures/torch_golden_fsdp_16x64.npz alone (`make_fsdp_golden`:
 `skyhdr`'s FSDP steps on two virtual CPU devices at 1 MiB and 64 KiB),
-and `python tools/make_torch_golden.py plain-bf16-adv` prints `plain_bf16_adv`
-(8 GAN steps of both packages at plain 32x128 b8 bf16 on the CPU).
+`python tools/make_torch_golden.py plain-bf16-adv` prints `plain_bf16_adv`
+(8 GAN steps of both packages at plain 32x128 b8 bf16 on the CPU), and
+`python tools/make_torch_golden.py trajectory-spread` prints
+`trajectory_spread` (how far free runs of the 8 + 8 step DA trajectory
+drift from `skyhdr`'s: `skyhdr`'s own under weight noise, the port's), and
+`python tools/make_torch_golden.py untrained-draws` prints
+`untrained_draws` (the untrained generator's output scale under three
+seeded draws of each package).
 
 `tests/test_torch_slice.py`, `tests/test_torch_train.py`,
 `tests/test_torch_da_generic.py`, `tests/test_torch_convert.py` and
@@ -2916,6 +2922,226 @@ def plain_bf16_adv(steps: int = 8, batch: int = 8, h: int = 32, w: int = 128,
     return out
 
 
+# ---------------------------------------------------------------------------
+# A multi-step DA trajectory: `skyhdr`'s sun steps, the hand-off, GAN steps
+# ---------------------------------------------------------------------------
+
+TRAJ_STEPS = 8
+# The weight noise of `trajectory_spread`: about one float32 rounding.
+TRAJ_NOISE = 2e-7
+
+
+def trajectory_batch(i: int):
+    """Step i's batch of the trajectory: hdr uniform [0, 2), elevations
+    uniform [2, 30)."""
+    rng = np.random.default_rng(100 + i)
+    hdr = rng.uniform(0.0, 2.0, (BATCH, H, W, 3)).astype(np.float32)
+    return hdr, rng.uniform(2.0, 30.0, BATCH).astype(np.float32)
+
+
+def _export_tool():
+    spec = importlib.util.spec_from_file_location(
+        "export_jax_checkpoint", os.path.join(ROOT, "tools", "export_jax_checkpoint.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class JaxTrajectory:
+    """`skyhdr`'s sun-pretrain and GAN steps at the train golden's
+    configuration (16x64 DA b2, the XLA DA path), each jitted once, from
+    `init_gan_vars(cfg, seed)`; `run` walks a trajectory."""
+
+    def __init__(self, seed: int = 0):
+        import jax
+
+        jax.config.update("jax_platforms", "cpu")
+        from skyhdr.config import Config, DataConfig, ModelConfig
+        from skyhdr.data.degradation import make_banks
+        from skyhdr.models.vgg16 import random_vgg16_weights
+        from skyhdr.train import engine
+        from skyhdr.utils.io import get_exposure_lists, make_synthetic_dorf
+        from skyhdr_torch.utils.transplant import init_gan_vars
+
+        self.seed, self.engine, self.tool = seed, engine, _export_tool()
+        self.tcfg = golden_config()
+        self.cfg = Config(model=ModelConfig(**vars(self.tcfg.model)),
+                          data=DataConfig(batch_size=BATCH))
+        self.lr = self.cfg.train.learning_rate
+        self.vars = init_gan_vars(self.tcfg, seed)
+        self.banks = make_banks(make_synthetic_dorf(175, 1024), get_exposure_lists()[0])
+        self.sun_step = jax.jit(engine.make_sun_train_step(self.cfg, self.banks, jit=False))
+        self.gan_step = jax.jit(engine.make_gan_train_step(
+            self.cfg, self.banks, random_vgg16_weights(), jit=False))
+
+    def inputs(self, i: int):
+        """(batch, key, (hdr_t, ldr, sunpose_gt) as numpy) of step i: the
+        degraded pair is the one the step draws from its key."""
+        import jax
+        import jax.numpy as jnp
+
+        hdr, elevation = trajectory_batch(i)
+        batch = {"hdr": jnp.asarray(hdr), "elevation": jnp.asarray(elevation)}
+        key = jax.random.PRNGKey(self.seed + 1000 + i)
+        hdr_t, ldr = self.engine._degrade(self.cfg, self.banks, key, batch["hdr"])
+        gt = self.engine._sunpose_gt_from_elevation(self.cfg, batch["elevation"])
+        return batch, key, tuple(np.asarray(t) for t in (hdr_t, ldr, gt))
+
+    def _host(self, state):
+        import jax
+
+        return jax.tree_util.tree_map(np.asarray, state)
+
+    def run(self, steps: int = TRAJ_STEPS, perturb: float = 0.0, draw: int = 0):
+        """Yields a record a step: the sun stage's `steps` (Adam), one
+        {"stage": "handoff", "sun": the last SUN state's export}, then the
+        GAN stage's `steps` (RMSprop) from the seeded generator and
+        discriminator and that SUN state's sun-pose net
+        (`replace_sun_params`). A step's record: "stage", "step" (from 1 in
+        its stage), "before" (the export, `export_jax_checkpoint.export_state`,
+        of the state it starts from), "inputs", "metrics", "digests"
+        (`update_digests` of its parameters), and "count" (Adam's, after) or
+        "stats" and "stat_abs" (the BatchNorm sums after). `perturb`: the seeded weights
+        first `perturbed` by that share (seeds 7, 8, 9 plus 10 `draw`)."""
+        import jax.numpy as jnp
+
+        eng, tool, lr = self.engine, self.tool, self.lr
+        gv, sv, dv = self.vars
+        if perturb:
+            gv, sv, dv = (perturbed(t, perturb, s + 10 * draw)
+                          for t, s in ((gv, 7), (sv, 8), (dv, 9)))
+        zero = jnp.zeros((), jnp.int32)
+        state = eng.SunState(sun_vars={"params": sv["params"]},
+                             opt=eng._adam(lr).init(sv["params"]), step=zero, epoch=zero)
+        for i in range(steps):
+            old = self._host(state)
+            batch, key, inputs = self.inputs(i)
+            state, metrics = self.sun_step(state, batch, key)
+            new = self._host(state)
+            yield {"stage": "sun", "step": i + 1,
+                   "before": tool.export_state("sun", 0, old, self.cfg), "inputs": inputs,
+                   "metrics": {k: float(v) for k, v in metrics.items()},
+                   "digests": update_digests(new.sun_vars["params"], old.sun_vars["params"]),
+                   "count": int(tool._moments(new.opt).count)}
+        sun_params = self._host(state).sun_vars["params"]
+        yield {"stage": "handoff", "sun": tool.export_state("sun", 0, self._host(state), self.cfg)}
+        state = eng.GanState(
+            gen_vars=gv, sun_vars=sv, disc_vars=dv,
+            opt_gen=eng._rmsprop(lr).init((gv["params"], sv["params"])),
+            opt_disc=eng._rmsprop(lr).init(dv["params"]), step=zero, epoch=zero)
+        state = eng.replace_sun_params(self.cfg, state, sun_params)
+
+        def params(s):
+            return {"gen": s.gen_vars["params"], "sun": s.sun_vars["params"],
+                    "disc": s.disc_vars["params"]}
+
+        for i in range(steps, 2 * steps):
+            old = self._host(state)
+            batch, key, inputs = self.inputs(i)
+            state, metrics = self.gan_step(state, batch, key)
+            new = self._host(state)
+            stats = {"gen": new.gen_vars["batch_stats"], "disc": new.disc_vars["batch_stats"]}
+            yield {"stage": "gan", "step": i - steps + 1,
+                   "before": tool.export_state("gan", 0, old, self.cfg), "inputs": inputs,
+                   "metrics": {k: float(v) for k, v in metrics.items()},
+                   "digests": update_digests(params(new), params(old)),
+                   "stats": stat_digests(stats), "stat_abs": stat_abs_sums(stats)}
+
+    def free_metrics(self, steps: int = TRAJ_STEPS, perturb: float = 0.0, draw: int = 0):
+        """{"sun": [metrics], "gan": [metrics]} of a whole run."""
+        out = {"sun": [], "gan": []}
+        for rec in self.run(steps, perturb, draw):
+            if rec["stage"] != "handoff":
+                out[rec["stage"]].append(rec["metrics"])
+        return out
+
+
+def port_free_trajectory(traj: JaxTrajectory, steps: int = TRAJ_STEPS) -> dict:
+    """The port's own run of `traj`'s trajectory on `skyhdr`'s inputs, each
+    step from the port's previous one (the SUN stage's sun-pose net handed
+    off by `replace_sun_params`): {"sun": [metrics], "gan": [metrics]}."""
+    import torch
+
+    from skyhdr_torch.data.degradation import make_banks
+    from skyhdr_torch.models.vgg16 import random_vgg16_weights
+    from skyhdr_torch.train import engine
+    from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
+
+    cfg = traj.tcfg
+    banks = make_banks(make_synthetic_dorf(175, 1024), get_exposure_lists()[0], device="cpu")
+    tensors = lambda i: [torch.from_numpy(np.array(t)) for t in traj.inputs(i)[2]]
+    out = {"sun": [], "gan": []}
+    sun = engine.create_sun_state(cfg, traj.seed, "cpu")
+    step = engine.make_sun_train_step(cfg, banks).train_on
+    for i in range(steps):
+        sun, m = step(sun, *tensors(i))
+        out["sun"].append({k: float(v) for k, v in m.items()})
+    state = engine.replace_sun_params(cfg, engine.create_gan_state(cfg, traj.seed, "cpu"),
+                                      sun.sun.state_dict())
+    step = engine.make_gan_train_step(cfg, banks, random_vgg16_weights()).train_on
+    for i in range(steps, 2 * steps):
+        state, m = step(state, *tensors(i))
+        out["gan"].append({k: float(v) for k, v in m.items()})
+    return out
+
+
+def _metric_gaps(got, want):
+    """Per step, the largest relative gap of any metric."""
+    return [max(abs(g[k] - w[k]) / (abs(w[k]) + 1e-6) for k in w) for g, w in zip(got, want)]
+
+
+def trajectory_spread(draws: int = 3) -> dict:
+    """How far two free runs of the trajectory drift apart: per stage and
+    step, the largest relative metric gap of `skyhdr`'s run with its seeded
+    weights times (1 + 2e-7 N(0, 1)) (`draws` draws; the largest) and of
+    the port's own run (`port_free_trajectory`), each against `skyhdr`'s
+    unperturbed run. `python tools/make_torch_golden.py trajectory-spread`."""
+    traj = JaxTrajectory(0)
+    base = traj.free_metrics()
+    noisy = [traj.free_metrics(perturb=TRAJ_NOISE, draw=d) for d in range(draws)]
+    port = port_free_trajectory(traj)
+    return {stage: {"skyhdr_noise": [max(g) for g in zip(*(_metric_gaps(n[stage], base[stage])
+                                                          for n in noisy))],
+                    "port": _metric_gaps(port[stage], base[stage])}
+            for stage in ("sun", "gan")}
+
+
+def untrained_draws(seeds: int = 3) -> dict:
+    """The untrained generator's output scale under each package's seeded
+    draw: `skyhdr`'s `create_gan_state(cfg, PRNGKey(s))` and the port's
+    `init_gan_vars(cfg, s)`, both served by `skyhdr`'s inference on one
+    fixed batch of 4 uniform [0, 1) panoramas at the default 32x128, plain
+    convs. Per draw: mean and max of `y_final_lin`, `sun_pred_lin`'s mean.
+    `python tools/make_torch_golden.py untrained-draws`."""
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_platforms", "cpu")
+    from skyhdr.config import Config as JConfig, DataConfig as JData, ModelConfig as JModel
+    from skyhdr.train.engine import create_gan_state, make_inference_fn
+    from skyhdr_torch.config import Config, DataConfig, ModelConfig
+    from skyhdr_torch.utils.transplant import init_gan_vars
+
+    cfg = JConfig(model=JModel(), data=JData(batch_size=4))
+    tcfg = Config(model=ModelConfig(), data=DataConfig(batch_size=4))
+    x = jnp.asarray(np.random.default_rng(5).uniform(0, 1, (4, 32, 128, 3)).astype(np.float32))
+    serve = jax.jit(make_inference_fn(cfg))
+
+    def scale(gv, sv):
+        out = serve(gv, sv, x)
+        y = np.asarray(out["y_final_lin"], np.float64)
+        return {"y_mean": y.mean(), "y_max": y.max(),
+                "sun_mean": float(np.asarray(out["sun_pred_lin"], np.float64).mean())}
+
+    out = {"skyhdr": [], "port": []}
+    for s in range(seeds):
+        state = create_gan_state(cfg, jax.random.PRNGKey(s))
+        out["skyhdr"].append(scale(state.gen_vars, state.sun_vars))
+        gv, sv, _ = init_gan_vars(tcfg, s)
+        out["port"].append(scale(gv, sv))
+    return out
+
+
 def main():
     sys.path.insert(0, ROOT)
     if sys.argv[1:2] == ["dp-rank"]:
@@ -2935,6 +3161,16 @@ def main():
         import json
 
         print(json.dumps(plain_bf16_adv()))
+        return
+    if sys.argv[1:2] == ["trajectory-spread"]:
+        import json
+
+        print(json.dumps(trajectory_spread()))
+        return
+    if sys.argv[1:2] == ["untrained-draws"]:
+        import json
+
+        print(json.dumps(untrained_draws()))
         return
     # The DP golden runs on two of eight virtual CPU devices, as the tests do.
     os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
