@@ -183,7 +183,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     two gloo ranks on the one card, 16 samples each, one GAN
                     step and one sun step of `make_parallel_*_train_step`
                     against the single-process b32 steps from the same
-                    weights and generator seed (the train golden's
+                    weights and degradation key (the train golden's
                     tolerances), K1-K3 counted on each rank (20/24/20 a GAN
                     step, 4/4/4 a sun step), the ranks bit-equal after;
                     each rank's step ms, the gloo collectives' share of it
@@ -263,6 +263,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     of 2 raises; the synthetic-sky writer
                     (`skyhdr_torch.tools.make_synth_dataset`) writes a set
                     that the pipeline reads back equal to its draws.
+  18. draws      — `--seed`'s draws (`skyhdr_torch/utils/jax_random.py`,
+                    JAX's threefry stream and Flax's parameter keys) on the
+                    card: the entry points' DA 16x64 draw
+                    (`create_gan_state` / `create_sun_state` seed 0 and the
+                    degradation draws of the loop's first key) against
+                    `skyhdr`'s in tests/fixtures/torch_golden_draws_16x64.npz
+                    (`make_torch_golden.compare_draws`: indices and
+                    uniform-drawn leaves exact, normals within 4 ulps, sums
+                    within 1e-6); the DA 64x256 GAN and SUN states' draw
+                    timed (host clock, synchronised), each finite; the
+                    degradation draw of one GAN step (b64) and one sun step
+                    (b32) at 64x256 timed (CUDA events, median of 20).
 The line before the last is the nvidia-smi line, the one before it the
 kernels' JSON summary; the last line is the run's JSON result. Details go to
 chiprun_out/chip_smoke.json, the phases' lines to chiprun_out/chip_smoke.log. The train golden's comparison lives in
@@ -296,7 +308,7 @@ STEP_ITERS = 5
 RANK_ITERS = 3
 PHASES = ("kernels", "golden", "train_golden", "serving", "training", "timing",
           "train_cli", "cli", "convert", "parallel", "fsdp", "spatial", "width_step", "probes",
-          "library")
+          "library", "draws")
 # (name, x shape at 32x128 [h, w, c], F, layers of that shape, in the
 # sun-pose net: Grad-CAM's pull differentiates through it)
 DA_LAYERS = [
@@ -1443,16 +1455,20 @@ def train_batches(n, b, h, w, seed):
 
 
 def run_steps(dc, step, state, batches, want, tag, moving=None):
-    """Threads `state` through one step per batch; asserts each step's
-    launches and finite metrics. Returns (state, per-step metrics, total
+    """Threads `state` through one step per batch, each with its key split
+    off as the loop splits them; asserts each step's launches and finite
+    metrics. Returns (state, per-step metrics, total
     launches); counts are set to 0 just before the first step."""
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    from skyhdr_torch.utils import jax_random
+
+    key = jax_random.key(1)
     history = []
     reset_counts(dc)
     for i, batch in enumerate(batches):
         before = counts(dc)
         t0 = time.perf_counter()
-        state, metrics = step(state, batch, gen)
+        key, sub = jax_random.split(key)
+        state, metrics = step(state, batch, sub)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launched = {k: v - before[k] for k, v in counts(dc).items()}
@@ -1470,12 +1486,13 @@ def run_steps(dc, step, state, batches, want, tag, moving=None):
 
 def phase_training(dc, smi, report):
     from skyhdr_torch.config import Config, DataConfig, ModelConfig
-    from skyhdr_torch.data.degradation import make_banks
-    from skyhdr_torch.models.vgg16 import random_vgg16_weights
     from skyhdr_torch.config import TrainConfig
+    from skyhdr_torch.data.degradation import draw_degradation, make_banks
+    from skyhdr_torch.models.vgg16 import random_vgg16_weights
     from skyhdr_torch.train.engine import (create_sun_state, empty_gan_state, empty_sun_state,
                                            load_weights, make_gan_train_step,
                                            make_sun_train_step)
+    from skyhdr_torch.utils import jax_random
     from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
 
     h, w = 64, 256
@@ -1507,6 +1524,7 @@ def phase_training(dc, smi, report):
             ("sun_opt", 32, 3, False, "float32", KNOBS_OPT, "sun"),
             ("sun_bf16_all", 32, 3, False, "bfloat16", bf16, "sun"))
     sun_weights = None  # the sun state's initial weights, on the host
+    draw_ms = {}  # batch -> the degradation draw's ms in a step of that batch
     for kind, b, nsteps, fuse, dtype, knobs, f32_row in runs:
         tag = (f"{'GAN' if kind.startswith('gan') else 'sun'} DA "
                + ("k=5 " if kind == "gan_da5" else "") + f"{h}x{w} b{b}"
@@ -1542,15 +1560,20 @@ def phase_training(dc, smi, report):
         state, history, launched = run_steps(dc, step, state, batches, want, tag, moving)
         stored = check_knob_state(state, knobs, tag)
         torch.cuda.reset_peak_memory_stats()
-        gen = torch.Generator(device="cuda").manual_seed(2)
-        times = time_ms(lambda: step(state, batches[0], gen), iters=STEP_ITERS, warmup=1)
+        key = jax_random.key(2)
+        times = time_ms(lambda: step(state, batches[0], key), iters=STEP_ITERS, warmup=1)
         peak = torch.cuda.max_memory_allocated()
         ms = statistics.median(times)
+        if b not in draw_ms:
+            draw_ms[b] = statistics.median(time_ms(
+                lambda: draw_degradation(key, (b, h, w, 3), banks), iters=STEP_ITERS, warmup=1))
         say("training", f"{tag}: step {ms:.4f} ms (median of {STEP_ITERS}, CUDA events, "
-            f"spread {min(times):.4f}-{max(times):.4f}); peak device memory "
+            f"spread {min(times):.4f}-{max(times):.4f}), of which the degradation draw "
+            f"{draw_ms[b]:.4f} ms; peak device memory "
             f"{peak / 2**30:.3f} GiB; state {stored}; on {smi}")
         out[kind] = {"batch": b, "launches": launched, "history": history,
-                     "step_ms": ms, "step_ms_all": times, "peak_bytes": peak,
+                     "step_ms": ms, "step_ms_all": times, "draw_ms": draw_ms[b],
+                     "peak_bytes": peak,
                      "compute_dtype": dtype, "fused_instance_norm": fuse,
                      "knobs": dict(zip(("opt_state_dtype", "grad_dtype", "param_dtype"), knobs)),
                      "state_bytes": state_bytes(state)}
@@ -2205,19 +2228,20 @@ def time_eval_step(cfg, workdir, batch, smi, tag):
     from skyhdr_torch.cli.common import load_banks, restore_model_vars
     from skyhdr_torch.train.engine import degrade, make_inference_fn
     from skyhdr_torch.train.evaluation import evaluate_batch
+    from skyhdr_torch.utils import jax_random
 
     gen, sun = restore_model_vars(cfg, workdir, device="cuda", log=lambda *a: None)
     banks = load_banks(cfg, "", train=False, device="cuda", log=lambda *a: None)
     infer = make_inference_fn(cfg)
-    g = torch.Generator("cuda").manual_seed(0)
-    hdr_t, ldr = degrade(cfg, banks, g, batch)
+    key = jax_random.key(0)
+    hdr_t, ldr = degrade(cfg, banks, key, batch)
     pred = infer(gen, sun, ldr)["y_final_lin"]
 
     def step():
-        target, inputs = degrade(cfg, banks, g, batch)
+        target, inputs = degrade(cfg, banks, key, batch)
         return evaluate_batch(infer(gen, sun, inputs)["y_final_lin"], target)
 
-    parts = {"degradation": lambda: degrade(cfg, banks, g, batch),
+    parts = {"degradation": lambda: degrade(cfg, banks, key, batch),
              "forward": lambda: infer(gen, sun, ldr),
              "metrics": lambda: evaluate_batch(pred, hdr_t),
              "step": step}
@@ -2658,6 +2682,7 @@ def convert_full_width(dc, smi, work, report):
                                            make_gan_train_step, make_sun_train_step,
                                            state_dict)
     from skyhdr_torch.train.loop import TrainLoop
+    from skyhdr_torch.utils import jax_random
     from skyhdr_torch.utils.flax_export import write_export
     from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
 
@@ -2750,7 +2775,7 @@ def convert_full_width(dc, smi, work, report):
                 reset_counts(dc)
                 with warnings.catch_warnings(record=True) as caught:
                     warnings.simplefilter("always")
-                    _, m = step(state, batch, torch.Generator(device="cuda").manual_seed(9))
+                    _, m = step(state, batch, jax_random.key(9))
                     torch.cuda.synchronize()
                 for text in sorted({str(c.message)[:160] for c in caught}):
                     say("convert", f"{mode} {tag} step warned: {text}")
@@ -2886,6 +2911,7 @@ def knob_resume(dc, step, cfg, pwork, name, source, batch, want, tag):
     and moments in their dtypes) and counter bit-equal after it."""
     from skyhdr_torch.train.checkpoints import CheckpointManager
     from skyhdr_torch.train.engine import state_dict
+    from skyhdr_torch.utils import jax_random
 
     restored = CheckpointManager(os.path.join(pwork, "checkpoints", name)).restore_latest(
         cfg, "cuda")
@@ -2898,7 +2924,7 @@ def knob_resume(dc, step, cfg, pwork, name, source, batch, want, tag):
             reset_counts(dc)
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore")
-                _, m = step(state, batch, torch.Generator(device="cuda").manual_seed(9))
+                _, m = step(state, batch, jax_random.key(9))
                 torch.cuda.synchronize()
             metrics[who] = {k: float(v) for k, v in m.items()}
             launched = counts(dc)
@@ -2990,16 +3016,17 @@ def single_step_ms(mod, spec, trees):
     """{"gan", "sun"}: the single-process step's ms on the parallel phase's
     global batch (CUDA events, median of STEP_ITERS after 1 warm-up)."""
     from skyhdr_torch.train.engine import make_gan_train_step, make_sun_train_step
+    from skyhdr_torch.utils import jax_random
 
     cfg = mod.dp_config({}, spec["h"], spec["w"], spec["batch"])
     banks, vgg, host = mod._dp_setup(spec)
     batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
     gan, sun = mod._dp_states(cfg, trees, "cuda")
-    gen = torch.Generator(device="cuda").manual_seed(spec["seed"] + 2)
+    key = jax_random.key(spec["seed"] + 2)
     out = {}
     for kind, step, state in (("gan", make_gan_train_step(cfg, banks, vgg), gan),
                               ("sun", make_sun_train_step(cfg, banks), sun)):
-        out[kind] = statistics.median(time_ms(lambda: step(state, batch, gen),
+        out[kind] = statistics.median(time_ms(lambda: step(state, batch, key),
                                               iters=STEP_ITERS, warmup=1))
     return out
 
@@ -3352,19 +3379,20 @@ def single_act_peak(mod, spec, trees):
     `max_memory_allocated` above `memory_allocated` just before the step
     (bytes)."""
     from skyhdr_torch.train.engine import make_gan_train_step
+    from skyhdr_torch.utils import jax_random
 
     cfg = mod.dp_config({}, spec["h"], spec["w"], spec["batch"])
     banks, vgg, host = mod._dp_setup(spec)
     batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
     gan = mod._gan_state(cfg, trees, "cuda")
     step = make_gan_train_step(cfg, banks, vgg)
-    gen = torch.Generator(device="cuda").manual_seed(spec["seed"] + 2)
+    key = jax_random.key(spec["seed"] + 2)
     peaks = []
     for i in range(3):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        step(gan, batch, gen)
+        step(gan, batch, key)
         torch.cuda.synchronize()
         if i:
             peaks.append(torch.cuda.max_memory_allocated() - base)
@@ -4081,6 +4109,56 @@ def phase_library(dc, report):
     report["library"] = rows
 
 
+def phase_draws(report):
+    """`--seed`'s draws on the card: the entry points' DA 16x64 draw against
+    `skyhdr`'s fixture, the DA 64x256 states' draw timed, and a step's
+    degradation draw timed at 64x256 (phase 18 of the module doc)."""
+    from skyhdr_torch.config import Config, DataConfig, ModelConfig
+    from skyhdr_torch.data.degradation import draw_degradation, make_banks
+    from skyhdr_torch.train.engine import create_gan_state, create_sun_state
+    from skyhdr_torch.utils import jax_random
+    from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
+
+    mod = golden_tool()
+    with np.load(mod.DRAWS_FIXTURE) as stored:
+        t0 = time.perf_counter()
+        fails = mod.compare_draws(stored, mod.port_draws("cuda"))
+        n_leaves = len(stored["w_names"])
+    say("draws", f"DA 16x64 seed 0 on the card: {n_leaves} weight leaves of the GAN and SUN "
+        f"states and the first step's degradation draws against skyhdr's "
+        f"({os.path.basename(mod.DRAWS_FIXTURE)}): {fails or 'all within bounds'} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    check(not fails, f"the card's draw is not skyhdr's: {fails}")
+    out = {"fixture_fails": fails}
+    cfg = Config(model=ModelConfig(im_height=64, im_width=256, use_da_conv=True),
+                 data=DataConfig(batch_size=64))
+    for kind, make in (("gan", create_gan_state), ("sun", create_sun_state)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = make(cfg, 0, "cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        params = [p for m in state.modules().values() for p in m.parameters()]
+        n = sum(p.numel() for p in params)
+        finite = all(bool(torch.isfinite(p).all()) for p in params)
+        say("draws", f"DA 64x256 {kind.upper()} state (create_{kind}_state, seed 0): "
+            f"{n} parameters drawn on the card in {secs:.3f} s (host clock, synchronised); "
+            f"finite {finite}")
+        check(finite, f"the {kind} state's draw is not finite")
+        out[f"{kind}_state_s"], out[f"{kind}_params"] = secs, n
+        del state, params
+        free_cuda()
+    banks = make_banks(make_synthetic_dorf(175, 1024), get_exposure_lists()[0], device="cuda")
+    key = jax_random.key(0)
+    for kind, b in (("gan", 64), ("sun", 32)):
+        times = time_ms(lambda: draw_degradation(key, (b, 64, 256, 3), banks))
+        out[f"{kind}_step_draw_ms"] = statistics.median(times)
+        say("draws", f"degradation draw of a {kind} step at 64x256 b{b}: "
+            f"{out[f'{kind}_step_draw_ms']:.4f} ms (CUDA events, median of {ITERS}, spread "
+            f"{min(times):.4f}-{max(times):.4f})")
+    report["draws"] = out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--only", default=",".join(PHASES),
@@ -4148,6 +4226,7 @@ def main(argv=None):
     width = timed("width_step", phase_width_step, dc, smi, report)
     probes = timed("probes", phase_probes, dc, smi, report)
     timed("library", phase_library, dc, report)
+    timed("draws", phase_draws, report)
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     report["device"] = smi

@@ -173,9 +173,11 @@ def restore_model_vars(cfg: Config, workdir: str, *, sky: str = None,
     restore_model_vars`), built by `build_models` on `device`: the newest
     SKY checkpoint under `<workdir>/<checkpoint_dir>/SKY` (or `sky`), its
     sun-pose net then replaced by the newest SUN checkpoint's (`sun`).
-    The seeded weights of `init_model_vars(cfg, seed)` are drawn only when
-    no SKY checkpoint exists (rounded to bfloat16 under `--param-dtype
-    bfloat16`, as `skyhdr`'s `create_gan_state` stores them). A checkpoint
+    The seeded weights, the generator and sun-pose trees of `skyhdr`'s
+    `create_gan_state(cfg, PRNGKey(seed))` (`train.engine.gan_init_keys`),
+    are drawn only when no SKY checkpoint exists (rounded to bfloat16 under
+    `--param-dtype bfloat16`, as `skyhdr`'s `create_gan_state` stores
+    them). A checkpoint
     of any `param_dtype` serves: its stored parameters load exactly. A
     checkpoint is read to the host and only the serving modules' parameters
     and buffers reach the device; the optimizer moments (2 x 3.2 GB of
@@ -183,8 +185,8 @@ def restore_model_vars(cfg: Config, workdir: str, *, sky: str = None,
     import torch
 
     from skyhdr_torch.train.checkpoints import CheckpointManager
-    from skyhdr_torch.train.engine import build_models
-    from skyhdr_torch.utils.transplant import init_model_vars, load_model_vars
+    from skyhdr_torch.train.engine import build_models, gan_init_keys
+    from skyhdr_torch.utils.transplant import draw_model_vars
 
     gen, sun_net = build_models(cfg, device)
 
@@ -201,9 +203,9 @@ def restore_model_vars(cfg: Config, workdir: str, *, sky: str = None,
         sun_net.load_state_dict(modules["sun"])
         log("Latest SKY checkpoint restored")
     else:
-        gen_vars, sun_vars = init_model_vars(cfg, seed)
-        load_model_vars(gen, gen_vars)
-        load_model_vars(sun_net, sun_vars)
+        gen_key, sun_key, _ = gan_init_keys(seed)
+        draw_model_vars(gen, gen_key)
+        draw_model_vars(sun_net, sun_key)
         if cfg.train.param_dtype == "bfloat16":
             with torch.no_grad():
                 for p in (*gen.parameters(), *sun_net.parameters()):

@@ -4,7 +4,7 @@ card by default.
 
 Two sources: the synthetic test split (`--dir`, TFRecords of HDR skies,
 degraded on the device with the test exposure and CRF banks, the draws
-from a `torch.Generator` seeded with `--seed`), or the real {ldr, hdr}
+from `PRNGKey(--seed)` split once a batch, as `skyhdr`'s), or the real {ldr, hdr}
 pairs that `cli.convert_real_eval` writes (`--real-dir`). The weights are
 those `restore_model_vars` finds under `--workdir` (or `--sky`/`--sun`),
 else the `--seed` ones.
@@ -26,6 +26,7 @@ from skyhdr_torch.cli.common import (add_common_flags, config_from_args, load_ba
                                      restore_model_vars)
 from skyhdr_torch.train.engine import degrade, make_inference_fn
 from skyhdr_torch.train.evaluation import evaluate_batch
+from skyhdr_torch.utils import jax_random
 
 
 def _iter_real_batches(real_dir: str, imshape, batch_size: int):
@@ -120,7 +121,7 @@ def main(argv=None):
         cast_model_vars(sun, args.weights_dtype)
 
     infer = make_inference_fn(cfg)
-    generator = torch.Generator(device).manual_seed(args.seed)
+    key = jax_random.key(args.seed)
     sums, count = {}, 0
     for i, (a, b, n) in enumerate(batches):
         if args.max_batches and i >= args.max_batches:
@@ -128,7 +129,8 @@ def main(argv=None):
         if args.real_dir:
             ldr, hdr_t = torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
         else:
-            hdr_t, ldr = degrade(cfg, banks, generator, torch.from_numpy(a).to(device))
+            key, sub = jax_random.split(key)
+            hdr_t, ldr = degrade(cfg, banks, sub, torch.from_numpy(a).to(device))
         pred = infer(gen, sun, ldr)["y_final_lin"]
         for k, v in evaluate_batch(pred, hdr_t).items():
             # Per-image values; only the first n rows are real (the real

@@ -30,6 +30,7 @@ from skyhdr_torch.ops.resize import resize_bilinear
 from skyhdr_torch.train.engine import (create_sun_state, make_sun_eval_step,
                                        make_sun_train_step)
 from skyhdr_torch.train.loop import TrainLoop
+from skyhdr_torch.utils import jax_random
 
 
 def cam_gated_prediction(sm: torch.Tensor, cams, h: int, w: int):
@@ -46,10 +47,11 @@ def cam_gated_prediction(sm: torch.Tensor, cams, h: int, w: int):
 def restore_sun_net(cfg, workdir: str, seed: int = 0, device="cuda", log=print):
     """The serving SunPoseNet on `device`: the newest SUN checkpoint's, read
     to the host so that Adam's moments never reach the device, else the
-    sun-pose weights of `init_model_vars(cfg, seed)`."""
+    sun-pose weights of `skyhdr`'s `create_sun_state(cfg, PRNGKey(seed))`
+    (`train.engine.create_sun_state`)."""
     from skyhdr_torch.models.sunpose import SunPoseNet
     from skyhdr_torch.train.checkpoints import CheckpointManager
-    from skyhdr_torch.utils.transplant import init_model_vars, load_model_vars
+    from skyhdr_torch.utils.transplant import draw_model_vars
 
     sun = SunPoseNet(cfg.model, device=device).eval().requires_grad_(False)
     blob = CheckpointManager(os.path.join(workdir, cfg.train.checkpoint_dir, "SUN"),
@@ -58,7 +60,7 @@ def restore_sun_net(cfg, workdir: str, seed: int = 0, device="cuda", log=print):
         sun.load_state_dict(blob["modules"]["sun"])
         log("Latest SUN checkpoint restored")
     else:
-        load_model_vars(sun, init_model_vars(cfg, seed)[1])
+        draw_model_vars(sun, jax_random.key(seed))
     return sun
 
 
@@ -131,11 +133,12 @@ def main(argv=None):
     sun = restore_sun_net(cfg, args.workdir, args.seed, device)
     out_dir = os.path.join(args.workdir, "outputImg", "SUN", "eval")
     h, w = cfg.model.im_height, cfg.model.im_width
-    generator = torch.Generator(device).manual_seed(args.seed)
+    key = jax_random.key(args.seed)
     for path in sorted(glob.glob(os.path.join(args.inference_img_dir, "*.hdr"))):
         hdr = read_hdr(path)
         hdr = 0.5 * hdr / (hdr.mean() + 1e-6)
-        _, ldr = degrade_batch(generator, torch.from_numpy(hdr)[None].to(device), banks)
+        key, sub = jax_random.split(key)
+        _, ldr = degrade_batch(sub, torch.from_numpy(hdr)[None].to(device), banks)
         sm, cams = sunpose_with_cams(sun, ldr, getattr(torch, cfg.model.compute_dtype))
         pred, sum_pred = (t.cpu().numpy() for t in cam_gated_prediction(sm, cams, h, w))
         cams = [c[0].float().cpu().numpy() for c in cams]

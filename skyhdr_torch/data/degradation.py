@@ -11,10 +11,10 @@ target, degraded LDR input), on the device.
      round(i/(b-1)*(hi-lo)+lo).
 
 The random draws and their use are two functions: `draw_degradation`
-takes them from a `torch.Generator` in the order the JAX package takes them
-(exposure index, sigma_s, sigma_c, both noises, CRF index), and
-`degrade_with` applies given draws. `jax.random` streams cannot be
-reproduced in torch, so the tests feed JAX's draws to `degrade_with`.
+takes them from a key of `utils.jax_random` as the JAX package takes them
+(the key split in six: CRF, exposure, sigma_s, sigma_c and the two noises'
+keys), so that a key draws what `jax.random` draws from it, and
+`degrade_with` applies given draws.
 
 In a width context (`ops.width`, the width-sharded train step) `hdr` is a
 width shard: the draws are the whole panorama's (the per-pixel noise drawn
@@ -34,6 +34,7 @@ import torch
 from skyhdr_torch.ops import width
 from skyhdr_torch.ops.crf import apply_rf, apply_rf_chebyshev, chebyshev_fit
 from skyhdr_torch.ops.jpeg import jpeg_simulate
+from skyhdr_torch.utils import jax_random
 
 
 class DegradationBanks(NamedTuple):
@@ -73,17 +74,20 @@ def jpeg_quality_ramp(batch: int, lo: float = 90.0, hi: float = 100.0,
     return torch.round(i / max(batch - 1, 1) * (hi - lo) + lo)
 
 
-def draw_degradation(generator: torch.Generator, shape, banks: DegradationBanks) -> Draws:
-    """The draws for an HDR batch of `shape` [b, h, w, 3], on the
-    generator's device."""
+def draw_degradation(key, shape, banks: DegradationBanks, device=None) -> Draws:
+    """The draws for an HDR batch of `shape` [b, h, w, 3] from `key` (a
+    `jax_random` key), on `device` (the banks' by default): `split(key,
+    6)` -> CRF, exposure, sigma_s, sigma_c, shot and read noise keys, as
+    `skyhdr.data.degradation.degrade_batch` splits it."""
+    device = banks.exposures.device if device is None else device
     b = shape[0]
-    kw = dict(generator=generator, device=generator.device)
-    t_idx = torch.randint(0, banks.exposures.shape[0], (b,), **kw)
-    u_s = torch.rand((b, 1, 1, 3), **kw)
-    u_c = torch.rand((b, 1, 1, 3), **kw)
-    z_s = torch.randn(tuple(shape), **kw)
-    z_c = torch.randn(tuple(shape), **kw)
-    crf_idx = torch.randint(0, banks.crfs.shape[0], (b,), **kw)
+    k_crf, k_t, k_ss, k_sc, k_ns, k_nc = jax_random.split(key, 6)
+    t_idx = jax_random.randint(k_t, (b,), 0, banks.exposures.shape[0], device)
+    u_s = jax_random.uniform(k_ss, (b, 1, 1, 3), device=device)
+    u_c = jax_random.uniform(k_sc, (b, 1, 1, 3), device=device)
+    z_s = jax_random.normal(k_ns, tuple(shape), device)
+    z_c = jax_random.normal(k_nc, tuple(shape), device)
+    crf_idx = jax_random.randint(k_crf, (b,), 0, banks.crfs.shape[0], device)
     return Draws(t_idx, u_s, u_c, z_s, z_c, crf_idx)
 
 
@@ -130,11 +134,10 @@ def degrade_with(hdr, banks: DegradationBanks, draws: Draws, *,
     return hdr_t, _jpeg(ldr, quality, chroma_subsample)
 
 
-def degrade_batch(generator: torch.Generator, hdr, banks: DegradationBanks,
-                  shard=(0, 1), **kw):
-    """Draw, then degrade: `skyhdr.data.degradation.degrade_batch` with a
-    torch.Generator in place of the key. `shard` (index, count): `hdr` is
-    shard `index` of a batch `count` times its size (a data-parallel
+def degrade_batch(key, hdr, banks: DegradationBanks, shard=(0, 1), **kw):
+    """Draw from `key` (a `jax_random` key), then degrade:
+    `skyhdr.data.degradation.degrade_batch`. `shard` (index, count): `hdr`
+    is shard `index` of a batch `count` times its size (a data-parallel
     rank's); the draws and the JPEG quality ramp are the whole batch's, of
     which the shard takes its rows, so that each sample degrades as it
     would in the whole batch. In a width context `hdr` is a width shard and
@@ -143,8 +146,8 @@ def degrade_batch(generator: torch.Generator, hdr, banks: DegradationBanks,
     ring = width.current()
     b, h, w, c = hdr.shape
     w_full = w if ring is None else w * ring.n
-    draws = shard_rows(draw_degradation(generator, (b * count, h, w_full, c), banks), index,
-                       count)
+    draws = shard_rows(draw_degradation(key, (b * count, h, w_full, c), banks, hdr.device),
+                       index, count)
     if ring is not None:
         draws = shard_cols(draws, ring.cols(w_full))
     return degrade_with(hdr, banks, draws, shard=shard, **kw)

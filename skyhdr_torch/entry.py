@@ -11,15 +11,16 @@ from skyhdr_torch.config import Config
 
 def entry(device: str = "cuda"):
     """(fn, (gen, sun, ldr)) with fn(gen, sun, ldr) -> y_final_lin [b,h,w,3];
-    the weights are `init_model_vars(Config(), seed=0)`."""
-    from skyhdr_torch.train.engine import build_models, make_inference_fn
-    from skyhdr_torch.utils.transplant import init_model_vars, load_model_vars
+    the weights are those of `skyhdr`'s `create_gan_state(Config(),
+    PRNGKey(0))`, as `__graft_entry__.entry` takes them."""
+    from skyhdr_torch.train.engine import build_models, gan_init_keys, make_inference_fn
+    from skyhdr_torch.utils.transplant import draw_model_vars
 
     cfg = Config()  # reference resolution 32x128
     gen, sun = build_models(cfg, device)
-    gen_vars, sun_vars = init_model_vars(cfg, 0)
-    load_model_vars(gen, gen_vars)
-    load_model_vars(sun, sun_vars)
+    gen_key, sun_key, _ = gan_init_keys(0)
+    draw_model_vars(gen, gen_key)
+    draw_model_vars(sun, sun_key)
     infer = make_inference_fn(cfg)
     ldr = torch.zeros((1, cfg.model.im_height, cfg.model.im_width, 3),
                       dtype=torch.float32, device=device)

@@ -14,8 +14,8 @@ the samples of a batch is taken over the whole batch:
   C2  the sun-pose PDF scaled by its batch maximum: the all-reduced MAX,
       whose gradient (every rank's, summed) goes to the element(s) that
       hold it, split among ties, as JAX's max VJP does.
-  C3  the degradation's draws: every rank draws the whole batch's from an
-      identically seeded `torch.Generator` and keeps its rows.
+  C3  the degradation's draws: every rank draws the whole batch's from the
+      same key (`utils.jax_random`) and keeps its rows.
   C4  the JPEG quality ramp over the sample index: the whole batch's ramp,
       a rank's rows of it.
 
@@ -242,9 +242,9 @@ def _parallel(cfg, banks, mesh, single, reduce):
 
     inner = with_degradation(cfg, banks, train_on, shard=(mesh.data_index, mesh.data))
 
-    def step(state, batch, generator):
+    def step(state, batch, key):
         with width_across(ring):  # the degradation's draws are the whole panorama's
-            return inner(state, batch, generator)
+            return inner(state, batch, key)
 
     step.train_on, step.reduce = train_on, reduce
     return step, _shard_batch(mesh, banks.crfs.device, reduce.shard_width)
@@ -255,8 +255,8 @@ def make_parallel_gan_train_step(cfg, banks, vgg_weights, mesh: Mesh,
     """The GAN train step (`engine.make_gan_train_step`) with the batch
     sharded over `mesh`'s `data` axis, and with `shard_width` the panorama's
     width over its `width` axis. Returns (step, shard_batch): `step(state,
-    shard, generator)` takes this rank's rows (and columns;
-    `shard_batch(host batch)`) and a generator seeded as on every other
+    shard, key)` takes this rank's rows (and columns; `shard_batch(host
+    batch)`) and the step's key (`utils.jax_random`), the same on every
     rank, and returns the state, updated alike on every rank, and the whole
     batch's metrics; `step.train_on(state, hdr_t, ldr, sunpose_gt)` takes
     this rank's block of degraded inputs (sunpose_gt: its rows, whole). The

@@ -390,7 +390,7 @@ def make_fsdp_gan_train_step(cfg, banks, vgg_weights, mesh: Mesh,
     """The GAN train step with the state sharded over `mesh`'s data axis
     (ZeRO-3) and the batch as `dp.make_parallel_gan_train_step`'s (with
     `shard_width`, its columns over the width axis too). Returns (step,
-    shard_state, shard_batch): `step(state, shard, generator)` and
+    shard_state, shard_batch): `step(state, shard, key)` and
     `step.train_on(...)` as the DP step's, on a state from `shard_state`;
     `step.reduce` its `FsdpReduce` (`timed`, `comm_s`, the all-gathers
     included); `ring_of_one` as the DP step's."""

@@ -4,7 +4,11 @@ pretraining, the GAN stage(s) and PSNR / si-RMSE / EMD on the held-out
 split, beside the untrained floor.
 
 Each `--preset` runs its script's stages, each in a subprocess, with the
-script's flags and epochs:
+script's flags and epochs, and `--seed` (default 0, the scripts' seed)
+handed to every stage: the SUN and GAN stages' initial weights and
+degradations and each evaluation's draws are `skyhdr`'s for that seed. The
+synthetic set is the scripts' (`make_synth_dataset`'s own seed, 0) for
+every `--seed`:
 
   python -m skyhdr_torch.tools.make_synth_dataset   the set, if absent
   python -m skyhdr_torch.cli.train_sun              SUN pretrain
@@ -205,10 +209,11 @@ def write_dataset(data: str, size, n_train: int, n_test: int, log_path: str) -> 
 
 
 def run_preset(preset: Preset, work: str, *, size, n_train: int, n_test: int,
-               epochs, ckpt_every: int, flags, stages=None) -> Tuple[dict, dict]:
-    """Every stage of `preset` (or those named in `stages`), in order;
-    returns ({stage: the evaluate CLI's JSON} of the evaluations,
-    {stage: `stage_seconds`} of the training stages run, with "dataset")."""
+               epochs, ckpt_every: int, flags, stages=None, seed: int = 0) -> Tuple[dict, dict]:
+    """Every stage of `preset` (or those named in `stages`), in order,
+    each with `--seed seed`; returns ({stage: the evaluate CLI's JSON} of
+    the evaluations, {stage: `stage_seconds`} of the training stages run,
+    with "dataset")."""
     for stage in preset.stages:
         n = epochs.get(stage.kind)
         if n is not None and n % ckpt_every:
@@ -222,7 +227,8 @@ def run_preset(preset: Preset, work: str, *, size, n_train: int, n_test: int,
         seconds["dataset"] = round(time.perf_counter() - t0, 1)
         print(f"[quality_run] dataset written in {seconds['dataset']:.1f} s: {data}",
               flush=True)
-    common = [*flags, "--imheight", str(size[0]), "--imwidth", str(size[1])]
+    common = [*flags, "--imheight", str(size[0]), "--imwidth", str(size[1]),
+              "--seed", str(seed)]
     results = {}
     for stage in preset.stages:
         if stages is not None and stage.name not in stages:
@@ -357,6 +363,8 @@ def main(argv=None):
     ap.add_argument("--gan-epochs", type=int, default=None)
     ap.add_argument("--ckpt-every", type=int, default=None,
                     help="checkpoint cadence in epochs (default: the script's)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="every stage's --seed (weights and degradations)")
     args = ap.parse_args(argv)
 
     preset = PRESETS[args.preset]
@@ -375,18 +383,19 @@ def main(argv=None):
               "gan": args.gan_epochs or preset.gan_epochs}
     print(f"[quality_run] preset {args.preset} ({preset.script}) in {work}: {size[0]}x"
           f"{size[1]}, {args.n_train}/{args.n_test} panoramas, {epochs['sun']} SUN + "
-          f"{epochs['gan']} GAN epochs, flags {' '.join(flags)}", flush=True)
+          f"{epochs['gan']} GAN epochs, seed {args.seed}, flags {' '.join(flags)}", flush=True)
     results, seconds = run_preset(
         preset, work, size=size, n_train=args.n_train, n_test=args.n_test, epochs=epochs,
-        ckpt_every=args.ckpt_every or preset.ckpt_every, flags=flags, stages=stages)
+        ckpt_every=args.ckpt_every or preset.ckpt_every, flags=flags, stages=stages,
+        seed=args.seed)
     path = report(preset, work)
     if path is not None:
         print(f"[quality_run] loss trajectories: {path}", flush=True)
     checked = health(preset, work)
     print(f"[quality_run] health: {'ok' if checked['ok'] else 'FAULTS'} "
           f"{checked['faults']}", flush=True)
-    print(json.dumps({"preset": args.preset, "work": work, "results": results,
-                      "seconds": seconds, "health": checked}))
+    print(json.dumps({"preset": args.preset, "seed": args.seed, "work": work,
+                      "results": results, "seconds": seconds, "health": checked}))
 
 
 if __name__ == "__main__":

@@ -15,13 +15,14 @@
   state_dict, load_state, replace_sun_params — checkpoints and the SUN ->
       GAN hand-off of the sun-pose weights.
 
-A train step is `step(state, batch, generator) -> (state, metrics)`: it
-draws the degradation from the `torch.Generator`, then runs its core
+A train step is `step(state, batch, key) -> (state, metrics)`: it draws
+the degradation from the key (`utils.jax_random`, as `skyhdr`'s step draws
+it from its `jax.random` key), then runs its core
 `step.train_on(state, hdr_t, ldr, sunpose_gt)`, which tests feed with the
 pair the JAX package degraded. The state is updated IN PLACE (parameters,
 optimizer moments, BatchNorm buffers) and returned; metrics are 0-d device
-tensors with the JAX package's names. An eval step is `step(state, batch,
-generator) -> (metrics, outputs)` around its core `step.eval_on`.
+tensors with the JAX package's names. An eval step is `step(state, batch, key)
+-> (metrics, outputs)` around its core `step.eval_on`.
 `ModelConfig.compute_dtype="bfloat16"` runs the layers that take the compute
 dtype in bfloat16, as the JAX package does: the activations and the gradients
 they carry round where `skyhdr`'s do, and the gradients reach the parameters
@@ -51,6 +52,7 @@ from skyhdr_torch.ops.geometry import sunpose_gt_from_elevation
 from skyhdr_torch.ops.hdr import hdr_log_compression, hdr_log_decompression
 from skyhdr_torch.train import losses
 from skyhdr_torch.train.optim import Adam, RMSprop, storage_dtype
+from skyhdr_torch.utils import jax_random
 
 
 def _act_dtype(cfg):
@@ -199,6 +201,12 @@ def empty_sun_state(cfg, device="cuda") -> SunState:
     return SunState(sun, _optimizer(Adam, cfg, sun.parameters()), _param_dtype(cfg))
 
 
+def _masters(state) -> dict:
+    """parameter -> the optimizers' float32 master (bfloat16 parameters)."""
+    return {p: m for opt in state.optimizers().values()
+            for p, m in opt.moments().get("master", {}).items()}
+
+
 def load_weights(state, trees) -> None:
     """Fill `state`'s modules (in `state.modules()` order) from Flax-layout
     trees: the `params` into the parameters, or under bfloat16 parameters
@@ -206,8 +214,7 @@ def load_weights(state, trees) -> None:
     rounded; the BatchNorm statistics into the buffers."""
     from skyhdr_torch.utils.transplant import load_model_vars
 
-    master = {p: m for opt in state.optimizers().values()
-              for p, m in opt.moments().get("master", {}).items()}
+    master = _masters(state)
     for module, tree in zip(state.modules().values(), trees):
         if master:
             load_model_vars(module, tree, target_of=master.__getitem__,
@@ -219,25 +226,43 @@ def load_weights(state, trees) -> None:
         opt.sync_params()
 
 
-def create_gan_state(cfg, seed: int = 0, device="cuda") -> GanState:
-    """The GAN state with the weights of `utils.transplant.init_gan_vars(cfg,
-    seed)` on `device` and zero RMSprop moments (under bfloat16 parameters
-    the float32 draw is the master, as `skyhdr`'s optimizer init sees the
-    float32 parameters before the stored copy is cast)."""
-    from skyhdr_torch.utils.transplant import init_gan_vars
+def draw_weights(state, keys) -> None:
+    """Fill `state`'s modules (in `state.modules()` order) with Flax's init
+    of `skyhdr`'s modules from the `jax_random` keys `keys`
+    (`utils.transplant.draw_model_vars`), the `params` into the master
+    under bfloat16 parameters as `load_weights` puts them."""
+    from skyhdr_torch.utils.transplant import draw_model_vars
 
+    master = _masters(state)
+    for module, key in zip(state.modules().values(), keys):
+        draw_model_vars(module, key, target_of=master.__getitem__ if master else None)
+    for opt in state.optimizers().values():
+        opt.sync_params()
+
+
+def gan_init_keys(seed: int):
+    """(gen, sun, disc) init keys of `skyhdr`'s `create_gan_state(cfg,
+    PRNGKey(seed))`: `split(PRNGKey(seed), 3)`."""
+    return tuple(jax_random.split(jax_random.key(seed), 3))
+
+
+def create_gan_state(cfg, seed: int = 0, device="cuda") -> GanState:
+    """The GAN state of `skyhdr`'s `create_gan_state(cfg, PRNGKey(seed))`
+    on `device`: the same weights (drawn from `gan_init_keys(seed)` on the
+    device) and zero RMSprop moments (under bfloat16 parameters the float32
+    draw is the master, as `skyhdr`'s optimizer init sees the float32
+    parameters before the stored copy is cast)."""
     state = empty_gan_state(cfg, device)
-    load_weights(state, init_gan_vars(cfg, seed))
+    draw_weights(state, gan_init_keys(seed))
     return state
 
 
 def create_sun_state(cfg, seed: int = 0, device="cuda") -> SunState:
-    """The sun-pretrain state: the sun-pose weights of
-    `init_model_vars(cfg, seed)` on `device`, zero Adam moments."""
-    from skyhdr_torch.utils.transplant import init_model_vars
-
+    """The sun-pretrain state of `skyhdr`'s `create_sun_state(cfg,
+    PRNGKey(seed))` on `device`: the sun-pose net's init from
+    `PRNGKey(seed)` itself, zero Adam moments."""
     state = empty_sun_state(cfg, device)
-    load_weights(state, [init_model_vars(cfg, seed)[1]])
+    draw_weights(state, [jax_random.key(seed)])
     return state
 
 
@@ -311,26 +336,27 @@ def _grads(cfg, total, params, reduce=None):
     return [g.to(storage_dtype(cfg.train.grad_dtype)) for g in grads]
 
 
-def degrade(cfg, banks, generator, hdr, shard=(0, 1)):
-    """`degrade_batch` with `cfg.data`'s JPEG and noise settings: the
-    degradation of the train and eval steps and of `cli.evaluate`; `shard`
-    as there (a data-parallel rank's rows)."""
+def degrade(cfg, banks, key, hdr, shard=(0, 1)):
+    """`degrade_batch` from the `jax_random` key `key` with `cfg.data`'s
+    JPEG and noise settings: the degradation of the train and eval steps
+    and of `cli.evaluate`; `shard` as there (a data-parallel rank's
+    rows)."""
     d = cfg.data
-    return degrade_batch(generator, hdr, banks, shard, jpeg_lo=d.jpeg_quality_lo,
+    return degrade_batch(key, hdr, banks, shard, jpeg_lo=d.jpeg_quality_lo,
                          jpeg_hi=d.jpeg_quality_hi, sigma_s_scale=d.sigma_s_scale,
                          sigma_c_scale=d.sigma_c_scale,
                          chroma_subsample=d.jpeg_chroma_subsample)
 
 
 def with_degradation(cfg, banks, core, name: str = "train_on", shard=(0, 1)):
-    """`step(state, batch, generator)`: the vMF ground truth from the
-    batch's elevations, the degradation drawn from `generator` (`shard`: a
-    data-parallel rank's rows, as `degrade` takes them), then `core` (kept
-    as `step.train_on`, or as `step.<name>`)."""
+    """`step(state, batch, key)`: the vMF ground truth from the batch's
+    elevations, the degradation drawn from `key` (`shard`: a data-parallel
+    rank's rows, as `degrade` takes them), then `core` (kept as
+    `step.train_on`, or as `step.<name>`)."""
 
-    def step(state, batch, generator: torch.Generator):
+    def step(state, batch, key):
         sunpose_gt = sunpose_gt_from_elevation(cfg.model, batch["elevation"])
-        hdr_t, ldr = degrade(cfg, banks, generator, batch["hdr"], shard)
+        hdr_t, ldr = degrade(cfg, banks, key, batch["hdr"], shard)
         return core(state, hdr_t, ldr, sunpose_gt)
 
     setattr(step, name, core)

@@ -3,9 +3,10 @@
 and test passes, TensorBoard scalars, a checkpoint every N epochs, and a
 resume from the newest checkpoint.
 
-Randomness: one `torch.Generator` on the loop's device, seeded from
-`run(rng_seed=...)`, feeds every train and eval step in order. (The JAX
-loop splits a key per batch; the two streams differ by construction.)
+Randomness: `run(rng_seed=...)` starts from `PRNGKey(rng_seed)`
+(`utils.jax_random`) and splits it once a batch, `key, sub = split(key)`,
+train batches then test batches, handing `sub` to the step: the keys of
+`skyhdr`'s loop, so that the steps draw its degradations.
 Steps run one per dispatch: `TrainConfig.steps_per_dispatch` must be 1.
 """
 
@@ -20,6 +21,7 @@ import torch
 from skyhdr_torch.data.pipeline import prefetch_to_device
 from skyhdr_torch.train.checkpoints import CheckpointManager
 from skyhdr_torch.train.metrics import EventWriter, MeanMetrics
+from skyhdr_torch.utils import jax_random
 from skyhdr_torch.utils.dirs import create_new_dir, timestamp
 
 
@@ -74,7 +76,7 @@ class TrainLoop:
 
     def run(self, epochs: Optional[int] = None, rng_seed: int = 0):
         epochs = epochs or self.cfg.train.epochs
-        generator = torch.Generator(device=self.device).manual_seed(rng_seed)
+        key = jax_random.key(rng_seed)
         train_metrics = MeanMetrics()
         test_metrics = MeanMetrics()
 
@@ -84,12 +86,14 @@ class TrainLoop:
             test_metrics.reset()
 
             for batch in prefetch_to_device(iter(self.train_ds), self.device, self.prefetch):
-                self.state, metrics = self.train_step(self.state, batch, generator)
+                key, sub = jax_random.split(key)
+                self.state, metrics = self.train_step(self.state, batch, sub)
                 train_metrics.update(metrics)
 
             last_eval = None
             for batch in prefetch_to_device(iter(self.test_ds), self.device, self.prefetch):
-                metrics, outputs = self.eval_step(self.state, batch, generator)
+                key, sub = jax_random.split(key)
+                metrics, outputs = self.eval_step(self.state, batch, sub)
                 test_metrics.update(metrics)
                 last_eval = (outputs, batch)
 

@@ -1,5 +1,5 @@
 """Weights carried across: one Flax-layout tree of NumPy arrays that both
-packages consume.
+packages consume, and `skyhdr`'s own seeded draw.
 
 `init_model_vars(cfg, seed)` draws `(gen_vars, sun_vars)` with the tree,
 names, shapes and `params` / `batch_stats` split of
@@ -7,18 +7,29 @@ names, shapes and `params` / `batch_stats` split of
 `numpy.random.default_rng(seed)` with the Flax initialisers' own
 distributions (glorot_uniform, lecun_normal — a normal truncated at two
 standard deviations —, normal(0.02), zeros, ones; BN running mean 0 and var
-1). Draws are float32: at 64x256 the sun-pose FCs alone are 3.2 GB.
+1). Draws are float32: at 64x256 the sun-pose FCs alone are 3.2 GB. These
+are the test harness's weights, from which the goldens and fixtures were
+made; they are not the weights `--seed` draws.
 
 `init_gan_vars(cfg, seed)` draws the Discriminator's tree as well, from
 the same stream AFTER the generator and sun trees, so the gen/sun draws
 stay those of `init_model_vars`.
+
+`draw_model_vars(module, key)` fills a port module with the weights that
+Flax's `init` draws from the key `key` (a `utils.jax_random` key) for
+`skyhdr`'s module: each parameter's key is Flax's, folded from the scope's
+path and the parameter's place among the scope's `self.param` calls, and
+its values those of `skyhdr`'s initialiser; on the module's device. The
+entry points' `--seed` weights (`train.engine.create_gan_state` /
+`create_sun_state`) are this draw.
 
 `load_model_vars(module, tree)` copies such a tree into a port module;
 `export_model_vars(module)` is the way back, module -> Flax-layout NumPy
 tree (optionally of other tensors shaped like the parameters: gradients,
 optimizer moments).
 Every leaf module names its leaves in `flax_leaves()` as (collection, name,
-tensor, layout, initializer); the layouts are
+tensor, layout, initializer), its `params` in the order of `skyhdr`'s
+`self.param` calls (kernel then bias, scale then bias); the layouts are
   "same"  — as is (DA kernels [k*k*c, f], biases, norm scales, BN stats),
   "hwio"  — conv kernel HWIO -> OIHW,
   "dense" — Dense kernel [in, out] -> Linear weight [out, in].
@@ -30,6 +41,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from skyhdr_torch.utils import jax_random
 
 # Flax lecun_normal: truncated_normal(-2, 2) scaled to unit variance.
 _TRUNC_STD = 0.87962566103423978
@@ -96,7 +109,8 @@ def init_tree(module: torch.nn.Module, rng: np.random.Generator) -> dict:
 
 def init_model_vars(cfg, seed: int = 0):
     """(gen_vars, sun_vars) of the Generator and SunPoseNet for `cfg`
-    (a Config), drawn from `numpy.random.default_rng(seed)`."""
+    (a Config), drawn from `numpy.random.default_rng(seed)`: the test
+    harness's weights, not `--seed`'s (`draw_model_vars`)."""
     from skyhdr_torch.train.engine import build_models
 
     gen, sun = build_models(cfg, device="meta")
@@ -106,7 +120,8 @@ def init_model_vars(cfg, seed: int = 0):
 
 def init_gan_vars(cfg, seed: int = 0):
     """(gen_vars, sun_vars, disc_vars): `init_model_vars`' two trees, then
-    the Discriminator's, all from `numpy.random.default_rng(seed)`."""
+    the Discriminator's, all from `numpy.random.default_rng(seed)`: the
+    test harness's weights, not `--seed`'s (`draw_model_vars`)."""
     from skyhdr_torch.models.discriminator import Discriminator
     from skyhdr_torch.train.engine import build_models
 
@@ -116,16 +131,60 @@ def init_gan_vars(cfg, seed: int = 0):
             init_tree(Discriminator(cfg.model.channels, device="meta"), rng))
 
 
+# Flax layout -> torch layout.
+_PERM = {"hwio": (3, 2, 0, 1), "dense": (1, 0)}
+
+
+def _jax_draw(key, init: str, shape, device) -> torch.Tensor:
+    """`skyhdr`'s initialiser `init` at the Flax `shape` from `key`, as
+    `jax.nn.initializers` computes it in float32."""
+    if init == "zeros":
+        return torch.zeros(shape, device=device)
+    if init == "ones":
+        return torch.ones(shape, device=device)
+    if init == "normal02":
+        return jax_random.normal(key, shape, device).mul_(float(np.float32(0.02)))
+    fan_in, fan_out = _fans(shape)
+    if init == "glorot":
+        variance = np.float32(1.0 / ((fan_in + fan_out) / 2))
+        limit = np.sqrt(np.float32(3) * variance)
+        return jax_random.uniform(key, shape, -1.0, 1.0, device).mul_(float(limit))
+    if init == "lecun":
+        std = np.sqrt(np.float32(1.0 / fan_in)) / np.float32(_TRUNC_STD)
+        return jax_random.truncated_normal(key, -2.0, 2.0, shape, device).mul_(float(std))
+    raise ValueError(f"unknown initializer {init!r}")
+
+
+@torch.no_grad()
+def draw_model_vars(module: torch.nn.Module, key, target_of=None) -> torch.nn.Module:
+    """Fill `module`'s leaves with Flax's init of `skyhdr`'s module from
+    the init key `key`: the `counter`-th `params` leaf of the scope at
+    `path` from `jax_random.flax_param_key(key, path, counter)` (zeros and
+    ones count too), drawn on the leaf's device in the Flax layout, then
+    relaid. `target_of(tensor)` names another tensor to take a `params`
+    leaf (an optimizer's float32 master); the BatchNorm statistics always
+    go to the module."""
+    for path, mod in _leaf_modules(module):
+        counter = 0
+        for coll, name, tensor, layout, init in mod.flax_leaves():
+            dst, sub = tensor, None
+            if coll == "params":
+                counter += 1
+                sub = jax_random.flax_param_key(key, path, counter)
+                dst = tensor if target_of is None else target_of(tensor)
+            value = _jax_draw(sub, init, _flax_shape(tensor, layout), dst.device)
+            if layout in _PERM:
+                value = value.permute(*_PERM[layout])
+            dst.copy_(value)
+    return module
+
+
 def tree_digest(tree) -> float:
     """Sum of |w| over every leaf in float64: a cheap fingerprint that the
     same seed drew the same weights on another machine."""
     if isinstance(tree, dict):
         return sum(tree_digest(tree[k]) for k in sorted(tree))
     return float(np.abs(np.asarray(tree, np.float64)).sum())
-
-
-# Flax layout -> torch layout.
-_PERM = {"hwio": (3, 2, 0, 1), "dense": (1, 0)}
 
 
 @torch.no_grad()

@@ -5,18 +5,19 @@ CPU at 16x64.
 - The converter writes the same record bytes as `skyhdr`'s for the same
   pairs (an LDR of another size than its GT), with either GT format and
   either LDR reader; a count mismatch exits in both.
-- `evaluate --real-dir` through both CLIs on the same records and the same
-  weights (`init_model_vars(cfg, 0)`; the JAX CLI's `restore_model_vars`
-  patched to return them), DA b2, 3 images (the last batch padded): the
-  metrics within rtol 1e-3, the serving golden's tolerance
-  (`tests/test_torch_slice.py`). The port at b2 against b1: si_rmse within
+- `evaluate --real-dir` through both CLIs on the same records, each with
+  its own `--seed 0` weights (no checkpoint: `skyhdr`'s
+  `create_gan_state(cfg, PRNGKey(0))`, which the port draws too), DA b2, 3
+  images (the last batch padded): the metrics within rtol 1e-3, the
+  serving golden's tolerance (`tests/test_torch_slice.py`). The port at b2 against b1: si_rmse within
   rtol 1e-3 and emd within 5e-2 (`tests/test_convert_real_eval.py`'s bounds).
 - The synthetic eval step: the port's `degrade_with` fed the draws of
   `skyhdr`'s `degrade_batch`, then `make_inference_fn` and `evaluate_batch`,
   against `skyhdr`'s chain on the same draws, rtol 2e-3 (the JPEG model
   lets 1% of the LDR's pixels differ by up to 3/255,
   `tests/test_torch_train_ops.py`); then the synthetic CLI is repeatable
-  for a seed.
+  for a seed, and from `--seed 3` gives `skyhdr`'s CLI's metrics (the same
+  weights and degradation draws) within rtol 2e-3.
 """
 
 import contextlib
@@ -146,16 +147,9 @@ def port_real_b2(real_records, tmp_path_factory):
     return json.loads(buf.getvalue().strip().splitlines()[-1])
 
 
-def test_evaluate_real_matches_skyhdr(real_records, port_real_b2, tmp_path, monkeypatch,
-                                      capsys):
+def test_evaluate_real_matches_skyhdr(real_records, port_real_b2, tmp_path, capsys):
     from skyhdr.cli import evaluate as jevaluate
 
-    def restore(cfg, workdir, **kw):
-        gv, sv = init_model_vars(cfg, 0)
-        put = lambda tree: jax.tree_util.tree_map(jnp.asarray, tree)
-        return put(gv), put(sv)
-
-    monkeypatch.setattr(jevaluate, "restore_model_vars", restore)
     jevaluate.main(FLAGS + ["--workdir", str(tmp_path), "--dorf", "", "--real-dir",
                             real_records, "--batchsize", "2"])
     want = _last_json(capsys)
@@ -231,18 +225,38 @@ def test_synthetic_eval_step_matches_skyhdr():
                                    err_msg=k)
 
 
-def test_synthetic_cli_repeatable(tmp_path, capsys):
-    """Two runs with one --seed print the same JSON; --max-batches 1 scores
-    one batch."""
+def _synthetic_records(tmp_path):
     rng = np.random.default_rng(6)
     os.makedirs(tmp_path / "test")
     trec.write_tfrecord(str(tmp_path / "test" / "0000.tfrecord"), [
         {"image": rng.uniform(0.0, 4.0, (H, W, 3)).astype(np.float32).tobytes(),
          "azimuth": float(W // 2 - 1), "elevation": float(rng.uniform(2, H - 3))}
         for _ in range(4)])
-    args = ("--dir", str(tmp_path / "test"), "--batchsize", "2", "--max-batches", "1",
+    return str(tmp_path / "test")
+
+
+def test_synthetic_cli_repeatable(tmp_path, capsys):
+    """Two runs with one --seed print the same JSON; --max-batches 1 scores
+    one batch."""
+    args = ("--dir", _synthetic_records(tmp_path), "--batchsize", "2", "--max-batches", "1",
             "--seed", "3")
     first = _port_eval(capsys, tmp_path, *args)
     assert first == _port_eval(capsys, tmp_path, *args)
     assert first["images"] == 2
     assert all(np.isfinite(first[k]) for k in ("psnr", "si_rmse", "emd"))
+
+
+def test_synthetic_cli_from_a_seed_is_skyhdrs(tmp_path, capsys):
+    """The synthetic path of both CLIs from `--seed 3` with no checkpoint:
+    the same seeded weights and the same degradation draws, two batches
+    (the key split once a batch), so the same metrics within the synthetic
+    step's rtol 2e-3."""
+    from skyhdr.cli import evaluate as jevaluate
+
+    args = ["--dir", _synthetic_records(tmp_path), "--batchsize", "2", "--seed", "3"]
+    got = _port_eval(capsys, tmp_path, *args)
+    jevaluate.main(FLAGS + ["--workdir", str(tmp_path / "jax"), "--dorf", "", *args])
+    want = _last_json(capsys)
+    assert got["images"] == want["images"] == 4
+    for k in ("psnr", "si_rmse", "emd"):
+        np.testing.assert_allclose(got[k], want[k], rtol=2e-3, err_msg=k)

@@ -25,7 +25,6 @@ from skyhdr_torch.train.checkpoints import CheckpointManager
 from skyhdr_torch.train.loop import TrainLoop
 from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
 from skyhdr_torch.utils.png import write_png
-from skyhdr_torch.utils.transplant import init_model_vars, load_model_vars
 
 # The suite runs in several worker processes that share the CPU.
 torch.set_num_threads(1)
@@ -95,11 +94,10 @@ def _expected(gen, sun, ldr):
 
 
 def _seeded(seed=0):
-    gen, sun = engine.build_models(CFG, "cpu")
-    gv, sv = init_model_vars(CFG, seed)
-    load_model_vars(gen, gv)
-    load_model_vars(sun, sv)
-    return gen, sun
+    """The generator and sun-pose net of `create_gan_state(CFG, seed)`,
+    whose trees `skyhdr`'s serving fallback takes."""
+    state = engine.create_gan_state(CFG, seed, "cpu")
+    return state.gen.eval(), state.sun.eval()
 
 
 def _sun_checkpoint(work, ds, seed=7):

@@ -13,8 +13,7 @@ import torch
 
 from skyhdr_torch.data.degradation import make_banks
 from skyhdr_torch.models.vgg16 import random_vgg16_weights
-from skyhdr_torch.train.engine import (build_models, create_gan_state,
-                                       make_gan_train_step, make_inference_fn)
+from skyhdr_torch.train.engine import build_models, make_gan_train_step, make_inference_fn
 from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
 from skyhdr_torch.utils.transplant import (export_model_vars, init_gan_vars,
                                            init_model_vars, load_model_vars)
@@ -84,7 +83,7 @@ def test_da5_gan_step_matches_skyhdr(jax_train):
     cfg = G.golden_config(5)
     gv, sv, dv = init_gan_vars(cfg, 0)
     banks = make_banks(make_synthetic_dorf(175, 1024), get_exposure_lists()[0], device="cpu")
-    state = create_gan_state(cfg, 0, device="cpu")
+    state = G.harness_gan_state(cfg, 0, "cpu")
     state, metrics = make_gan_train_step(cfg, banks, random_vgg16_weights()).train_on(
         state, *_inputs(jax_train))
     for name, want in zip(jax_train["gan_metric_names"], jax_train["gan_metrics"]):

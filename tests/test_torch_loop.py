@@ -264,7 +264,7 @@ def test_eval_steps_match_skyhdr(golden, banks):
     seed = int(golden["seed"])
 
     want_m, want_o = engine.make_gan_eval_step(cfg, jbanks, j_vgg())(jstate, batch, key)
-    state = tengine.create_gan_state(tcfg, seed, device="cpu")
+    state = G.harness_gan_state(tcfg, seed, "cpu")
     step = tengine.make_gan_eval_step(tcfg, banks, random_vgg16_weights())
     got_m, got_o = step.eval_on(state, *_inputs(golden))
     _check_metrics(got_m, want_m)
@@ -274,7 +274,7 @@ def test_eval_steps_match_skyhdr(golden, banks):
                                    atol=1e-3, err_msg=k)
 
     want_m, want_o = engine.make_sun_eval_step(cfg, jbanks)(jsun, batch, key)
-    sun_state = tengine.create_sun_state(tcfg, seed, device="cpu")
+    sun_state = G.harness_sun_state(tcfg, seed, "cpu")
     got_m, got_o = tengine.make_sun_eval_step(tcfg, banks).eval_on(sun_state, *_inputs(golden))
     _check_metrics(got_m, want_m)
     for k in ("pred", "gt"):

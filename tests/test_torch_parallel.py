@@ -34,6 +34,7 @@ import torch
 from skyhdr_torch.data.degradation import degrade_batch, make_banks
 from skyhdr_torch.parallel import batch_sharding, vector_sharding
 from skyhdr_torch.parallel.mesh import Mesh
+from skyhdr_torch.utils import jax_random
 from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
 
 # The suite runs in several worker processes that share the CPU; torch's
@@ -190,17 +191,17 @@ def test_batch_placement():
 
 def test_sharded_degradation_is_the_whole_batchs():
     """C3 and C4 in one process: each shard's degradation, drawn from the
-    same seed, equals its rows of the whole batch's, sample for sample; the
+    same key, equals its rows of the whole batch's, sample for sample; the
     shards' own ramps would not."""
     banks = make_banks(make_synthetic_dorf(175, 1024), get_exposure_lists()[0], device="cpu")
     hdr = torch.from_numpy(G.dp_batch(3)["hdr"])
-    whole = degrade_batch(torch.Generator().manual_seed(9), hdr, banks)
+    whole = degrade_batch(jax_random.key(9), hdr, banks)
     for index in range(2):
         rows = slice(2 * index, 2 * index + 2)
-        part = degrade_batch(torch.Generator().manual_seed(9), hdr[rows], banks, shard=(index, 2))
+        part = degrade_batch(jax_random.key(9), hdr[rows], banks, shard=(index, 2))
         for a, b in zip(part, whole):
             assert torch.equal(a, b[rows])
-    local = degrade_batch(torch.Generator().manual_seed(9), hdr[:2], banks)
+    local = degrade_batch(jax_random.key(9), hdr[:2], banks)
     assert not torch.equal(local[1], whole[1][:2])
 
 

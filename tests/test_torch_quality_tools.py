@@ -8,6 +8,7 @@ import gzip
 import importlib.util
 import json
 import math
+import os
 import re
 import sys
 from contextlib import redirect_stdout
@@ -138,6 +139,46 @@ def test_quality_run_refuses_a_cadence_that_skips_the_last_epoch(tmp_path):
         quality_run.main([*SMALL[:-2], "--ckpt-every", "2", "--gan-epochs", "3",
                           "--work", str(tmp_path)])
     assert not any(tmp_path.iterdir())
+
+
+def test_quality_run_forwards_the_seed_to_every_stage(tmp_path, monkeypatch):
+    """`--seed s` reaches every stage's command line (0 by default), so that
+    a row's weights, degradations and evaluation draws are `skyhdr`'s for
+    that seed; the synthetic set is written with its own seed."""
+    cmds = []
+
+    def fake_run(cmd, log_path, echo):
+        cmds.append(cmd)
+        return '{"psnr": 1.0, "si_rmse": 1.0, "emd": 1.0, "images": 2}'
+
+    def trained(work, stage):
+        wd = os.path.join(work, stage.workdir)
+        return int(any(c[2] == quality_run._CLI[stage.kind] and wd in c for c in cmds))
+
+    monkeypatch.setattr(quality_run, "write_dataset", lambda *a: False)
+    monkeypatch.setattr(quality_run, "_run", fake_run)
+    monkeypatch.setattr(quality_run, "_trained", trained)
+    monkeypatch.setattr(quality_run, "latest_epoch", lambda d: 1)
+    preset = quality_run.PRESETS["plain32"]
+    kw = dict(size=(16, 64), n_train=4, n_test=2, epochs={"sun": 1, "gan": 1}, ckpt_every=1,
+              flags=["--device", "cpu"])
+    quality_run.run_preset(preset, str(tmp_path / "a"), seed=5, **kw)
+    assert len(cmds) == len(preset.stages)
+    for cmd in cmds:
+        assert cmd[cmd.index("--seed") + 1] == "5", cmd
+    cmds.clear()
+    quality_run.run_preset(preset, str(tmp_path / "b"), **kw)
+    assert all(cmd[cmd.index("--seed") + 1] == "0" for cmd in cmds)
+
+    seen = {}
+    monkeypatch.setattr(quality_run, "run_preset",
+                        lambda *a, **k: (seen.update(k), ({}, {}))[1])
+    monkeypatch.setattr(quality_run, "report", lambda *a: None)
+    monkeypatch.setattr(quality_run, "health", lambda *a: {"ok": True, "faults": []})
+    out = StringIO()
+    with redirect_stdout(out):
+        quality_run.main(["--preset", "da32", "--seed", "3", "--work", str(tmp_path / "c")])
+    assert seen["seed"] == 3 and _last_json(out.getvalue())["seed"] == 3
 
 
 def test_quality_report_reads_the_port_event_files(run):

@@ -1,9 +1,11 @@
 """The port's GAN train step and sun-pretrain step on the CPU against
 `skyhdr`'s, at 16x64 with the DA conv, b2, from the same seeded weights
-(`init_gan_vars`). The JAX side runs once per module
-(`tools/make_torch_golden.make_train_golden`, one jitted GAN step and one
-sun step on JAX's own degraded pair); the port's steps take that pair
-through `step.train_on`, since torch cannot reproduce `jax.random`.
+(the harness's `init_gan_vars`, `make_torch_golden.harness_gan_state`).
+The JAX side runs once per module (`tools/make_torch_golden.
+make_train_golden`, one jitted GAN step and one sun step on JAX's own
+degraded pair); the port's steps take that pair through `step.train_on`,
+so that the step is held apart from the draws
+(`tests/test_torch_jax_random.py` holds those).
 
 Tolerances, and why:
   - metrics: rtol 1e-4 (the same f32 graph summed in another order);
@@ -31,8 +33,7 @@ import torch
 
 from skyhdr_torch.data.degradation import make_banks
 from skyhdr_torch.models.vgg16 import random_vgg16_weights
-from skyhdr_torch.train.engine import (create_gan_state, create_sun_state,
-                                       make_gan_train_step, make_sun_train_step)
+from skyhdr_torch.train.engine import make_gan_train_step, make_sun_train_step
 from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
 from skyhdr_torch.utils.transplant import export_model_vars, init_gan_vars
 
@@ -134,7 +135,7 @@ def test_train_golden_fixture_regenerates(jax_run):
 def test_gan_step_matches_skyhdr(jax_run, banks):
     cfg = G.golden_config()
     gv, sv, dv = init_gan_vars(cfg, 0)
-    state = create_gan_state(cfg, 0, device="cpu")
+    state = G.harness_gan_state(cfg, 0, "cpu")
     step = make_gan_train_step(cfg, banks, random_vgg16_weights())
     state, metrics = step.train_on(state, *_inputs(jax_run))
     assert state.step == 1
@@ -159,7 +160,7 @@ def test_gan_step_matches_skyhdr(jax_run, banks):
 def test_sun_step_matches_skyhdr(jax_run, banks):
     cfg = G.golden_config()
     _, sv, _ = init_gan_vars(cfg, 0)
-    state = create_sun_state(cfg, 0, device="cpu")
+    state = G.harness_sun_state(cfg, 0, "cpu")
     state, metrics = make_sun_train_step(cfg, banks).train_on(state, *_inputs(jax_run))
     for name, want in zip(jax_run["sun_metric_names"], jax_run["sun_metrics"]):
         assert float(metrics[name]) == pytest.approx(want, rel=1e-4, abs=1e-6), name

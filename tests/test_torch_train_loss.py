@@ -29,6 +29,7 @@ from skyhdr_torch.data.degradation import make_banks
 from skyhdr_torch.models.vgg16 import random_vgg16_weights, vgg_constants
 from skyhdr_torch.train import engine as tengine
 from skyhdr_torch.train.optim import Adam, RMSprop
+from skyhdr_torch.utils import jax_random
 from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
 from skyhdr_torch.utils.transplant import export_model_vars, init_gan_vars, tree_digest
 
@@ -89,7 +90,7 @@ def jax_loss_and_grads(stored):
 def test_generator_loss_and_grads_match(stored, jax_loss_and_grads):
     want_total, want_losses, (want_gen, want_sun) = jax_loss_and_grads
     cfg = G.golden_config()
-    state = tengine.create_gan_state(cfg, 0, device="cpu")
+    state = G.harness_gan_state(cfg, 0, "cpu")
     inputs = [torch.from_numpy(np.array(stored[k])) for k in ("ldr", "hdr_t", "sunpose_gt")]
     total, aux = tengine.generator_forward(
         cfg, state.gen, state.sun, state.disc, *inputs,
@@ -120,17 +121,19 @@ def test_port_matches_train_golden_fixture(stored):
 
 
 def test_steps_degrade_and_thread_the_state(banks):
-    """The full steps, degradation drawn from a torch.Generator: finite
-    metrics with the JAX package's names, the state updated in place."""
+    """The full steps, degradation drawn from a key (`utils.jax_random`),
+    one a step as the loop splits them: finite metrics with the JAX
+    package's names, the state updated in place."""
     cfg = G.golden_config()
     hdr, elevation = G.train_batch(0)
     batch = {"hdr": torch.from_numpy(hdr), "elevation": torch.from_numpy(elevation)}
-    gen = torch.Generator().manual_seed(0)
+    key = jax_random.key(0)
     state = tengine.create_gan_state(cfg, 0, device="cpu")
     step = tengine.make_gan_train_step(cfg, banks, random_vgg16_weights())
     totals = []
     for _ in range(2):
-        state, metrics = step(state, batch, gen)
+        key, sub = jax_random.split(key)
+        state, metrics = step(state, batch, sub)
         assert sorted(metrics) == ["adv", "b_out", "disc_generated", "disc_real",
                                    "disc_total", "dog", "g_out", "gen_total", "kl",
                                    "l1", "perceptual"]
@@ -138,7 +141,7 @@ def test_steps_degrade_and_thread_the_state(banks):
         totals.append(float(metrics["gen_total"]))
     assert state.step == 2 and totals[0] != totals[1]
     sun_state = tengine.create_sun_state(cfg, 0, device="cpu")
-    sun_state, m = tengine.make_sun_train_step(cfg, banks)(sun_state, batch, gen)
+    sun_state, m = tengine.make_sun_train_step(cfg, banks)(sun_state, batch, key)
     assert sorted(m) == ["dog", "kl", "sun_total"] and sun_state.step == 1
     assert all(torch.isfinite(v) for v in m.values())
 
@@ -149,14 +152,11 @@ def test_low_precision_knobs_build_their_dtypes(banks, knob):
     param_dtype beside a float32 master holding the seeded draw (the
     parameters its rounding), BatchNorm statistics float32, moments in
     opt_state_dtype; and its train steps build."""
-    from skyhdr_torch.utils.transplant import init_model_vars
-
     cfg = G.golden_config()
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **{knob: "bfloat16"}))
     bf16 = knob == "param_dtype"
     gan = tengine.create_gan_state(cfg, 0, device="cpu")
     sun = tengine.create_sun_state(cfg, 0, device="cpu")
-    draws = (*init_gan_vars(cfg, 0), init_model_vars(cfg, 0)[1])
     for state, modules in ((gan, (gan.gen, gan.sun, gan.disc)), (sun, (sun.sun,))):
         assert state.param_dtype == ("bfloat16" if bf16 else "float32")
         for m in modules:
@@ -172,7 +172,8 @@ def test_low_precision_knobs_build_their_dtypes(banks, knob):
                            for p, m in zip(opt.params, opt.master))
     if bf16:  # the master holds the float32 draw itself
         fc1 = gan.opt_gen.moments()["master"][gan.sun.fc1.weight]
-        np.testing.assert_array_equal(fc1.numpy().T, draws[1]["params"]["fc1"]["kernel"])
+        f32 = tengine.create_gan_state(G.golden_config(), 0, device="cpu")
+        assert torch.equal(fc1, f32.sun.fc1.weight)
     tengine.make_gan_train_step(cfg, banks, random_vgg16_weights())
     tengine.make_sun_train_step(cfg, banks)
 

@@ -40,6 +40,7 @@ from skyhdr_torch.ops import geometry as tgeo
 from skyhdr_torch.ops import jpeg as tjpeg
 from skyhdr_torch.train import losses as tlosses
 from skyhdr_torch.utils import io as tio
+from skyhdr_torch.utils import jax_random
 from skyhdr_torch.utils.transplant import export_model_vars, load_model_vars
 
 # The suite runs in several worker processes that share the CPU; torch's
@@ -241,17 +242,18 @@ def test_degrade_with_jax_draws(rng, chebyshev):
 
 def test_degrade_batch_draws_from_generator(banks):
     """The drawing half: shapes, ranges, and the same draws from the same
-    seed."""
+    key (`utils.jax_random`), other draws from another."""
     _, tb = banks
     hdr = torch.rand(B, H, W, 3) * 2
-    a = tdeg.degrade_batch(torch.Generator().manual_seed(5), hdr, tb)
-    b = tdeg.degrade_batch(torch.Generator().manual_seed(5), hdr, tb)
+    a = tdeg.degrade_batch(jax_random.key(5), hdr, tb)
+    b = tdeg.degrade_batch(jax_random.key(5), hdr, tb)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+    assert not torch.equal(tdeg.degrade_batch(jax_random.key(6), hdr, tb)[0], a[0])
     hdr_t, ldr = a
     assert hdr_t.shape == ldr.shape == hdr.shape
     assert float(hdr_t.min()) >= 0 and 0 <= float(ldr.min()) and float(ldr.max()) <= 1
-    d = tdeg.draw_degradation(torch.Generator().manual_seed(5), hdr.shape, tb)
+    d = tdeg.draw_degradation(jax_random.key(5), hdr.shape, tb)
     assert d.t_idx.max() < len(tb.exposures) and d.crf_idx.max() < len(tb.crfs)
 
 

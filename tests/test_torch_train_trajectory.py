@@ -1,10 +1,10 @@
 """A multi-step DA training run of the port held to `skyhdr`'s on the CPU:
 8 sun-pretrain steps (Adam), the SUN -> SKY hand-off, then 8 GAN steps
-(RMSprop), at 16x64 DA b2 from the seeded weights of `init_gan_vars(cfg,
-0)`, `skyhdr` on its XLA DA path (`make_torch_golden.JaxTrajectory`). Each
-step has a batch of its own and `skyhdr`'s own degraded pair of it, fed to
-the port through `step.train_on` (torch cannot reproduce `jax.random`), as
-`tests/test_torch_train.py` does for one step.
+(RMSprop), at 16x64 DA b2 from the harness's weights of
+`init_gan_vars(cfg, 0)`, `skyhdr` on its XLA DA path
+(`make_torch_golden.JaxTrajectory`). Each step has a batch of its own and
+`skyhdr`'s own degraded pair of it, fed to the port through
+`step.train_on`, as `tests/test_torch_train.py` does for one step.
 
 Each of the port's steps starts from `skyhdr`'s state before that step
 (its export, through `train.convert.state_from_export`): parameters,
@@ -48,8 +48,8 @@ from skyhdr_torch.models import layers
 from skyhdr_torch.models.vgg16 import random_vgg16_weights
 from skyhdr_torch.train import optim
 from skyhdr_torch.train.convert import export_from_state, state_from_export
-from skyhdr_torch.train.engine import (create_gan_state, make_gan_train_step,
-                                       make_sun_train_step, replace_sun_params)
+from skyhdr_torch.train.engine import (make_gan_train_step, make_sun_train_step,
+                                       replace_sun_params)
 from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
 from skyhdr_torch.utils.transplant import export_model_vars
 
@@ -166,7 +166,7 @@ def handoff_fails(sun_export, rec):
     state into the seeded GAN state) against the state `skyhdr`'s first
     GAN step starts from: every leaf equal."""
     sun = state_from_export(sun_export, CFG, "cpu")
-    state = replace_sun_params(CFG, create_gan_state(CFG, 0, "cpu"), sun.sun.state_dict())
+    state = replace_sun_params(CFG, G.harness_gan_state(CFG, 0, "cpu"), sun.sun.state_dict())
     got, want = export_from_state(state)[1], rec["before"][1]
     assert sorted(got) == sorted(want)
     return [f"hand-off {p}" for p in sorted(want)

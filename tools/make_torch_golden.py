@@ -41,9 +41,14 @@ fsdp` writes tests/fixtures/torch_golden_fsdp_16x64.npz alone (`make_fsdp_golden
 `python tools/make_torch_golden.py trajectory-spread` prints
 `trajectory_spread` (how far free runs of the 8 + 8 step DA trajectory
 drift from `skyhdr`'s: `skyhdr`'s own under weight noise, the port's), and
+`python tools/make_torch_golden.py draws` writes
+tests/fixtures/torch_golden_draws_16x64.npz alone (`make_draws_golden`:
+digests of `skyhdr`'s `--seed 0` weights and first degradation draws at
+DA 16x64, which `chip_smoke.py` holds the card's draws to), and
 `python tools/make_torch_golden.py untrained-draws` prints
 `untrained_draws` (the untrained generator's output scale under three
-seeded draws of each package).
+seeded draws of each package: `skyhdr`'s and the port's entry-point draw,
+which is the same).
 
 `tests/test_torch_slice.py`, `tests/test_torch_train.py`,
 `tests/test_torch_da_generic.py`, `tests/test_torch_convert.py` and
@@ -91,6 +96,14 @@ KNOB_SAMPLES = 32
 # 0.0100, fused IN; 0.0015 unfused), a moment within 9.5e-4 of its value.
 KNOB_STEP_RTOL, KNOB_MOMENT_RTOL = 0.04, 4e-3
 H, W, BATCH = 16, 64, 2
+DRAWS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_golden_draws_16x64.npz")
+# The draws fixture keeps a leaf's sum, sum of |.| and first DRAWS_LEAD
+# values, a noise's first DRAWS_NOISE_LEAD; the card's draw is held to it
+# within DRAWS_ULPS float32 ulps (erf_inv's log1p; uniform-drawn, zero and
+# one leaves exactly) and its sums within DRAWS_SUM_RTOL of the sum of |.|.
+DRAWS_LEAD, DRAWS_NOISE_LEAD = 8, 64
+DRAWS_ULPS = 4
+DRAWS_SUM_RTOL = 1e-6
 # (step, epoch) of the resumed checkpoints; Adam's count is the SUN step.
 RESUME_COUNTERS = {"SKY": (12, 2), "SUN": (7, 1)}
 
@@ -943,6 +956,29 @@ def compare_knobs_golden(stored, port, name: str, step_rtol: float = KNOB_STEP_R
     return fails, worst
 
 
+def harness_gan_state(cfg, seed: int = 0, device="cpu"):
+    """The port's GAN state with the test harness's weights
+    (`init_gan_vars(cfg, seed)`, from which the goldens were made; not the
+    `--seed` draw of `create_gan_state`) and zero moments."""
+    from skyhdr_torch.train.engine import empty_gan_state, load_weights
+    from skyhdr_torch.utils.transplant import init_gan_vars
+
+    state = empty_gan_state(cfg, device)
+    load_weights(state, init_gan_vars(cfg, seed))
+    return state
+
+
+def harness_sun_state(cfg, seed: int = 0, device="cpu"):
+    """The port's sun-pretrain state with the harness's sun-pose weights
+    (`init_model_vars(cfg, seed)[1]`) and zero moments."""
+    from skyhdr_torch.train.engine import empty_sun_state, load_weights
+    from skyhdr_torch.utils.transplant import init_model_vars
+
+    state = empty_sun_state(cfg, device)
+    load_weights(state, [init_model_vars(cfg, seed)[1]])
+    return state
+
+
 def port_train_golden(stored, device, fused_instance_norm: bool = False,
                       da_kernel_size: int = 3, use_da_conv: bool = True) -> dict:
     """The port's GAN step and sun step from the same seeded weights on the
@@ -953,14 +989,12 @@ def port_train_golden(stored, device, fused_instance_norm: bool = False,
     fixture's, and so must `use_da_conv`."""
     import dataclasses
 
-    from skyhdr_torch.train.engine import create_gan_state, create_sun_state
-
     cfg = golden_config(da_kernel_size, use_da_conv=use_da_conv)
     cfg = cfg.replace(model=dataclasses.replace(
         cfg.model, fused_instance_norm=fused_instance_norm))
     seed = int(stored["seed"])
-    return port_steps(stored, cfg, create_gan_state(cfg, seed, device),
-                      create_sun_state(cfg, seed, device), device)
+    return port_steps(stored, cfg, harness_gan_state(cfg, seed, device),
+                      harness_sun_state(cfg, seed, device), device)
 
 
 def port_steps(stored, cfg, state, sun_state, device) -> dict:
@@ -1074,11 +1108,10 @@ def bf16_config(fused_instance_norm: bool = False, use_da_conv: bool = True):
 
 
 def bf16_states(stored, cfg, device):
-    """(GanState, SunState) of the port from the fixture's seed."""
-    from skyhdr_torch.train.engine import create_gan_state, create_sun_state
-
+    """(GanState, SunState) of the port from the fixture's seed (the
+    harness's weights)."""
     seed = int(stored["seed"])
-    return create_gan_state(cfg, seed, device), create_sun_state(cfg, seed, device)
+    return harness_gan_state(cfg, seed, device), harness_sun_state(cfg, seed, device)
 
 
 def _port_setup(stored, device):
@@ -1176,7 +1209,7 @@ FSDP_MIN_BYTES = (1 << 20, 1 << 16)
 # The DP golden: 2 data shards of a global batch of 4 at 16x64 DA f32.
 DP_WORLD, DP_BATCH = 2, 4
 # A step of the port's data-parallel step against its single-process step
-# on the same global batch and generator seed (`compare_dp_steps`; 2 gloo
+# on the same global batch and key seed (`compare_dp_steps`; 2 gloo
 # ranks at DA 16x64, b4, on the CPU). The two differ by the order of the
 # cross-rank sums (float32: metrics 5.7e-7, BatchNorm sums 1.1e-6, the
 # moments' per-leaf relative L1 3.7e-5), and, where a value is stored or
@@ -1348,13 +1381,13 @@ def apply_dp_fault(fault: str):
     elif fault == "max_per_rank":
         target, name, value = dp.BatchReduce, "max", lambda self, x: torch.max(x)
     elif fault in ("draws_per_rank", "jpeg_ramp_local"):
-        def degrade_batch(generator, hdr, banks, shard=(0, 1), **kw):
+        def degrade_batch(key, hdr, banks, shard=(0, 1), **kw):
             index, count = shard
             if fault == "draws_per_rank":
-                draws = degradation.draw_degradation(generator, hdr.shape, banks)
+                draws = degradation.draw_degradation(key, hdr.shape, banks)
                 return degradation.degrade_with(hdr, banks, draws, shard=shard, **kw)
             draws = degradation.draw_degradation(
-                generator, (hdr.shape[0] * count, *hdr.shape[1:]), banks)
+                key, (hdr.shape[0] * count, *hdr.shape[1:]), banks)
             return degradation.degrade_with(hdr, banks, degradation.shard_rows(draws, index, count),
                                             **kw)
         target, name, value = engine, "degrade_batch", degrade_batch
@@ -1466,9 +1499,10 @@ def _dp_setup(spec):
 
 def dp_reference(spec: dict, case: dict, trees=None) -> dict:
     """The port's single-process GAN and sun steps of a DP case on the whole
-    batch, with the generator seed the ranks use (`step_digests`)."""
+    batch, with the key the ranks use (`step_digests`)."""
     import torch
 
+    from skyhdr_torch.utils import jax_random
     from skyhdr_torch.train.engine import make_gan_train_step, make_sun_train_step
 
     cfg = dp_config(case, spec["h"], spec["w"], spec["batch"])
@@ -1476,10 +1510,10 @@ def dp_reference(spec: dict, case: dict, trees=None) -> dict:
     device = spec["device"]
     batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
     gan, sun = _dp_states(cfg, trees if trees is not None else _dp_trees(spec), device)
-    gen = lambda: torch.Generator(device=device).manual_seed(spec["seed"] + 1)
+    key = jax_random.key(spec["seed"] + 1)
     return step_digests(gan, sun,
-                        lambda s: make_gan_train_step(cfg, banks, vgg)(s, batch, gen()),
-                        lambda s: make_sun_train_step(cfg, banks)(s, batch, gen()))
+                        lambda s: make_gan_train_step(cfg, banks, vgg)(s, batch, key),
+                        lambda s: make_sun_train_step(cfg, banks)(s, batch, key))
 
 
 def dp_rank(spec: dict, rank: int) -> dict:
@@ -1489,7 +1523,7 @@ def dp_rank(spec: dict, rank: int) -> dict:
     takes one GAN step and one sun step of `make_parallel_*_train_step` on
     its rows: of the stored JAX-degraded inputs of `spec["fixture"]`
     (`step.train_on`; case "path": "fixture") or of `dp_batch` through the
-    degradation with the generator seeded seed + 1 on every rank ("path":
+    degradation from the key of seed + 1 on every rank ("path":
     "batch"). Returns {case name: `step_digests` + "agree" (every rank's
     states bit-equal after the steps) + on the card the DA kernels'
     launches per step}, and under "imported" the top-level modules the
@@ -1505,6 +1539,7 @@ def dp_rank(spec: dict, rank: int) -> dict:
 
     import torch
 
+    from skyhdr_torch.utils import jax_random
     from skyhdr_torch.parallel import dp as pdp
     from skyhdr_torch.parallel import fsdp as pfsdp
 
@@ -1552,8 +1587,7 @@ def dp_rank(spec: dict, rank: int) -> dict:
                             for k in ("hdr_t", "ldr", "sunpose_gt")]
                 result = step.train_on(state, *rows)
             else:
-                gen = torch.Generator(device=device).manual_seed(spec["seed"] + 1)
-                result = step(state, shard(host), gen)
+                result = step(state, shard(host), jax_random.key(spec["seed"] + 1))
             if dc is not None:
                 launches[kind] = {k: getattr(dc, f"{k}_LAUNCHES") for k in ("K1", "K2", "K3")}
             return result
@@ -1584,7 +1618,7 @@ def dp_rank(spec: dict, rank: int) -> dict:
             # A warm-up step, then `timing` steps timed on the host clock
             # (every rank steps together), then as many with each collective
             # timed after the device's queued work: its share of the step.
-            gen = torch.Generator(device=device).manual_seed(spec["seed"] + 2)
+            key = jax_random.key(spec["seed"] + 2)
             batch = shard(host)
             if shard_state is not None:
                 shard_state(state)
@@ -1596,7 +1630,7 @@ def dp_rank(spec: dict, rank: int) -> dict:
                     step.reduce.timed, step.reduce.comm_s = bool(timed), 0.0
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
-                    step(state, batch, gen)
+                    step(state, batch, key)
                     torch.cuda.synchronize()
                     if timed is not None:
                         walls[timed].append(time.perf_counter() - t0)
@@ -1691,7 +1725,7 @@ def _state_bits(state) -> dict:
 def fsdp_vs_dp(spec, case, cfg, mesh, trees, setup, dp_runs: dict, steps: int = 2) -> dict:
     """`steps` GAN steps and as many sun steps (the case's "kinds", default
     both) of the FSDP step (at the case's "fsdp" min_bytes) and of the DP
-    step, each from the run's replicated seeded state with the generators
+    step, each from the run's replicated seeded state with the keys
     seeded seed + 1, seed + 2, ...: under "{kind}_differ" the paths of the
     tensors (parameters, buffers, moments, master; "step") whose bits
     differ after unsharding, empty when the two are bit-equal; under
@@ -1702,6 +1736,7 @@ def fsdp_vs_dp(spec, case, cfg, mesh, trees, setup, dp_runs: dict, steps: int = 
     setting, for the next case of the same setting."""
     import torch
 
+    from skyhdr_torch.utils import jax_random
     from skyhdr_torch.parallel import dp as pdp
     from skyhdr_torch.parallel import fsdp as pfsdp
 
@@ -1717,8 +1752,7 @@ def fsdp_vs_dp(spec, case, cfg, mesh, trees, setup, dp_runs: dict, steps: int = 
 
     def steps_of(step, shard, state):
         for i in range(steps):
-            gen = torch.Generator(device=device).manual_seed(spec["seed"] + 1 + i)
-            state, _ = step(state, shard(host), gen)
+            state, _ = step(state, shard(host), jax_random.key(spec["seed"] + 1 + i))
         return state
 
     out = {"agree": True}
@@ -1940,7 +1974,7 @@ WIDTH_BATCH = 4
 # weight gradients left per rank (not summed over the width ring).
 WIDTH_FAULTS = ("dk_not_width_summed",)
 # A width-sharded step against the port's single-process step on the same
-# batch and generator seed (2 gloo ranks at 16x64 b4 f32, and 4 under
+# batch and key seed (2 gloo ranks at 16x64 b4 f32, and 4 under
 # FSDP): `DP_RTOL`'s float32 class, but the moments, whose per-leaf
 # relative L1 gaps reach 2.6e-4 at DA and with plain convs (the sums over
 # the ring reorder more of the step than the data-parallel all-reduce
@@ -2124,10 +2158,11 @@ def _gan_state(cfg, trees, device):
 
 def width_reference(spec: dict, case: dict, trees=None, fixture=None) -> dict:
     """The port's single-process GAN step of a width case on the whole batch
-    (`gan_step_digests`): through the degradation with the generator seed
+    (`gan_step_digests`): through the degradation from the key
     the ranks use, or on `fixture`'s stored JAX-degraded inputs."""
     import torch
 
+    from skyhdr_torch.utils import jax_random
     from skyhdr_torch.train.engine import make_gan_train_step
 
     cfg = width_config(case, spec["h"], spec["w"], spec["batch"])
@@ -2141,8 +2176,8 @@ def width_reference(spec: dict, case: dict, trees=None, fixture=None) -> dict:
                 for k in ("hdr_t", "ldr", "sunpose_gt")]
         return gan_step_digests(_gan_state(cfg, trees, device), lambda s: step.train_on(s, *rows))
     batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
-    gen = torch.Generator(device=device).manual_seed(spec["seed"] + 1)
-    return gan_step_digests(_gan_state(cfg, trees, device), lambda s: step(s, batch, gen))
+    key = jax_random.key(spec["seed"] + 1)
+    return gan_step_digests(_gan_state(cfg, trees, device), lambda s: step(s, batch, key))
 
 
 def _rank_setup(spec, rank):
@@ -2195,6 +2230,7 @@ def width_rank(spec: dict, rank: int) -> dict:
 
     import torch
 
+    from skyhdr_torch.utils import jax_random
     from skyhdr_torch.parallel import dp as pdp
     from skyhdr_torch.parallel import fsdp as pfsdp
     from skyhdr_torch.parallel.mesh import batch_sharding, vector_sharding
@@ -2241,8 +2277,8 @@ def width_rank(spec: dict, rank: int) -> dict:
                     block.append(torch.from_numpy(rows(f["sunpose_gt"])).to(device))
                 state, metrics = step.train_on(state, *block)
             else:
-                gen = torch.Generator(device=device).manual_seed(spec["seed"] + 1)
-                state, metrics = step(state, shard(host), gen)
+                key = jax_random.key(spec["seed"] + 1)
+                state, metrics = step(state, shard(host), key)
             if dc is not None:
                 launches.update({k: getattr(dc, f"{k}_LAUNCHES") for k in ("K1", "K2", "K3")})
             if shard_state is not None:
@@ -2261,7 +2297,7 @@ def width_rank(spec: dict, rank: int) -> dict:
             # A warm-up step, then `timing` steps timed on the host clock
             # (every rank steps together), then as many with each collective
             # timed after the device's queued work: its share of the step.
-            gen = torch.Generator(device=device).manual_seed(spec["seed"] + 2)
+            key = jax_random.key(spec["seed"] + 2)
             batch = shard(host)
             if shard_state is not None:
                 shard_state(gan)
@@ -2273,7 +2309,7 @@ def width_rank(spec: dict, rank: int) -> dict:
                     base = torch.cuda.memory_allocated()
                     torch.cuda.reset_peak_memory_stats()
                     t0 = time.perf_counter()
-                    step(gan, batch, gen)
+                    step(gan, batch, key)
                     torch.cuda.synchronize()
                     peaks.append(torch.cuda.max_memory_allocated() - base)
                     if timed is not None:
@@ -2544,10 +2580,11 @@ def width_ops_rank(spec: dict, rank: int) -> dict:
 
 def _degrade_block(case, ring) -> dict:
     """The degradation of this rank's width shard of a seeded HDR batch
-    (`degrade_batch` in the width context, the generator seeded
+    (`degrade_batch` in the width context from the key of
     case["seed"]): {"out": [hdr_t, ldr] blocks}."""
     import torch
 
+    from skyhdr_torch.utils import jax_random
     from skyhdr_torch.data.degradation import degrade_batch, make_banks
     from skyhdr_torch.ops.width import width_across
     from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
@@ -2555,12 +2592,12 @@ def _degrade_block(case, ring) -> dict:
     banks = make_banks(make_synthetic_dorf(16, 256), get_exposure_lists()[0], device="cpu")
     rng = np.random.default_rng(case["seed"])
     hdr = torch.from_numpy(rng.uniform(0, 2, size=case["shape"]).astype(np.float32))
-    gen = torch.Generator().manual_seed(case["seed"])
+    key = jax_random.key(case["seed"])
     if ring is None:
-        return {"out": [t.double().numpy() for t in degrade_batch(gen, hdr, banks)]}
+        return {"out": [t.double().numpy() for t in degrade_batch(key, hdr, banks)]}
     with width_across(ring):
         block = hdr[:, :, ring.cols(hdr.shape[2])]
-        return {"out": [t.double().numpy() for t in degrade_batch(gen, block, banks)],
+        return {"out": [t.double().numpy() for t in degrade_batch(key, block, banks)],
                 "kind": "degrade"}
 
 
@@ -2589,8 +2626,9 @@ def _apply_width_op_fault(fault: str):
     elif fault == "noise_per_shard":
         draw = degradation.draw_degradation
         patches += [(degradation, "shard_cols", lambda draws, cols: draws),
-                    (degradation, "draw_degradation", lambda gen, shape, banks: draw(
-                        gen, (*shape[:2], shape[2] // width.current().n, shape[3]), banks))]
+                    (degradation, "draw_degradation", lambda key, shape, banks, device=None: draw(
+                        key, (*shape[:2], shape[2] // width.current().n, shape[3]), banks,
+                        device))]
     else:
         raise ValueError(f"unknown fault {fault!r}")
     old = [(t, n, t.__dict__[n] if isinstance(t, type) else getattr(t, n)) for t, n, _ in patches]
@@ -2901,7 +2939,7 @@ def plain_bf16_adv(steps: int = 8, batch: int = 8, h: int = 32, w: int = 128,
         step = jax.jit(engine.make_gan_train_step(cfg, banks, vgg, jit=False))
         runs = {f"skyhdr_{dtype}": []}
         if dtype == "bfloat16":
-            pstate = tengine.create_gan_state(tcfg, seed, "cpu")
+            pstate = harness_gan_state(tcfg, seed, "cpu")
             pstep = tengine.make_gan_train_step(
                 tcfg, port_banks(dorf, exposures, device="cpu"), vgg).train_on
             runs["port_bfloat16"] = []
@@ -3071,12 +3109,12 @@ def port_free_trajectory(traj: JaxTrajectory, steps: int = TRAJ_STEPS) -> dict:
     banks = make_banks(make_synthetic_dorf(175, 1024), get_exposure_lists()[0], device="cpu")
     tensors = lambda i: [torch.from_numpy(np.array(t)) for t in traj.inputs(i)[2]]
     out = {"sun": [], "gan": []}
-    sun = engine.create_sun_state(cfg, traj.seed, "cpu")
+    sun = harness_sun_state(cfg, traj.seed, "cpu")
     step = engine.make_sun_train_step(cfg, banks).train_on
     for i in range(steps):
         sun, m = step(sun, *tensors(i))
         out["sun"].append({k: float(v) for k, v in m.items()})
-    state = engine.replace_sun_params(cfg, engine.create_gan_state(cfg, traj.seed, "cpu"),
+    state = engine.replace_sun_params(cfg, harness_gan_state(cfg, traj.seed, "cpu"),
                                       sun.sun.state_dict())
     step = engine.make_gan_train_step(cfg, banks, random_vgg16_weights()).train_on
     for i in range(steps, 2 * steps):
@@ -3109,37 +3147,197 @@ def trajectory_spread(draws: int = 3) -> dict:
 def untrained_draws(seeds: int = 3) -> dict:
     """The untrained generator's output scale under each package's seeded
     draw: `skyhdr`'s `create_gan_state(cfg, PRNGKey(s))` and the port's
-    `init_gan_vars(cfg, s)`, both served by `skyhdr`'s inference on one
-    fixed batch of 4 uniform [0, 1) panoramas at the default 32x128, plain
-    convs. Per draw: mean and max of `y_final_lin`, `sun_pred_lin`'s mean.
+    entry-point draw (`cli.common.restore_model_vars` with no checkpoint:
+    `create_gan_state(cfg, s)`'s generator and sun-pose trees), both served
+    by `skyhdr`'s inference on one fixed batch of 4 uniform [0, 1)
+    panoramas at the default 32x128: plain convs for seeds 0..seeds-1
+    ("skyhdr", "port"), and DA convs for seed 0 ("da"), the floors' draws.
+    Per draw: mean and max of `y_final_lin`, `sun_pred_lin`'s mean, and
+    the largest relative gap of any weight between the two draws.
     `python tools/make_torch_golden.py untrained-draws`."""
+    import tempfile
+
     import jax
     import jax.numpy as jnp
 
     jax.config.update("jax_platforms", "cpu")
     from skyhdr.config import Config as JConfig, DataConfig as JData, ModelConfig as JModel
     from skyhdr.train.engine import create_gan_state, make_inference_fn
+    from skyhdr_torch.cli.common import restore_model_vars
     from skyhdr_torch.config import Config, DataConfig, ModelConfig
-    from skyhdr_torch.utils.transplant import init_gan_vars
+    from skyhdr_torch.utils.transplant import export_model_vars
 
-    cfg = JConfig(model=JModel(), data=JData(batch_size=4))
-    tcfg = Config(model=ModelConfig(), data=DataConfig(batch_size=4))
     x = jnp.asarray(np.random.default_rng(5).uniform(0, 1, (4, 32, 128, 3)).astype(np.float32))
-    serve = jax.jit(make_inference_fn(cfg))
 
-    def scale(gv, sv):
-        out = serve(gv, sv, x)
-        y = np.asarray(out["y_final_lin"], np.float64)
-        return {"y_mean": y.mean(), "y_max": y.max(),
-                "sun_mean": float(np.asarray(out["sun_pred_lin"], np.float64).mean())}
+    def gap(got, want):
+        return max(float(np.max(np.abs(got[k] - np.asarray(want[k])) /
+                                np.maximum(np.abs(np.asarray(want[k])), 1e-30), initial=0))
+                   for k in want)
 
-    out = {"skyhdr": [], "port": []}
-    for s in range(seeds):
-        state = create_gan_state(cfg, jax.random.PRNGKey(s))
-        out["skyhdr"].append(scale(state.gen_vars, state.sun_vars))
-        gv, sv, _ = init_gan_vars(tcfg, s)
-        out["port"].append(scale(gv, sv))
+    def draws(use_da_conv: bool, seed_list) -> dict:
+        cfg = JConfig(model=JModel(use_da_conv=use_da_conv), data=JData(batch_size=4))
+        tcfg = Config(model=ModelConfig(use_da_conv=use_da_conv), data=DataConfig(batch_size=4))
+        serve = jax.jit(make_inference_fn(cfg))
+
+        def scale(gv, sv):
+            out = serve(gv, sv, x)
+            y = np.asarray(out["y_final_lin"], np.float64)
+            return {"y_mean": y.mean(), "y_max": y.max(),
+                    "sun_mean": float(np.asarray(out["sun_pred_lin"], np.float64).mean())}
+
+        out = {"skyhdr": [], "port": [], "weights_rel_gap": []}
+        with tempfile.TemporaryDirectory() as empty:
+            for s in seed_list:
+                state = create_gan_state(cfg, jax.random.PRNGKey(s))
+                out["skyhdr"].append(scale(state.gen_vars, state.sun_vars))
+                gen, sun = restore_model_vars(tcfg, empty, seed=s, device="cpu",
+                                              log=lambda *a: None)
+                gv, sv = export_model_vars(gen), export_model_vars(sun)
+                out["port"].append(scale(gv, sv))
+                out["weights_rel_gap"].append(max(
+                    gap(dict(flat_leaves(gv)), dict(flat_leaves(state.gen_vars))),
+                    gap(dict(flat_leaves(sv)), dict(flat_leaves(state.sun_vars)))))
+        return out
+
+    return {**draws(False, range(seeds)), "da": draws(True, [0])}
+
+
+def draws_config():
+    """The port's Config of the draws fixture: DA 16x64 b2."""
+    from skyhdr_torch.config import Config, DataConfig, ModelConfig
+
+    return Config(model=ModelConfig(im_height=H, im_width=W, use_da_conv=True),
+                  data=DataConfig(batch_size=BATCH))
+
+
+def _digest(a, lead: int) -> np.ndarray:
+    """[sum, sum |.|, the first `lead` values (zero-padded)] in float64."""
+    a = np.asarray(a, np.float32).ravel().astype(np.float64)
+    return np.concatenate([[a.sum(), np.abs(a).sum()], a[:lead], np.zeros(max(0, lead - a.size))])
+
+
+def draw_digests(trees: dict, draws: dict) -> dict:
+    """The draws fixture's entries: "w/<tree>/<leaf path>" -> [sum, sum
+    |.|, first DRAWS_LEAD values] of each weight leaf of `trees` ({name:
+    Flax-layout tree}); "d/<name>" of the degradation `draws` ({t_idx,
+    crf_idx, u_s, u_c, z_s, z_c}): the indices and uniforms whole, the
+    noises as the leaves with DRAWS_NOISE_LEAD values."""
+    out = {f"w/{path}": _digest(a, DRAWS_LEAD) for name, tree in trees.items()
+           for path, a in flat_leaves(tree, name)}
+    for k, v in draws.items():
+        v = np.asarray(v)
+        out[f"d/{k}"] = (v.astype(np.int64).ravel() if k.endswith("idx") else
+                         _digest(v, DRAWS_NOISE_LEAD if k.startswith("z") else v.size))
     return out
+
+
+def jax_degradation_draws(seed: int = 0) -> dict:
+    """The draws of `skyhdr`'s `degrade_batch` for the loop's first train
+    key (`split(PRNGKey(seed))[1]`) on a DA 16x64 b2 batch, with the train
+    banks' sizes: its split in six and its six samplers."""
+    import jax
+
+    from skyhdr.utils.io import get_exposure_lists, make_synthetic_dorf
+
+    n_crf, n_exp = len(make_synthetic_dorf(175, 1024)), len(get_exposure_lists()[0])
+    key = jax.random.split(jax.random.PRNGKey(seed))[1]
+    k_crf, k_t, k_ss, k_sc, k_ns, k_nc = jax.random.split(key, 6)
+    shape = (BATCH, H, W, 3)
+    return {"t_idx": jax.random.randint(k_t, (BATCH,), 0, n_exp),
+            "u_s": jax.random.uniform(k_ss, (BATCH, 1, 1, 3)),
+            "u_c": jax.random.uniform(k_sc, (BATCH, 1, 1, 3)),
+            "z_s": jax.random.normal(k_ns, shape), "z_c": jax.random.normal(k_nc, shape),
+            "crf_idx": jax.random.randint(k_crf, (BATCH,), 0, n_crf)}
+
+
+def make_draws_golden(seed: int = 0) -> dict:
+    """`skyhdr`'s `--seed` draws at DA 16x64 b2: `create_gan_state(cfg,
+    PRNGKey(seed))`'s generator, sun-pose and discriminator trees,
+    `create_sun_state(cfg, PRNGKey(seed))`'s sun-pose tree, and the
+    degradation draws of the loop's first train step (`split(PRNGKey(seed))
+    [1]`, split in six as `degrade_batch` splits it) with the train banks'
+    sizes, digested by `draw_digests`: the weight leaves' digests as one
+    array by name ("w_names", "w_digests"), "w_exact" marking those drawn
+    uniform (or zeros, ones), which the port draws bit for bit."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from skyhdr.config import Config, DataConfig, ModelConfig
+    from skyhdr.train import engine
+    from skyhdr_torch.models.discriminator import Discriminator
+    from skyhdr_torch.train.engine import build_models
+    from skyhdr_torch.utils.transplant import _leaf_modules
+
+    tcfg = draws_config()
+    cfg = Config(model=ModelConfig(**vars(tcfg.model)), data=DataConfig(batch_size=BATCH))
+    tree = lambda t: jax.tree_util.tree_map(np.asarray, t)
+    gan = engine.create_gan_state(cfg, jax.random.PRNGKey(seed))
+    sun = engine.create_sun_state(cfg, jax.random.PRNGKey(seed))
+    trees = {"gan/gen": tree(gan.gen_vars), "gan/sun": tree(gan.sun_vars),
+             "gan/disc": tree(gan.disc_vars), "sun/sun": tree(sun.sun_vars)}
+    draws = jax_degradation_draws(seed)
+    gen, sunnet = build_models(tcfg, device="meta")
+    modules = {"gan/gen": gen, "gan/sun": sunnet, "gan/disc": Discriminator(3, device="meta"),
+               "sun/sun": sunnet}
+    exact = set(f"w/{name}/" + "/".join([coll, *path, leaf])
+                   for name, m in modules.items() for path, mod in _leaf_modules(m)
+                   for coll, leaf, _, _, init in mod.flax_leaves()
+                   if init in ("glorot", "zeros", "ones"))
+    digests = draw_digests(trees, draws)
+    names = sorted(k for k in digests if k.startswith("w/"))
+    return {"seed": np.int64(seed), "w_names": np.array(names),
+            "w_exact": np.array([k in exact for k in names]),
+            "w_digests": np.stack([digests[k] for k in names]),
+            **{k: v for k, v in digests.items() if k.startswith("d/")}}
+
+
+def port_draws(device, seed: int = 0) -> dict:
+    """The port's side of `make_draws_golden` on `device`: the entry
+    points' draws (`create_gan_state(cfg, seed)`, `create_sun_state(cfg,
+    seed)`, `draw_degradation` of the loop's first key) digested alike."""
+    from skyhdr_torch.data.degradation import draw_degradation, make_banks
+    from skyhdr_torch.train.engine import create_gan_state, create_sun_state
+    from skyhdr_torch.utils import jax_random
+    from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
+    from skyhdr_torch.utils.transplant import export_model_vars
+
+    cfg = draws_config()
+    gan, sun = create_gan_state(cfg, seed, device), create_sun_state(cfg, seed, device)
+    trees = {"gan/gen": export_model_vars(gan.gen), "gan/sun": export_model_vars(gan.sun),
+             "gan/disc": export_model_vars(gan.disc), "sun/sun": export_model_vars(sun.sun)}
+    banks = make_banks(make_synthetic_dorf(175, 1024), get_exposure_lists()[0], device=device)
+    key = jax_random.split(jax_random.key(seed))[1]
+    d = draw_degradation(key, (BATCH, H, W, 3), banks)
+    return draw_digests(trees, {k: v.cpu().numpy() for k, v in d._asdict().items()})
+
+
+def _ordered_f32(a) -> np.ndarray:
+    i = np.asarray(a, np.float64).astype(np.float32).view(np.int32).astype(np.int64)
+    return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+def compare_draws(stored, got: dict) -> list:
+    """Faults of `port_draws` against the fixture: a missing or extra
+    entry, an index off, a value more than DRAWS_ULPS ulps away (any ulp
+    for an "exact" leaf), a sum off by more than DRAWS_SUM_RTOL of the sum
+    of |.|."""
+    names = stored["w_names"].tolist()
+    want = {**dict(zip(names, stored["w_digests"])),
+            **{k: stored[k] for k in stored.files if k.startswith("d/")}}
+    exact = {k for k, e in zip(names, stored["w_exact"]) if e}
+    fails = [f"entries {sorted(set(got) ^ set(want))[:5]}"] if set(got) != set(want) else []
+    for k in sorted(set(got) & set(want)):
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        if k.endswith("idx"):
+            if not np.array_equal(g, w):
+                fails.append(f"{k}: {g.tolist()} != {w.tolist()}")
+            continue
+        ulps = int(np.abs(_ordered_f32(g[2:]) - _ordered_f32(w[2:])).max(initial=0))
+        if ulps > (0 if k in exact or k.startswith("d/u_") else DRAWS_ULPS):
+            fails.append(f"{k}: values {ulps} ulps off")
+        if abs(g[0] - w[0]) > DRAWS_SUM_RTOL * w[1] or abs(g[1] - w[1]) > DRAWS_SUM_RTOL * w[1]:
+            fails.append(f"{k}: sums {g[:2].tolist()} != {w[:2].tolist()}")
+    return fails
 
 
 def main():
@@ -3166,6 +3364,10 @@ def main():
         import json
 
         print(json.dumps(trajectory_spread()))
+        return
+    if sys.argv[1:2] == ["draws"]:
+        np.savez_compressed(DRAWS_FIXTURE, **make_draws_golden(0))
+        print(f"wrote {DRAWS_FIXTURE} ({os.path.getsize(DRAWS_FIXTURE)} bytes)")
         return
     if sys.argv[1:2] == ["untrained-draws"]:
         import json

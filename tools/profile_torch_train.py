@@ -88,6 +88,7 @@ def main(argv=None):
     from skyhdr_torch.models.vgg16 import random_vgg16_weights
     from skyhdr_torch.train.engine import (create_gan_state, create_sun_state,
                                            make_gan_train_step, make_sun_train_step)
+    from skyhdr_torch.utils import jax_random
     from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -124,15 +125,16 @@ def main(argv=None):
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch = {"hdr": torch.rand(b, h, w, 3, device="cuda", generator=gen) * 2.0,
              "elevation": torch.linspace(4, 28, b, device="cuda")}
+    key = jax_random.key(0)
     for _ in range(2):
-        state, _ = step(state, batch, gen)
+        state, _ = step(state, batch, key)
     torch.cuda.synchronize()
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start.record()
         for _ in range(args.iters):
-            state, _ = step(state, batch, gen)
+            state, _ = step(state, batch, key)
         end.record()
         torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / args.iters
