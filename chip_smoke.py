@@ -275,6 +275,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
                     timed (host clock, synchronised), each finite; the
                     degradation draw of one GAN step (b64) and one sun step
                     (b32) at 64x256 timed (CUDA events, median of 20).
+  19. optim      — K13, the optimizer update as one pass (csrc/optim.cu),
+                    at the DA 64x256 states drawn from seed 0: the SUN
+                    state's Adam and the GAN state's two RMSprops, each
+                    beside a copy stepped by the eager chain
+                    (`step_plain`), three steps of seeded gradients of
+                    10^U(-4, 2) magnitudes: every parameter and moment
+                    bit-equal (the largest gap printed), one launch a leaf;
+                    then each update alone timed three ways (CUDA events,
+                    in turns): K13, the eager chain and, on the Adam
+                    leaves, `torch.optim.Adam(fused=True)` as a yardstick
+                    (its rounding differs; the port never calls it), beside
+                    the bytes bound. The training phase asserts one K13
+                    launch a leaf in every step it drives.
 The line before the last is the nvidia-smi line, the one before it the
 kernels' JSON summary; the last line is the run's JSON result. Details go to
 chiprun_out/chip_smoke.json, the phases' lines to chiprun_out/chip_smoke.log. The train golden's comparison lives in
@@ -308,7 +321,7 @@ STEP_ITERS = 5
 RANK_ITERS = 3
 PHASES = ("kernels", "golden", "train_golden", "serving", "training", "timing",
           "train_cli", "cli", "convert", "parallel", "fsdp", "spatial", "width_step", "probes",
-          "library", "draws")
+          "library", "draws", "optim")
 # (name, x shape at 32x128 [h, w, c], F, layers of that shape, in the
 # sun-pose net: Grad-CAM's pull differentiates through it)
 DA_LAYERS = [
@@ -1461,11 +1474,15 @@ def run_steps(dc, step, state, batches, want, tag, moving=None):
     launches); counts are set to 0 just before the first step."""
     from skyhdr_torch.utils import jax_random
 
+    from skyhdr_torch.ops.kernels import optim as ok
+
     key = jax_random.key(1)
     history = []
+    leaves = sum(len(o.params) for o in state.optimizers().values())
     reset_counts(dc)
+    ok.K13_LAUNCHES = 0
     for i, batch in enumerate(batches):
-        before = counts(dc)
+        before, k13 = counts(dc), ok.K13_LAUNCHES
         t0 = time.perf_counter()
         key, sub = jax_random.split(key)
         state, metrics = step(state, batch, sub)
@@ -1473,15 +1490,17 @@ def run_steps(dc, step, state, batches, want, tag, moving=None):
         secs = time.perf_counter() - t0
         launched = {k: v - before[k] for k, v in counts(dc).items()}
         m = {k: float(v) for k, v in metrics.items()}
-        say("training", f"{tag} step {i}: {secs:.3f} s wall; launches {launched}; "
-            + ", ".join(f"{k} {v:.6g}" for k, v in sorted(m.items())))
+        say("training", f"{tag} step {i}: {secs:.3f} s wall; launches {launched}, K13 "
+            f"{ok.K13_LAUNCHES - k13}; " + ", ".join(f"{k} {v:.6g}" for k, v in sorted(m.items())))
         check(launched == want, f"{tag} step {i} launches {launched}, want {want}")
+        check(ok.K13_LAUNCHES - k13 == leaves,
+              f"{tag} step {i}: {ok.K13_LAUNCHES - k13} K13 launches for {leaves} leaves")
         check(all(math.isfinite(v) for v in m.values()), f"{tag} step {i} metric not finite")
         history.append(m)
     if moving:
         vals = [m[moving] for m in history]
         check(all(a != b for a, b in zip(vals, vals[1:])), f"{tag} {moving} did not move: {vals}")
-    return state, history, counts(dc)
+    return state, history, {**counts(dc), "K13": ok.K13_LAUNCHES}
 
 
 def phase_training(dc, smi, report):
@@ -4159,6 +4178,112 @@ def phase_draws(report):
     report["draws"] = out
 
 
+def _opt_members(opt):
+    names = ("params", *opt.MOMENTS) + (("master",) if opt.master is not None else ())
+    return {name: getattr(opt, name) for name in names}
+
+
+def update_bytes(opts) -> int:
+    """The bytes an update with float32 gradients must move: each parameter
+    (or its master), moment and gradient read once, each parameter, master
+    and moment written once (a bfloat16 parameter under a master only
+    written)."""
+    total = 0
+    for opt in opts:
+        for i, p in enumerate(opt.params):
+            n = p.numel()
+            total += 12 * n  # the float32 gradient and weights read, the weights written
+            total += n * p.element_size() if opt.master is not None else 0
+            total += sum(2 * n * getattr(opt, m)[i].element_size() for m in opt.MOMENTS)
+    return total
+
+
+def phase_optim(smi, report):
+    """K13 at the DA 64x256 states against the eager chain, bit for bit over
+    three steps, then timed (phase 19 of the module doc)."""
+    import copy
+
+    from skyhdr_torch.config import Config, DataConfig, ModelConfig
+    from skyhdr_torch.ops.kernels import optim as ok
+    from skyhdr_torch.train.engine import create_gan_state, create_sun_state
+
+    cfg = Config(model=ModelConfig(im_height=64, im_width=256, use_da_conv=True),
+                 data=DataConfig(batch_size=8))
+    out = {}
+    for kind, make in (("sun", create_sun_state), ("gan", create_gan_state)):
+        state = make(cfg, 0, "cuda")
+        opts = list(state.optimizers().values())
+        twins = [copy.deepcopy(o) for o in opts]
+        leaves = sum(len(o.params) for o in opts)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+
+        def draw():
+            return [[(torch.randn(p.shape, device="cuda", generator=gen)
+                      * 10.0 ** (torch.rand(p.shape, device="cuda", generator=gen) * 6 - 4))
+                     for p in o.params] for o in opts]
+
+        max_gap, differing = 0.0, 0
+        for i in range(3):
+            grads = draw()
+            n0 = ok.K13_LAUNCHES
+            for o, t, g in zip(opts, twins, grads):
+                o.step(g)
+                t.step_plain(g)
+            torch.cuda.synchronize()
+            check(ok.K13_LAUNCHES - n0 == leaves,
+                  f"{kind}: {ok.K13_LAUNCHES - n0} K13 launches for {leaves} leaves")
+            for o, t in zip(opts, twins):
+                for name, xs in _opt_members(o).items():
+                    for x, y in zip(xs, _opt_members(t)[name]):
+                        if not torch.equal(x, y):
+                            differing += int((x != y).sum())
+                            max_gap = max(max_gap, (x.float() - y.float()).abs().max().item())
+            del grads
+        what = " + ".join(f"{type(o).__name__} ({len(o.params)} leaves)" for o in opts)
+        say("optim", f"DA 64x256 {kind.upper()} state, {what}: 3 steps of K13 against the "
+            f"eager chain, every parameter and moment: {differing} elements differ, largest "
+            f"gap {max_gap:.3e}")
+        check(differing == 0, f"{kind}: K13 is not the eager chain's bits ({differing} "
+              f"elements, largest gap {max_gap:.3e})")
+        grads = draw()
+
+        def kernel():
+            for o, g in zip(opts, grads):
+                o.step(g)
+
+        def plain():
+            for t, g in zip(twins, grads):
+                t.step_plain(g)
+
+        ms, plain_ms = paired_ms(kernel, plain)
+        queued = statistics.median(time_ms(kernel, ITERS // 2, queued=True))
+        nbytes = update_bytes(opts)
+        bound = nbytes / 3.35e12 * 1e3
+        row = {"leaves": leaves, "elements": sum(p.numel() for o in opts for p in o.params),
+               "ms": ms, "ms_queued": queued, "plain_ms": plain_ms, "bound_ms": bound,
+               "bytes": nbytes, "max_gap": max_gap, "library_ms": None}
+        lib = ""
+        if kind == "sun":
+            # The yardstick: one fused PyTorch Adam step on the twin's leaves.
+            params = [t.params for t in twins][0]
+            for p, g in zip(params, grads[0]):
+                p.grad = g
+            fused_adam = torch.optim.Adam(params, lr=twins[0].lr, betas=(0.9, 0.999),
+                                          eps=1e-7, fused=True)
+            row["library_ms"] = statistics.median(time_ms(fused_adam.step, ITERS // 2))
+            lib = f", torch.optim.Adam(fused=True) {row['library_ms']:.4f} ms"
+            del fused_adam
+        say("optim", f"DA 64x256 {kind.upper()} update alone ({row['elements']} elements, "
+            f"{leaves} launches): K13 {ms:.4f} ms ({queued:.4f} ms with device work queued "
+            f"ahead), eager chain {plain_ms:.4f} ms{lib}; bound {bound:.4f} ms "
+            f"({nbytes / 1e9:.3f} GB at 3.35 TB/s, {100 * bound / ms:.1f}% of it); on {smi}")
+        out[kind] = row
+        del state, opts, twins, grads
+        free_cuda()
+    report["optim"] = out
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--only", default=",".join(PHASES),
@@ -4227,6 +4352,7 @@ def main(argv=None):
     probes = timed("probes", phase_probes, dc, smi, report)
     timed("library", phase_library, dc, report)
     timed("draws", phase_draws, report)
+    optim = timed("optim", phase_optim, smi, report)
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     report["device"] = smi
@@ -4335,6 +4461,21 @@ def main(argv=None):
             "launches": row["launches"], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": bound_by,
             "library_ms": row["library_ms"], "per": per})
+    sun, gan = optim["sun"], optim["gan"]
+    kernels.append({
+        "name": "K13 optim_kernel<ADAM, G, MASTER, MU, NU> (the optimizer update, one pass "
+                "a leaf)", "route": "cuda", "source": "skyhdr_torch/csrc/optim.cu",
+        "replaces": "skyhdr/train/engine.py:158 (_adam) and :150 (_rmsprop): optax's update, "
+                    "fused by XLA under jit; no pl.pallas_call",
+        "launches": launches["gan"]["K13"], "max_abs_err": max(sun["max_gap"], gan["max_gap"]),
+        "ms": sun["ms"], "plain_ms": sun["plain_ms"], "bound_ms": sun["bound_ms"],
+        "bound_by": "bytes", "library_ms": sun["library_ms"],
+        "gan_update": {key: gan[key] for key in ("ms", "plain_ms", "bound_ms", "leaves")},
+        "launches_sun": launches["sun"]["K13"],
+        "per": "one Adam update of the DA 64x256 SUN state (gan_update: the GAN state's two "
+               "RMSprop updates, one train step's); library: torch.optim.Adam(fused=True) on "
+               "the same leaves; launches: the 3 GAN steps of the training phase (one a "
+               "leaf; launches_sun: its 2 sun steps)"})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # name -> argtypes; every entry point returns an int (a cudaError_t, or
 # for skyhdr_da_{fwd,dx}_tiles a count).
 _SIGNATURES = {
@@ -67,6 +68,9 @@ _SIGNATURES = {
     "skyhdr_pack_samples": [_P] * 2 + [_I] * 7 + [_P],
     # lhs, rhs, out, m, k, f, ndots, steps, is_bf16, tile, device, stream
     "skyhdr_mm_shape": [_P] * 3 + [_I] * 8 + [_P],
+    # adam, p, w, g, mu, nu, n, g_bf16, mu_bf16, nu_bf16, master, vec, decay_mu,
+    # decay_nu, term_mu, term_nu, eps, neg_lr, inv_c1, inv_c2, device, stream
+    "skyhdr_optim_k13": [_I] + [_P] * 5 + [_L] + [_I] * 5 + [_F] * 8 + [_I, _P],
 }
 
 

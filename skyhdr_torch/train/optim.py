@@ -11,10 +11,15 @@ three storage knobs (`TrainConfig.opt_state_dtype`, `grad_dtype`,
             corrections 1 - b^count computed in float32, as optax does.
 
 `step(grads)` updates the parameters in place under `no_grad`, in the order
-of `params`, one leaf at a time and within a leaf `CHUNK` elements at a
-time, in place where the bits allow it: a float32 moment is updated where
-it lies, a bfloat16 one costs a float32 temporary of one stretch, never of
-a leaf or a tree.
+of `params`, one leaf at a time. A leaf on a CUDA card goes through K13
+(`ops/kernels/optim.py`, csrc/optim.cu): one launch that reads the leaf,
+its gradient and its moments once and writes them once, bit-equal to the
+eager chain below; every dtype combination of the knobs takes it. A leaf
+on the CPU, and every leaf under `step_plain(grads)` (the plain version
+K13 is held to), takes the eager chain: `CHUNK` elements at a time, in
+place where the bits allow it (a float32 moment is updated where it lies,
+a bfloat16 one costs a float32 temporary of one stretch, never of a leaf
+or a tree). A non-contiguous parameter, moment or master raises.
 
 The knobs, as `skyhdr`'s `_with_param_master(_with_state_dtype(tx))` runs
 them:
@@ -49,6 +54,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from skyhdr_torch.ops.kernels.optim import Consts, optim_step_k13
+
 _DTYPES = {None: torch.float32, "float32": torch.float32, "bfloat16": torch.bfloat16}
 # Elements a step updates at once: every operation is elementwise, so a
 # leaf goes through in stretches of this many with the same bits, and a
@@ -65,18 +72,19 @@ def storage_dtype(name: Optional[str]) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _weak(c: float, like: torch.Tensor) -> float:
-    """The Python constant `c` as JAX multiplies a `like` array by it:
-    rounded to that array's dtype."""
-    return float(torch.tensor(c, dtype=like.dtype))
+def _weak(c: float, dtype: torch.dtype = torch.float32) -> float:
+    """The Python constant `c` as JAX multiplies an array of `dtype` by it,
+    and as ATen combines a tensor of `dtype` with a Python scalar: rounded
+    to that dtype."""
+    return float(torch.tensor(c, dtype=dtype))
 
 
 def _term(g: torch.Tensor, decay: float, order: int) -> torch.Tensor:
     """optax's `(1 - decay) * g**order`, in g's dtype."""
     if order == 1:
-        return g * _weak(1.0 - decay, g)
+        return g * _weak(1.0 - decay, g.dtype)
     t = g * g
-    return t.mul_(_weak(1.0 - decay, t))
+    return t.mul_(_weak(1.0 - decay, t.dtype))
 
 
 def bias_correction(decay: float, count: int) -> float:
@@ -86,7 +94,8 @@ def bias_correction(decay: float, count: int) -> float:
 
 class _Optimizer:
     """The moments and the master of one optimizer; subclasses name the
-    moments in `MOMENTS` and define `_decay_order` and `_update`."""
+    moments in `MOMENTS` and define `_decay_order` and `_update` (the eager
+    chain) and `_consts` (K13's constants for a term dtype)."""
 
     MOMENTS: tuple = ()
 
@@ -109,15 +118,34 @@ class _Optimizer:
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
+        """One update: K13 on a CUDA leaf, the eager chain on a CPU leaf."""
+        self._step(grads, plain=False)
+
+    @torch.no_grad()
+    def step_plain(self, grads: Sequence[torch.Tensor]) -> None:
+        """One update through the eager chain on any device: the plain
+        version that K13 is held to."""
+        self._step(grads, plain=True)
+
+    def _step(self, grads, plain: bool) -> None:
         self._begin()
         for i, (p, g) in enumerate(zip(self.params, grads)):
             w = p if self.master is None else self.master[i]
             moments = [getattr(self, name)[i] for name in self.MOMENTS]
-            g = g.reshape(-1)
-            for a in range(0, p.numel(), CHUNK):
-                sl = slice(a, a + CHUNK)
-                self._step_chunk(p.view(-1)[sl], g[sl], [m.view(-1)[sl] for m in moments],
-                                 w.view(-1)[sl])
+            if not all(t.is_contiguous() for t in (p, w, *moments)):
+                raise ValueError(f"parameter {i} {tuple(p.shape)}: the optimizer takes "
+                                 "contiguous parameters, moments and masters")
+            g = g.contiguous().view(-1)
+            if p.is_cuda and not plain:
+                master = None if self.master is None else w
+                term = g.dtype if master is None else torch.float32
+                mu, nu = moments if len(moments) == 2 else (None, moments[0])
+                optim_step_k13(mu is not None, p, g, mu, nu, master, self._consts(term))
+            else:
+                for a in range(0, p.numel(), CHUNK):
+                    sl = slice(a, a + CHUNK)
+                    self._step_chunk(p.view(-1)[sl], g[sl], [m.view(-1)[sl] for m in moments],
+                                     w.view(-1)[sl])
             for name, m in zip(self.MOMENTS, moments):
                 if m.dtype != self.store:  # a float32 moment loaded into a bfloat16 optimizer
                     getattr(self, name)[i] = m.to(self.store)
@@ -201,6 +229,10 @@ class RMSprop(_Optimizer):
         """g * rsqrt(nu + eps) * -lr."""
         return (nu + self.eps).rsqrt_().mul_(g).mul_(-self.lr)
 
+    def _consts(self, term: torch.dtype) -> Consts:
+        return Consts(0.0, _weak(self.decay), 0.0, _weak(1.0 - self.decay, term),
+                      _weak(self.eps), _weak(-self.lr), 1.0, 1.0)
+
 
 class Adam(_Optimizer):
 
@@ -224,6 +256,11 @@ class Adam(_Optimizer):
         """mu_hat / (sqrt(nu_hat) + eps) * -lr."""
         den = (nu / self._c2).sqrt_().add_(self.eps)
         return (mu / self._c1).div_(den).mul_(-self.lr)
+
+    def _consts(self, term: torch.dtype) -> Consts:
+        return Consts(_weak(self.b1), _weak(self.b2), _weak(1.0 - self.b1, term),
+                      _weak(1.0 - self.b2, term), _weak(self.eps), _weak(-self.lr),
+                      self._c1, self._c2)
 
     def state(self) -> dict:
         return {"count": self.count, **super().state()}

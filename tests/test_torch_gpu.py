@@ -690,3 +690,126 @@ def test_k12_pads_and_takes_one_dot(cuda, m, k, f, ndots, dtype):
     torch.cuda.synchronize()
     assert got.shape == (m, f)
     assert _rel(got, tp.mm_shape_ref(lhs, rhs, ndots=ndots, steps=1)) <= 1e-5
+
+
+# --- K13: the optimizer update as one pass -----------------------------------
+
+K13_SHAPES = [(7,), (3, 5), (64, 33), (128, 3, 3, 64), (1000003,), (1,)]
+# (opt_state_dtype, grad dtype, param_dtype, moments loaded as float32)
+K13_CASES = {
+    "f32": ("float32", "float32", "float32", False),
+    "bf16_moments": ("bfloat16", "float32", "float32", False),
+    "bf16_grads": ("float32", "bfloat16", "float32", False),
+    "bf16_moments_grads": ("bfloat16", "bfloat16", "float32", False),
+    "master": ("float32", "float32", "bfloat16", False),
+    "bf16_everything": ("bfloat16", "bfloat16", "bfloat16", False),
+    "f32_moments_into_bf16": ("bfloat16", "float32", "float32", True),
+}
+
+
+def _k13_pair(cuda, kind, case, unaligned=False):
+    """Two optimizers of `kind` on the card in the same state under `case`
+    (moments drawn 10^U(-3, 3)); `unaligned`: every parameter a view one
+    element into a larger buffer (K13's one-element path)."""
+    from skyhdr_torch.train import optim
+
+    opt_dtype, _, param_dtype, loaded = K13_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    p32 = [torch.randn(s, device=cuda, generator=gen) for s in K13_SHAPES]
+    cls = optim.Adam if kind == "adam" else optim.RMSprop
+    held = {n: [10.0 ** (torch.rand(s, device=cuda, generator=gen) * 6 - 3)
+                * (torch.randn(s, device=cuda, generator=gen) if n == "mu" else 1.0)
+                for s in K13_SHAPES] for n in cls.MOMENTS}
+    saved = torch.float32 if loaded else optim.storage_dtype(opt_dtype)
+    opts = []
+    for _ in range(2):
+        params = []
+        for p in p32:
+            p = p.to(optim.storage_dtype(param_dtype))
+            if unaligned:
+                buf = torch.empty(p.numel() + 1, dtype=p.dtype, device=cuda)
+                buf[1:].copy_(p.view(-1))
+                p = buf[1:].view(p.shape)
+            params.append(p)
+        opt = cls(params, 2e-4, opt_state_dtype=opt_dtype, param_dtype=param_dtype)
+        state = {n: [t.to(saved) for t in held[n]] for n in cls.MOMENTS}
+        if opt.master is not None:
+            state["master"] = [p.clone() for p in p32]
+        opt.load_moments({**state, "count": 2} if kind == "adam" else state)
+        opts.append(opt)
+    return opts
+
+
+def _k13_grads(cuda, seed, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    out = []
+    for s in K13_SHAPES:
+        g = torch.randn(s, device=cuda, generator=gen)
+        g = g * 10.0 ** (torch.rand(s, device=cuda, generator=gen) * 6 - 4)
+        out.append(g.masked_fill(torch.rand(s, device=cuda, generator=gen) < 0.05, 0.0)
+                   .to(getattr(torch, dtype)))
+    return out
+
+
+def _k13_gaps(a, b):
+    """Per member the number of elements whose bits differ."""
+    out = {}
+    names = ("params", *a.MOMENTS) + (("master",) if a.master is not None else ())
+    for name in names:
+        for x, y in zip(getattr(a, name), getattr(b, name)):
+            assert x.dtype == y.dtype, name
+            ints = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+            out[name] = out.get(name, 0) + int((x.contiguous().view(ints)
+                                                != y.contiguous().view(ints)).sum())
+    return out
+
+
+@pytest.mark.parametrize("unaligned", [False, True])
+@pytest.mark.parametrize("case", sorted(K13_CASES))
+@pytest.mark.parametrize("kind", ["rmsprop", "adam"])
+def test_k13_is_the_eager_chain_bit_for_bit(cuda, kind, case, unaligned):
+    """Three steps of K13 (`step`) and of the eager chain (`step_plain`) on
+    the card from the same state: the same bits in every parameter, moment
+    and master; one launch a leaf."""
+    from skyhdr_torch.ops.kernels import optim as ok
+
+    kernel, chain = _k13_pair(cuda, kind, case, unaligned)
+    n = ok.K13_LAUNCHES
+    for step in range(3):
+        grads = _k13_grads(cuda, 10 + step, K13_CASES[case][1])
+        kernel.step(grads)
+        chain.step_plain(grads)
+        torch.cuda.synchronize()
+        gaps = _k13_gaps(kernel, chain)
+        assert not any(gaps.values()), (step, gaps)
+    assert ok.K13_LAUNCHES == n + 3 * len(K13_SHAPES)
+
+
+@pytest.mark.parametrize("case", ["f32", "bf16_moments_grads", "master"])
+@pytest.mark.parametrize("kind", ["rmsprop", "adam"])
+def test_k13_is_its_formula_bit_for_bit(cuda, kind, case):
+    """K13 against `optim_step_ref` (its per-element formula in torch) on
+    the card, one step."""
+    from skyhdr_torch.ops.kernels import optim as ok
+
+    kernel, ref = _k13_pair(cuda, kind, case)
+    grads = _k13_grads(cuda, 20, K13_CASES[case][1])
+    kernel.step(grads)
+    ref._begin()
+    for i, (p, g) in enumerate(zip(ref.params, grads)):
+        master = None if ref.master is None else ref.master[i].view(-1)
+        mu = ref.mu[i].view(-1) if kind == "adam" else None
+        ok.optim_step_ref(kind == "adam", p.view(-1), g.reshape(-1), mu, ref.nu[i].view(-1),
+                          master, ref._consts(g.dtype if master is None else torch.float32))
+    torch.cuda.synchronize()
+    gaps = _k13_gaps(kernel, ref)
+    assert not any(gaps.values()), gaps
+
+
+def test_k13_refuses_a_non_contiguous_leaf(cuda):
+    from skyhdr_torch.train import optim
+
+    opt = optim.Adam([torch.zeros(4, 6, device=cuda)], 2e-4)
+    opt.nu[0] = torch.zeros(6, 4, device=cuda).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        opt.step([torch.ones(4, 6, device=cuda)])

@@ -4,6 +4,7 @@
     python tools/profile_torch_train.py --batch 32 --step sun
     python tools/profile_torch_train.py --step gan --fused-in   # fused_instance_norm
     python tools/profile_torch_train.py --step gan --da-kernel-size 5
+    python tools/profile_torch_train.py --batch 8 --step sun --optim plain --eval 4
 
 Builds the state from the seeded weights (`create_gan_state` /
 `create_sun_state`), warms up with two steps, then runs `--iters` steps
@@ -16,9 +17,19 @@ names do not say the direction), GEMMs, reductions and the rest,
 with the device busy share of the window (summed kernel time over the
 window's CUDA-event time; one stream, so kernels do not overlap). Then it
 times the optimizer updates alone (CUDA events, median of 5, on gradients
-of zeros of the parameters' shapes), which the kernel groups cannot tell
-apart from other elementwise work. TF32 is off. The table also goes to
+of zeros of the parameters' shapes): under `--optim plain` the kernel
+groups cannot tell them apart from other elementwise work. TF32 is off. The table also goes to
 chiprun_out/profile_train_<step>_<h>x<w>_b<b>.json.
+
+The step is also split four ways: the optimizer update and the
+degradation draw (`data/degradation.py:draw_degradation`), each timed as a
+`torch.profiler.record_function` range (its host milliseconds, and the
+device time of the kernels launched inside it), the model's kernels (the
+rest of the kernel time: K1-K3, cuDNN, GEMM, the losses) and the device's
+idle time (the step's CUDA-event time less all kernel time). `--optim
+plain` runs the optimizers' eager chain (`step_plain`) instead of K13, the
+update before K13 existed; `--eval N` then profiles N batches of the eval
+step (the epoch's pass over the test set) the same way.
 """
 
 from __future__ import annotations
@@ -60,7 +71,8 @@ def group_of(name: str, ksize: int = 3) -> str:
     if da:
         return da
     n = name.lower()
-    for key, group in (("in_fwd_kernel", "K8 IN forward"), ("in_bwd_kernel", "K9 IN backward")):
+    for key, group in (("in_fwd_kernel", "K8 IN forward"), ("in_bwd_kernel", "K9 IN backward"),
+                       ("optim_kernel", "K13 optimizer update")):
         if key in n:
             return group
     if "fft" in n or "pointwise_mult_and_sum_complex" in n:
@@ -78,16 +90,85 @@ def group_of(name: str, ksize: int = 3) -> str:
     return "elementwise/other"
 
 
-def main(argv=None):
+OPT_RANGE, DRAW_RANGE = "optimizer update", "degradation draw"
+
+
+def _ranged(name, fn):
+    """`fn` inside a `torch.profiler.record_function` range named `name`."""
+    import torch
+
+    def run(*a, **kw):
+        with torch.profiler.record_function(name):
+            return fn(*a, **kw)
+
+    return run
+
+
+def _device_us(evt, own: bool) -> float:
+    """An event's device microseconds: its own kernels' (`own`) or, for a
+    host range, those of every kernel launched inside it."""
+    for attr in (("self_device_time_total", "self_cuda_time_total") if own
+                 else ("device_time_total", "cuda_time_total")):
+        t = getattr(evt, attr, None)
+        if t is not None:
+            return t
+    return 0.0
+
+
+def profiled(run, state, iters, ksize):
+    """`iters` calls `state = run(state)` under torch.profiler: (ms a call by
+    CUDA events, the device kernels by name, {range: (host ms, device ms)
+    a call} of the two named ranges)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(iters):
+            state = run(state)
+        end.record()
+        torch.cuda.synchronize()
+    rows, ranges = [], {OPT_RANGE: (0.0, 0.0), DRAW_RANGE: (0.0, 0.0)}
+    for evt in prof.key_averages():
+        if evt.key in ranges:
+            if evt.device_type == torch.autograd.DeviceType.CPU:
+                ranges[evt.key] = (evt.cpu_time_total / 1000.0 / iters,
+                                   _device_us(evt, own=False) / 1000.0 / iters)
+            continue  # its GPU-side annotation is no kernel
+        t = _device_us(evt, own=True)
+        if t > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append({"kernel": evt.key, "group": group_of(evt.key, ksize),
+                         "ms_per_step": t / 1000.0 / iters, "calls_per_step": evt.count / iters})
+    rows.sort(key=lambda r: -r["ms_per_step"])
+    return start.elapsed_time(end) / iters, rows, ranges
+
+
+def split(step_ms, rows, ranges) -> dict:
+    """A call's milliseconds four ways: the optimizer's and the draw's
+    device time (with their host time beside them), the model's kernels
+    (the rest of the kernel time) and the device's idle time. K13 is
+    launched through ctypes, so the profiler ties none of its kernels to
+    the optimizer's range: they are added to it by name."""
+    busy = sum(r["ms_per_step"] for r in rows)
+    (opt_host, opt_dev), (draw_host, draw_dev) = ranges[OPT_RANGE], ranges[DRAW_RANGE]
+    opt_dev += sum(r["ms_per_step"] for r in rows if r["group"] == "K13 optimizer update")
+    return {"step": step_ms, "optimizer (device)": opt_dev, "optimizer (host)": opt_host,
+            "degradation draw (device)": draw_dev, "degradation draw (host)": draw_host,
+            "model kernels": busy - opt_dev - draw_dev, "device idle": step_ms - busy}
+
+
+def main(argv=None):
+    import torch
+
     sys.path.insert(0, ROOT)
     from skyhdr_torch.config import Config, DataConfig, ModelConfig
+    from skyhdr_torch.data import degradation
     from skyhdr_torch.data.degradation import make_banks
     from skyhdr_torch.models.vgg16 import random_vgg16_weights
     from skyhdr_torch.train.engine import (create_gan_state, create_sun_state,
-                                           make_gan_train_step, make_sun_train_step)
+                                           make_gan_eval_step, make_gan_train_step,
+                                           make_sun_eval_step, make_sun_train_step)
     from skyhdr_torch.utils import jax_random
     from skyhdr_torch.utils.io import get_exposure_lists, make_synthetic_dorf
 
@@ -102,6 +183,11 @@ def main(argv=None):
     p.add_argument("--da-kernel-size", type=int, default=3,
                    help="ModelConfig.da_kernel_size (5: the trunk's 12 convs are 5x5 DA "
                         "convs, on K5/K6/K7)")
+    p.add_argument("--optim", choices=("kernel", "plain"), default="kernel",
+                   help="the optimizer update: K13 (the port's route on the card) or the "
+                        "eager chain it is held to")
+    p.add_argument("--eval", type=int, default=0,
+                   help="eval-step batches to profile after the train steps")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: needs a CUDA card")
@@ -116,12 +202,18 @@ def main(argv=None):
     banks = make_banks(make_synthetic_dorf(175, 1024), get_exposure_lists()[0], device="cuda")
     if args.step == "gan":
         state = create_gan_state(cfg, 0, "cuda")
-        step = make_gan_train_step(cfg, banks, random_vgg16_weights())
+        vgg = random_vgg16_weights()
+        step = make_gan_train_step(cfg, banks, vgg)
+        eval_step = make_gan_eval_step(cfg, banks, vgg)
         optimizers = {"RMSprop gen+sun": state.opt_gen, "RMSprop disc": state.opt_disc}
     else:
         state = create_sun_state(cfg, 0, "cuda")
         step = make_sun_train_step(cfg, banks)
+        eval_step = make_sun_eval_step(cfg, banks)
         optimizers = {"Adam sun": state.opt}
+    for name, opt in optimizers.items():
+        opt.step = _ranged(OPT_RANGE, opt.step_plain if args.optim == "plain" else opt.step)
+    degradation.draw_degradation = _ranged(DRAW_RANGE, degradation.draw_degradation)
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch = {"hdr": torch.rand(b, h, w, 3, device="cuda", generator=gen) * 2.0,
              "elevation": torch.linspace(4, 28, b, device="cuda")}
@@ -130,29 +222,21 @@ def main(argv=None):
         state, _ = step(state, batch, key)
     torch.cuda.synchronize()
 
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(args.iters):
-            state, _ = step(state, batch, key)
-        end.record()
-        torch.cuda.synchronize()
-    step_ms = start.elapsed_time(end) / args.iters
+    def train(st):
+        return step(st, batch, key)[0]
 
-    rows = []
-    for evt in prof.key_averages():
-        t = getattr(evt, "self_device_time_total", None)
-        if t is None:
-            t = getattr(evt, "self_cuda_time_total", 0.0)
-        if t > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append({"kernel": evt.key, "group": group_of(evt.key, args.da_kernel_size),
-                         "ms_per_step": t / 1000.0 / args.iters,
-                         "calls_per_step": evt.count / args.iters})
-    rows.sort(key=lambda r: -r["ms_per_step"])
+    step_ms, rows, ranges = profiled(train, state, args.iters, args.da_kernel_size)
     busy = sum(r["ms_per_step"] for r in rows)
     groups = {}
     for r in rows:
         groups[r["group"]] = groups.get(r["group"], 0.0) + r["ms_per_step"]
+    evals = None
+    if args.eval:
+        eval_step(state, batch, key)
+        eval_ms, eval_rows, eval_ranges = profiled(
+            lambda st: (eval_step(st, batch, key), st)[1], state, args.eval,
+            args.da_kernel_size)
+        evals = split(eval_ms, eval_rows, eval_ranges)
 
     opt_ms = {}
     for name, opt in optimizers.items():
@@ -173,22 +257,30 @@ def main(argv=None):
                          text=True).stdout.strip()
     tag = (f"{args.step}_{h}x{w}_b{b}" + ("_fused_in" if args.fused_in else "")
            + (f"_da{args.da_kernel_size}" if args.da_kernel_size != 3 else ""))
+    tag += "_plain_optim" if args.optim == "plain" else ""
+    parts = split(step_ms, rows, ranges)
     print(f"[profile] train {tag} on {smi}: step {step_ms:.4f} ms (CUDA events, "
           f"{args.iters} steps under the profiler), kernel time {busy:.4f} ms, device "
           f"busy {100 * busy / step_ms:.1f}%, idle {100 * (1 - busy / step_ms):.1f}%")
+    for what, part in (("train step", parts), ("eval batch", evals)):
+        if part is not None:
+            print(f"[profile] train {tag} split of a {what} ({args.optim} optimizer): "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in part.items()))
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"[profile] train {tag} group {g}: {ms:.4f} ms/step "
               f"({100 * ms / step_ms:.1f}% of the step)")
     for name, ms in opt_ms.items():
         print(f"[profile] train {tag} optimizer {name} alone: {ms:.4f} ms/step "
-              f"(median of 5, CUDA events; inside the elementwise group above)")
+              f"(median of 5, CUDA events; inside the "
+              f"{'elementwise' if args.optim == 'plain' else 'K13'} group above)")
     for r in rows[:15]:
         print(f"[profile] train {tag} {r['ms_per_step']:.4f} ms x{r['calls_per_step']:.0f} "
               f"[{r['group']}] {r['kernel'][:110]}")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", f"profile_train_{tag}.json"), "w") as f:
         json.dump({"device": smi, "step_ms": step_ms, "kernel_ms": busy, "groups": groups,
-                   "optimizer_ms": opt_ms, "kernels": rows}, f, indent=1)
+                   "optimizer_ms": opt_ms, "optim": args.optim, "split": parts,
+                   "eval_split": evals, "kernels": rows}, f, indent=1)
 
 
 if __name__ == "__main__":
